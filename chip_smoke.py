@@ -15,9 +15,19 @@
    * the quickstart sequence at GEMM n = 10240: GEMM, a second GEMM
      that moves nothing, reduce(sum) over a column partition, and a
      weighted (2, 1, 1, 1) repartition, against a float64 product.
+3. Frees those buffers, holds the flash-attention kernel against its
+   plain versions (bf16 at the serving path's prefill shape, small
+   shapes with windows, softcaps, ragged and fully masked rows, odd
+   head dims, and float32), timing it beside SDPA; then drives the
+   second path, models -> serve Engine, with yi-9b at full width (48
+   layers, random weights from a seeded generator) in bfloat16: three
+   admits of 2048, 1536 and 1024 tokens into a 4-slot pool of 4096
+   positions, 16 decode steps after each, every request finished, and
+   the first prompt admitted again, whose greedy continuation must
+   repeat.
    Every kernel launch counter is set to 0 just before each path and
    read just after.
-3. Prints one JSON line of kernel measurements, the card's name and
+4. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or
@@ -40,6 +50,7 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12            # outside the tensor cores
+BF16_FLOPS_PER_S = 989e12           # tensor cores, dense
 
 NPROC = 4
 JACOBI_SHAPE = (20480, 24080)       # benchmarks/paper_programs.py:121
@@ -58,6 +69,21 @@ GEMM_BF16_TOL = 4e-3
 # n = 10240; 1e-9 is ten times that, while dropping one row of C moves
 # the total by about sqrt(n) * s, 1e-6 of sum|C|
 REDUCE_TOL = 1e-9
+
+SERVE_ARCH = "yi-9b"
+SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
+PROMPTS = (2048, 1536, 1024)        # each >= FLASH_MIN_T: every prefill
+DECODE_STEPS = 16                   # reaches the flash kernel
+# flash attention against its plain version: bf16/fp16 a few 16-bit
+# ulps from rounding p (normalized in the dense version, per kv tile
+# in the kernel and the blockwise version); float32 the reference's
+# own bound (tests/test_pallas_parity.py)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# at the serving shape, with about 1000 visible keys per row, |o| is
+# near 0.04: 2e-2 would pass half of it.  Kernel and blockwise version
+# both round p per kv tile, and differ by 3.9e-3 at most there (H100
+# 80GB HBM3, 700 W); 1e-2 leaves room above that
+FLASH_MAIN_TOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -94,11 +120,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_breakdown(torch, label: str, fn, top: int = 4) -> None:
+def device_breakdown(torch, label: str, fn, top: int = 4,
+                     host_top: int = 0) -> None:
     """Run ``fn`` once under torch.profiler and print its host wall
     time, the device's busy time in it (the union of every kernel, copy
-    and memset interval on the card) and the device time of the ``top``
-    busiest kernels by name."""
+    and memset interval on the card), the device time of the ``top``
+    busiest kernels by name and, with ``host_top``, the host ops with
+    the most self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,6 +154,12 @@ def device_breakdown(torch, label: str, fn, top: int = 4) -> None:
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / 1e3 / wall_ms:.1f}%)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<4d} {name[:90]}")
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+        print(f"  host ops by self time ({len(prof.events())} events):")
+        for a in ops[:host_top]:
+            print(f"  {a.self_cpu_time_total / 1e3:9.3f} ms host x{a.count:<5d} "
+                  f"{a.key[:80]}")
 
 
 def fro_rel(torch, got, want) -> float:
@@ -272,17 +306,148 @@ def kernel_phase(torch):
     return jac, gemm
 
 
-def reset_launches():
+def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
+               Dv: int, itemsize: int):
+    """(flops, bytes) that causal attention needs for these query
+    positions: 4 * Dh flops (q.k and p.v) per visible (query, key) pair
+    and head; q and o once, and the k and v rows some query sees."""
+    seen = torch.clamp(qpos.long() + 1, 0, S)          # visible keys
+    pairs = int(seen.sum())
+    rows = int(seen.amax(dim=1).sum())                # kv rows read
+    T = qpos.shape[1]
+    flops = 2 * Hq * (Dh + Dv) * pairs
+    nbytes = itemsize * (B * T * Hq * (Dh + Dv) + rows * Hkv * (Dh + Dv))
+    return flops, nbytes
+
+
+def flash_phase(torch):
+    """The flash-attention kernel against its plain versions on the
+    card, each in its working type, then its time beside the plain
+    version's and SDPA's at the serving path's prefill shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import dense_attention
+    from repro_torch.models.lm import BIG_WINDOW
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(dtype, B, T, S, Hq, Hkv, Dh, Dv=None):
+        """q, and k and v as strided views of one interleaved buffer,
+        as the cache's layout might hold them."""
+        Dv = Dv or Dh
+        q = torch.randn((B, T, Hq, Dh), generator=g, device=dev).to(dtype)
+        kv = torch.randn((B, S, 2, Hkv, max(Dh, Dv)), generator=g,
+                         device=dev).to(dtype)
+        return q, kv[:, :, 0, :, :Dh], kv[:, :, 1, :, :Dv]
+
+    def compare(name, dtype, q, k, v, qpos, plain, tol=None, **kw):
+        got = flash_attention_cuda(q, k, v, qpos=qpos, **kw)
+        want = plain(q, k, v, qpos=qpos, **kw)
+        torch.cuda.synchronize()
+        tol = tol or FLASH_TOL[str(dtype).split(".")[-1]]
+        err = (got.float() - want.float()).abs()
+        bad = int((err > tol + tol * want.float().abs()).sum())
+        print(f"flash {name} {str(dtype).split('.')[-1]}: max_abs_err="
+              f"{float(err.max()):.3e} outside rtol=atol={tol:g}: {bad}")
+        check(bad == 0 and got.dtype == dtype,
+              f"flash kernel differs from plain at {name}")
+        return got, float(err.max())
+
+    # -- the serving path's prefill shape: the first admit's qpos and
+    # the window every prefill of a global-attention model passes ------
+    cfg = get_config(SERVE_ARCH)
+    B, T, S = SERVE_SLOTS, PROMPTS[0], SERVE_MAX_SEQ
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = inputs(torch.bfloat16, B, T, S, Hq, Hkv, Dh)
+    qpos = torch.arange(T, dtype=torch.int32, device=dev).repeat(B, 1)
+    _, main_err = compare(f"main {tuple(q.shape)} x k,v {tuple(k.shape)} "
+                          f"strides {k.stride()} window=BIG_WINDOW",
+                          torch.bfloat16, q, k, v, qpos, blockwise_attention,
+                          tol=FLASH_MAIN_TOL, window=BIG_WINDOW)
+
+    # -- small shapes, each feature, against the dense oracle -----------
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape, kw in (
+                ("window=16", (2, 100, 130, 4, 2, 64), dict(window=16)),
+                ("softcap=8", (2, 100, 130, 4, 2, 64), dict(softcap=8.0)),
+                ("Dh=Dv=64", (2, 257, 300, 8, 2, 64), {}),
+                ("Dh=Dv=256", (1, 130, 200, 4, 1, 256), {}),
+                ("Dh=192 Dv=128", (2, 70, 90, 4, 2, 192, 128), {})):
+            q, k, v = inputs(dtype, *shape)
+            Bs, Ts, Ss = shape[:3]
+            qp = torch.arange(Ss - Ts, Ss, dtype=torch.int32,
+                              device=dev).repeat(Bs, 1)
+            compare(name, dtype, q, k, v, qp, dense_attention, **kw)
+        q, k, v = inputs(dtype, 2, 96, 80, 4, 2, 128)
+        qp = torch.randint(-1, 90, (2, 96), generator=g, device=dev,
+                           dtype=torch.int32)
+        qp[:, :9] = -1                                # padding rows
+        qp[1, 20:30] = 200                            # window 5: none seen
+        out, _ = compare("ragged qpos with -1 and fully masked rows, "
+                         "window=5", dtype, q, k, v, qp, dense_attention,
+                         window=5)
+        masked = out[:, :9].abs().sum() + out[1, 20:30].abs().sum()
+        check(float(masked) == 0.0, "fully masked flash rows are not 0")
+
+    # -- time at the main shape -----------------------------------------
+    q, k, v = inputs(torch.bfloat16, B, T, S, Hq, Hkv, Dh)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    kernel = lambda: flash_attention_cuda(           # noqa: E731
+        q, k, v, qpos=qpos, window=BIG_WINDOW)
+    lib_err = float((sdpa().transpose(1, 2).float() - kernel().float())
+                    .abs().max())
+    print(f"flash vs SDPA (is_causal, enable_gqa) at the main shape: "
+          f"max_abs_diff={lib_err:.3e}")
+    check(lib_err <= FLASH_TOL["bfloat16"] * 4, "SDPA computes another "
+          "function than the kernel at the main shape")
+    flops, nbytes = flash_work(torch, qpos, S, B, Hq, Hkv, Dh, Dh, 2)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    flash = dict(
+        name="flash_attn_hd", route="cuda",
+        source="src/repro_torch/csrc/flash_attn_hd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:80",
+        max_abs_err=main_err,
+        ms=cuda_ms(torch, kernel, 20),
+        plain_ms=cuda_ms(torch, lambda: blockwise_attention(
+            q, k, v, qpos=qpos, window=BIG_WINDOW), 3),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=cuda_ms(torch, sdpa, 20),
+        shape=[list(q.shape), list(k.shape)])
+    print(f"flash at {tuple(q.shape)} x {tuple(k.shape)}: {flops:.4e} flops, "
+          f"{nbytes:.4e} bytes; kernel {flash['ms']:.4f} ms "
+          f"({flops / flash['ms'] / 1e9:.1f} TFLOP/s), bound "
+          f"{flash['bound_ms']:.4f} ms ({flash['bound_by']}), plain "
+          f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return flash
+
+
+def _wrappers():
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
     from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
     from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
-    jacobi_cuda.launches = 0
-    gemm_cuda.launches = 0
+    return {"jacobi_hd": jacobi_cuda, "gemm_hd": gemm_cuda,
+            "flash_attn_hd": flash_attention_cuda}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
-    from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
-    return {"jacobi_hd": jacobi_cuda.launches, "gemm_hd": gemm_cuda.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def jacobi_path(torch):
@@ -426,6 +591,126 @@ def gemm_path(torch):
     return launches, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
 
 
+def logits_finite(torch, eng) -> bool:
+    """Whether the engine's model gives finite logits for one prefill of
+    the whole pool (every slot a prompt of PROMPTS[1] tokens) and one
+    decode step after it, through the bundle's public steps on a cache
+    of the engine's size: outside the timed run, so the engine that is
+    timed is the one a user calls."""
+    bundle = eng.bundle
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, eng.cfg.vocab,
+                                         (SERVE_SLOTS, PROMPTS[1])))
+    cache = bundle.init_cache(SERVE_SLOTS, SERVE_MAX_SEQ)
+    pre, cache = bundle.prefill(eng.params, {"tokens": toks.to(eng.device)},
+                                cache)
+    batch = {"token": pre.argmax(dim=-1),
+             "pos": torch.full((SERVE_SLOTS,), PROMPTS[1], dtype=torch.int32,
+                               device=eng.device)}
+    dec, cache = bundle.decode(eng.params, batch, cache)
+    ok = bool(torch.isfinite(pre).all()) and bool(torch.isfinite(dec).all())
+    print(f"logits of one pool prefill {tuple(pre.shape)} and one decode "
+          f"step {tuple(dec.shape)} all finite: {ok}")
+    del cache
+    torch.cuda.empty_cache()
+    return ok
+
+
+def serve_path(torch):
+    """yi-9b at full width behind the slot Engine: admits, decode steps,
+    finishes, and the first prompt again."""
+    from repro_torch.launch.serve import load_engine
+
+    t0 = time.perf_counter()
+    eng = load_engine(SERVE_ARCH, reduced=False, slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, seed=0)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    n_params = cfg.param_count()
+    kv_bytes = 2 * cfg.n_layers * SERVE_SLOTS * SERVE_MAX_SEQ \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    print(f"serving {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.head_dim} d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab}, bfloat16: param_count() "
+          f"{n_params} -> {2 * n_params / 1e9:.2f} GB of weights, KV cache "
+          f"{kv_bytes / 1e9:.2f} GB ({SERVE_SLOTS} slots x {SERVE_MAX_SEQ}); "
+          f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up "
+          f"(random weights from a seeded generator) "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    flash = _wrappers()["flash_attn_hd"]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPTS]
+    prefill_ms, per_prefill, decode_ms, decode_tokens = [], [], [], 0
+
+    def admit(prompt):
+        n0 = flash.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sid = eng.add_request(prompt)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t))
+        per_prefill.append(flash.launches - n0)
+        return sid
+
+    def decode(n):
+        nonlocal decode_tokens
+        n0 = flash.launches
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = eng.step()
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t))
+            decode_tokens += len(out)
+        check(flash.launches == n0, "a decode step launched flash attention")
+
+    reset_launches()
+    t_run = time.perf_counter()
+    sids = []
+    for prompt in prompts:
+        sids.append(admit(prompt))
+        decode(DECODE_STEPS)
+    streams = [eng.finish(sid) for sid in sids]
+    sid = admit(prompts[0])
+    decode(len(PROMPTS) * DECODE_STEPS)
+    again = eng.finish(sid)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t_run
+    launches = read_launches()
+    n_gen = len(streams[0]) - PROMPTS[0]
+    print(f"serving path: prefill ms per admit {[round(x, 3) for x in prefill_ms]} "
+          f"(prompts {list(PROMPTS)} then {PROMPTS[0]} again; host clock, "
+          f"synchronized); decode ms per step: median "
+          f"{float(np.median(decode_ms)):.3f}, min {min(decode_ms):.3f}, "
+          f"max {max(decode_ms):.3f} over {len(decode_ms)} steps; "
+          f"{decode_tokens} decode tokens in {sum(decode_ms) / 1e3:.3f} s = "
+          f"{decode_tokens / (sum(decode_ms) / 1e3):.1f} tokens/s; whole run "
+          f"{t_run:.3f} s; flash launches per prefill {per_prefill}; "
+          f"launches {launches}")
+    check(per_prefill == [cfg.n_layers] * (len(PROMPTS) + 1),
+          f"flash launches per prefill {per_prefill} != {cfg.n_layers}")
+    check(launches["jacobi_hd"] == 0 and launches["gemm_hd"] == 0,
+          "the serving path launched another path's kernel")
+    check(logits_finite(torch, eng), "non-finite logits on the serving path")
+    same = again == streams[0]
+    print(f"re-admitted prompt repeats its greedy continuation of {n_gen} "
+          f"tokens: {same}")
+    check(same, "the same prompt gave another greedy continuation")
+    check(all(0 <= t < cfg.vocab for st in streams for t in st),
+          "a generated token is outside the vocabulary")
+
+    eng.add_request(prompts[2])
+    device_breakdown(torch, f"one prefill ({PROMPTS[1]} tokens, the whole "
+                     f"{SERVE_SLOTS}-slot pool)",
+                     lambda: eng.add_request(prompts[1]))
+    device_breakdown(torch, f"one decode step ({SERVE_SLOTS} slots, 2 live)",
+                     eng.step, host_top=8)
+    del eng
+    torch.cuda.empty_cache()
+    return launches, prefill_ms, decode_ms
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
@@ -462,10 +747,19 @@ def main() -> None:
     gemm["launches"] = gemm_launches["gemm_hd"]
     check(jac_launches["gemm_hd"] == 0 and gemm_launches["jacobi_hd"] == 0,
           "a path launched the other path's kernel")
+    check(jac_launches["flash_attn_hd"] == 0
+          and gemm_launches["flash_attn_hd"] == 0,
+          "an HDArray path launched flash attention")
     print(f"main path: jacobi {jac_step_ms:.3f} ms/sweep, gemm step 1 "
           f"{gemm_step1_ms:.3f} ms, step 2 {gemm_step2_ms:.3f} ms "
           f"(host clock, {NPROC} ranks on one card)")
-    print(json.dumps({"kernels": [jac, gemm]}))
+    torch.cuda.empty_cache()
+    print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB allocated")
+    flash = flash_phase(torch)
+    serve_launches, _prefill_ms, _decode_ms = serve_path(torch)
+    flash["launches"] = serve_launches["flash_attn_hd"]
+    print(json.dumps({"kernels": [jac, gemm, flash]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,150 @@
+"""Blockwise online-softmax attention in plain PyTorch, forward only.
+
+The module keeps the reference's name (``repro/kernels/flash_attention/
+jnp_impl.py``) so the two packages map file to file; here it holds
+PyTorch, not jnp.  It is the plain version of the CUDA kernel in
+``csrc/flash_attn_hd.cu``: the same block structure and the same math,
+O(block_q x block_kv) logits instead of O(T x S).
+
+Two paths:
+  * ``blockwise``: outer loop over q blocks, inner loop over kv blocks,
+    online-softmax carry (m, l, acc).  Handles causal + window +
+    softcap + ragged per-batch q positions.
+  * ``banded``: static integer ``window`` -- each q block attends only
+    the (window + block_q)-wide kv band that can possibly be visible.
+    O(T·W) compute, the sub-quadratic local attention path.
+
+The reference's ``custom_vjp`` backward comes with training (ROADMAP).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def _pad_to(x: torch.Tensor, n: int, axis: int, value=0) -> torch.Tensor:
+    pad = n - x.shape[axis]
+    if pad <= 0:
+        return x
+    widths = [0, 0] * (x.ndim - 1 - axis) + [0, pad]
+    return F.pad(x, widths, value=value)
+
+
+def _block_mask(qpos_blk, kpos_blk, window):
+    """qpos (B,bq), kpos (bk,) or (B,bk) -> (B,bq,bk) bool."""
+    if kpos_blk.ndim == 1:
+        kpos_blk = kpos_blk[None, :]
+    m = kpos_blk[:, None, :] <= qpos_blk[:, :, None]
+    if window is not None:
+        m &= kpos_blk[:, None, :] > qpos_blk[:, :, None] - window
+    m &= qpos_blk[:, :, None] >= 0
+    m &= kpos_blk[:, None, :] >= 0
+    return m
+
+
+def _attend_block(qg, k, v, mask, softcap, scale, m, l, acc):
+    """One online-softmax update.  qg (B,bq,Hkv,G,Dh); k/v (B,bk,Hkv,*);
+    mask (B,bq,bk); carries m,l (B,Hkv,G,bq), acc (B,bq,Hkv,G,Dv)."""
+    s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    # rows with everything masked: m_new stays NEG_INF; exp(0)=1 garbage --
+    # zero those probabilities explicitly.
+    p = torch.where(mask[:, None, None].any(dim=-1, keepdim=True), p, 0.0)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(), v.float())
+    acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+    return m_new, l, acc
+
+
+def _finish(acc, l):
+    l_t = l.permute(0, 3, 1, 2)[..., None]
+    return torch.where(l_t > 0, acc / torch.clamp(l_t, min=1e-30), 0.0)
+
+
+def _carries(B, Hkv, G, bq, Dv, device):
+    m0 = torch.full((B, Hkv, G, bq), NEG_INF, dtype=torch.float32,
+                    device=device)
+    l0 = torch.zeros((B, Hkv, G, bq), dtype=torch.float32, device=device)
+    a0 = torch.zeros((B, bq, Hkv, G, Dv), dtype=torch.float32, device=device)
+    return m0, l0, a0
+
+
+def blockwise_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        block_q: int = 512, block_kv: int = 1024):
+    """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T).
+    ``window``: None (causal) or an int (sliding window).  Returns
+    (B,T,Hq,Dv) in q.dtype."""
+    B, T, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    w = window if window is not None else 1 << 30
+    bq, bk = min(block_q, T), min(block_kv, S)
+    nq, nk = -(-T // bq), -(-S // bk)
+    qg = _pad_to(q.reshape(B, T, Hkv, G, Dh), nq * bq, 1)
+    qp = _pad_to(qpos.to(torch.int64), nq * bq, 1, value=-1)
+    kp_, vp_ = _pad_to(k, nk * bk, 1), _pad_to(v, nk * bk, 1)
+    ar = torch.arange(nk * bk, device=q.device)
+    kpos = torch.where(ar < S, ar, -1)
+    out = []
+    for i in range(nq):
+        qg_i, qp_i = qg[:, i * bq:(i + 1) * bq], qp[:, i * bq:(i + 1) * bq]
+        m, l, acc = _carries(B, Hkv, G, bq, Dv, q.device)
+        for j in range(nk):
+            sl = slice(j * bk, (j + 1) * bk)
+            mask = _block_mask(qp_i, kpos[sl], w)
+            m, l, acc = _attend_block(qg_i, kp_[:, sl], vp_[:, sl], mask,
+                                      softcap, scale, m, l, acc)
+        out.append(_finish(acc, l))
+    o = torch.cat(out, dim=1).reshape(B, nq * bq, Hq, Dv)
+    return o[:, :T].to(q.dtype)
+
+
+def banded_attention(q, k, v, *, qpos, window: int, softcap: float = 0.0,
+                     scale: Optional[float] = None, block_q: int = 512):
+    """Static sliding-window attention: each q block sees only its
+    (window + block_q) kv band.  O(T·window) compute and memory.
+
+    Requires contiguous per-batch positions: qpos[b] = off[b] + arange(T)
+    and kv laid out so kv index s has position s (the prefill layout)."""
+    B, T, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    bq = min(block_q, T)
+    nq = -(-T // bq)
+    L = min(S, window + bq)                  # static band length
+
+    qg = _pad_to(q, nq * bq, 1).reshape(B, nq * bq, Hkv, G, Dh)
+    qpp = _pad_to(qpos.to(torch.int64), nq * bq, 1, value=-1)
+    bidx = torch.arange(B, device=q.device)[:, None]
+    band = torch.arange(L, device=q.device)[None, :]
+    out = []
+    for i in range(nq):
+        qg_i, qp_i = qg[:, i * bq:(i + 1) * bq], qpp[:, i * bq:(i + 1) * bq]
+        # band start: highest kv index visible is max qpos in block; lowest
+        # is (min qpos) - window + 1.  Clamp into [0, S-L].
+        lo = qp_i.amax(dim=1) - (L - 1)                      # (B,)
+        start = torch.clamp(lo, 0, S - L)
+        kpos_b = start[:, None] + band                       # (B, L)
+        ks, vs = k[bidx, kpos_b], v[bidx, kpos_b]            # (B,L,Hkv,*)
+        kpos_b = torch.where(kpos_b < S, kpos_b, -1)
+        mask = _block_mask(qp_i, kpos_b, window)
+        m, l, acc = _attend_block(qg_i, ks, vs, mask, softcap, scale,
+                                  *_carries(B, Hkv, G, bq, Dv, q.device))
+        out.append(_finish(acc, l))
+    o = torch.cat(out, dim=1).reshape(B, nq * bq, Hq, Dv)
+    return o[:, :T].to(q.dtype)

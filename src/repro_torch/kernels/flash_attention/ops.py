@@ -1,0 +1,71 @@
+"""Public flash-attention entry point with implementation dispatch.
+
+  impl='dense'     -- ref.py oracle (small shapes, tests)
+  impl='blockwise' -- plain online softmax over q and kv blocks
+                      (memory O(bq x bk))
+  impl='banded'    -- static-window band gather, O(T·window)
+  impl='cuda'      -- the hand-written kernel (csrc/flash_attn_hd.cu);
+                      raises on a CPU tensor
+  impl='auto'      -- on a CUDA tensor always the kernel, for any
+                      window or none.  On a CPU tensor exactly what the
+                      reference's 'auto' picks off a TPU: banded if a
+                      static int window is under a quarter of S, dense
+                      for small T·S, blockwise otherwise.
+
+The reference's TPU dispatch reaches its Pallas kernel only for a
+static int window (``repro/kernels/flash_attention/ops.py:46-47``); a
+``window=None`` call, such as every yi-9b prefill, falls to the jnp
+``blockwise`` scan, which is the same function as the kernel.  On the
+card the kernel takes that role, so every long prefill launches it.
+"""
+from __future__ import annotations
+
+import numbers
+from typing import Optional
+
+from . import jnp_impl, ref
+from .kernel import flash_attention_cuda
+
+_DENSE_MAX = 2048 * 2048      # T*S elements below which dense is fine
+
+
+def _is_static_int(x) -> bool:
+    return isinstance(x, numbers.Integral)
+
+
+def flash_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
+                    scale: Optional[float] = None, impl: str = "auto",
+                    block_q: int = 512, block_kv: int = 1024):
+    """Causal/windowed GQA attention.  q (B,T,Hq,Dh); k (B,S,Hkv,Dh);
+    v (B,S,Hkv,Dv); qpos (B,T) absolute query positions (kv position of
+    slot s is s).  Returns (B,T,Hq,Dv)."""
+    T = q.shape[1]
+    S = k.shape[1]
+    if impl == "auto":
+        if q.is_cuda:
+            impl = "cuda"
+        elif _is_static_int(window) and int(window) * 4 < S:
+            impl = "banded"
+        elif T * S <= _DENSE_MAX:
+            impl = "dense"
+        else:
+            impl = "blockwise"
+    if impl == "cuda":
+        if not q.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors; the plain "
+                             "versions are 'dense', 'blockwise', 'banded'")
+        return flash_attention_cuda(q, k, v, qpos=qpos, window=window,
+                                    softcap=softcap, scale=scale)
+    if impl == "dense":
+        return ref.dense_attention(q, k, v, qpos=qpos, window=window,
+                                   softcap=softcap, scale=scale)
+    if impl == "blockwise":
+        return jnp_impl.blockwise_attention(
+            q, k, v, qpos=qpos, window=window, softcap=softcap, scale=scale,
+            block_q=block_q, block_kv=block_kv)
+    if impl == "banded":
+        return jnp_impl.banded_attention(
+            q, k, v, qpos=qpos, window=int(window), softcap=softcap,
+            scale=scale, block_q=block_q)
+    raise ValueError(f"unknown impl {impl!r}; one of 'auto', 'cuda', "
+                     f"'dense', 'blockwise', 'banded'")

@@ -1,0 +1,133 @@
+"""Shared model components: the part of the reference's
+``repro/models/common.py`` that serving needs.
+
+Every function keeps the reference's casts, because each is a place
+where two frameworks could round differently:
+
+  * ``rms_norm`` computes in float32 and scales by ``1 + scale``;
+  * ``rope`` is half-split (not interleaved), with float32 angles;
+  * ``gqa_attention`` scales q in the compute dtype before q.k, takes
+    the logits in the compute dtype, then float32 for the mask
+    (-1e30) and the softmax, and casts the probabilities back before
+    p.v.
+
+``resolve_device`` turns every entry point's ``device`` (default
+"cuda") into a torch.device and raises without a card.
+
+``batch_update`` is the per-slot cache write of the reference's
+``sharded_batch_update`` without the mesh.  It writes in place (the
+reference's is functional) and clamps each start into the cache the
+way ``lax.dynamic_update_slice`` does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; "cuda" without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} needs a CUDA device; pass "
+                           f"device='cpu' to run on the host")
+    return dev
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0,
+         scale: float = 1.0) -> torch.Tensor:
+    """Rotary embedding over the last dim.  x: (..., T, H, Dh);
+    positions (..., T)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = torch.pow(base, -torch.arange(0, half, dtype=torch.float32,
+                                         device=x.device) / half)
+    ang = positions[..., None].float() * freq * scale     # (..., T, half)
+    ang = ang[..., None, :]                               # (..., T, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def make_causal_mask(q_len: int, kv_len: int, q_offset,
+                     device=None) -> torch.Tensor:
+    """(q_len, kv_len) boolean mask.  q_offset = absolute pos of query 0."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return k_pos <= q_pos
+
+
+def make_local_mask(q_len: int, kv_len: int, q_offset, window: int,
+                    device=None) -> torch.Tensor:
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return (k_pos <= q_pos) & (k_pos > q_pos - window)
+
+
+def gqa_attention(q, k, v, mask, attn_softcap: Optional[float] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention.
+
+    q: (B, Tq, Hq, Dh); k,v: (B, Tk, Hkv, Dh); mask: (Tq, Tk) or
+    (B, Tq, Tk) boolean.  Returns (B, Tq, Hq, Dh).
+    """
+    B, Tq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    groups = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, Tq, Hkv, groups, Dh)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg * scale, k)
+    logits = softcap(logits, attn_softcap)
+    mask_b = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+    logits = torch.where(mask_b, logits.float(), -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(B, Tq, Hq, Dh)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))`` op by op in x's dtype, rounding after
+    each op as ``jax.nn.silu`` does (``F.silu`` rounds once and differs
+    in about a third of bfloat16 inputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu") -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    a = F.gelu(g, approximate="tanh") if act == "gelu" else silu(g)
+    return (a * u) @ w_down
+
+
+def batch_update(cache: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """Per-sequence cache write, in place: cache[b, s_b:s_b+t] = new[b]
+    with s_b = pos[b] clamped into [0, cache.shape[1] - t], as
+    ``dynamic_update_slice`` clamps.  The serving engine prefills the
+    whole slot pool, so a slot near the end of its cache writes the
+    last t rows instead of past them; the engine then restores every
+    slot but the admitted one.  Returns ``cache``."""
+    t = new.shape[1]
+    start = torch.clamp(pos.long(), 0, cache.shape[1] - t)
+    rows = start[:, None] + torch.arange(t, device=cache.device)[None, :]
+    bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[bidx, rows] = new.to(cache.dtype)
+    return cache

@@ -1,0 +1,159 @@
+"""Transformer building blocks with cache support: the dense-attention
+part of the reference's ``repro/models/layers.py``.
+
+Conventions:
+  * params are plain dicts of tensors, one dict per layer (the
+    reference stacks them with a leading ``L`` for ``lax.scan``);
+  * every attention works in three modes: forward (no cache), prefill
+    (build cache), decode (read + update cache, q_len == 1);
+  * per-sequence positions ``pos: (B,)`` (ragged serving); the cache
+    is updated in place (the reference's update is functional).
+
+Initialisation draws from a ``torch.Generator`` with the reference's
+scales; the numbers differ from ``jax.random``'s, so the tests carry
+the reference's own weights across (``models/convert.py``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .common import (batch_update, gqa_attention, make_causal_mask,
+                     make_local_mask, resolve_device, rope)
+from repro_torch.kernels.flash_attention import flash_attention
+
+# From this many query positions on, the dense O(T·S) logit tensor is
+# replaced by flash attention (kernels/flash_attention): on the card
+# the hand-written kernel, on the CPU the reference's choice of plain
+# version.
+FLASH_MIN_T = 1024
+
+Params = Dict[str, torch.Tensor]
+
+
+# ----------------------------------------------------------------------
+# parameter init helpers
+# ----------------------------------------------------------------------
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    """Standard normal times ``scale``, drawn in float32 and stored in
+    ``dtype``, one tensor at a time so the float32 draw of the largest
+    matrix is the only temporary."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def attn_params(gen, cfg, *, dtype=torch.float32, device="cuda") -> Params:
+    """One layer's GQA attention weights (the reference's ``attn_params``
+    for one of its ``L`` stacked layers)."""
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    return {
+        "wq": _normal(gen, (D, Hq * Dh), 1 / math.sqrt(D), **kw),
+        "wk": _normal(gen, (D, Hkv * Dh), 1 / math.sqrt(D), **kw),
+        "wv": _normal(gen, (D, Hkv * Dh), 1 / math.sqrt(D), **kw),
+        "wo": _normal(gen, (Hq * Dh, D), 1 / math.sqrt(Hq * Dh), **kw),
+    }
+
+
+def mlp_params(gen, d_model: int, d_ff: int, *, dtype=torch.float32,
+               device="cuda") -> Params:
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    return {
+        "w_gate": _normal(gen, (d_model, d_ff), 1 / math.sqrt(d_model), **kw),
+        "w_up": _normal(gen, (d_model, d_ff), 1 / math.sqrt(d_model), **kw),
+        "w_down": _normal(gen, (d_ff, d_model), 1 / math.sqrt(d_ff), **kw),
+    }
+
+
+def norms_params(d_model: int, names, *, device="cuda") -> Params:
+    """rms scales, zero-initialised (the norm multiplies by 1 + w) and
+    kept in float32, as ``rms_norm`` reads them."""
+    device = resolve_device(device)
+    return {n: torch.zeros((d_model,), dtype=torch.float32, device=device)
+            for n in names}
+
+
+# ----------------------------------------------------------------------
+# attention (one layer)
+# ----------------------------------------------------------------------
+def attention(p: Params, x: torch.Tensor, *, cfg, window=None,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              attn_softcap: float = 0.0, rope_base: float = 10000.0
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One GQA attention layer.
+
+    ``window``: sliding-window size (an int; the decoder stacks pass a
+    huge one for global attention) or None.  cache: None (forward) or
+    dict(k, v, pos) -- this layer's (B, T_max, Hkv, Dh) cache views and
+    the per-sequence write offset (B,).  Returns (out, new_cache), where
+    new_cache holds the same k and v tensors, written in place.
+    """
+    B, T, D = x.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cdt = x.dtype
+    q = (x @ p["wq"].to(cdt)).reshape(B, T, Hq, Dh)
+    k = (x @ p["wk"].to(cdt)).reshape(B, T, Hkv, Dh)
+    v = (x @ p["wv"].to(cdt)).reshape(B, T, Hkv, Dh)
+
+    if cache is None:
+        positions = torch.arange(T, device=x.device)[None, :]
+        q = rope(q, positions, rope_base)
+        k = rope(k, positions, rope_base)
+        if T >= FLASH_MIN_T:
+            qpos = positions.expand(B, T).to(torch.int32)
+            out = flash_attention(q, k, v, qpos=qpos, window=window,
+                                  softcap=attn_softcap or 0.0)
+        else:
+            mask = (make_causal_mask(T, T, 0, x.device) if window is None
+                    else make_local_mask(T, T, 0, window, x.device))
+            out = gqa_attention(q, k, v, mask, attn_softcap)
+        new_cache = None
+    else:
+        if "kpos" in cache:
+            raise NotImplementedError(
+                "the sliding-window ring cache is not ported yet (ROADMAP: "
+                "'Still to port', the other model families: ring and local "
+                "windows)")
+        pos = cache["pos"]                       # (B,)
+        positions = pos[:, None] + torch.arange(T, device=x.device)[None, :]
+        q = rope(q, positions, rope_base)
+        k = rope(k, positions, rope_base)
+        ck = batch_update(cache["k"], k, pos)
+        cv = batch_update(cache["v"], v, pos)
+        Tmax = ck.shape[1]
+        if T >= FLASH_MIN_T:
+            # a bf16 cache in a bf16 model goes in as the cache's view
+            out = flash_attention(q, ck.to(cdt), cv.to(cdt),
+                                  qpos=positions.to(torch.int32),
+                                  window=window,
+                                  softcap=attn_softcap or 0.0)
+        else:
+            kpos = torch.arange(Tmax, device=x.device)[None, :]
+            qpos = positions
+            valid = kpos[:, None, :] <= qpos[:, :, None]
+            if window is not None:
+                valid &= kpos[:, None, :] > qpos[:, :, None] - window
+            out = gqa_attention(q, ck.to(cdt), cv.to(cdt), valid,
+                                attn_softcap)
+        new_cache = {"k": ck, "v": cv, "pos": pos + T}
+    out = out.reshape(B, T, Hq * Dh) @ p["wo"].to(cdt)
+    return out, new_cache
+
+
+def cross_attention(p, x, kv_src, *, cfg):
+    raise NotImplementedError(
+        "cross_attention (whisper, llama-vision) is not ported yet "
+        "(ROADMAP: 'Still to port', the other model families: encdec, vlm)")
+
+
+def init_full_cache(cfg, n_layers: int, B: int, T_max: int,
+                    dtype=torch.bfloat16, device="cuda"):
+    """bfloat16 by default whatever the compute dtype, as the
+    reference's: an f32 model rounds K and V to bf16 in the cache."""
+    device = resolve_device(device)
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    shape = (n_layers, B, T_max, Hkv, Dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

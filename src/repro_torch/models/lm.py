@@ -1,0 +1,180 @@
+"""Model assembly: init / forward / prefill / decode, the dense decoder
+family of the reference's ``repro/models/lm.py``.
+
+Structure notes:
+  * layers are a Python list of per-layer parameter dicts, run in a
+    Python loop (the reference stacks them and runs ``lax.scan``);
+  * the per-layer window comes from ``_window_array`` as in the
+    reference; only global attention (``attn_kind="full"``) is ported;
+  * caches are dicts of ``(L, B, T_max, Hkv, Dh)`` tensors plus the
+    per-slot ``pos``, updated in place by prefill and decode.
+
+``build(cfg, compute_dtype, device)`` returns a ModelBundle of closures
+and raises ``NotImplementedError`` for the families not ported yet.
+Every entry point runs on ``device``, which defaults to "cuda" and
+raises without a card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, NamedTuple
+
+import torch
+
+from . import layers as LY
+from .common import gated_mlp, resolve_device, rms_norm, softcap
+
+Params = Dict[str, Any]
+BIG_WINDOW = 1 << 30   # "global attention" as a window
+
+
+class ModelBundle(NamedTuple):
+    cfg: Any
+    init: Callable        # seed or torch.Generator -> params
+    forward: Callable     # (params, batch) -> (logits, aux)
+    prefill: Callable     # (params, batch, cache) -> (logits_last, cache)
+    decode: Callable      # (params, batch, cache) -> (logits, cache)
+    init_cache: Callable  # (B, T_max[, device]) -> cache
+    device: torch.device
+
+
+# ======================================================================
+# shared embedding / head
+# ======================================================================
+def _embed_params(gen, cfg, dtype, device) -> Params:
+    return {
+        "in_emb": LY._normal(gen, (cfg.vocab, cfg.d_model), 0.01, dtype,
+                             device),
+        "out_emb": LY._normal(gen, (cfg.d_model, cfg.vocab),
+                              1 / math.sqrt(cfg.d_model), dtype, device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=device),
+    }
+
+
+def _embed(p, tokens, cfg, dt) -> torch.Tensor:
+    x = p["in_emb"][tokens].to(dt)
+    if cfg.name.startswith(("gemma", "recurrentgemma")):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    return x
+
+
+def _head(p, x, cfg) -> torch.Tensor:
+    h = rms_norm(x, p["final_norm"])
+    logits = h @ p["out_emb"].to(x.dtype)
+    return softcap(logits.float(), cfg.final_softcap or None)
+
+
+# ======================================================================
+# dense decoder stack
+# ======================================================================
+def _window_array(cfg) -> List[int]:
+    """Per-layer attention window; BIG_WINDOW = global."""
+    L = cfg.n_layers
+    if cfg.attn_kind == "local":
+        return [cfg.window] * L
+    if cfg.attn_kind == "alternating":
+        return [cfg.window if i % 2 == 0 else BIG_WINDOW for i in range(L)]
+    return [BIG_WINDOW] * L
+
+
+def _dense_stack_params(gen, cfg, n_layers, dtype, device) -> List[Params]:
+    names = ["pre_attn", "pre_mlp"] + (["post_attn", "post_mlp"]
+                                       if cfg.post_norms else [])
+    kw = dict(dtype=dtype, device=device)
+    return [{"attn": LY.attn_params(gen, cfg, **kw),
+             "norms": LY.norms_params(cfg.d_model, names, device=device),
+             "ffn": LY.mlp_params(gen, cfg.d_model, cfg.d_ff, **kw)}
+            for _ in range(n_layers)]
+
+
+def _dense_block(cfg, pl, x, window, cache_sl):
+    """One decoder layer.  Returns (x, new_cache)."""
+    h = rms_norm(x, pl["norms"]["pre_attn"])
+    a, new_c = LY.attention(pl["attn"], h, cfg=cfg, window=window,
+                            cache=cache_sl, attn_softcap=cfg.attn_softcap,
+                            rope_base=cfg.rope_base)
+    if cfg.post_norms:
+        a = rms_norm(a, pl["norms"]["post_attn"])
+    x = x + a
+    h = rms_norm(x, pl["norms"]["pre_mlp"])
+    f = gated_mlp(h, pl["ffn"]["w_gate"].to(x.dtype),
+                  pl["ffn"]["w_up"].to(x.dtype),
+                  pl["ffn"]["w_down"].to(x.dtype), act=cfg.act)
+    if cfg.post_norms:
+        f = rms_norm(f, pl["norms"]["post_mlp"])
+    return x + f, new_c
+
+
+def _run_stack(cfg, stack_p, x, windows, cache):
+    """The layer loop over one group.  cache: None or dict(k, v, pos)
+    with (L, ...) k and v; returns (x, cache) with pos advanced by T."""
+    pos = None if cache is None else cache["pos"]
+    for i, (pl, w) in enumerate(zip(stack_p, windows)):
+        csl = None if cache is None else {
+            "k": cache["k"][i], "v": cache["v"][i], "pos": pos}
+        x, _ = _dense_block(cfg, pl, x, w, csl)
+    if cache is not None:
+        cache["pos"] = pos + x.shape[1]
+    return x, cache
+
+
+def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
+    """The dense decoder: embedding, one stack, head."""
+    windows = _window_array(cfg)
+
+    def init(seed=0) -> Params:
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=dev).manual_seed(int(seed))
+        return {"emb": _embed_params(gen, cfg, dt, dev),
+                "main": _dense_stack_params(gen, cfg, cfg.n_layers, dt, dev)}
+
+    def forward(params, batch):
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        x, _ = _run_stack(cfg, params["main"], x, windows, None)
+        return _head(params["emb"], x, cfg), {
+            "aux_loss": torch.zeros((), device=x.device)}
+
+    def init_cache(B, T_max, device=None):
+        """``device`` defaults to the model's ("meta" probes shapes)."""
+        on = dev if device is None else device
+        return {"main": {**LY.init_full_cache(cfg, cfg.n_layers, B, T_max,
+                                              device=on),
+                         "pos": torch.zeros((B,), dtype=torch.int32,
+                                            device=on)}}
+
+    def prefill(params, batch, cache):
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        x, cache["main"] = _run_stack(cfg, params["main"], x, windows,
+                                      cache["main"])
+        return _head(params["emb"], x[:, -1:, :], cfg), cache
+
+    def decode(params, batch, cache):
+        x = _embed(params["emb"], batch["token"], cfg, dt)
+        # decode positions come from the batch (ragged serving)
+        cache["main"]["pos"] = batch["pos"]
+        x, cache["main"] = _run_stack(cfg, params["main"], x, windows,
+                                      cache["main"])
+        return _head(params["emb"], x, cfg), cache
+
+    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev)
+
+
+# ======================================================================
+# dispatcher
+# ======================================================================
+_NOT_PORTED = ("is not ported yet (ROADMAP: 'Still to port', the other "
+               "model families)")
+
+
+def build(cfg, compute_dtype=torch.bfloat16, device="cuda") -> ModelBundle:
+    """The model of ``cfg`` in ``compute_dtype`` on ``device``.  Only
+    the dense decoder with global attention is ported (yi-9b,
+    deepseek-7b, mistral-large-123b)."""
+    dev = resolve_device(device)
+    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) {_NOT_PORTED}")
+    if cfg.attn_kind != "full":
+        raise NotImplementedError(
+            f"{cfg.name}'s {cfg.attn_kind} attention windows {_NOT_PORTED}")
+    return _build_decoder_lm(cfg, compute_dtype, dev)

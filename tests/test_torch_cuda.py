@@ -12,14 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import (Box, COL_ALL, HDArrayRuntime, IDENTITY_2D,
                               ROW_ALL, stencil)
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import dense_attention
 from repro_torch.kernels.gemm_hd import kernel as gemm_kernel
 from repro_torch.kernels.gemm_hd.ops import gemm
 from repro_torch.kernels.hd import make_gemm_kernel, make_jacobi_kernel
 from repro_torch.kernels.stencil_hd import kernel as jacobi_kernel
 from repro_torch.kernels.stencil_hd.ops import jacobi_step
 from repro_torch.kernels.stencil_hd.ref import jacobi_ref
+from repro_torch.models import build
+from repro_torch.serve import Engine, ServeConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +172,121 @@ def test_gemm_path_on_card(cuda):
     o = 1.5 * (a.astype(np.float64) @ b.astype(np.float64))
     c = rt.read(hC, part)
     assert np.linalg.norm(c - o) / np.linalg.norm(o) <= 5e-5
+
+
+# -- flash attention ------------------------------------------------------
+# bf16/fp16: a few ulps of the 16-bit type, from rounding p (normalized
+# in the plain version, unnormalized per kv tile in the kernel) before
+# the PV product.  float32: the reference's own bound for its Pallas
+# kernel (tests/test_pallas_parity.py).
+_FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
+
+
+def _flash_inputs(dev, dtype, B=2, T=100, S=130, Hq=4, Hkv=2, Dh=64,
+                  Dv=None, qpos="causal", seed=0):
+    """q, and k and v as strided views of one interleaved buffer."""
+    Dv = Dv or Dh
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, Hq, Dh), generator=g, device=dev).to(dtype)
+    kv = torch.randn((B, S, 2, Hkv, max(Dh, Dv)), generator=g,
+                     device=dev).to(dtype)
+    k, v = kv[:, :, 0, :, :Dh], kv[:, :, 1, :, :Dv]
+    if qpos == "causal":                     # the prefill layout
+        pos = torch.arange(S - T, S, device=dev).expand(B, T)
+    else:                                    # ragged, -1 marks padding
+        pos = torch.randint(-1, S + 8, (B, T), generator=g, device=dev)
+        pos[:, :7] = -1
+    return q, k, v, pos.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("case", [
+    dict(), dict(window=16), dict(softcap=8.0), dict(qpos="ragged"),
+    dict(qpos="ragged", window=9, softcap=5.0), dict(Dh=256, Hkv=1),
+    dict(Dh=192, Dv=128), dict(Dh=72, Dv=40, T=1, S=300),
+    dict(B=1, T=257, S=513, Hq=8, Hkv=2, Dh=128)])
+def test_flash_cuda_matches_plain(cuda, dtype, case):
+    case = dict(case)
+    window, softcap = case.pop("window", None), case.pop("softcap", 0.0)
+    q, k, v, qpos = _flash_inputs(cuda, dtype, **case)
+    got = flash_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    want = dense_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_cuda_fully_masked_rows_are_zero(cuda, dtype):
+    q, k, v, _ = _flash_inputs(cuda, dtype, T=70, S=32)
+    qpos = torch.arange(70, dtype=torch.int32, device=cuda).repeat(2, 1)
+    qpos[0, 5:40] = -1                       # padding rows
+    qpos[1, 3:9] = 100                       # window 4: keys 97..100 > S
+    out = flash_attention(q, k, v, qpos=qpos, window=4)
+    assert torch.equal(out[0, 5:40], torch.zeros_like(out[0, 5:40]))
+    assert torch.equal(out[1, 3:9], torch.zeros_like(out[1, 3:9]))
+    assert bool(out[0, :5].abs().sum() > 0)
+
+
+def test_flash_cuda_counts_launches_and_rejects_bad_input(cuda):
+    q, k, v, qpos = _flash_inputs(cuda, torch.bfloat16)
+    flash_kernel.flash_attention_cuda.launches = 0
+    flash_attention(q, k, v, qpos=qpos)
+    flash_attention(q, k, v, qpos=qpos, impl="cuda")
+    assert flash_kernel.flash_attention_cuda.launches == 2
+    with pytest.raises(ValueError, match="unit-stride last dim"):
+        wide = torch.zeros((2, 130, 2, 128), dtype=torch.bfloat16,
+                           device=cuda)
+        flash_attention(q, wide[..., ::2], v, qpos=qpos)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        big = torch.zeros((2, 130, 2, 72), dtype=torch.bfloat16, device=cuda)
+        flash_attention(q, big[..., 4:68], v, qpos=qpos)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.float(), v, qpos=qpos)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), v.double(), qpos=qpos)
+    for dh in (20, 264):
+        q2, k2, v2, p2 = _flash_inputs(cuda, torch.bfloat16, Dh=dh)
+        with pytest.raises(ValueError, match="multiples of 8 up to 256"):
+            flash_attention(q2, k2, v2, qpos=p2)
+    with pytest.raises(ValueError, match="do not group"):
+        flash_attention(q[:, :, :3], k, v, qpos=qpos)
+    assert flash_kernel.flash_attention_cuda.launches == 2
+
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _serve(eng, prompts, steps):
+    sids = [eng.add_request(p) for p in prompts]
+    for _ in range(steps):
+        eng.step()
+    return [eng.finish(s) for s in sids]
+
+
+def test_reduced_engine_on_card_matches_cpu(cuda):
+    """The same seeded reduced yi-9b, its weights drawn on the CPU and
+    carried to the card: a 1024-token prompt takes the flash kernel
+    (one launch per layer, none in decode), a 30-token one the dense
+    path, and the greedy tokens agree with the CPU run (float32
+    compute, TF32 off)."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, 1024), rng.integers(0, 256, 30)]
+    cfg = get_config("yi-9b").reduced()
+    bundle = build(cfg, torch.float32, "cpu")
+    params = bundle.init(3)
+    host = Engine(bundle, params, ServeConfig(max_seq=1100, slots=2))
+    card = Engine(build(cfg, torch.float32, "cuda"), _tree_to(params, cuda),
+                  ServeConfig(max_seq=1100, slots=2))
+    want = _serve(host, prompts, 8)
+    flash_kernel.flash_attention_cuda.launches = 0
+    got = _serve(card, prompts, 8)
+    assert flash_kernel.flash_attention_cuda.launches == host.cfg.n_layers
+    assert got == want
