@@ -6,7 +6,9 @@
 1. Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and holds each against its
    plain PyTorch version on the card, at the main path's shapes and at
-   ragged ones, timing kernel, plain version and library call.
+   ragged ones, timing kernel, plain version and library call, and the
+   earlier design of each redesigned kernel (the GEMM's ``tiled``,
+   flash attention's ``mma_sync`` variant) at the same shape.
 2. Drives the main path, HDArrayRuntime -> planner -> TorchExecutor ->
    kernels, at the paper's problem sizes (benchmarks/paper_programs.py)
    with 4 logical ranks on the one card:
@@ -25,8 +27,10 @@
    positions, 16 decode steps after each, every request finished, and
    the first prompt admitted again, whose greedy continuation must
    repeat.
-   Every kernel launch counter is set to 0 just before each path and
-   read just after.
+   Every kernel launch counter, the total and each variant's, is set to
+   0 just before each path and read just after: every GEMM-path launch
+   must be the ``pipelined`` variant and every prefill launch the
+   ``wgmma`` one.
 4. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -78,7 +82,7 @@ DECODE_STEPS = 16                   # reaches the flash kernel
 # ulps from rounding p (normalized in the dense version, per kv tile
 # in the kernel and the blockwise version); float32 the reference's
 # own bound (tests/test_pallas_parity.py)
-FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+FLASH_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 2e-5}
 # at the serving shape, with about 1000 visible keys per row, |o| is
 # near 0.04: 2e-2 would pass half of it.  Kernel and blockwise version
 # both round p per kv tile, and differ by 3.9e-3 at most there (H100
@@ -300,7 +304,13 @@ def kernel_phase(torch):
                            (m_ * k_ + k_ * n_ + m_ * n_) * 4 / HBM_BYTES_PER_S),
         bound_by="operations",
         library_ms=cuda_ms(torch, lambda: torch.mm(a, b, out=c), 5),
+        earlier_design_ms=cuda_ms(
+            torch, lambda: gemm_cuda(a, b, out=c, variant="tiled"), 5),
         shape=[m_, k_, n_])
+    print(f"gemm at {gemm['shape']}: pipelined {gemm['ms']:.4f} ms, the "
+          f"earlier tiled design {gemm['earlier_design_ms']:.4f} ms, plain "
+          f"{gemm['plain_ms']:.4f} ms, torch.mm {gemm['library_ms']:.4f} ms, "
+          f"bound {gemm['bound_ms']:.4f} ms")
     del a_full, a, b, c_full, c, cases
     torch.cuda.empty_cache()
     return jac, gemm
@@ -329,8 +339,8 @@ def flash_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.jnp_impl import \
         blockwise_attention
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_variant)
     from repro_torch.kernels.flash_attention.ref import dense_attention
     from repro_torch.models.lm import BIG_WINDOW
 
@@ -372,11 +382,15 @@ def flash_phase(torch):
                           tol=FLASH_MAIN_TOL, window=BIG_WINDOW)
 
     # -- small shapes, each feature, against the dense oracle -----------
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for name, shape, kw in (
                 ("window=16", (2, 100, 130, 4, 2, 64), dict(window=16)),
                 ("softcap=8", (2, 100, 130, 4, 2, 64), dict(softcap=8.0)),
                 ("Dh=Dv=64", (2, 257, 300, 8, 2, 64), {}),
+                ("Dh=Dv=128, T and S off the tiles",
+                 (2, 200, 300, 8, 2, 128), {}),
+                ("Dh=Dv=128 window=40 softcap=5",
+                 (1, 257, 513, 8, 2, 128), dict(window=40, softcap=5.0)),
                 ("Dh=Dv=256", (1, 130, 200, 4, 1, 256), {}),
                 ("Dh=192 Dv=128", (2, 70, 90, 4, 2, 192, 128), {})):
             q, k, v = inputs(dtype, *shape)
@@ -421,12 +435,16 @@ def flash_phase(torch):
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=cuda_ms(torch, sdpa, 20),
+        earlier_design_ms=cuda_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, qpos=qpos, window=BIG_WINDOW, variant="mma_sync"), 20),
         shape=[list(q.shape), list(k.shape)])
     print(f"flash at {tuple(q.shape)} x {tuple(k.shape)}: {flops:.4e} flops, "
-          f"{nbytes:.4e} bytes; kernel {flash['ms']:.4f} ms "
-          f"({flops / flash['ms'] / 1e9:.1f} TFLOP/s), bound "
-          f"{flash['bound_ms']:.4f} ms ({flash['bound_by']}), plain "
-          f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms")
+          f"{nbytes:.4e} bytes; kernel ({flash_variant(q.dtype, Dh, Dh)}) "
+          f"{flash['ms']:.4f} ms ({flops / flash['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * flash['bound_ms'] / flash['ms']:.1f}% of the bound), "
+          f"bound {flash['bound_ms']:.4f} ms ({flash['bound_by']}), plain "
+          f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms, "
+          f"the earlier mma_sync design {flash['earlier_design_ms']:.4f} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return flash
@@ -444,10 +462,18 @@ def _wrappers():
 def reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "by_variant"):
+            fn.by_variant = dict.fromkeys(fn.by_variant, 0)
 
 
 def read_launches():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_variants():
+    """Launches per variant of each kernel (the Jacobi source has one)."""
+    return {name: dict(getattr(fn, "by_variant", {"f32": fn.launches}))
+            for name, fn in _wrappers().items()}
 
 
 def jacobi_path(torch):
@@ -482,6 +508,7 @@ def jacobi_path(torch):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    variants = read_variants()
     steady = (ex.h2d_transfers - h2d, ex.d2h_transfers - d2h)
     kinds = sorted({k for _n, _b, arrs in rt.comm_log[-SWEEPS:]
                     for _a, k, _b in arrs})
@@ -506,7 +533,7 @@ def jacobi_path(torch):
     rt.close()
     del x, got, init
     torch.cuda.empty_cache()
-    return launches, 1e3 * dt / SWEEPS
+    return launches, variants, 1e3 * dt / SWEEPS
 
 
 def gemm_path(torch):
@@ -537,14 +564,19 @@ def gemm_path(torch):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = read_launches()
+    variants = read_variants()
     steady = (ex.h2d_transfers - h2d, ex.d2h_transfers - d2h)
     kinds1 = {a: k for _n, _b, arrs in rt.comm_log[-2:-1] for a, k, _b in arrs}
     print(f"gemm path: step 1 {1e3 * (t1 - t0):.3f} ms ({plan1.bytes_total} B "
           f"moved, kinds {kinds1}), step 2 {1e3 * (t2 - t1):.3f} ms "
           f"({plan2.bytes_total} B moved, cached plan {plan2.cached}) "
-          f"(host clock), launches {launches}, h2d/d2h {steady}")
+          f"(host clock), launches {launches}, by variant "
+          f"{variants['gemm_hd']}, h2d/d2h {steady}")
     check(launches["gemm_hd"] == 2 * NPROC,
           f"gemm launches {launches['gemm_hd']} != {2 * NPROC}")
+    check(variants["gemm_hd"] == {"tiled": 0, "pipelined": 2 * NPROC},
+          f"gemm path launches by variant {variants['gemm_hd']}: every one "
+          f"must be the pipelined kernel")
     check(kinds1.get("b") == "all_gather", f"gemm step 1 kinds {kinds1}")
     check(plan2.bytes_total == 0, "the second gemm moved bytes")
     check(steady == (0, 0), f"gemm steps crossed host<->device {steady}")
@@ -588,7 +620,7 @@ def gemm_path(torch):
     rt.close()
     del c64
     torch.cuda.empty_cache()
-    return launches, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+    return launches, variants, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
 
 
 def logits_finite(torch, eng) -> bool:
@@ -644,13 +676,15 @@ def serve_path(torch):
     prefill_ms, per_prefill, decode_ms, decode_tokens = [], [], [], 0
 
     def admit(prompt):
-        n0 = flash.launches
+        n0, w0 = flash.launches, flash.by_variant["wgmma"]
         torch.cuda.synchronize()
         t = time.perf_counter()
         sid = eng.add_request(prompt)
         torch.cuda.synchronize()
         prefill_ms.append(1e3 * (time.perf_counter() - t))
         per_prefill.append(flash.launches - n0)
+        check(flash.by_variant["wgmma"] - w0 == flash.launches - n0,
+              "a prefill launched another flash variant than wgmma")
         return sid
 
     def decode(n):
@@ -678,6 +712,7 @@ def serve_path(torch):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t_run
     launches = read_launches()
+    variants = read_variants()
     n_gen = len(streams[0]) - PROMPTS[0]
     print(f"serving path: prefill ms per admit {[round(x, 3) for x in prefill_ms]} "
           f"(prompts {list(PROMPTS)} then {PROMPTS[0]} again; host clock, "
@@ -687,11 +722,15 @@ def serve_path(torch):
           f"{decode_tokens} decode tokens in {sum(decode_ms) / 1e3:.3f} s = "
           f"{decode_tokens / (sum(decode_ms) / 1e3):.1f} tokens/s; whole run "
           f"{t_run:.3f} s; flash launches per prefill {per_prefill}; "
-          f"launches {launches}")
+          f"launches {launches}, flash by variant {variants['flash_attn_hd']}")
     check(per_prefill == [cfg.n_layers] * (len(PROMPTS) + 1),
           f"flash launches per prefill {per_prefill} != {cfg.n_layers}")
     check(launches["jacobi_hd"] == 0 and launches["gemm_hd"] == 0,
           "the serving path launched another path's kernel")
+    check(variants["flash_attn_hd"] == {
+        "ffma": 0, "mma_sync": 0, "wgmma": launches["flash_attn_hd"]},
+        f"serving flash launches by variant {variants['flash_attn_hd']}: "
+        f"every one must be the wgmma kernel")
     check(logits_finite(torch, eng), "non-finite logits on the serving path")
     same = again == streams[0]
     print(f"re-admitted prompt repeats its greedy continuation of {n_gen} "
@@ -708,7 +747,7 @@ def serve_path(torch):
                      eng.step, host_top=8)
     del eng
     torch.cuda.empty_cache()
-    return launches, prefill_ms, decode_ms
+    return launches, variants, prefill_ms, decode_ms
 
 
 def main() -> None:
@@ -741,10 +780,13 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     jac, gemm = kernel_phase(torch)
-    jac_launches, jac_step_ms = jacobi_path(torch)
-    gemm_launches, gemm_step1_ms, gemm_step2_ms = gemm_path(torch)
+    jac_launches, jac_variants, jac_step_ms = jacobi_path(torch)
+    gemm_launches, gemm_variants, gemm_step1_ms, gemm_step2_ms = \
+        gemm_path(torch)
     jac["launches"] = jac_launches["jacobi_hd"]
+    jac["launches_by_variant"] = jac_variants["jacobi_hd"]
     gemm["launches"] = gemm_launches["gemm_hd"]
+    gemm["launches_by_variant"] = gemm_variants["gemm_hd"]
     check(jac_launches["gemm_hd"] == 0 and gemm_launches["jacobi_hd"] == 0,
           "a path launched the other path's kernel")
     check(jac_launches["flash_attn_hd"] == 0
@@ -757,8 +799,10 @@ def main() -> None:
     print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB allocated")
     flash = flash_phase(torch)
-    serve_launches, _prefill_ms, _decode_ms = serve_path(torch)
+    serve_launches, serve_variants, _prefill_ms, _decode_ms = \
+        serve_path(torch)
     flash["launches"] = serve_launches["flash_attn_hd"]
+    flash["launches_by_variant"] = serve_variants["flash_attn_hd"]
     print(json.dumps({"kernels": [jac, gemm, flash]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 // forward of flash attention: o (B, T, Hq, Dv) from q (B, T, Hq, Dh),
 // k (B, S, Hkv, Dh), v (B, S, Hkv, Dv) and qpos (B, T).
 //
-// Replaces the TPU kernel `flash_attention_pallas` / `_fa_kernel` in
-// src/repro/kernels/flash_attention/kernel.py, and computes what it
-// computes: a blockwise online softmax with float32 m, l and acc;
+// Replaces the TPU kernel `flash_attention_pallas` / `_fa_kernel`
+// (src/repro/kernels/flash_attention/kernel.py:80), and computes what
+// it computes: a blockwise online softmax with float32 m, l and acc;
 // q.k in float32, times `scale`, then an optional tanh softcap; the
 // mask kpos <= qpos, kpos >= 0, qpos >= 0 and, with a window,
 // kpos > qpos - window; masked logits -1e30; p cast to v's dtype
@@ -12,46 +12,55 @@
 // write exactly 0; query head h reads kv head h / (Hq / Hkv); a qpos
 // of -1 marks a padding row.
 //
-// Bound on an H100: operations at the serving path's prefill shapes.
-// A 2048-token causal prefill does 4 * Dh flops for each of T(T+1)/2
-// unmasked pairs per head, about 1000 flops per byte of q, k, v and o
-// at Dh = 128, far above the card's 295 flops per byte in bf16; its
-// floor is the 989 TFLOP/s dense bf16 tensor-core peak.  Decode (one
-// query row) would be byte-bound, but decode runs the dense path.
+// Bound on an H100: operations.  The serving path's prefill, q (4,
+// 2048, 32, 128) against the (4, 4096, 4, 128) cache of a layer, does
+// 4 * Dh flops for each of 8,392,704 visible (query, key) pairs per
+// head: 1.3751e11 flops, 0.139 ms at the 989 TFLOP/s dense bf16
+// tensor-core peak, against 0.045 ms for its bytes.  Only wgmma
+// reaches that peak on Hopper.
 //
-// Design (bf16 and fp16): one block of 4 warps per (b, h, 64 query
-// rows), each warp owning 16 rows.  Q stays in shared memory; K and V
-// tiles of 64 keys (32 at head dims above 128) stream through two
-// shared-memory stages with cp.async, the next tile in flight while
-// the current one is used.  Rows are padded by 8 elements so ldmatrix
-// reads them free of bank conflicts: ldmatrix.x4 gives the A fragments
-// of q and the B fragments of k, ldmatrix.x4.trans those of v, so one
-// shared-memory instruction feeds two mma.sync m16n8k16 with float32
-// accumulation (a product of two bf16 values is exact in float32, so
-// this is the TPU kernel's math).  The scores stay in registers, in
-// the log2 domain, so each probability is one exp2 (p is rounded to
-// 16 bits before p.v, far coarser than the change of base); the mask
-// is applied only to the tiles where some row of the warp can miss a
-// key.  The online softmax reduces each row over the 4 threads of a
-// quad, and the probabilities are packed from the score accumulators
-// straight into the A fragments of p.v.  The kv loop runs only over the tiles
-// that hold a visible key: from the block's smallest query position
-// minus the window (when there is one) to its largest query position,
-// both read from qpos, never assumed to be arange; so a causal prefill
-// does about half the tiles and a padding block none.  Head dims are
-// padded with zeros to a compiled width of 64, 128 or 256.  mma.sync
-// reads every k and v fragment from shared memory once per warp, so
-// shared-memory bandwidth, not the tensor cores, bounds this design on
-// Hopper; wgmma (which reads B from shared memory once per warpgroup),
-// TMA and warp specialisation are later work.
+// Three variants, chosen by the caller (kernels/flash_attention/
+// kernel.py: flash_variant) and launched as asked or not at all:
 //
-// float32 inputs take a plain FFMA loop (blocks of 16 query rows, 32
-// keys), not TF32, which would miss the reference's 2e-5 bound.
+// * wgmma (bf16 and fp16 with Dh = Dv in {64, 128}, every serving
+//   prefill).  A block takes 128 query rows of one (b, query head)
+//   and has three warpgroups.  Warpgroup 2 is the producer: after
+//   setmaxnreg gives its registers to the others (24 / 240), one of its
+//   threads loads Q once and keeps two K/V stages of 64 keys in flight
+//   with TMA (4-d tensor maps over (Dh, heads, positions, batch) built
+//   per launch from the operands' strides, so a cache view goes in as
+//   it is; 128-byte swizzle; rows past S arrive as zeros), each
+//   completing on an mbarrier.  Warpgroups 0 and 1 own 64 query rows
+//   each.  S = Q K^T is wgmma m64n64k16 with both operands K-major in
+//   shared memory; O += P V is wgmma m64nDk16 with P in registers,
+//   packed from the score accumulators, and V read MN-major
+//   (transposed) from shared memory.  q k_i^T and p_{i-1} v_{i-1} are
+//   issued together; K's stage is freed as soon as its product is done,
+//   V's after the next.  The online softmax runs on the accumulator
+//   registers: rows reduced over the 4 threads that share one, log2
+//   domain, one ex2.approx per score, the mask applied only on tiles
+//   where a row of the warp can miss a key, as two 32-bit compares
+//   against per-row key bounds.  The softcap is a template argument.
+//   Waits sleep on their mbarrier instead of spinning.  The kv loop
+//   spans only the tiles that hold a visible key, from the block's own
+//   qpos range (never assumed to be arange).  Blocks run longest first
+//   (the query tile is the slow grid index, counted from the last), and
+//   the 8 heads of a GQA group are neighbours in the grid, so their K/V
+//   tiles come from L2.  Its time against the tensor-core bound, what
+//   still holds it back and what was tried against it are in PERF.md.
+// * mma_sync (other bf16/fp16 head dims): one block of 4 warps per
+//   64 query rows, mma.sync m16n8k16 fed by ldmatrix from a two-stage
+//   cp.async pipeline, head dims padded to 64, 128 or 256.
+// * ffma (float32): a plain FFMA loop (16 query rows, 32 keys per
+//   tile), not TF32, which would miss the reference's 2e-5 bound.
+#include <cuda.h>          // CUtensorMap; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -529,6 +538,611 @@ fa_f32_kernel(const Params p) {
   }
 }
 
+// ---- the wgmma variant ---------------------------------------------------
+namespace wg {
+
+constexpr int kConsumers = 2;                 // warpgroups of 64 query rows
+constexpr int kRows = 64 * kConsumers;        // query rows per block
+// 64 keys per stage: 128 would put the scores, the p fragments and the
+// output accumulator of two products in flight past what ptxas fits
+// without serialising the wgmmas (measured slower, PERF.md)
+constexpr int kKeys = 64;
+constexpr int kStages = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);   // the producer is last
+constexpr int kPanel = 64;      // head-dim elements in one 128-byte row
+
+// Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes).  A tile of R rows and
+// D = 64 c head-dim elements is c panels of R rows x 128 bytes: TMA
+// writes one panel per copy, and wgmma reads it through descriptors.
+template <int D>
+struct Layout {
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kKVBytes = kKeys * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQBytes;                    // + stage * kKVBytes
+  static constexpr int kV = kK + kStages * kKVBytes;    // + stage * kKVBytes
+  // mbarriers: Q full, then K full, V full, K free, V free [kStages]
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
+};
+
+__device__ __forceinline__ uint32_t bar_k(uint32_t bars, int s) {
+  return bars + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t bar_v(uint32_t bars, int s) {
+  return bars + 8 * (1 + kStages + s);
+}
+__device__ __forceinline__ uint32_t bar_k_free(uint32_t bars, int s) {
+  return bars + 8 * (1 + 2 * kStages + s);
+}
+__device__ __forceinline__ uint32_t bar_v_free(uint32_t bars, int s) {
+  return bars + 8 * (1 + 3 * kStages + s);
+}
+
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// the thread sleeps in the wait (up to the 10 ms hint) instead of
+// spinning and taking issue slots from the warps that compute
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity), "r"(10000000)
+      : "memory");
+  return done != 0;
+}
+// Waits until the phase of parity `parity` of the barrier has
+// completed.  Every wait here is for a copy or for one tile's work,
+// microseconds; one that outlasts 2^32 cycles (over 2 s) traps, so a
+// fault in the pipeline ends the launch with an error instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - start > (1ll << 32)) __trap();
+}
+
+// one box of a 4-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units, the latter two
+// in the high word.  K-major operands (Q, K) step 8-row groups by
+// 1024 bytes and ignore the leading offset; the MN-major V steps 8-key
+// groups by 1024 bytes and 64-column panels by kKeys * 128.  Shared
+// addresses stay under 256 KB, so an offset added to the low word never
+// carries into the other fields.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  const uint32_t lo = ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16);
+  const uint32_t hi = (1024u >> 4) | (1u << 30);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma uses across its issue or its wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// 2^x in one MUFU instruction; results under 2^-126 flush to 0, far
+// below what p keeps once it is rounded to 16 bits
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define WG_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+
+// D (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B^T (64 x 16,
+// shared, K-major); scale_d = 0 overwrites D
+#define WGMMA_SS_N64(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "              \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "          \
+  "%25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+// D (64 x N, f32) += A (64 x 16, registers) B (16 x N, shared, MN-major)
+#define WGMMA_RS_N128(TY)                                                 \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "              \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "          \
+  "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "          \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "          \
+  "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "          \
+  "%61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+#define WGMMA_RS_N64(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "              \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "          \
+  "%25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "            \
+  "%36, p, 1, 1, 1;\n}\n"
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_SS_N64("f16") : WG_D32 : "l"(da), "l"(db),
+                 "r"(scale_d));
+  else
+    asm volatile(WGMMA_SS_N64("bf16") : WG_D32 : "l"(da), "l"(db),
+                 "r"(scale_d));
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_RS_N128("f16") : WG_D64 : "r"(a[0]), "r"(a[1]),
+                 "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(WGMMA_RS_N128("bf16") : WG_D64 : "r"(a[0]), "r"(a[1]),
+                 "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_RS_N64("f16") : WG_D32 : "r"(a[0]), "r"(a[1]),
+                 "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(WGMMA_RS_N64("bf16") : WG_D32 : "r"(a[0]), "r"(a[1]),
+                 "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Issues s = q k^T for this warpgroup's 64 rows and the kKeys keys of a
+// K stage (D / 16 steps of k16) and commits it as one wgmma group.  The
+// descriptors are rebuilt from their base in every call, so the
+// compiler keeps two registers for them, not sixteen.
+template <typename T, int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
+                                         uint64_t q_desc, uint64_t k_desc) {
+  asm volatile("" : "+l"(q_desc), "+l"(k_desc));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<T>(sc, q_desc + (((kk / 4) * kRows * 128 + (kk % 4) * 32) >> 4),
+                k_desc + (((kk / 4) * kKeys * 128 + (kk % 4) * 32) >> 4),
+                kk > 0);
+  wgmma_commit();
+}
+
+// Issues acc += p v for a V stage (read MN-major, that is transposed)
+// with p in registers, keys 16 kk .. 16 kk + 15 in pf[4 kk .. 4 kk + 3],
+// and commits it as one wgmma group.
+template <typename T, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pf)[kKeys / 4],
+                                         uint64_t v_desc) {
+  asm volatile("" : "+l"(v_desc));
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    wgmma_rs<T>(acc, &pf[4 * kk], v_desc + ((kk * 16 * 128) >> 4));
+  wgmma_commit();
+}
+
+// One consumer thread's two rows: row g and g + 8 of its warp's 16
+// (accumulator element 4n + e is row g for e < 2, else g + 8, column
+// 8n + 2 tig + (e & 1)).  Row i sees exactly the keys in (lo_i, hi_i]:
+// hi = min(qpos, S - 1), or -1 for a padding row; lo = qpos - window
+// with a window, else -1, clamped to [-1, hi].
+struct Rows {
+  int lo0, hi0, lo1, hi1;
+  int full_lo, full_hi;   // a tile within [full_lo, full_hi] needs no mask
+  int tig;
+  float m0, m1, l0, l1;
+};
+
+__device__ __forceinline__ void row_bounds(int qp, const Params& p, int& lo,
+                                           int& hi) {
+  hi = qp < 0 ? -1 : min(qp, p.S - 1);
+  long long l = p.has_window && qp >= 0 ? (long long)qp - p.window : -1;
+  lo = (int)(l < -1 ? -1 : (l > hi ? hi : l));
+}
+
+// The online softmax of one tile, in place: sc holds q.k of the rows
+// against keys kv0 .. kv0 + kKeys - 1 on entry and p on exit; m and l
+// move on, and c0, c1 get the factors that rescale the rows' earlier
+// output.  The softcap is a template argument, so a launch without one
+// carries no tanh code (whose registers would crowd the wgmmas').
+template <bool kSoftcap>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2], int kv0,
+                                             Rows& r, const Params& p,
+                                             float scale_log2, float& c0,
+                                             float& c1) {
+  // scores in the log2 domain, softcapped, then masked where this
+  // warp's rows can miss a key of the tile
+  if (kSoftcap) {
+#pragma unroll
+    for (int j = 0; j < kKeys / 2; ++j)
+      sc[j] = tanhf(sc[j] * p.scale / p.softcap) * p.softcap * kLog2e;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kKeys / 2; ++j) sc[j] *= scale_log2;
+  }
+  int any0 = 1, any1 = 1;
+  if (kv0 < r.full_lo || kv0 + kKeys - 1 > r.full_hi) {
+    any0 = any1 = 0;
+    const int key0 = kv0 + r.tig * 2;
+#pragma unroll
+    for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + n * 8 + (e & 1);
+        const bool ok = e < 2 ? key > r.lo0 && key <= r.hi0
+                              : key > r.lo1 && key <= r.hi1;
+        sc[4 * n + e] = ok ? sc[4 * n + e] : kNegInf;
+        if (e < 2)
+          any0 |= ok;
+        else
+          any1 |= ok;
+      }
+  }
+  // row maxima and sums in two independent chains each (even and odd
+  // 8-column groups), so their latencies overlap
+  float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n) {
+    mx[n & 1] = fmaxf(mx[n & 1], fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx[2 + (n & 1)] = fmaxf(mx[2 + (n & 1)], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  float mx0 = fmaxf(mx[0], mx[1]), mx1 = fmaxf(mx[2], mx[3]);
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    any0 |= __shfl_xor_sync(0xffffffffu, any0, off);
+    any1 |= __shfl_xor_sync(0xffffffffu, any1, off);
+  }
+  const float mn0 = fmaxf(r.m0, mx0), mn1 = fmaxf(r.m1, mx1);
+  c0 = ex2(r.m0 - mn0);
+  c1 = ex2(r.m1 - mn1);
+  float rs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = (e < 2 ? any0 : any1)
+                           ? ex2(sc[4 * n + e] - (e < 2 ? mn0 : mn1))
+                           : 0.f;
+      rs[(e < 2 ? 0 : 2) + (n & 1)] += pe;
+      sc[4 * n + e] = pe;
+    }
+  float rs0 = rs[0] + rs[1], rs1 = rs[2] + rs[3];
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+  }
+  r.l0 = r.l0 * c0 + rs0;
+  r.l1 = r.l1 * c1 + rs1;
+  r.m0 = mn0;
+  r.m1 = mn1;
+}
+
+// p in T, packed from the score registers into the A fragments of p v
+template <typename T>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[kKeys / 4],
+                                       const float (&sc)[kKeys / 2]) {
+#pragma unroll
+  for (int j = 0; j < kKeys / 4; ++j)
+    pf[j] = Ops<T>::pack(sc[2 * j], sc[2 * j + 1]);
+}
+
+// one arrival per consumer warp, once the warp's wgmma reads are done
+__device__ __forceinline__ void release(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int qpos_s[kRows];
+  __shared__ int lo_s, hi_s;
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kBar;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // longest first
+  const int hk = h / (p.Hq / p.Hkv);
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(bars, s), 1);
+      mbar_init(bar_v(bars, s), 1);
+      // one arrival per consumer warp
+      mbar_init(bar_k_free(bars, s), 4 * kConsumers);
+      mbar_init(bar_v_free(bars, s), 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  long long key_begin, key_end;   // key_range's barriers publish the inits
+  key_range<kRows>(p, b, t0, qpos_s, &lo_s, &hi_s, &key_begin, &key_end);
+  const int tile_first = (int)(key_begin / kKeys);
+  const int n_tiles = (int)((key_end + kKeys - 1) / kKeys) - tile_first;
+
+  if (tid >= kConsumers * 128) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers * 128 && n_tiles > 0) {
+      mbar_expect_tx(bars, L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / kPanel; ++c)
+        tma_load_4d(base + L::kQ + c * kRows * 128, &tm_q, bars, c * kPanel,
+                    h, t0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t free_parity = ((i / kStages) & 1) ^ 1;
+        const int kv0 = (tile_first + i) * kKeys;
+        mbar_wait(bar_k_free(bars, s), free_parity);
+        mbar_expect_tx(bar_k(bars, s), L::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / kPanel; ++c)
+          tma_load_4d(base + L::kK + s * L::kKVBytes + c * kKeys * 128, &tm_k,
+                      bar_k(bars, s), c * kPanel, hk, kv0, b);
+        mbar_wait(bar_v_free(bars, s), free_parity);
+        mbar_expect_tx(bar_v(bars, s), L::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / kPanel; ++c)
+          tma_load_4d(base + L::kV + s * L::kKVBytes + c * kKeys * 128, &tm_v,
+                      bar_v(bars, s), c * kPanel, hk, kv0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int row0 = wgi * 64 + warp * 16 + (lane >> 2);   // and row0 + 8
+    Rows r;
+    row_bounds(qpos_s[row0], p, r.lo0, r.hi0);
+    row_bounds(qpos_s[row0 + 8], p, r.lo1, r.hi1);
+    // a tile needs no mask when every row of the warp sees all its
+    // keys: from the largest lo + 1 to the smallest hi of the 16 rows
+    {
+      int lo, hi;
+      row_bounds(qpos_s[wgi * 64 + warp * 16 + (lane & 15)], p, lo, hi);
+#pragma unroll
+      for (int off = 1; off <= 8; off <<= 1) {
+        lo = max(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = min(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      r.full_lo = lo + 1;
+      r.full_hi = hi;
+    }
+    r.tig = lane & 3;
+    r.m0 = r.m1 = kNegInf;
+    r.l0 = r.l1 = 0.f;
+    const float scale_log2 = p.scale * kLog2e;
+    const uint64_t q_desc = sw128_desc(base + L::kQ + wgi * 64 * 128, 16);
+    const uint64_t k_desc = sw128_desc(base + L::kK, 16);
+    const uint64_t v_desc = sw128_desc(base + L::kV, kKeys * 128);
+    constexpr uint32_t kStageStep = L::kKVBytes >> 4;   // in descriptor units
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    if (n_tiles > 0) {
+      float sc[kKeys / 2];
+      uint32_t pf[kKeys / 4];
+      float c0, c1;
+      // tile 0: s = q k^T and its p
+      mbar_wait(bars, 0);
+      mbar_wait(bar_k(bars, 0), 0);
+      wgmma_fence();
+      issue_qk<T, D>(sc, q_desc, k_desc);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(bar_k_free(bars, 0));
+      softmax_tile<kSoftcap>(sc, tile_first * kKeys, r, p, scale_log2, c0,
+                             c1);
+      pack_p<T>(pf, sc);
+      // tile i: q k_i^T and p_{i-1} v_{i-1} in flight together
+      for (int i = 1; i < n_tiles; ++i) {
+        const int s = i % kStages, sp = (i - 1) % kStages;
+        mbar_wait(bar_k(bars, s), (i / kStages) & 1);
+        mbar_wait(bar_v(bars, sp), ((i - 1) / kStages) & 1);
+        fence_regs(acc);
+        fence_regs(pf);
+        wgmma_fence();
+        issue_qk<T, D>(sc, q_desc, k_desc + s * kStageStep);
+        issue_pv<T, D>(acc, pf, v_desc + sp * kStageStep);
+        wgmma_wait<1>();               // q k_i^T is done
+        fence_regs(sc);
+        release(bar_k_free(bars, s));
+        softmax_tile<kSoftcap>(sc, (tile_first + i) * kKeys, r, p,
+                               scale_log2, c0, c1);
+        wgmma_wait<0>();               // p_{i-1} v_{i-1} is done
+        fence_regs(acc);
+        fence_regs(pf);
+        release(bar_v_free(bars, sp));
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= c0;
+          acc[4 * n + 1] *= c0;
+          acc[4 * n + 2] *= c1;
+          acc[4 * n + 3] *= c1;
+        }
+        pack_p<T>(pf, sc);
+      }
+      // the last tile's p v
+      const int s = (n_tiles - 1) % kStages;
+      mbar_wait(bar_v(bars, s), ((n_tiles - 1) / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(pf);
+      wgmma_fence();
+      issue_pv<T, D>(acc, pf, v_desc + s * kStageStep);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pf);
+    }
+
+    // o = acc / l, or 0 where no key was visible
+    T* ob = (T*)p.o + b * p.o_sb + h * p.o_sh;
+    const int r0 = t0 + row0, r1 = r0 + 8;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + r.tig * 2;
+      if (r0 < p.T)
+        *reinterpret_cast<uint32_t*>(ob + r0 * p.o_st + col) = Ops<T>::pack(
+            r.l0 > 0.f ? acc[4 * n] / r.l0 : 0.f,
+            r.l0 > 0.f ? acc[4 * n + 1] / r.l0 : 0.f);
+      if (r1 < p.T)
+        *reinterpret_cast<uint32_t*>(ob + r1 * p.o_st + col) = Ops<T>::pack(
+            r.l1 > 0.f ? acc[4 * n + 2] / r.l1 : 0.f,
+            r.l1 > 0.f ? acc[4 * n + 3] / r.l1 : 0.f);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library links against the CUDA runtime alone
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// Errors of the host-side set-up, returned negative so that they do not
+// collide with cudaError_t codes.
+constexpr int kNoEncoder = -1;        // the driver has no cuTensorMapEncodeTiled
+constexpr int kEncodeFailed = -1000;  // minus the CUresult
+
+// A 4-d map over (D, heads, positions, batch) of a 16-bit operand with
+// element strides (head, position, batch); boxes of 64 x 1 x rows x 1
+// with the 128-byte swizzle; boxes past the end read as zeros.
+int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+             int D, int heads, long long n, int batch, long long s_head,
+             long long s_pos, long long s_batch, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)(n > 0 ? n : 1),
+                              (cuuint64_t)batch};
+  const long long elem[3] = {s_head, s_pos, s_batch};
+  // a dim of extent 1 is never stepped along (the caller passes stride
+  // 0): give it the packed stride, which TMA accepts
+  cuuint64_t strides[3];
+  cuuint64_t span = (cuuint64_t)D * 2;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] > 1 ? (cuuint64_t)elem[i] * 2 : span;
+    span = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
+}
+
+}  // namespace wg
+
+template <typename T, int D>
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  constexpr CUtensorMapDataType type =
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long q_tiles = (p.T + wg::kRows - 1) / wg::kRows;
+  if (q_tiles > 65535 || (long long)p.B * p.Hq > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap mq, mk, mv;
+  int e = wg::make_map(&mq, p.q, type, D, p.Hq, p.T, p.B, p.q_sh, p.q_st,
+                       p.q_sb, wg::kRows);
+  if (e == 0)
+    e = wg::make_map(&mk, p.k, type, D, p.Hkv, p.S, p.B, p.k_sh, p.k_ss,
+                     p.k_sb, wg::kKeys);
+  if (e == 0)
+    e = wg::make_map(&mv, p.v, type, D, p.Hkv, p.S, p.B, p.v_sh, p.v_ss,
+                     p.v_sb, wg::kKeys);
+  if (e != 0) return e;
+  const int smem = wg::Layout<D>::kBytes + 1024;   // + the base's alignment
+  auto kern = p.softcap != 0.f ? wg::fa_wgmma_kernel<T, D, true>
+                               : wg::fa_wgmma_kernel<T, D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.B * p.Hq, (unsigned)q_tiles);
+  kern<<<grid, wg::kThreads, smem, stream>>>(mq, mk, mv, p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_mma(const Params& p, cudaStream_t stream) {
   constexpr int BN = D > 128 ? 32 : 64;
@@ -556,31 +1170,37 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
-int launch(int dtype, const Params& p, cudaStream_t stream) {
-  switch (dtype) {
-    case 0: return launch_f32<D>(p, stream);
-    case 1: return launch_mma<__nv_bfloat16, D>(p, stream);
-    case 2: return launch_mma<__half, D>(p, stream);
+int launch(int variant, int dtype, const Params& p, cudaStream_t stream) {
+  switch (variant * 3 + dtype) {
+    case 0 * 3 + 0: return launch_f32<D>(p, stream);
+    case 1 * 3 + 1: return launch_mma<__nv_bfloat16, D>(p, stream);
+    case 1 * 3 + 2: return launch_mma<__half, D>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// variant: 0 ffma (float32), 1 mma_sync, 2 wgmma (both 16-bit), as the
+// caller chose it; a variant that does not take these types or head
+// dims returns cudaErrorInvalidValue and launches nothing.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o alike).
 // strides: 14 element strides, (batch, position, head) of q, k, v and
 // o, then (batch, position) of qpos (int32); every last dim is
-// unit-stride.  has_window = 0 means causal only.  The compiled head
-// width is the smallest of 64, 128, 256 that holds max(Dh, Dv); the
-// caller checks Dh, Dv <= 256, multiples of 8, Hq % Hkv == 0, 16-byte
-// aligned rows for 16-bit types, and grid limits.
-// Returns cudaGetLastError() after the launch.
+// unit-stride.  has_window = 0 means causal only.  ffma and mma_sync
+// compile the head width as the smallest of 64, 128, 256 that holds
+// max(Dh, Dv); wgmma takes Dh = Dv = 64 or 128.  The caller checks
+// Dh, Dv <= 256, multiples of 8, Hq % Hkv == 0, 16-byte aligned rows
+// for 16-bit types, and grid limits.
+// Returns cudaGetLastError() after the launch, or a negative code when
+// a TMA tensor map could not be built (-1: no cuTensorMapEncodeTiled in
+// the driver; -1000 - r: it returned CUresult r).
 extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
-                             const int* qpos, void* o, int dtype, int B,
-                             int T, int S, int Hq, int Hkv, int Dh, int Dv,
-                             const long long* strides, float scale,
-                             float softcap, int has_window, long long window,
-                             void* stream) {
+                             const int* qpos, void* o, int variant,
+                             int dtype, int B, int T, int S, int Hq, int Hkv,
+                             int Dh, int Dv, const long long* strides,
+                             float scale, float softcap, int has_window,
+                             long long window, void* stream) {
   if (B <= 0 || T <= 0 || Hq <= 0) return 0;
   Params p{q, k, v, qpos, o, B, T, S, Hq, Hkv, Dh, Dv,
            strides[0], strides[1], strides[2], strides[3], strides[4],
@@ -588,8 +1208,17 @@ extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
            strides[10], strides[11], strides[12], strides[13],
            scale, softcap, has_window, window};
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 2) {
+    if (Dh != Dv || (Dh != 64 && Dh != 128) || dtype == 0)
+      return (int)cudaErrorInvalidValue;
+    if (Dh == 64)
+      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 64>(p, s)
+                        : launch_wgmma<__half, 64>(p, s);
+    return dtype == 1 ? launch_wgmma<__nv_bfloat16, 128>(p, s)
+                      : launch_wgmma<__half, 128>(p, s);
+  }
   const int width = Dh > Dv ? Dh : Dv;
-  if (width <= 64) return launch<64>(dtype, p, s);
-  if (width <= 128) return launch<128>(dtype, p, s);
-  return launch<256>(dtype, p, s);
+  if (width <= 64) return launch<64>(variant, dtype, p, s);
+  if (width <= 128) return launch<128>(variant, dtype, p, s);
+  return launch<256>(variant, dtype, p, s);
 }

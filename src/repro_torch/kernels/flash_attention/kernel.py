@@ -1,6 +1,15 @@
-"""Launch wrapper of the hand-written flash-attention kernel
+"""Launch wrapper of the hand-written flash-attention kernels
 (``repro_torch/csrc/flash_attn_hd.cu``), the port of the reference's
-``flash_attention_pallas``.  The library builds on the first launch."""
+``flash_attention_pallas``.  The library builds on the first launch.
+
+The source holds three variants; :func:`flash_variant` picks one from
+the dtype and head dims alone, and the wrapper launches it or raises:
+
+* ``"wgmma"``: bf16 and fp16 with ``Dh == Dv`` in {64, 128}, every
+  serving prefill (warp-specialised, TMA-fed wgmma);
+* ``"mma_sync"``: the other bf16 and fp16 head dims;
+* ``"ffma"``: float32 (IEEE FFMA, no TF32).
+"""
 from __future__ import annotations
 
 import ctypes
@@ -12,14 +21,50 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+VARIANTS = ("ffma", "mma_sync", "wgmma")     # the source's variant codes
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1
+
+
+def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
+    """The kernel variant that computes attention for these operand
+    types and head dims."""
+    if dtype == torch.float32:
+        return "ffma"
+    if Dh == Dv and Dh in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "mma_sync"
+
+
+def resolve_variant(variant: Optional[str], dtype: torch.dtype, Dh: int,
+                    Dv: int, T: int) -> str:
+    """``variant``, or :func:`flash_variant`'s choice when it is None;
+    raises if that kernel does not take these operands."""
+    chosen = flash_variant(dtype, Dh, Dv)
+    variant = variant or chosen
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown flash variant {variant!r}; one of "
+                         f"{VARIANTS}")
+    if (variant == "ffma") != (dtype == torch.float32) or (
+            variant == "wgmma" and chosen != "wgmma"):
+        raise ValueError(f"flash variant {variant!r} does not take "
+                         f"{dtype} with Dh={Dh}, Dv={Dv}")
+    if variant == "wgmma" and -(-T // WGMMA_ROWS) > 65535:
+        raise ValueError(f"flash_attention_cuda's wgmma variant takes T up "
+                         f"to {65535 * WGMMA_ROWS}, got {T}")
+    return variant
+
+
+# flash_attn_hd's C parameters, in order
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p]
 
 
 def _entry():
     fn = build.load("flash_attn_hd").flash_attn_hd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -42,10 +87,16 @@ def _strides(t: torch.Tensor, name: str, align: int):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, qpos: torch.Tensor, window: Optional[int] = None,
                          softcap: float = 0.0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         variant: Optional[str] = None) -> torch.Tensor:
     """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
     query positions, -1 for padding (kv position of slot s is s).
     Returns a new (B,T,Hq,Dv) tensor of q's dtype.
+
+    ``variant`` (default :func:`flash_variant`'s choice) names the
+    kernel to launch; one that does not take these types or head dims
+    raises.  Launches are counted in ``flash_attention_cuda.launches``
+    and, by variant, in ``flash_attention_cuda.by_variant``.
 
     q, k and v share one dtype, float32, bfloat16 or float16, on one
     CUDA device; any strides with a unit-stride last dim (a view of a
@@ -78,6 +129,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(B, Hq) > 65535 or max(T, S) > _INT32_MAX:
         raise ValueError("flash_attention_cuda grid limits: B and Hq up to "
                          "65535, T and S under 2**31")
+    variant = resolve_variant(variant, q.dtype, Dh, Dv, T)
     align = 8 if q.dtype != torch.float32 else 1
     out = torch.empty((B, T, Hq, Dv), dtype=q.dtype, device=q.device)
     if T == 0:
@@ -92,15 +144,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh, Dv,
+            out.data_ptr(), VARIANTS.index(variant), _DTYPES[q.dtype], B,
+            T, S, Hq, Hkv, Dh, Dv,
             ctypes.addressof(strides),
             float(scale), float(softcap or 0.0), int(window is not None),
             window or 0, torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(
+            f"flash_attn_hd ({variant}) could not build a TMA tensor map: "
+            + ("the driver has no cuTensorMapEncodeTiled" if err == -1 else
+               f"cuTensorMapEncodeTiled returned CUresult {-1000 - err}"))
     if err:
-        raise RuntimeError(f"flash_attn_hd launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attn_hd ({variant}) launch failed with "
+                           f"CUDA error {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.by_variant[variant] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.by_variant = dict.fromkeys(VARIANTS, 0)

@@ -1,6 +1,14 @@
 """Launch wrapper of the hand-written GEMM (``repro_torch/csrc/gemm_hd.cu``),
 the port of the reference's ``gemm_pallas``.  The library builds on the
-first launch."""
+first launch.
+
+The source holds two variants; :func:`gemm_variant` picks one from the
+operand types alone, and the wrapper launches it or raises:
+
+* ``"pipelined"``: float32 in and out, the main path (a two-stage,
+  16-byte-fed FFMA kernel);
+* ``"tiled"``: any bfloat16 input or output (the first design).
+"""
 from __future__ import annotations
 
 import ctypes
@@ -11,15 +19,43 @@ import torch
 from repro_torch.kernels import build
 
 _TYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("tiled", "pipelined")       # the source's variant codes
+
+
+def gemm_variant(in_dtype: torch.dtype, out_dtype: torch.dtype) -> str:
+    """The kernel variant that computes a product of ``in_dtype``
+    operands into ``out_dtype``."""
+    if in_dtype == torch.float32 and out_dtype == torch.float32:
+        return "pipelined"
+    return "tiled"
+
+
+def resolve_variant(variant: Optional[str], in_dtype: torch.dtype,
+                    out_dtype: torch.dtype) -> str:
+    """``variant``, or :func:`gemm_variant`'s choice when it is None;
+    raises if that kernel does not take these types."""
+    chosen = gemm_variant(in_dtype, out_dtype)
+    variant = variant or chosen
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown gemm variant {variant!r}; one of "
+                         f"{VARIANTS}")
+    if variant == "pipelined" and chosen != variant:
+        raise ValueError(f"gemm variant 'pipelined' takes float32 only, got "
+                         f"{in_dtype} -> {out_dtype}")
+    return variant
+
+
+# gemm_hd's C parameters, in order
+ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
 
 
 def _entry():
     fn = build.load("gemm_hd").gemm_hd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -60,13 +96,19 @@ def product_out(a: torch.Tensor, b: torch.Tensor,
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
               out_dtype: Optional[torch.dtype] = None,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None,
+              variant: Optional[str] = None) -> torch.Tensor:
     """``alpha * a (M, K) @ b (K, N)`` on the card with float32
     accumulation.  ``a`` and ``b`` are both float32 or both bfloat16
     with contiguous rows (a row band of a larger buffer is fine).  The
     result goes into ``out`` (contiguous rows, any row pitch; default a
     new tensor of ``out_dtype``, itself defaulting to ``a.dtype``),
-    which is returned; float32 and bfloat16 outputs are built."""
+    which is returned; float32 and bfloat16 outputs are built.
+
+    ``variant`` (default :func:`gemm_variant`'s choice) names the kernel
+    to launch; ``"pipelined"`` takes float32 only.  Launches are counted
+    in ``gemm_cuda.launches`` and, by variant, in
+    ``gemm_cuda.by_variant``."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError("gemm_cuda needs both operands on one CUDA device")
     out = product_out(a, b, out_dtype, out)
@@ -76,6 +118,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
     (M, K), N = a.shape, b.shape[1]
     if max(M, N, K) >= 2 ** 31:
         raise ValueError("gemm_cuda dimensions must fit in 32 bits")
+    variant = resolve_variant(variant, a.dtype, out.dtype)
     lda, ldb, ldc = _pitch(a, "a"), _pitch(b, "b"), _pitch(out, "out")
     if M == 0 or N == 0:
         return out
@@ -84,11 +127,15 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
                        lda, ldb, ldc, float(alpha),
                        int(a.dtype == torch.bfloat16),
                        int(out.dtype == torch.bfloat16),
+                       VARIANTS.index(variant),
                        torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"gemm_hd launch failed with CUDA error {err}")
+        raise RuntimeError(f"gemm_hd ({variant}) launch failed with CUDA "
+                           f"error {err}")
     gemm_cuda.launches += 1
+    gemm_cuda.by_variant[variant] += 1
     return out
 
 
 gemm_cuda.launches = 0
+gemm_cuda.by_variant = dict.fromkeys(VARIANTS, 0)

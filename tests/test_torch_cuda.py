@@ -256,6 +256,133 @@ def test_flash_cuda_counts_launches_and_rejects_bad_input(cuda):
 
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", [
+    dict(T=128, S=128), dict(T=200, S=300), dict(T=257, S=513, window=40),
+    dict(T=100, S=130, softcap=8.0), dict(T=96, S=80, qpos="ragged"),
+    dict(T=150, S=330, qpos="ragged", window=9, softcap=5.0)])
+def test_flash_wgmma_variant_matches_dense(cuda, dtype, D, case):
+    """The wgmma + TMA kernel on the head dims it takes, with T and S off
+    its 128-row and 64-key tiles, ragged qpos with padding rows, windows
+    and softcaps, k and v as strided views of one interleaved cache;
+    against the dense oracle and against the earlier mma_sync kernel on
+    the same inputs."""
+    case = dict(case)
+    window, softcap = case.pop("window", None), case.pop("softcap", 0.0)
+    q, k, v, qpos = _flash_inputs(cuda, dtype, B=2, Hq=8, Hkv=2, Dh=D,
+                                  **case)
+    assert k.stride(1) == 2 * 2 * D            # interleaved k and v rows
+    n0 = flash_kernel.flash_attention_cuda.by_variant["wgmma"]
+    got = flash_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
+    want = dense_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    earlier = flash_kernel.flash_attention_cuda(
+        q, k, v, qpos=qpos, window=window, softcap=softcap,
+        variant="mma_sync")
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), earlier.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_wgmma_extent_one_dims_and_strided_q(cuda):
+    """One batch and one kv head (dims whose stride the wrapper passes
+    as 0; the tensor maps take the packed stride) and q as a strided
+    view of a wider buffer."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    wide = torch.randn((1, 130, 4, 256), generator=g, device=cuda)
+    q = wide.bfloat16()[..., 64:192]               # strides (.., 1024, 256, 1)
+    kv = torch.randn((1, 200, 2, 1, 128), generator=g,
+                     device=cuda).bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    qpos = torch.arange(70, 200, dtype=torch.int32, device=cuda)[None]
+    n0 = flash_kernel.flash_attention_cuda.by_variant["wgmma"]
+    got = flash_attention(q, k, v, qpos=qpos, window=50)
+    assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
+    want = dense_attention(q, k, v, qpos=qpos, window=50)
+    tol = _FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_fully_masked_rows_are_zero(cuda, dtype):
+    q, k, v, _ = _flash_inputs(cuda, dtype, T=300, S=200, Dh=128)
+    qpos = torch.arange(300, dtype=torch.int32, device=cuda).repeat(2, 1)
+    qpos[0, 5:140] = -1                      # padding, across two blocks
+    qpos[1, 130:140] = 400                   # window 4: keys 397..400 > S
+    out = flash_kernel.flash_attention_cuda(q, k, v, qpos=qpos, window=4)
+    assert torch.equal(out[0, 5:140], torch.zeros_like(out[0, 5:140]))
+    assert torch.equal(out[1, 130:140], torch.zeros_like(out[1, 130:140]))
+    assert bool(out[0, :5].abs().sum() > 0)
+    assert bool(out[1, 140:].abs().sum() > 0)
+
+
+def test_flash_cuda_counts_launches_by_variant(cuda):
+    fn = flash_kernel.flash_attention_cuda
+    fn.launches = 0
+    fn.by_variant = dict.fromkeys(fn.by_variant, 0)
+    for dtype, D, Dv in ((torch.bfloat16, 128, 128), (torch.float16, 64, 64),
+                         (torch.bfloat16, 256, 256), (torch.float32, 128, 128),
+                         (torch.bfloat16, 192, 128)):
+        q, k, v, qpos = _flash_inputs(cuda, dtype, Dh=D, Dv=Dv)
+        flash_attention(q, k, v, qpos=qpos)
+    q, k, v, qpos = _flash_inputs(cuda, torch.bfloat16, Dh=128)
+    with pytest.raises(ValueError, match="does not take"):
+        fn(q.float(), k.float(), v.float(), qpos=qpos, variant="wgmma")
+    assert fn.by_variant == {"ffma": 1, "mma_sync": 2, "wgmma": 2}
+    assert fn.launches == 5
+
+
+_RAGGED = (1, 127, 129, 1000)
+
+
+@pytest.mark.parametrize("M, K, N", [
+    (1, 1, 1), (127, 129, 1000), (129, 1000, 127), (1000, 127, 129),
+    (1000, 1000, 1), (1, 1000, 129), (129, 127, 1000), (1000, 129, 127)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)])
+def test_gemm_cuda_ragged_pitched_bands(cuda, M, K, N, dtypes):
+    """Ragged M, N and K, A a band of a wider buffer (pitch and offset
+    off 16 bytes), C written through a wider pitch with alpha; float32
+    takes the pipelined kernel, the bf16 builds the tiled one."""
+    assert {M, K, N} <= set(_RAGGED)
+    din, dout = dtypes
+    g = torch.Generator(device=cuda).manual_seed(M + 7 * K + 13 * N)
+    a = torch.randn((M + 2, K + 3), generator=g, device=cuda).to(din)[
+        1:1 + M, 2:2 + K]
+    b = torch.randn((K, N), generator=g, device=cuda).to(din)
+    dst = torch.full((M + 4, N + 5), 3.0, dtype=dout, device=cuda)
+    band = dst[2:2 + M, 1:1 + N]
+    variant = gemm_kernel.gemm_variant(din, dout)
+    n0 = gemm_kernel.gemm_cuda.by_variant[variant]
+    assert gemm(a, b, alpha=0.75, out=band) is band
+    assert gemm_kernel.gemm_cuda.by_variant[variant] == n0 + 1
+    o = 0.75 * (a.double() @ b.double())
+    tol = 5e-5 if dout == torch.float32 else 4e-3
+    assert float(torch.linalg.norm(band.double() - o)
+                 / torch.linalg.norm(o)) <= tol
+    dst[2:2 + M, 1:1 + N] = 3.0
+    assert torch.equal(dst, torch.full_like(dst, 3.0))
+
+
+def test_gemm_cuda_variants_agree_and_count(cuda):
+    """The pipelined and tiled kernels sum each output's K products in
+    the same order with fmaf: on aligned tiles, ragged edges and odd
+    pitches they agree bit for bit; counts follow the variant."""
+    fn = gemm_kernel.gemm_cuda
+    fn.by_variant = dict.fromkeys(fn.by_variant, 0)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for M, K, N in ((256, 512, 384), (300, 1100, 257), (129, 1000, 127)):
+        a = torch.randn((M, K), generator=g, device=cuda)
+        b = torch.randn((K, N), generator=g, device=cuda)
+        assert torch.equal(fn(a, b, alpha=1.25),
+                           fn(a, b, alpha=1.25, variant="tiled"))
+    with pytest.raises(ValueError, match="float32 only"):
+        fn(a.bfloat16(), b.bfloat16(), variant="pipelined")
+    assert fn.by_variant == {"tiled": 3, "pipelined": 3}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
