@@ -6,9 +6,7 @@
 1. Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and holds each against its
    plain PyTorch version on the card, at the main path's shapes and at
-   ragged ones, timing kernel, plain version and library call, and the
-   earlier design of each redesigned kernel (the GEMM's ``tiled``,
-   flash attention's ``mma_sync`` variant) at the same shape.
+   ragged ones, timing kernel, plain version and library call.
 2. Drives the main path, HDArrayRuntime -> planner -> TorchExecutor ->
    kernels, at the paper's problem sizes (benchmarks/paper_programs.py)
    with 4 logical ranks on the one card:
@@ -304,11 +302,8 @@ def kernel_phase(torch):
                            (m_ * k_ + k_ * n_ + m_ * n_) * 4 / HBM_BYTES_PER_S),
         bound_by="operations",
         library_ms=cuda_ms(torch, lambda: torch.mm(a, b, out=c), 5),
-        earlier_design_ms=cuda_ms(
-            torch, lambda: gemm_cuda(a, b, out=c, variant="tiled"), 5),
         shape=[m_, k_, n_])
-    print(f"gemm at {gemm['shape']}: pipelined {gemm['ms']:.4f} ms, the "
-          f"earlier tiled design {gemm['earlier_design_ms']:.4f} ms, plain "
+    print(f"gemm at {gemm['shape']}: pipelined {gemm['ms']:.4f} ms, plain "
           f"{gemm['plain_ms']:.4f} ms, torch.mm {gemm['library_ms']:.4f} ms, "
           f"bound {gemm['bound_ms']:.4f} ms")
     del a_full, a, b, c_full, c, cases
@@ -435,16 +430,13 @@ def flash_phase(torch):
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=cuda_ms(torch, sdpa, 20),
-        earlier_design_ms=cuda_ms(torch, lambda: flash_attention_cuda(
-            q, k, v, qpos=qpos, window=BIG_WINDOW, variant="mma_sync"), 20),
         shape=[list(q.shape), list(k.shape)])
     print(f"flash at {tuple(q.shape)} x {tuple(k.shape)}: {flops:.4e} flops, "
           f"{nbytes:.4e} bytes; kernel ({flash_variant(q.dtype, Dh, Dh)}) "
           f"{flash['ms']:.4f} ms ({flops / flash['ms'] / 1e9:.1f} TFLOP/s, "
           f"{100 * flash['bound_ms'] / flash['ms']:.1f}% of the bound), "
           f"bound {flash['bound_ms']:.4f} ms ({flash['bound_by']}), plain "
-          f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms, "
-          f"the earlier mma_sync design {flash['earlier_design_ms']:.4f} ms")
+          f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return flash

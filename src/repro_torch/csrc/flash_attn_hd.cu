@@ -1181,9 +1181,10 @@ int launch(int variant, int dtype, const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// variant: 0 ffma (float32), 1 mma_sync, 2 wgmma (both 16-bit), as the
-// caller chose it; a variant that does not take these types or head
-// dims returns cudaErrorInvalidValue and launches nothing.
+// variant: 0 ffma (float32), 1 mma_sync (16-bit, head dims wgmma does
+// not take), 2 wgmma (16-bit, Dh = Dv in {64, 128}), as the caller chose
+// it from the types and head dims; any other pairing returns
+// cudaErrorInvalidValue and launches nothing.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o alike).
 // strides: 14 element strides, (batch, position, head) of q, k, v and
 // o, then (batch, position) of qpos (int32); every last dim is
@@ -1208,9 +1209,10 @@ extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
            strides[10], strides[11], strides[12], strides[13],
            scale, softcap, has_window, window};
   cudaStream_t s = (cudaStream_t)stream;
+  const bool wgmma_dims = Dh == Dv && (Dh == 64 || Dh == 128);
+  if ((variant == 2) != (dtype != 0 && wgmma_dims))
+    return (int)cudaErrorInvalidValue;
   if (variant == 2) {
-    if (Dh != Dv || (Dh != 64 && Dh != 128) || dtype == 0)
-      return (int)cudaErrorInvalidValue;
     if (Dh == 64)
       return dtype == 1 ? launch_wgmma<__nv_bfloat16, 64>(p, s)
                         : launch_wgmma<__half, 64>(p, s);

@@ -286,9 +286,9 @@ void launch(const void* a, const void* b, void* c, int M, int N, int K,
 
 }  // namespace
 
-// variant: 0 tiled, 1 pipelined (float32 in and out only), as the
-// caller chose it; a variant that does not take these types returns
-// cudaErrorInvalidValue and launches nothing.  a: (M, K) rows of pitch
+// variant: 0 tiled (any bfloat16 input or output), 1 pipelined
+// (float32 in and out), as the caller chose it from the types; any
+// other pairing returns cudaErrorInvalidValue and launches nothing.  a: (M, K) rows of pitch
 // lda; b: (K, N) rows of pitch ldb; c: (M, N) rows of pitch ldc.
 // in_bf16 / out_bf16 select bfloat16 over float32.
 // Returns cudaGetLastError() after the launch.
@@ -308,17 +308,13 @@ extern "C" int gemm_hd(const void* a, const void* b, void* c, int M, int N,
         alpha);
     return (int)cudaGetLastError();
   }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  if (in_bf16) {
-    if (out_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
-    else
-      launch<__nv_bfloat16, float>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
-  } else {
-    if (out_bf16)
-      launch<float, __nv_bfloat16>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
-    else
-      launch<float, float>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
-  }
+  if (variant != 0 || !(in_bf16 || out_bf16))
+    return (int)cudaErrorInvalidValue;
+  if (!in_bf16)
+    launch<float, __nv_bfloat16>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
+  else if (out_bf16)
+    launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
+  else
+    launch<__nv_bfloat16, float>(a, b, c, M, N, K, lda, ldb, ldc, alpha, s);
   return (int)cudaGetLastError();
 }

@@ -37,25 +37,6 @@ def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     return "mma_sync"
 
 
-def resolve_variant(variant: Optional[str], dtype: torch.dtype, Dh: int,
-                    Dv: int, T: int) -> str:
-    """``variant``, or :func:`flash_variant`'s choice when it is None;
-    raises if that kernel does not take these operands."""
-    chosen = flash_variant(dtype, Dh, Dv)
-    variant = variant or chosen
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown flash variant {variant!r}; one of "
-                         f"{VARIANTS}")
-    if (variant == "ffma") != (dtype == torch.float32) or (
-            variant == "wgmma" and chosen != "wgmma"):
-        raise ValueError(f"flash variant {variant!r} does not take "
-                         f"{dtype} with Dh={Dh}, Dv={Dv}")
-    if variant == "wgmma" and -(-T // WGMMA_ROWS) > 65535:
-        raise ValueError(f"flash_attention_cuda's wgmma variant takes T up "
-                         f"to {65535 * WGMMA_ROWS}, got {T}")
-    return variant
-
-
 # flash_attn_hd's C parameters, in order
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -87,16 +68,14 @@ def _strides(t: torch.Tensor, name: str, align: int):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, qpos: torch.Tensor, window: Optional[int] = None,
                          softcap: float = 0.0,
-                         scale: Optional[float] = None,
-                         variant: Optional[str] = None) -> torch.Tensor:
+                         scale: Optional[float] = None) -> torch.Tensor:
     """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
     query positions, -1 for padding (kv position of slot s is s).
     Returns a new (B,T,Hq,Dv) tensor of q's dtype.
 
-    ``variant`` (default :func:`flash_variant`'s choice) names the
-    kernel to launch; one that does not take these types or head dims
-    raises.  Launches are counted in ``flash_attention_cuda.launches``
-    and, by variant, in ``flash_attention_cuda.by_variant``.
+    :func:`flash_variant` picks the kernel.  Launches are counted in
+    ``flash_attention_cuda.launches`` and, by variant, in
+    ``flash_attention_cuda.by_variant``.
 
     q, k and v share one dtype, float32, bfloat16 or float16, on one
     CUDA device; any strides with a unit-stride last dim (a view of a
@@ -129,7 +108,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(B, Hq) > 65535 or max(T, S) > _INT32_MAX:
         raise ValueError("flash_attention_cuda grid limits: B and Hq up to "
                          "65535, T and S under 2**31")
-    variant = resolve_variant(variant, q.dtype, Dh, Dv, T)
+    variant = flash_variant(q.dtype, Dh, Dv)
+    if variant == "wgmma" and -(-T // WGMMA_ROWS) > 65535:
+        raise ValueError(f"flash_attention_cuda's wgmma variant takes T up "
+                         f"to {65535 * WGMMA_ROWS}, got {T}")
     align = 8 if q.dtype != torch.float32 else 1
     out = torch.empty((B, T, Hq, Dv), dtype=q.dtype, device=q.device)
     if T == 0:

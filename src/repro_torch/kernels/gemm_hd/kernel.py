@@ -30,21 +30,6 @@ def gemm_variant(in_dtype: torch.dtype, out_dtype: torch.dtype) -> str:
     return "tiled"
 
 
-def resolve_variant(variant: Optional[str], in_dtype: torch.dtype,
-                    out_dtype: torch.dtype) -> str:
-    """``variant``, or :func:`gemm_variant`'s choice when it is None;
-    raises if that kernel does not take these types."""
-    chosen = gemm_variant(in_dtype, out_dtype)
-    variant = variant or chosen
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown gemm variant {variant!r}; one of "
-                         f"{VARIANTS}")
-    if variant == "pipelined" and chosen != variant:
-        raise ValueError(f"gemm variant 'pipelined' takes float32 only, got "
-                         f"{in_dtype} -> {out_dtype}")
-    return variant
-
-
 # gemm_hd's C parameters, in order
 ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -96,8 +81,7 @@ def product_out(a: torch.Tensor, b: torch.Tensor,
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
               out_dtype: Optional[torch.dtype] = None,
-              out: Optional[torch.Tensor] = None,
-              variant: Optional[str] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``alpha * a (M, K) @ b (K, N)`` on the card with float32
     accumulation.  ``a`` and ``b`` are both float32 or both bfloat16
     with contiguous rows (a row band of a larger buffer is fine).  The
@@ -105,10 +89,8 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
     new tensor of ``out_dtype``, itself defaulting to ``a.dtype``),
     which is returned; float32 and bfloat16 outputs are built.
 
-    ``variant`` (default :func:`gemm_variant`'s choice) names the kernel
-    to launch; ``"pipelined"`` takes float32 only.  Launches are counted
-    in ``gemm_cuda.launches`` and, by variant, in
-    ``gemm_cuda.by_variant``."""
+    :func:`gemm_variant` picks the kernel.  Launches are counted in
+    ``gemm_cuda.launches`` and, by variant, in ``gemm_cuda.by_variant``."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError("gemm_cuda needs both operands on one CUDA device")
     out = product_out(a, b, out_dtype, out)
@@ -118,7 +100,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
     (M, K), N = a.shape, b.shape[1]
     if max(M, N, K) >= 2 ** 31:
         raise ValueError("gemm_cuda dimensions must fit in 32 bits")
-    variant = resolve_variant(variant, a.dtype, out.dtype)
+    variant = gemm_variant(a.dtype, out.dtype)
     lda, ldb, ldc = _pitch(a, "a"), _pitch(b, "b"), _pitch(out, "out")
     if M == 0 or N == 0:
         return out

@@ -266,8 +266,7 @@ def test_flash_wgmma_variant_matches_dense(cuda, dtype, D, case):
     """The wgmma + TMA kernel on the head dims it takes, with T and S off
     its 128-row and 64-key tiles, ragged qpos with padding rows, windows
     and softcaps, k and v as strided views of one interleaved cache;
-    against the dense oracle and against the earlier mma_sync kernel on
-    the same inputs."""
+    against the dense oracle."""
     case = dict(case)
     window, softcap = case.pop("window", None), case.pop("softcap", 0.0)
     q, k, v, qpos = _flash_inputs(cuda, dtype, B=2, Hq=8, Hkv=2, Dh=D,
@@ -277,13 +276,8 @@ def test_flash_wgmma_variant_matches_dense(cuda, dtype, D, case):
     got = flash_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
     assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
     want = dense_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
-    earlier = flash_kernel.flash_attention_cuda(
-        q, k, v, qpos=qpos, window=window, softcap=softcap,
-        variant="mma_sync")
     tol = _FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(got.float(), earlier.float(), rtol=tol,
-                               atol=tol)
 
 
 def test_flash_wgmma_extent_one_dims_and_strided_q(cuda):
@@ -326,9 +320,6 @@ def test_flash_cuda_counts_launches_by_variant(cuda):
                          (torch.bfloat16, 192, 128)):
         q, k, v, qpos = _flash_inputs(cuda, dtype, Dh=D, Dv=Dv)
         flash_attention(q, k, v, qpos=qpos)
-    q, k, v, qpos = _flash_inputs(cuda, torch.bfloat16, Dh=128)
-    with pytest.raises(ValueError, match="does not take"):
-        fn(q.float(), k.float(), v.float(), qpos=qpos, variant="wgmma")
     assert fn.by_variant == {"ffma": 1, "mma_sync": 2, "wgmma": 2}
     assert fn.launches == 5
 
@@ -366,21 +357,22 @@ def test_gemm_cuda_ragged_pitched_bands(cuda, M, K, N, dtypes):
     assert torch.equal(dst, torch.full_like(dst, 3.0))
 
 
-def test_gemm_cuda_variants_agree_and_count(cuda):
-    """The pipelined and tiled kernels sum each output's K products in
-    the same order with fmaf: on aligned tiles, ragged edges and odd
-    pitches they agree bit for bit; counts follow the variant."""
+def test_gemm_cuda_counts_launches_by_variant(cuda):
+    """float32 products launch the pipelined kernel on aligned tiles,
+    ragged edges and odd pitches alike; any bfloat16 operand or output
+    launches the tiled one."""
     fn = gemm_kernel.gemm_cuda
     fn.by_variant = dict.fromkeys(fn.by_variant, 0)
     g = torch.Generator(device=cuda).manual_seed(9)
     for M, K, N in ((256, 512, 384), (300, 1100, 257), (129, 1000, 127)):
         a = torch.randn((M, K), generator=g, device=cuda)
         b = torch.randn((K, N), generator=g, device=cuda)
-        assert torch.equal(fn(a, b, alpha=1.25),
-                           fn(a, b, alpha=1.25, variant="tiled"))
-    with pytest.raises(ValueError, match="float32 only"):
-        fn(a.bfloat16(), b.bfloat16(), variant="pipelined")
-    assert fn.by_variant == {"tiled": 3, "pipelined": 3}
+        o = 1.25 * (a.double() @ b.double())
+        got = fn(a, b, alpha=1.25).double()
+        assert float(torch.linalg.norm(got - o) / torch.linalg.norm(o)) <= 5e-5
+    fn(a.bfloat16(), b.bfloat16())
+    fn(a, b, out_dtype=torch.bfloat16)
+    assert fn.by_variant == {"tiled": 2, "pipelined": 3}
 
 
 def _tree_to(tree, device):

@@ -3,9 +3,9 @@
 Each CUDA source holds more than one kernel; a plain Python function
 picks the variant from the operand types and head dims, and the
 wrapper launches that kernel or raises.  These tests hold the choice,
-the checks on an explicitly requested variant, the per-variant launch
-counters, and the ctypes argument lists against the C entry points in
-``src/repro_torch/csrc`` (the kernels themselves run only on a card:
+the ctypes argument lists against the C entry points in
+``src/repro_torch/csrc``, and that the plain versions on the CPU launch
+nothing (the kernels themselves run only on a card:
 tests/test_torch_cuda.py).
 """
 import ctypes
@@ -50,57 +50,11 @@ def test_serving_prefill_takes_the_wgmma_variant():
                                       cfg.head_dim) == "ffma"
 
 
-@pytest.mark.parametrize("variant, dtype, Dh, Dv, want", [
-    (None, BF16, 128, 128, "wgmma"), (None, F32, 64, 64, "ffma"),
-    (None, F16, 256, 256, "mma_sync"),
-    # the earlier design stays launchable on the head dims wgmma takes
-    ("mma_sync", BF16, 128, 128, "mma_sync"),
-    ("mma_sync", F16, 64, 64, "mma_sync"),
-    ("wgmma", F16, 64, 64, "wgmma"), ("ffma", F32, 128, 128, "ffma")])
-def test_flash_resolve_variant_accepts(variant, dtype, Dh, Dv, want):
-    assert flash_kernel.resolve_variant(variant, dtype, Dh, Dv, 2048) == want
-
-
-@pytest.mark.parametrize("variant, dtype, Dh, Dv, match", [
-    ("wgmma", BF16, 256, 256, "does not take"),
-    ("wgmma", BF16, 192, 128, "does not take"),
-    ("wgmma", F32, 128, 128, "does not take"),
-    ("ffma", BF16, 128, 128, "does not take"),
-    ("mma_sync", F32, 64, 64, "does not take"),
-    ("tma", BF16, 128, 128, "unknown flash variant")])
-def test_flash_resolve_variant_rejects(variant, dtype, Dh, Dv, match):
-    with pytest.raises(ValueError, match=match):
-        flash_kernel.resolve_variant(variant, dtype, Dh, Dv, 2048)
-
-
-def test_flash_wgmma_grid_limit():
-    rows = flash_kernel.WGMMA_ROWS
-    assert flash_kernel.resolve_variant(None, BF16, 128, 128,
-                                        65535 * rows) == "wgmma"
-    with pytest.raises(ValueError, match="takes T up to"):
-        flash_kernel.resolve_variant(None, BF16, 128, 128, 65535 * rows + 1)
-
-
 @pytest.mark.parametrize("in_dtype, out_dtype, want", [
     (F32, F32, "pipelined"), (BF16, BF16, "tiled"), (BF16, F32, "tiled"),
     (F32, BF16, "tiled")])
 def test_gemm_variant_by_types(in_dtype, out_dtype, want):
     assert gemm_kernel.gemm_variant(in_dtype, out_dtype) == want
-
-
-@pytest.mark.parametrize("variant, in_dtype, out_dtype, want", [
-    (None, F32, F32, "pipelined"), (None, BF16, F32, "tiled"),
-    ("tiled", F32, F32, "tiled"), ("tiled", BF16, BF16, "tiled"),
-    ("pipelined", F32, F32, "pipelined"),
-    ("pipelined", BF16, F32, ValueError), ("pipelined", F32, BF16, ValueError),
-    ("wgmma", F32, F32, ValueError)])
-def test_gemm_resolve_variant(variant, in_dtype, out_dtype, want):
-    if want is ValueError:
-        with pytest.raises(ValueError):
-            gemm_kernel.resolve_variant(variant, in_dtype, out_dtype)
-    else:
-        assert gemm_kernel.resolve_variant(variant, in_dtype,
-                                           out_dtype) == want
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -128,14 +82,6 @@ def test_argtypes_match_the_c_entry_point(source, name, module):
     """A wrapper that passes another argument list than the C function
     declares would pass garbage on the card; this holds them equal."""
     assert module.ARGTYPES == _c_params(source, name)
-
-
-@pytest.mark.parametrize("fn, variants", [
-    (flash_kernel.flash_attention_cuda, ("ffma", "mma_sync", "wgmma")),
-    (gemm_kernel.gemm_cuda, ("tiled", "pipelined"))])
-def test_launch_counters_hold_every_variant(fn, variants):
-    assert tuple(fn.by_variant) == variants
-    assert all(isinstance(n, int) for n in fn.by_variant.values())
 
 
 def test_plain_versions_on_cpu_launch_no_variant():
