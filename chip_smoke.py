@@ -10,11 +10,19 @@
 2. Drives the main path, HDArrayRuntime -> planner -> TorchExecutor ->
    kernels, at the paper's problem sizes (benchmarks/paper_programs.py)
    with 4 logical ranks on the one card:
-   * Jacobi (20480, 24080) float32, 10 ping-pong sweeps, bit-identical
-     to 10 serial plain sweeps on the card;
+   * Jacobi (20480, 24080) float32, 60 ping-pong sweeps under four
+     schedules, each on a fresh runtime and each bit-identical to 60
+     serial plain sweeps on the card: (a) apply_kernel in a loop,
+     every step one CUDA graph; (b) run_pipeline, the steady window
+     after the witness one captured cycle; (c) the §4.2 overlap
+     schedule's run_pipeline (copies on a comm stream); (d) overlap
+     apply_kernel, interior sweeps beside the halo copies.  Each prints
+     ms per sweep, launches (executions), copies, h2d/d2h (0 in the
+     run) and a device breakdown of two more sweeps;
    * the quickstart sequence at GEMM n = 10240: GEMM, a second GEMM
-     that moves nothing, reduce(sum) over a column partition, and a
-     weighted (2, 1, 1, 1) repartition, against a float64 product.
+     that moves nothing (both fused, C bit-identical to the unfused
+     product), reduce(sum) over a column partition, and a weighted
+     (2, 1, 1, 1) repartition, against a float64 product.
 3. Frees those buffers, holds the flash-attention kernel against its
    plain versions (bf16 at the serving path's prefill shape, small
    shapes with windows, softcaps, ragged and fully masked rows, odd
@@ -26,9 +34,10 @@
    the first prompt admitted again, whose greedy continuation must
    repeat.
    Every kernel launch counter, the total and each variant's, is set to
-   0 just before each path and read just after: every GEMM-path launch
-   must be the ``pipelined`` variant and every prefill launch the
-   ``wgmma`` one.
+   0 just before each path (each Jacobi schedule) and read just after;
+   counts are executions, a launch captured into a graph counting at
+   each replay.  Every GEMM-path launch must be the ``pipelined``
+   variant and every prefill launch the ``wgmma`` one.
 4. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -56,7 +65,10 @@ BF16_FLOPS_PER_S = 989e12           # tensor cores, dense
 
 NPROC = 4
 JACOBI_SHAPE = (20480, 24080)       # benchmarks/paper_programs.py:121
-SWEEPS = 10
+# >= 40 sweeps hold the overlapped schedules to serial plain sweeps over
+# many cross-stream hand-offs, and the captured window of schedule (b)
+# (from step 10, after the two-period witness) holds 50 of 60
+SWEEPS = 60
 GEMM_N = 10240                      # benchmarks/paper_programs.py:78
 GEMM_F32_TOL = 5e-5                 # Frobenius-relative, vs float64
 # bf16 inputs are exact in the float64 product; the bound is the bf16
@@ -468,15 +480,13 @@ def read_variants():
             for name, fn in _wrappers().items()}
 
 
-def jacobi_path(torch):
-    from repro_torch.core import Box, HDArrayRuntime, IDENTITY_2D, stencil
+def jacobi_program(rt, init):
+    """The ping-pong Jacobi program on ``rt``: A and B written with
+    ``init`` over a row partition, SWEEPS steps over the interior."""
+    from repro_torch.core import Box, IDENTITY_2D, stencil
     from repro_torch.kernels.hd import make_jacobi_kernel
-    from repro_torch.kernels.stencil_hd.ref import jacobi_ref
 
     M, N = JACOBI_SHAPE
-    t0 = time.perf_counter()
-    init = np.random.default_rng(0).standard_normal((M, N), dtype=np.float32)
-    rt = HDArrayRuntime(NPROC)            # backend "torch" on the card
     A, B = rt.create("A", (M, N)), rt.create("B", (M, N))
     pd = rt.partition_row((M, N))
     pw = rt.partition_row((M, N), region=Box.make((1, M - 1), (1, N - 1)))
@@ -489,43 +499,151 @@ def jacobi_path(torch):
             dict(kernel_name="jba", part_id=pw, kernel=ba, arrays=[A, B],
                  uses={"B": fp}, defs={"A": IDENTITY_2D})
             for i in range(SWEEPS)]
-    ex = rt.executor
-    torch.cuda.synchronize()
-    print(f"jacobi path set-up (data, upload, scatter): "
-          f"{time.perf_counter() - t0:.3f} s")
-    h2d, d2h = ex.h2d_transfers, ex.d2h_transfers
-    reset_launches()
+    return A, prog
+
+
+def sweep_launches(rt, prog, plans, split: bool) -> int:
+    """Jacobi kernel executions the program's steps make: one per rank
+    and step, or, where a step sweeps under the exact halo split, one
+    per interior and boundary box."""
+    from repro_torch.executors import halo_split
+
+    n = 0
+    for st, plan in zip(prog, plans):
+        regions = rt.parts[st["part_id"]].regions
+        cut = halo_split(plan, regions, st["uses"], st["defs"]) \
+            if split else None
+        boxes = list(regions) if cut is None else \
+            [b for half in cut for rank in half for b in rank]
+        n += sum(1 for b in boxes if not b.is_empty())
+    return n
+
+
+def apply_loop(rt, prog):
+    return [rt.apply_kernel(st["kernel_name"], st["part_id"], st["kernel"],
+                            st["arrays"], st["uses"], st["defs"])
+            for st in prog]
+
+
+def pipeline(rt, prog):
+    return rt.run_pipeline(prog)
+
+
+# (label, overlap, how the steps are run, whether they sweep under the
+# halo split)
+JACOBI_SCHEDULES = (
+    ("(a) apply_kernel loop, every step fused", False, apply_loop, True),
+    ("(b) run_pipeline, steady window captured", False, pipeline, True),
+    ("(c) overlap run_pipeline", True, pipeline, False),
+    ("(d) overlap apply_kernel loop, halo split", True, apply_loop, True),
+)
+
+
+def jacobi_path(torch):
+    """The Jacobi program at the paper's size under each schedule of
+    JACOBI_SCHEDULES, each on a fresh runtime from the same data and
+    each bit-identical to SWEEPS serial plain sweeps on the card."""
+    from repro_torch.core import HDArrayRuntime
+    from repro_torch.kernels.stencil_hd.ref import jacobi_ref
+
+    M, N = JACOBI_SHAPE
     t0 = time.perf_counter()
-    rt.run_pipeline(prog)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_launches()
-    variants = read_variants()
-    steady = (ex.h2d_transfers - h2d, ex.d2h_transfers - d2h)
-    kinds = sorted({k for _n, _b, arrs in rt.comm_log[-SWEEPS:]
-                    for _a, k, _b in arrs})
-    halo_bytes = sum(b for _n, b, _a in rt.comm_log[-SWEEPS:])
-    print(f"jacobi path: {SWEEPS} sweeps x {NPROC} ranks at {JACOBI_SHAPE}: "
-          f"{1e3 * dt / SWEEPS:.3f} ms/step (host clock), launches "
-          f"{launches}, kinds {kinds}, halo bytes {halo_bytes}, "
-          f"h2d/d2h during the pipeline {steady}, copies {ex.copy_counts}")
-    check(launches["jacobi_hd"] == SWEEPS * NPROC,
-          f"jacobi launches {launches['jacobi_hd']} != {SWEEPS * NPROC}")
-    check(steady == (0, 0), f"steady host<->device transfers {steady}")
-    check(kinds == ["halo", "none"], f"jacobi comm kinds {kinds}")
+    init = np.random.default_rng(0).standard_normal((M, N), dtype=np.float32)
     x = torch.from_numpy(init).cuda()
     for _ in range(SWEEPS):
         x = jacobi_ref(x)
-    got = rt.read_coherent(A)             # the last sweep defines A
-    same = np.array_equal(got, x.cpu().numpy())
-    print(f"jacobi path vs {SWEEPS} serial plain sweeps: bit-identical={same}")
-    check(same, "jacobi path differs from serial plain sweeps")
-    device_breakdown(torch, "jacobi path, 2 more sweeps",
-                     lambda: rt.run_pipeline(prog[:2]))
-    rt.close()
-    del x, got, init
+    want = x.cpu().numpy()              # the last sweep defines A
+    del x
     torch.cuda.empty_cache()
-    return launches, variants, 1e3 * dt / SWEEPS
+    print(f"jacobi path: data and {SWEEPS} serial plain sweeps "
+          f"{time.perf_counter() - t0:.3f} s")
+    launches, ms = {}, {}
+    for label, overlap, drive, split in JACOBI_SCHEDULES:
+        tag = label[:3]
+        t0 = time.perf_counter()
+        rt = HDArrayRuntime(NPROC, overlap=overlap)   # torch on the card
+        A, prog = jacobi_program(rt, init)
+        ex = rt.executor
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        h2d, d2h = ex.h2d_transfers, ex.d2h_transfers
+        mem = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        plans = drive(rt, prog)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        graph_mb = (torch.cuda.memory_allocated() - mem) / 2 ** 20
+        got = read_launches()
+        launches[tag] = got
+        ms[tag] = 1e3 * dt / SWEEPS
+        steady = (ex.h2d_transfers - h2d, ex.d2h_transfers - d2h)
+        st = rt.planner.stats
+        kinds = sorted({k for _n, _b, arrs in rt.comm_log[-SWEEPS:]
+                        for _a, k, _b in arrs})
+        halo_bytes = sum(b for _n, b, _a in rt.comm_log[-SWEEPS:])
+        sched = rt._scheduler
+        print(f"jacobi {label}: {SWEEPS} sweeps x {NPROC} ranks at "
+              f"{JACOBI_SHAPE}: {ms[tag]:.3f} ms/sweep (host clock, set-up "
+              f"{setup:.3f} s apart), launches {got}, copies "
+              f"{ex.copy_counts}, h2d/d2h during the run {steady}, kinds "
+              f"{kinds}, halo bytes {halo_bytes}, fused_steps "
+              f"{st.fused_steps}, scan_captures {st.scan_captures}, "
+              f"dispatches/step {st.python_dispatches_per_step}, graphs "
+              f"{len(ex._graphs)} holding {graph_mb:.3f} MiB"
+              + (f", steps_overlapped {sched.steps_overlapped}, halo_splits "
+                 f"{sched.halo_splits}" if sched is not None else ""))
+        expect = sweep_launches(rt, prog, plans, split)
+        check(got["jacobi_hd"] == expect,
+              f"jacobi {tag} launches {got['jacobi_hd']} != {expect}")
+        check(split or expect == SWEEPS * NPROC,
+              f"jacobi {tag} expected {expect} launches unsplit")
+        check(got["gemm_hd"] == got["flash_attn_hd"] == 0,
+              f"jacobi {tag} launched another kernel: {got}")
+        check(steady == (0, 0), f"jacobi {tag} steady host<->device "
+              f"transfers {steady}")
+        check(kinds == ["halo", "none"], f"jacobi {tag} comm kinds {kinds}")
+        check(sum(ex.copy_counts.values()) == ex.messages_executed > 0,
+              f"jacobi {tag} copies {ex.copy_counts}")
+        if tag == "(a)":
+            check(st.fused_steps == SWEEPS and st.scan_captures == 0,
+                  f"(a) fused {st.fused_steps}, captures {st.scan_captures}")
+        elif tag == "(b)":
+            captured = SWEEPS - st.fused_steps
+            print(f"jacobi (b): the captured window holds {captured} of "
+                  f"{SWEEPS} sweeps")
+            check(st.scan_captures >= 1
+                  and st.python_dispatches_per_step == 0.0
+                  and captured >= 0.8 * SWEEPS,
+                  f"(b) captures {st.scan_captures}, {captured} sweeps "
+                  f"captured, dispatches {st.python_dispatches_per_step}")
+        else:
+            check(sched.steps_overlapped == SWEEPS and st.fused_steps == 0,
+                  f"{tag} overlapped {sched.steps_overlapped}")
+            check((sched.halo_splits == SWEEPS) == split,
+                  f"{tag} halo splits {sched.halo_splits}")
+        same = np.array_equal(rt.read_coherent(A), want)
+        print(f"jacobi {tag} vs {SWEEPS} serial plain sweeps: "
+              f"bit-identical={same}")
+        check(same, f"jacobi {tag} differs from serial plain sweeps")
+        # the same schedule again, every graph captured already
+        t0 = time.perf_counter()
+        drive(rt, prog)
+        torch.cuda.synchronize()
+        print(f"jacobi {tag} again: "
+              f"{1e3 * (time.perf_counter() - t0) / SWEEPS:.3f} ms/sweep "
+              f"(host clock)")
+        device_breakdown(torch, f"jacobi {tag}, 2 more sweeps",
+                         lambda: drive(rt, prog[:2]))
+        fused = st.fused_steps
+        device_breakdown(torch, f"jacobi {tag}, 20 more sweeps",
+                         lambda: drive(rt, prog[:20]))
+        if tag == "(b)":
+            print(f"jacobi (b): {20 - (st.fused_steps - fused)} of those 20 "
+                  f"sweeps ran in the captured window")
+        rt.close()
+        torch.cuda.empty_cache()
+    return launches, ms
 
 
 def gemm_path(torch):
@@ -572,11 +690,22 @@ def gemm_path(torch):
     check(kinds1.get("b") == "all_gather", f"gemm step 1 kinds {kinds1}")
     check(plan2.bytes_total == 0, "the second gemm moved bytes")
     check(steady == (0, 0), f"gemm steps crossed host<->device {steady}")
-    # a third step rewrites the same C (the kernel is deterministic)
-    device_breakdown(torch, "gemm path, 1 more step", lambda: rt.apply_kernel(
-        "gemm", part, mm, [hA, hB, hC], **step))
-
+    check(rt.planner.stats.fused_steps == 2,
+          f"gemm fused steps {rt.planner.stats.fused_steps} != 2")
     C = rt.read(hC, part)
+    # the same product unfused: the executor's two-phase kernel path
+    ex.run_kernel(mm, rt.parts[part].regions, [hA, hB, hC], defs=("c",))
+    same = np.array_equal(rt.read(hC, part), C)
+    print(f"gemm path: fused C bit-identical to the unfused product={same}")
+    check(same, "the fused gemm steps differ from the unfused product")
+    # a third step rewrites the same C (the kernel is deterministic) and
+    # captures the no-traffic step's graph; the fourth replays it
+    rt.apply_kernel("gemm", part, mm, [hA, hB, hC], **step)
+    device_breakdown(torch, "gemm path, 1 more step (graph replay)",
+                     lambda: rt.apply_kernel("gemm", part, mm,
+                                             [hA, hB, hC], **step))
+    check(len(ex._graphs) == 1, f"gemm graphs {list(ex._graphs)}")
+
     c64 = torch.from_numpy(Ah).cuda().double() @ torch.from_numpy(Bh).cuda().double()
     err = fro_rel(torch, torch.from_numpy(C).cuda(), c64)
     print(f"gemm path C vs float64 product: fro_rel={err:.3e} "
@@ -772,19 +901,20 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     jac, gemm = kernel_phase(torch)
-    jac_launches, jac_variants, jac_step_ms = jacobi_path(torch)
+    jac_launches, jac_ms = jacobi_path(torch)
     gemm_launches, gemm_variants, gemm_step1_ms, gemm_step2_ms = \
         gemm_path(torch)
-    jac["launches"] = jac_launches["jacobi_hd"]
-    jac["launches_by_variant"] = jac_variants["jacobi_hd"]
+    # the Jacobi path is its four schedules; the count is their sum
+    jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
+    jac["launches_by_schedule"] = {k: n["jacobi_hd"]
+                                   for k, n in jac_launches.items()}
+    jac["launches_by_variant"] = {"f32": jac["launches"]}
     gemm["launches"] = gemm_launches["gemm_hd"]
     gemm["launches_by_variant"] = gemm_variants["gemm_hd"]
-    check(jac_launches["gemm_hd"] == 0 and gemm_launches["jacobi_hd"] == 0,
-          "a path launched the other path's kernel")
-    check(jac_launches["flash_attn_hd"] == 0
-          and gemm_launches["flash_attn_hd"] == 0,
-          "an HDArray path launched flash attention")
-    print(f"main path: jacobi {jac_step_ms:.3f} ms/sweep, gemm step 1 "
+    check(gemm_launches["jacobi_hd"] == 0 and gemm_launches["flash_attn_hd"]
+          == 0, "the GEMM path launched another kernel")
+    print(f"main path: jacobi ms/sweep by schedule "
+          f"{ {k: round(v, 4) for k, v in jac_ms.items()} }, gemm step 1 "
           f"{gemm_step1_ms:.3f} ms, step 2 {gemm_step2_ms:.3f} ms "
           f"(host clock, {NPROC} ranks on one card)")
     torch.cuda.empty_cache()

@@ -114,10 +114,24 @@ class PlannerStats:
     candidate_pairs: int = 0    # neighbor-index survivors actually visited
     pairs_pruned: int = 0       # all-pairs count minus survivors
     commit_replays: int = 0     # fixpoint commits replayed as O(P) restores
-    fused_steps: int = 0        # steps an executor ran as ONE program
+    # one-program step counters (fused execute_step + cycle capture)
+    fused_steps: int = 0         # steps run as ONE exchange+kernel program
+    scan_captures: int = 0       # steady-state cycles run as one capture
     # executor dispatches the LAST step cost the host: 1 for a fused
-    # execute_step, 2 for the classic exchange-then-kernel path
+    # execute_step, 2 under the §4.2 overlap schedule (messages ∥
+    # commit, then kernel) or the classic two-phase path, 0 for a step
+    # executed inside a captured cycle (its one-off launch is accounted
+    # in scan_captures)
     python_dispatches_per_step: float = 1.0
+    # fault-tolerance counters (run_pipeline recovery path)
+    recoveries: int = 0          # fault -> restore -> resume cycles
+    checkpoint_restores: int = 0  # per-array planned restore writes
+    elastic_shrinks: int = 0     # permanent rank losses absorbed
+    elastic_grows: int = 0       # rank (re)joins absorbed (scale-up)
+    straggler_events: int = 0    # StragglerMonitor threshold crossings
+    steps_replayed: int = 0      # pipeline steps re-executed after restore
+    # heterogeneity counters (weighted partitions + rebalancing)
+    rebalances: int = 0          # mid-pipeline weight recomputations
     # per-rank step-time history [(step, (t_0..t_{P-1})), ...] — newest
     # last, capped at RANK_HISTORY_CAP
     rank_step_times: List[Tuple[int, Tuple[float, ...]]] = field(
@@ -140,8 +154,11 @@ class PlannerStats:
         self.plans_computed = self.hits_history = self.hits_state_compare = 0
         self.intersect_ops = self.gdef_updates = self.state_compares = 0
         self.candidate_pairs = self.pairs_pruned = self.commit_replays = 0
-        self.fused_steps = 0
+        self.fused_steps = self.scan_captures = 0
         self.python_dispatches_per_step = 1.0
+        self.recoveries = self.checkpoint_restores = 0
+        self.elastic_shrinks = self.straggler_events = self.steps_replayed = 0
+        self.rebalances = 0
         self.rank_step_times = []
 
 

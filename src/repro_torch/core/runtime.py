@@ -26,11 +26,25 @@ classified plans —
 The reference's legacy ``materialize=False`` flag is not carried over:
 pass ``backend="null"``.
 
+Overlap semantics (paper §4.2 / Fig. 7): with ``overlap=True`` every
+``apply_kernel`` runs the message execution on a comm thread (on a
+card, its copies on a CUDA stream of their own) while the Eqn (3)-(4)
+commit proceeds on the host, and HALO-classified plans additionally
+overlap the interior kernel sweep with the ghost-cell exchange
+(double-buffered halo).  ``run_pipeline`` extends this to a program:
+step i+1's planning overlaps step i's communication.  Overlap mode
+assumes the paper's work-item model — a kernel must be able to compute
+any sub-region of its assigned region independently.  Results are
+bit-identical to the serial schedule (tests enforce it).
+
+Without overlap, each ``apply_kernel`` is one executor call, which the
+torch backend runs as one program (a CUDA graph on a card), and
+``run_pipeline`` runs the steady state of a periodic program as one
+captured cycle (``Executor.capture_cycle``).
+
 Not ported yet (each raises NotImplementedError and is listed in
-ROADMAP.md): the §4.2 comm/compute-overlap schedule (``overlap=True``,
-``executors/overlap.py``), and fault recovery and rebalancing in
-``run_pipeline`` (``recovery=`` / ``rebalance=``, ``ft/`` and
-``ckpt/``).
+ROADMAP.md): fault recovery and rebalancing in ``run_pipeline``
+(``recovery=`` / ``rebalance=``, ``ft/`` and ``ckpt/``).
 """
 from __future__ import annotations
 
@@ -38,7 +52,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.executors import DeviceProfileRegistry, make_executor
+from repro_torch.executors import (DeviceProfileRegistry, OverlapScheduler,
+                                   make_executor)
 
 from .comm import lower_plan
 from .hdarray import HDArray
@@ -63,11 +78,9 @@ class HDArrayRuntime:
         (a :class:`~repro_torch.executors.profiles.DeviceProfileRegistry`
         or a sequence of ``DeviceProfile``) declares per-rank device
         capabilities; when given, every partition this runtime creates
-        defaults to the registry's capability-proportional weights."""
-        if overlap:
-            raise NotImplementedError(
-                "overlap=True is not ported yet: the §4.2 overlap "
-                "schedule (executors/overlap.py) is queued in ROADMAP.md")
+        defaults to the registry's capability-proportional weights.
+        ``overlap=True`` enables the §4.2 comm/compute-overlap
+        schedule."""
         self.nproc = nproc
         self.backend = backend
         if profiles is not None and not hasattr(profiles, "weights"):
@@ -83,6 +96,7 @@ class HDArrayRuntime:
             kw = {"device": device} if backend == "torch" else {}
             executor = make_executor(backend, nproc=nproc, **kw)
         self.executor = executor
+        self._scheduler = OverlapScheduler(self.executor) if overlap else None
         self.arrays: Dict[str, HDArray] = {}
         self.comm_log: list = []     # [(kernel, CommPlan bytes, kinds)]
 
@@ -97,6 +111,8 @@ class HDArrayRuntime:
         for a in self.arrays.values():
             self.executor.free(a)
         self.arrays.clear()
+        if self._scheduler is not None:
+            self._scheduler.shutdown()
 
     # -- partitions -------------------------------------------------------
     # Each factory takes optional per-device `weights` (capability-
@@ -172,47 +188,174 @@ class HDArrayRuntime:
         **kw,
     ) -> CommPlan:
         """Paper Fig. 3: plan comm (Eqns 1-2) -> move data -> run kernel
-        -> commit GDEF updates (Eqns 3-4)."""
+        -> commit GDEF updates (Eqns 3-4).  Under ``overlap=True`` the
+        move/commit (and, for halos, part of the kernel) run
+        concurrently — see the module docstring."""
         part = self.parts[part_id]
         plan = self.planner.plan(kernel_name, part, arrays, uses, defs)
+
+        def _commit() -> None:
+            self.planner.commit(plan, arrays, part)
+
         stats = self.planner.stats
-        # ONE runtime->executor call for the whole step: a fusing
-        # backend runs exchange + kernel as a single device program
-        # (True); the classic two-phase path returns False
-        fused = self.executor.execute_step(
-            plan, self.arrays, kernel, part.regions, arrays,
-            uses=uses, defs=defs, kw=kw)
-        self.planner.commit(plan, arrays, part)
-        if fused:
-            stats.fused_steps += 1
-            stats.python_dispatches_per_step = 1.0
+        if self._scheduler is not None:
+            self._scheduler.step(
+                plan, part, kernel, arrays, self.arrays, uses, defs, kw,
+                commit=_commit)
+            # messages ∥ commit, then the kernel: two host dispatches
+            stats.python_dispatches_per_step = 2.0
         else:
-            stats.python_dispatches_per_step = \
-                2.0 if kernel is not None else 1.0
+            # ONE runtime->executor call for the whole step: a fusing
+            # backend runs exchange + kernel as a single device program
+            # (True); the classic two-phase path returns False
+            fused = self.executor.execute_step(
+                plan, self.arrays, kernel, part.regions, arrays,
+                uses=uses, defs=defs, kw=kw)
+            _commit()
+            if fused:
+                stats.fused_steps += 1
+                stats.python_dispatches_per_step = 1.0
+            else:
+                stats.python_dispatches_per_step = \
+                    2.0 if kernel is not None else 1.0
         self.log_plan(kernel_name, plan)
         return plan
 
     def run_pipeline(self, steps: Sequence[Dict],
                      recovery=None, rebalance=None) -> list:
-        """Run a program of apply_kernel steps in order.  Each step:
+        """Run a program of apply_kernel steps.  Each step:
         dict(kernel_name=, part_id=, kernel=, arrays=, uses=, defs=,
-        kw={}).  Per-rank kernel times, where the executor measures
-        them, land in ``PlannerStats.rank_step_times``."""
+        kw={}).
+
+        With ``overlap=True`` it runs the Fig. 7 schedule: step i+1's
+        planning overlaps step i's message execution.
+
+        Without overlap, the serial path watches for a *steady-state
+        cycle*: a repeating step sequence whose every step replayed
+        both its plan (§4.2 cache hit) and its commit (fingerprint
+        replay) for two consecutive periods.  Such a cycle is provably
+        periodic, so the remaining repetitions are offered to the
+        executor as ONE captured program (``Executor.capture_cycle`` —
+        the torch backend replays a CUDA graph of one period on a card);
+        the planner then fast-replays each covered step's metadata so
+        ``comm_log`` and the GDEF state evolve exactly as the unfused
+        schedule.  Host backends decline and nothing changes.  Per-rank
+        kernel times, where the executor measures them, land in
+        ``PlannerStats.rank_step_times``."""
         if recovery is not None or rebalance is not None:
             raise NotImplementedError(
                 "run_pipeline(recovery=, rebalance=) is not ported yet: "
                 "fault recovery and rebalancing (ft/, ckpt/) are queued "
                 "in ROADMAP.md")
+        if self._scheduler is not None:
+            return self._scheduler.pipeline(self, list(steps))
+        return self._run_pipeline_serial(list(steps))
+
+    # -- steady-state capture (one dispatch for K steps) -----------------
+    #: longest cycle period the serial pipeline looks for
+    _MAX_CYCLE_PERIOD = 4
+
+    def _run_pipeline_serial(self, steps: list) -> list:
         stats = self.planner.stats
-        plans = []
-        for i, st in enumerate(steps):
-            plans.append(self.apply_kernel(
+        n = len(steps)
+        plans: list = [None] * n
+        steady = [False] * n
+        try_capture = True
+        i = 0
+        while i < n:
+            if try_capture:
+                d = self._cycle_period(steps, steady, i)
+                if d:
+                    # only the upcoming steps that literally repeat the
+                    # detected cycle are capturable
+                    match = 0
+                    while (i + match < n and self._steps_equal(
+                            steps[i + match], steps[i - d + match % d])):
+                        match += 1
+                    reps = match // d
+                    if reps >= 1:
+                        cycle = [dict(
+                            plan=plans[i - d + j],
+                            kernel=steps[i - d + j]["kernel"],
+                            regions=self.parts[
+                                steps[i - d + j]["part_id"]].regions,
+                            arrays=steps[i - d + j]["arrays"],
+                            uses=steps[i - d + j]["uses"],
+                            defs=steps[i - d + j]["defs"],
+                            kw=steps[i - d + j].get("kw", {}),
+                        ) for j in range(d)]
+                        runner = self.executor.capture_cycle(cycle, reps)
+                        if runner is None:
+                            try_capture = False
+                        else:
+                            runner()          # reps*d steps, ONE dispatch
+                            stats.scan_captures += 1
+                            for k in range(reps * d):
+                                plans[i + k] = self._replay_step_metadata(
+                                    steps[i + k])
+                                steady[i + k] = True
+                            stats.python_dispatches_per_step = 0.0
+                            i += reps * d
+                            continue
+            before = stats.commit_replays
+            st = steps[i]
+            plans[i] = self.apply_kernel(
                 st["kernel_name"], st["part_id"], st["kernel"],
-                st["arrays"], st["uses"], st["defs"], **st.get("kw", {})))
+                st["arrays"], st["uses"], st["defs"], **st.get("kw", {}))
+            # steady := the §4.2 machinery replayed BOTH the plan and
+            # the commit — the step touched no set algebra at all
+            steady[i] = (plans[i].cached and stats.commit_replays - before
+                         == len(plans[i].arrays))
             rank_times = getattr(self.executor, "last_rank_times", None)
             if rank_times is not None:
                 stats.note_rank_times(i, rank_times)
+            i += 1
         return plans
+
+    def _cycle_period(self, steps: list, steady: list, i: int) -> int:
+        """Smallest period d such that the last 2d steps were all steady
+        and the two periods are the same step sequence — the witness
+        that makes capture sound (see capture_cycle in base.py)."""
+        for d in range(1, min(self._MAX_CYCLE_PERIOD, i // 2) + 1):
+            if (all(steady[i - k] for k in range(1, 2 * d + 1))
+                    and all(self._steps_equal(steps[i - 2 * d + j],
+                                              steps[i - d + j])
+                            for j in range(d))):
+                return d
+        return 0
+
+    @staticmethod
+    def _steps_equal(a: Dict, b: Dict) -> bool:
+        return (a["kernel_name"] == b["kernel_name"]
+                and a["part_id"] == b["part_id"]
+                and a["kernel"] is b["kernel"]
+                and len(a["arrays"]) == len(b["arrays"])
+                and all(x is y for x, y in zip(a["arrays"], b["arrays"]))
+                and a["uses"] == b["uses"] and a["defs"] == b["defs"]
+                and a.get("kw", {}) == b.get("kw", {}))
+
+    def _replay_step_metadata(self, st: Dict) -> CommPlan:
+        """Advance the planner state for a step whose DATA movement ran
+        inside a captured program.  The periodicity witness guarantees
+        both replays hit; the RuntimeErrors are tripwires, not paths."""
+        part = self.parts[st["part_id"]]
+        arrays = st["arrays"]
+        stats = self.planner.stats
+        before = stats.commit_replays
+        plan = self.planner.plan(st["kernel_name"], part, arrays,
+                                 st["uses"], st["defs"])
+        if not plan.cached:
+            raise RuntimeError(
+                f"captured step {st['kernel_name']!r} fell out of the "
+                f"§4.2 plan cache — the steady-state witness was wrong")
+        self.planner.commit(plan, arrays, part)
+        if stats.commit_replays - before != len(plan.arrays):
+            raise RuntimeError(
+                f"captured step {st['kernel_name']!r} commit was not a "
+                f"fingerprint replay — the steady-state witness was "
+                f"wrong")
+        self.log_plan(st["kernel_name"], plan)
+        return plan
 
     def log_plan(self, kernel_name: str, plan: CommPlan) -> None:
         self.comm_log.append(

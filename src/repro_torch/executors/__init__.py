@@ -16,7 +16,9 @@ backend    what executes a classified ``CommPlan``
 =========  ============================================================
 
 Select with ``HDArrayRuntime(nproc, backend=...)`` or construct via
-:func:`make_executor`.
+:func:`make_executor`.  :class:`~repro_torch.executors.overlap.
+OverlapScheduler` runs the §4.2 overlap schedule on any of them
+(``HDArrayRuntime(overlap=True)``).
 """
 from .base import Executor, available_backends, make_executor, register_executor
 from .sim import SimExecutor
@@ -24,9 +26,11 @@ from .null import NullExecutor
 from .torch_exec import TorchExecutor
 from .kernels import device_kernel, kernel_put, resolve_kernel
 from .profiles import DeviceProfile, DeviceProfileRegistry
+from .overlap import OverlapScheduler, halo_split
 
 __all__ = [
     "Executor", "available_backends", "make_executor", "register_executor",
     "SimExecutor", "NullExecutor", "TorchExecutor", "device_kernel",
     "kernel_put", "resolve_kernel", "DeviceProfile", "DeviceProfileRegistry",
+    "OverlapScheduler", "halo_split",
 ]

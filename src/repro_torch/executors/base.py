@@ -15,10 +15,14 @@ the runtime actions the paper's library issues (§5):
 * ``execute_step`` — run one WHOLE apply_kernel step (the plan's data
   movement AND the kernel).  Returns True when the backend fused both
   into one device program (counted as ``PlannerStats.fused_steps``),
-  False for the classic two-phase path,
+  False for the classic two-phase path.  The torch backend fuses a
+  ``device_kernel`` step: a CUDA graph per step signature on a card,
+  the same copies and sweeps issued eagerly on the CPU,
 * ``capture_cycle`` — offer a steady-state pipeline cycle for
   whole-program capture; returns a zero-argument runner, or None when
-  the backend cannot capture,
+  the backend cannot capture.  The torch backend's runner replays a
+  CUDA graph of one period ``reps`` times on a card and issues the
+  same steps eagerly on the CPU; sim and null decline,
 * ``sync_host`` / ``sync_device`` — the residency hooks: make the host
   mirrors (resp. the device-resident copy) of an array coherent.
   No-ops on host-memory backends; on a resident backend every

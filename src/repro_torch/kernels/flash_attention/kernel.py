@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counts import count_launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 VARIANTS = ("ffma", "mma_sync", "wgmma")     # the source's variant codes
@@ -75,7 +76,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     :func:`flash_variant` picks the kernel.  Launches are counted in
     ``flash_attention_cuda.launches`` and, by variant, in
-    ``flash_attention_cuda.by_variant``.
+    ``flash_attention_cuda.by_variant``, as executions
+    (:mod:`repro_torch.kernels.counts`).
 
     q, k and v share one dtype, float32, bfloat16 or float16, on one
     CUDA device; any strides with a unit-stride last dim (a view of a
@@ -139,8 +141,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError(f"flash_attn_hd ({variant}) launch failed with "
                            f"CUDA error {err}")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.by_variant[variant] += 1
+    count_launch(flash_attention_cuda, variant)
     return out
 
 

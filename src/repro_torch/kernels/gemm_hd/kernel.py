@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counts import count_launch
 
 _TYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("tiled", "pipelined")       # the source's variant codes
@@ -90,7 +91,9 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
     which is returned; float32 and bfloat16 outputs are built.
 
     :func:`gemm_variant` picks the kernel.  Launches are counted in
-    ``gemm_cuda.launches`` and, by variant, in ``gemm_cuda.by_variant``."""
+    ``gemm_cuda.launches`` and, by variant, in ``gemm_cuda.by_variant``,
+    as executions: a launch captured into a CUDA graph counts at each
+    replay (:mod:`repro_torch.kernels.counts`)."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError("gemm_cuda needs both operands on one CUDA device")
     out = product_out(a, b, out_dtype, out)
@@ -114,8 +117,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
     if err:
         raise RuntimeError(f"gemm_hd ({variant}) launch failed with CUDA "
                            f"error {err}")
-    gemm_cuda.launches += 1
-    gemm_cuda.by_variant[variant] += 1
+    count_launch(gemm_cuda, variant)
     return out
 
 

@@ -9,6 +9,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counts import count_launch
 
 Window = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -66,7 +67,10 @@ def jacobi_cuda(x: torch.Tensor, *, window: Optional[Window] = None,
     larger buffer is fine).  Writes rows ``[i0, i1)`` and columns
     ``[j0, j1)`` of the result, ``window=((i0, i1), (j0, j1))`` (default
     all of it), into ``out`` (contiguous rows, any row pitch; default a
-    new tensor) and returns ``out``."""
+    new tensor) and returns ``out``.  Launches are counted in
+    ``jacobi_cuda.launches`` as executions: a launch captured into a
+    CUDA graph counts at each replay
+    (:mod:`repro_torch.kernels.counts`)."""
     if not x.is_cuda:
         raise ValueError("jacobi_cuda needs a CUDA tensor")
     if x.dtype != torch.float32:
@@ -82,7 +86,7 @@ def jacobi_cuda(x: torch.Tensor, *, window: Optional[Window] = None,
                        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"jacobi_hd launch failed with CUDA error {err}")
-    jacobi_cuda.launches += 1
+    count_launch(jacobi_cuda)
     return out
 
 

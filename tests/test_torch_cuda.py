@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.executors import halo_split
 from repro_torch.core import (Box, COL_ALL, HDArrayRuntime, IDENTITY_2D,
                               ROW_ALL, stencil)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -119,8 +120,13 @@ def test_cuda_wrappers_count_launches_and_reject_bad_strides(cuda):
         jacobi_step(x.double())
 
 
-def _jacobi_pipeline(rt, n=96, sweeps=6):
-    init = np.random.default_rng(3).standard_normal((n, n)).astype(np.float32)
+# -- the §4.2 schedule on the card: fused steps, captured cycles, overlap --
+# Launch counts are executions: a launch captured into a CUDA graph
+# counts once per replay, never at capture.
+def _ping_pong(rt, n, sweeps, seed=3):
+    """The ping-pong Jacobi program on ``rt`` and its initial data."""
+    init = np.random.default_rng(seed).standard_normal((n, n)).astype(
+        np.float32)
     A, B = rt.create("A", (n, n)), rt.create("B", (n, n))
     pd = rt.partition_row((n, n))
     pw = rt.partition_row((n, n), region=Box.make((1, n - 1), (1, n - 1)))
@@ -128,25 +134,52 @@ def _jacobi_pipeline(rt, n=96, sweeps=6):
     rt.write(B, init, pd)
     ab, ba = make_jacobi_kernel("A", "B"), make_jacobi_kernel("B", "A")
     fp = stencil(2, 1)
-    rt.run_pipeline([
-        dict(kernel_name="jab", part_id=pw, kernel=ab, arrays=[A, B],
-             uses={"A": fp}, defs={"B": IDENTITY_2D}) if i % 2 == 0 else
-        dict(kernel_name="jba", part_id=pw, kernel=ba, arrays=[A, B],
-             uses={"B": fp}, defs={"A": IDENTITY_2D})
-        for i in range(sweeps)])
-    return rt.read_coherent(A), rt.read_coherent(B)
+    prog = [dict(kernel_name="jab", part_id=pw, kernel=ab, arrays=[A, B],
+                 uses={"A": fp}, defs={"B": IDENTITY_2D}) if i % 2 == 0 else
+            dict(kernel_name="jba", part_id=pw, kernel=ba, arrays=[A, B],
+                 uses={"B": fp}, defs={"A": IDENTITY_2D})
+            for i in range(sweeps)]
+    return A, B, prog, init
+
+
+def _sweep_launches(rt, prog, plans, split=True):
+    """Jacobi kernel executions of a run: one per rank and step, or,
+    where a step sweeps under the exact halo split, one per interior
+    and boundary box."""
+    n = 0
+    for st, plan in zip(prog, plans):
+        regions = rt.parts[st["part_id"]].regions
+        cut = halo_split(plan, regions, st["uses"], st["defs"]) \
+            if split else None
+        boxes = list(regions) if cut is None else \
+            [b for half in cut for rank in half for b in rank]
+        n += sum(1 for b in boxes if not b.is_empty())
+    return n
+
+
+def _plain_sweeps(x, sweeps, dev):
+    x = torch.from_numpy(np.asarray(x)).to(dev)
+    for _ in range(sweeps):
+        x = jacobi_ref(x)
+    return x.cpu().numpy()
 
 
 def test_jacobi_path_on_card_bit_identical_to_cpu(cuda):
-    jacobi_kernel.jacobi_cuda.launches = 0
     rt = HDArrayRuntime(4)                 # the default: torch on the card
-    got = _jacobi_pipeline(rt)
+    A, B, prog, _init = _ping_pong(rt, 96, 6)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    plans = rt.run_pipeline(prog)
+    got = rt.read_coherent(A), rt.read_coherent(B)
     ex = rt.executor
     assert ex.device_class == "cuda"
-    assert jacobi_kernel.jacobi_cuda.launches == 6 * 4
+    assert jacobi_kernel.jacobi_cuda.launches == _sweep_launches(rt, prog,
+                                                                 plans)
     assert ex.h2d_transfers == 2           # the two writes
     assert ex.d2h_transfers == 2           # the two reads
-    want = _jacobi_pipeline(HDArrayRuntime(4, device="cpu"))
+    cpu = HDArrayRuntime(4, device="cpu")
+    A, B, prog, _init = _ping_pong(cpu, 96, 6)
+    cpu.run_pipeline(prog)
+    want = cpu.read_coherent(A), cpu.read_coherent(B)
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
 
 
@@ -171,6 +204,176 @@ def test_gemm_path_on_card(cuda):
     assert rt.comm_log[-1][1] == 0         # the second call moves nothing
     o = 1.5 * (a.astype(np.float64) @ b.astype(np.float64))
     c = rt.read(hC, part)
+    assert np.linalg.norm(c - o) / np.linalg.norm(o) <= 5e-5
+
+
+@pytest.mark.parametrize("sweeps", [20, 41])
+def test_captured_jacobi_pipeline_bit_identical_to_plain_sweeps(cuda, sweeps):
+    rt = HDArrayRuntime(4)
+    ex = rt.executor
+    A, B, prog, init = _ping_pong(rt, 160, sweeps)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    plans = rt.run_pipeline(prog)
+    st = rt.planner.stats
+    # steps 6-9 are the two-period witness; the window from step 10
+    # is captured, an odd last step runs fused
+    assert st.scan_captures == 1 and st.fused_steps == 10 + sweeps % 2
+    assert jacobi_kernel.jacobi_cuda.launches == _sweep_launches(rt, prog,
+                                                                 plans)
+    assert ex.device_kernel_launches == sweeps
+    assert any(k[0] == "scan" for k in ex._graphs)
+    assert any(k[0] == "step" for k in ex._graphs)
+    assert (ex.h2d_transfers, ex.d2h_transfers) == (2, 0)
+    last = A if sweeps % 2 == 0 else B
+    assert np.array_equal(rt.read_coherent(last),
+                          _plain_sweeps(init, sweeps, cuda))
+    rt.close()
+    assert ex._graphs == {}
+
+
+def test_fused_apply_kernel_loop_replays_step_graphs(cuda):
+    rt = HDArrayRuntime(4)
+    ex = rt.executor
+    A, _B, prog, init = _ping_pong(rt, 160, 12)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    plans = [rt.apply_kernel(st["kernel_name"], st["part_id"], st["kernel"],
+                             st["arrays"], st["uses"], st["defs"])
+             for st in prog]
+    assert rt.planner.stats.fused_steps == 12
+    assert jacobi_kernel.jacobi_cuda.launches == _sweep_launches(rt, prog,
+                                                                 plans)
+    assert sorted(k[0] for k in ex._graphs) == ["step", "step"]
+    assert np.array_equal(rt.read_coherent(A), _plain_sweeps(init, 12, cuda))
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_overlapped_jacobi_bit_identical_to_plain_sweeps(cuda, pipeline):
+    sweeps = 40
+    rt = HDArrayRuntime(4, overlap=True)
+    ex = rt.executor
+    A, _B, prog, init = _ping_pong(rt, 256, sweeps)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    if pipeline:
+        plans = rt.run_pipeline(prog)
+    else:
+        plans = [rt.apply_kernel(st["kernel_name"], st["part_id"],
+                                 st["kernel"], st["arrays"], st["uses"],
+                                 st["defs"])
+                 for st in prog]
+    sched = rt._scheduler
+    assert sched.steps_overlapped == sweeps
+    # the pipeline never splits; apply_kernel splits every step here,
+    # sweeping its interior and its boundary strips
+    assert sched.halo_splits == (0 if pipeline else sweeps)
+    assert jacobi_kernel.jacobi_cuda.launches == _sweep_launches(
+        rt, prog, plans, split=not pipeline)
+    if pipeline:
+        assert jacobi_kernel.jacobi_cuda.launches == sweeps * 4
+    assert (ex.h2d_transfers, ex.d2h_transfers) == (2, 0)
+    assert np.array_equal(rt.read_coherent(A),
+                          _plain_sweeps(init, sweeps, cuda))
+    rt.close()
+
+
+def test_overlap_with_host_kernels_on_card_matches_cpu(cuda):
+    """Host kernels read the mirrors while the comm stream copies: the
+    download waits for the copies, and the result is the CPU's."""
+    def run(rt):
+        n = 64
+        init = np.random.default_rng(4).standard_normal((n, n)).astype(
+            np.float32)
+        A, B = rt.create("A", (n, n)), rt.create("B", (n, n))
+        pd = rt.partition_row((n, n))
+        pw = rt.partition_row((n, n), region=Box.make((1, n - 1), (1, n - 1)))
+        rt.write(A, init, pd)
+        rt.write(B, init, pd)
+        fp = stencil(2, 1)
+
+        def jac(region, bufs):
+            (r0, r1), (c0, c1) = region.bounds
+            x = bufs["B"]
+            bufs["A"][r0:r1, c0:c1] = (
+                x[r0:r1, c0 - 1:c1 - 1] + x[r0:r1, c0 + 1:c1 + 1]
+                + x[r0 - 1:r1 - 1, c0:c1] + x[r0 + 1:r1 + 1, c0:c1]) / 4
+
+        def cp(region, bufs):
+            sl = region.to_slices()
+            bufs["B"][sl] = bufs["A"][sl]
+
+        for _ in range(5):
+            rt.apply_kernel("jac", pw, jac, [A, B], uses={"B": fp},
+                            defs={"A": IDENTITY_2D})
+            rt.apply_kernel("copy", pw, cp, [A, B], uses={"A": IDENTITY_2D},
+                            defs={"B": IDENTITY_2D})
+        return rt.read_coherent(B)
+
+    got = run(HDArrayRuntime(4, overlap=True))
+    want = run(HDArrayRuntime(4, device="cpu"))
+    assert np.array_equal(got, want)
+
+
+def test_freed_array_never_replays_a_stale_graph(cuda):
+    rt = HDArrayRuntime(4)
+    ex = rt.executor
+    A, B, prog, init = _ping_pong(rt, 160, 20)
+    rt.run_pipeline(prog)
+    assert ex._graphs
+    ex.free(A)
+    assert not any("A" in g.names for g in ex._graphs.values())
+    ex.free(B)
+    assert ex._graphs == {}
+    # the same names again, new data: new graphs, right values
+    rt.arrays.clear()
+    A, B, prog, init = _ping_pong(rt, 160, 20, seed=5)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    plans = rt.run_pipeline(prog)
+    assert jacobi_kernel.jacobi_cuda.launches == _sweep_launches(rt, prog,
+                                                                 plans)
+    assert np.array_equal(rt.read_coherent(A), _plain_sweeps(init, 20, cuda))
+    # a host kernel between captured windows: the replay sees its write
+    pw = prog[0]["part_id"]
+
+    def halve(region, bufs):
+        sl = region.to_slices()
+        bufs["A"][sl] = bufs["A"][sl] * 0.5
+
+    rt.apply_kernel("halve", pw, halve, [A], uses={"A": IDENTITY_2D},
+                    defs={"A": IDENTITY_2D})
+    start = rt.read_coherent(A)
+    h2d = ex.h2d_transfers
+    captures = rt.planner.stats.scan_captures
+    rt.run_pipeline(prog)
+    assert ex.h2d_transfers == h2d + 1          # A's mirrors, once
+    assert rt.planner.stats.scan_captures == captures + 1
+    assert np.array_equal(rt.read_coherent(A), _plain_sweeps(start, 20, cuda))
+
+
+def test_gemm_steps_fuse_on_card(cuda):
+    n = 160
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, n)).astype(np.float32)
+    fn = gemm_kernel.gemm_cuda
+    fn.launches = 0
+    fn.by_variant = dict.fromkeys(fn.by_variant, 0)
+    rt = HDArrayRuntime(4)
+    part = rt.partition_row((n, n))
+    hA, hB, hC = (rt.create(s, (n, n)) for s in "abc")
+    rt.write(hA, a, part)
+    rt.write(hB, b, part)
+    rt.write(hC, np.zeros((n, n), np.float32), part)
+    mm = make_gemm_kernel("a", "b", "c")
+    for _ in range(4):
+        rt.apply_kernel("gemm", part, mm, [hA, hB, hC],
+                        uses={"a": ROW_ALL, "b": COL_ALL},
+                        defs={"c": IDENTITY_2D})
+    # step 1 gathers B, steps 2-4 move nothing: two signatures, each
+    # eager at first sight, then one graph of the no-traffic step
+    assert rt.planner.stats.fused_steps == 4
+    assert fn.by_variant == {"tiled": 0, "pipelined": 4 * 4}
+    assert [k[0] for k in rt.executor._graphs] == ["step"]
+    c = rt.read(hC, part)
+    o = a.astype(np.float64) @ b.astype(np.float64)
     assert np.linalg.norm(c - o) / np.linalg.norm(o) <= 5e-5
 
 
@@ -409,3 +612,36 @@ def test_reduced_engine_on_card_matches_cpu(cuda):
     got = _serve(card, prompts, 8)
     assert flash_kernel.flash_attention_cuda.launches == host.cfg.n_layers
     assert got == want
+
+
+def test_failed_capture_raises(cuda):
+    """A step that cannot be captured (it synchronises with the host)
+    runs eagerly at the first sight of its signature and raises at its
+    capture: nothing falls back to eager execution, and the launches
+    the failed capture recorded never count."""
+    from repro_torch.executors import device_kernel
+
+    ab = make_jacobi_kernel("A", "B")
+
+    @device_kernel
+    def syncing(region, bufs):
+        out = ab(region, bufs)
+        float(bufs["B"].sum())            # a d2h sync: not capturable
+        return out
+
+    rt = HDArrayRuntime(4)
+    A, _B, prog, _init = _ping_pong(rt, 96, 1)
+    st = dict(prog[0], kernel=syncing)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    plans = []
+    with pytest.raises(RuntimeError):
+        for _ in range(4):                # a new signature runs eagerly
+            plans.append(rt.apply_kernel(
+                "s", st["part_id"], syncing, st["arrays"], st["uses"],
+                st["defs"]))
+    assert 1 <= len(plans) <= 3
+    assert rt.planner.stats.fused_steps == len(plans)
+    assert jacobi_kernel.jacobi_cuda.launches == _sweep_launches(
+        rt, [st] * len(plans), plans)
+    assert rt.executor._graphs == {}
+    torch.cuda.synchronize()

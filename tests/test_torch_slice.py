@@ -152,8 +152,6 @@ def test_quickstart_sequence_matches_reference(n):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.HDArrayRuntime(2, backend="sim", overlap=True)
     rt = port.HDArrayRuntime(2, backend="sim")
     for kw in ({"recovery": object()}, {"rebalance": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
