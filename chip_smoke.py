@@ -33,12 +33,34 @@
    positions, 16 decode steps after each, every request finished, and
    the first prompt admitted again, whose greedy continuation must
    repeat.
+4. Drives the resilience layer (``ft/``, ``ckpt/``, the recoverable
+   pipeline, ``RecoveryEngine``, ``ReplicaPool``), after the paths
+   above so that they run as they did before it:
+   (g) the same yi-9b weights behind a ReplicaPool of 2 replicas x 2
+   instances (2 slots x 2048 each, prefix-aware routing, checkpoints
+   every 4 decode steps): 6 seeded requests of 1024, 768, 512, 1024,
+   768 and 512 tokens, 16 new tokens each, served without a fault and
+   again with instance 1 of replica 0 silent for 6 ticks (membership
+   fails it over: planned shrink, checkpoint restore, decode replay;
+   then rejoins it); the streams must be equal, replica 0's
+   recovery_log an instance_loss then an instance_join, and a decode
+   step on the restored cache finite;
+   (e) the Jacobi program under a RecoveryPolicy (checkpoints every 20
+   sweeps, a transient fault at 25, rank 2 lost at 33's commit, back
+   at 45): bit-identical to the serial plain sweeps, recovery_log a
+   rank_loss with live [0, 1, 3] then a rank_join with [0, 1, 2, 3],
+   at least 2 recoveries, 1 shrink and 1 grow;
+   (f) the Jacobi program on rows weighted (2, 1, 1, 1) under a
+   Rebalancer fed by per-rank CUDA-event times: it fires, the new
+   weights are within 10% of even, the median max/min rank-time ratio
+   after is below the threshold, the values bit-identical, the
+   migration bytes in comm_log.
    Every kernel launch counter, the total and each variant's, is set to
-   0 just before each path (each Jacobi schedule) and read just after;
-   counts are executions, a launch captured into a graph counting at
-   each replay.  Every GEMM-path launch must be the ``pipelined``
-   variant and every prefill launch the ``wgmma`` one.
-4. Prints one JSON line of kernel measurements, the card's name and
+   0 just before each path (each Jacobi schedule, each phase) and read
+   just after; counts are executions, a launch captured into a graph
+   counting at each replay.  Every GEMM-path launch must be the
+   ``pipelined`` variant and every prefill launch the ``wgmma`` one.
+5. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or
@@ -49,6 +71,7 @@ and convolution the script times.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -83,6 +106,26 @@ GEMM_BF16_TOL = 4e-3
 # n = 10240; 1e-9 is ten times that, while dropping one row of C moves
 # the total by about sqrt(n) * s, 1e-6 of sum|C|
 REDUCE_TOL = 1e-9
+
+# (e) recovery: checkpoints every 20 sweeps (two 1.97 GB arrays each,
+# the newest RECOVERY_KEEP kept on disk); a transient fault at sweep
+# 25, rank 2 lost at sweep 33's commit, rank 2 back at sweep 45
+RECOVERY_INTERVAL = 20
+RECOVERY_KEEP = 2
+RECOVERY_FAULTS = (dict(step=25),
+                   dict(step=33, site="commit", kind="rank", rank=2),
+                   dict(step=45, kind="join", rank=2))
+# (f) rebalancing: rank 0 sweeps 2/5 of the rows.  A quarter slab
+# sweeps in about 0.36 ms, under the Rebalancer's default 1 ms floor
+REBALANCE_WEIGHTS = (2, 1, 1, 1)
+REBALANCE_MIN_DURATION = 1e-4
+# (g) the serving cluster: yi-9b behind 2 replicas x 2 instances
+POOL_SLOTS, POOL_MAX_SEQ = 2, 2048
+POOL_PROMPTS = (1024, 768, 512, 1024, 768, 512)
+POOL_SHARED = 512                   # the 4th prompt's prefix of the 1st
+POOL_NEW_TOKENS = 16
+POOL_CKPT_INTERVAL = 4
+POOL_FAIL_TICK, POOL_DOWN_FOR = 2, 6
 
 SERVE_ARCH = "yi-9b"
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
@@ -480,16 +523,19 @@ def read_variants():
             for name, fn in _wrappers().items()}
 
 
-def jacobi_program(rt, init):
+def jacobi_program(rt, init, weights=None):
     """The ping-pong Jacobi program on ``rt``: A and B written with
-    ``init`` over a row partition, SWEEPS steps over the interior."""
+    ``init`` over a row partition (``weights`` per rank, even without),
+    SWEEPS steps over the interior.  Returns A, the steps and the data
+    partition."""
     from repro_torch.core import Box, IDENTITY_2D, stencil
     from repro_torch.kernels.hd import make_jacobi_kernel
 
     M, N = JACOBI_SHAPE
     A, B = rt.create("A", (M, N)), rt.create("B", (M, N))
-    pd = rt.partition_row((M, N))
-    pw = rt.partition_row((M, N), region=Box.make((1, M - 1), (1, N - 1)))
+    pd = rt.partition_row((M, N), weights=weights)
+    pw = rt.partition_row((M, N), region=Box.make((1, M - 1), (1, N - 1)),
+                          weights=weights)
     rt.write(A, init, pd)
     rt.write(B, init, pd)
     ab, ba = make_jacobi_kernel("A", "B"), make_jacobi_kernel("B", "A")
@@ -499,7 +545,7 @@ def jacobi_program(rt, init):
             dict(kernel_name="jba", part_id=pw, kernel=ba, arrays=[A, B],
                  uses={"B": fp}, defs={"A": IDENTITY_2D})
             for i in range(SWEEPS)]
-    return A, prog
+    return A, prog, pd
 
 
 def sweep_launches(rt, prog, plans, split: bool) -> int:
@@ -539,11 +585,9 @@ JACOBI_SCHEDULES = (
 )
 
 
-def jacobi_path(torch):
-    """The Jacobi program at the paper's size under each schedule of
-    JACOBI_SCHEDULES, each on a fresh runtime from the same data and
-    each bit-identical to SWEEPS serial plain sweeps on the card."""
-    from repro_torch.core import HDArrayRuntime
+def jacobi_data(torch):
+    """The Jacobi path's seeded data and SWEEPS serial plain sweeps of
+    it on the card (the last sweep defines A)."""
     from repro_torch.kernels.stencil_hd.ref import jacobi_ref
 
     M, N = JACOBI_SHAPE
@@ -552,17 +596,26 @@ def jacobi_path(torch):
     x = torch.from_numpy(init).cuda()
     for _ in range(SWEEPS):
         x = jacobi_ref(x)
-    want = x.cpu().numpy()              # the last sweep defines A
+    want = x.cpu().numpy()
     del x
     torch.cuda.empty_cache()
     print(f"jacobi path: data and {SWEEPS} serial plain sweeps "
           f"{time.perf_counter() - t0:.3f} s")
+    return init, want
+
+
+def jacobi_path(torch, init, want):
+    """The Jacobi program at the paper's size under each schedule of
+    JACOBI_SCHEDULES, each on a fresh runtime from the same data and
+    each bit-identical to SWEEPS serial plain sweeps on the card."""
+    from repro_torch.core import HDArrayRuntime
+
     launches, ms = {}, {}
     for label, overlap, drive, split in JACOBI_SCHEDULES:
         tag = label[:3]
         t0 = time.perf_counter()
         rt = HDArrayRuntime(NPROC, overlap=overlap)   # torch on the card
-        A, prog = jacobi_program(rt, init)
+        A, prog, _pd = jacobi_program(rt, init)
         ex = rt.executor
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
@@ -744,6 +797,275 @@ def gemm_path(torch):
     return launches, variants, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
 
 
+def recovery_phase(torch, init, want):
+    """(e) The Jacobi program under a RecoveryPolicy: checkpoints every
+    RECOVERY_INTERVAL sweeps, a transient fault, the loss of rank 2 at
+    a commit (the mesh shrinks 4 -> 3), and its rejoin (3 -> 4)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import HDArrayRuntime
+    from repro_torch.ft import FaultInjector, FaultSpec, RecoveryPolicy
+
+    ckdir = ROOT / "build" / "smoke_ckpt_jacobi"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t_phase = time.perf_counter()
+    rt = HDArrayRuntime(NPROC)                 # torch on the card
+    A, prog, pd = jacobi_program(rt, init)
+    ex = rt.executor
+    cm = CheckpointManager(str(ckdir), keep=RECOVERY_KEEP)
+    inj = FaultInjector([FaultSpec(**f) for f in RECOVERY_FAULTS])
+    pol = RecoveryPolicy(checkpoint=cm, interval=RECOVERY_INTERVAL,
+                         injector=inj, data_parts={"A": pd, "B": pd})
+    torch.cuda.synchronize()
+    h2d, d2h = ex.h2d_transfers, ex.d2h_transfers
+    free_gb = shutil.disk_usage(ckdir).free / 1e9
+    reset_launches()
+    t0 = time.perf_counter()
+    rt.run_pipeline(prog, recovery=pol)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = read_launches()
+    st = rt.planner.stats
+    log = rt.recovery_log
+    kinds = [r["kind"] for r in log]
+    lives = [r["live"] for r in log]
+    migration = sum(r["migration_bytes"] for r in log)
+    # the program's sweeps, the replayed ones, and the one torn at its
+    # commit (run, then discarded)
+    executed = SWEEPS + st.steps_replayed + 1
+    print(f"jacobi (e) recovery: {SWEEPS} sweeps x {NPROC} ranks at "
+          f"{JACOBI_SHAPE}, faults {inj.log}: {dt:.3f} s, "
+          f"{1e3 * dt / SWEEPS:.3f} ms per program sweep (host clock, "
+          f"checkpoints and restores included), {executed} sweeps "
+          f"executed, steps replayed {st.steps_replayed}, recoveries "
+          f"{st.recoveries}, shrinks {st.elastic_shrinks}, grows "
+          f"{st.elastic_grows}, recovery_log {list(zip(kinds, lives))}, "
+          f"migration bytes {migration}, checkpoint {cm.stats}, h2d/d2h "
+          f"{(ex.h2d_transfers - h2d, ex.d2h_transfers - d2h)}, fused_steps "
+          f"{st.fused_steps}, graphs {len(ex._graphs)}, launches {got}, "
+          f"disk free before {free_gb:.1f} GB")
+    check(kinds == ["rank_loss", "rank_join"],
+          f"(e) recovery_log kinds {kinds}")
+    check(lives == [[0, 1, 3], [0, 1, 2, 3]], f"(e) live sets {lives}")
+    check(st.recoveries >= 2 and st.elastic_shrinks == 1
+          and st.elastic_grows == 1,
+          f"(e) recoveries {st.recoveries}, shrinks {st.elastic_shrinks}, "
+          f"grows {st.elastic_grows}")
+    check(cm.stats["saves"] >= 1 and cm.stats["restores"] >= 2,
+          f"(e) checkpoint {cm.stats}")
+    # each executed sweep launches the kernel at least once per live
+    # rank (three while rank 2 is out)
+    check(got["jacobi_hd"] >= executed * (NPROC - 1),
+          f"(e) jacobi launches {got['jacobi_hd']} < {executed} x "
+          f"{NPROC - 1}")
+    check(got["gemm_hd"] == got["flash_attn_hd"] == 0,
+          f"(e) launched another kernel: {got}")
+    same = np.array_equal(rt.read_coherent(A), want)
+    print(f"jacobi (e) vs {SWEEPS} serial plain sweeps: bit-identical={same}")
+    check(same, "(e) recovery changed the values")
+    rt.close()
+    shutil.rmtree(ckdir)
+    torch.cuda.empty_cache()
+    print(f"jacobi (e) phase {time.perf_counter() - t_phase:.3f} s")
+    return got
+
+
+def _ratio(times) -> float:
+    work = [t for t in times if t > 0]
+    return max(work) / min(work)
+
+
+def rebalance_phase(torch, init, want):
+    """(f) The Jacobi program on rows weighted (2, 1, 1, 1) under a
+    Rebalancer fed by per-rank CUDA-event times."""
+    from repro_torch.core import HDArrayRuntime
+    from repro_torch.ft import Rebalancer
+
+    t_phase = time.perf_counter()
+    rt = HDArrayRuntime(NPROC)                 # torch on the card
+    A, prog, pd = jacobi_program(rt, init, weights=REBALANCE_WEIGHTS)
+    ex = rt.executor
+    reb = Rebalancer(data_parts={"A": pd, "B": pd},
+                     min_duration=REBALANCE_MIN_DURATION)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rt.run_pipeline(prog, rebalance=reb)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = read_launches()
+    st = rt.planner.stats
+    recs = [r for r in rt.recovery_log if r["kind"] == "rebalance"]
+    hist = st.rank_step_times
+    first, last = (recs[0]["step"], recs[-1]["step"]) if recs else (0, 0)
+    before = [_ratio(t) for s, t in hist if s <= first]
+    after = [_ratio(t) for s, t in hist if s > last]
+    weights = recs[-1]["weights"] if recs else ()
+    reparts = [b for name, b, _a in rt.comm_log
+               if name.startswith("__repartition_")]
+    print(f"jacobi (f) rebalance: {SWEEPS} sweeps on weights "
+          f"{REBALANCE_WEIGHTS}: {dt:.3f} s, {1e3 * dt / SWEEPS:.3f} ms per "
+          f"sweep (host clock), {st.rebalances} rebalance(s) at steps "
+          f"{[r['step'] for r in recs]}, weights "
+          f"{[tuple(round(w, 4) for w in r['weights']) for r in recs]}, "
+          f"rank times (ms) at the first fire "
+          f"{[round(1e3 * t, 4) for t in dict(hist).get(first, ())]}, "
+          f"max/min ratio before {[round(r, 3) for r in before]} after "
+          f"{[round(r, 3) for r in after]}, {len(hist)} timed steps, "
+          f"scan_captures {st.scan_captures}, migration bytes "
+          f"{[r['migration_bytes'] for r in recs]} (comm_log repartitions "
+          f"{reparts}), launches {got}")
+    check(recs and st.rebalances >= 1, "(f) the rebalancer never fired")
+    even = 1.0 / NPROC
+    check(max(abs(w - even) for w in weights) <= 0.1 * even,
+          f"(f) weights {weights} not within 10% of even")
+    check(after and float(np.median(after)) < reb.threshold,
+          f"(f) max/min rank time ratio after {after} not below "
+          f"{reb.threshold}")
+    check(sum(reparts) == sum(r["migration_bytes"] for r in recs) > 0,
+          f"(f) migration bytes {reparts} not in comm_log")
+    check(got["jacobi_hd"] >= SWEEPS * NPROC,
+          f"(f) jacobi launches {got['jacobi_hd']} < {SWEEPS * NPROC}")
+    check(got["gemm_hd"] == got["flash_attn_hd"] == 0,
+          f"(f) launched another kernel: {got}")
+    same = np.array_equal(rt.read_coherent(A), want)
+    print(f"jacobi (f) vs {SWEEPS} serial plain sweeps: bit-identical={same}")
+    check(same, "(f) rebalancing changed the values")
+    rt.close()
+    torch.cuda.empty_cache()
+    print(f"jacobi (f) phase {time.perf_counter() - t_phase:.3f} s")
+    return got
+
+
+def pool_prompts(vocab: int):
+    """POOL_PROMPTS seeded token prompts; the 4th starts with the 1st's
+    first POOL_SHARED tokens."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, vocab, n) for n in POOL_PROMPTS]
+    prompts[3][:POOL_SHARED] = prompts[0][:POOL_SHARED]
+    return prompts
+
+
+def run_pool(torch, bundle, params, prompts, fail: bool):
+    """Serve ``prompts`` on the ReplicaPool of phase (g); with ``fail``,
+    instance 1 of replica 0 stops heartbeating once the first decode
+    ticks have run.  Returns the streams, the pool and its seconds."""
+    from repro_torch.serve import ReplicaPool, ServeConfig
+
+    ckdir = ROOT / "build" / "smoke_ckpt_pool"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    pool = ReplicaPool(bundle, params,
+                       ServeConfig(slots=POOL_SLOTS, max_seq=POOL_MAX_SEQ,
+                                   prefix_reuse=True),
+                       replicas=2, instances=2, policy="prefix_aware",
+                       checkpoint_interval=POOL_CKPT_INTERVAL,
+                       ckpt_dir=str(ckdir))
+    rids = [pool.submit(p, max_new=POOL_NEW_TOKENS) for p in prompts]
+    t0 = time.perf_counter()
+    while pool.pending:
+        if fail and pool.tick == POOL_FAIL_TICK:
+            pool.inject_instance_failure(0, 1, down_for=POOL_DOWN_FOR)
+        pool.step()
+        check(pool.tick < 200, "(g) the pool did not drain in 200 ticks")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [pool.result(r) for r in rids], pool, dt, ckdir
+
+
+def close_pool(pool, ckdir) -> None:
+    for rep in pool.replicas.values():
+        rep.rt.close()
+    shutil.rmtree(ckdir)
+
+
+def pool_logits_finite(torch, rep) -> bool:
+    """One decode step of a replica's model on a copy of its restored
+    cache (every slot, at its slot position): finite logits."""
+    eng = rep.engine
+    cache = {"main": {k: v.clone() for k, v in eng.cache["main"].items()}}
+    batch = {"token": torch.zeros((POOL_SLOTS, 1), dtype=torch.long,
+                                  device=eng.device),
+             "pos": torch.tensor(eng.slot_pos, device=eng.device)}
+    logits, _ = eng.bundle.decode(eng.params, batch, cache)
+    return bool(torch.isfinite(logits).all())
+
+
+def pool_phase(torch, bundle, params):
+    """(g) yi-9b behind a 2-replica x 2-instance ReplicaPool: the
+    prompts served without a fault, then again with instance 1 of
+    replica 0 failing over (planned shrink, checkpoint restore, decode
+    replay) and rejoining, driven by heartbeats alone."""
+    from repro_torch.models.layers import FLASH_MIN_T
+
+    t_phase = time.perf_counter()
+    cfg = bundle.cfg
+    prompts = pool_prompts(cfg.vocab)
+    flash = _wrappers()["flash_attn_hd"]
+    reset_launches()
+    want, pool, dt0, ckdir = run_pool(torch, bundle, params, prompts, False)
+    ref_stats = pool.replica_stats()
+    close_pool(pool, ckdir)
+    torch.cuda.empty_cache()
+    launches_ref = read_launches()
+    flash_ref = read_variants()["flash_attn_hd"]
+    reset_launches()
+    got, pool, dt1, ckdir = run_pool(torch, bundle, params, prompts, True)
+    launches = read_launches()
+    variants = read_variants()
+    rep0 = pool.replicas[0]
+    log = rep0.recovery_log
+    kinds = [r["kind"] for r in log]
+    m = pool.export_metrics()
+    recs = m["requests"]
+    flash_prefills = sum(1 for r in recs
+                         if r["prompt_len"] - r["prefix_hit_len"]
+                         >= FLASH_MIN_T)
+    ck = [rep.cm.stats for rep in pool.replicas.values()]
+    mem = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serving (g) pool: {len(prompts)} requests of "
+          f"{list(POOL_PROMPTS)} tokens (4th shares {POOL_SHARED} with the "
+          f"1st), {POOL_NEW_TOKENS} new each, 2 replicas x 2 instances, "
+          f"{POOL_SLOTS} slots x {POOL_MAX_SEQ}: without the fault "
+          f"{dt0:.3f} s, with it {dt1:.3f} s ({pool.tick} ticks); TTFT s "
+          f"{m['ttft_s']}, per-token s {m['token_latency_s']}, throughput "
+          f"{m['throughput_tok_s']} tok/s; prefix hits "
+          f"{[r['prefix_hit_len'] for r in recs]}; events "
+          f"{[(e['kind'], e.get('tick')) for e in m['events']]}; replica 0 "
+          f"recovery_log {[(r['kind'], r['live'], r['migration_bytes'], r.get('steps_replayed')) for r in log]}; "
+          f"checkpoints per replica {ck}; flash launches {launches['flash_attn_hd']} "
+          f"({variants['flash_attn_hd']}) in {flash_prefills} prefills of "
+          f">= {FLASH_MIN_T} tokens, {launches_ref['flash_attn_hd']} without "
+          f"the fault; peak allocated {mem:.2f} GB")
+    print(f"serving (g) replica stats without the fault {ref_stats}, with "
+          f"it {pool.replica_stats()}")
+    check(got == want, "(g) failover changed a token stream")
+    check(kinds == ["instance_loss", "instance_join"],
+          f"(g) replica 0 recovery_log kinds {kinds}")
+    check(log[0]["steps_replayed"] >= 0 and rep0.live == [0, 1],
+          f"(g) replica 0 live {rep0.live}")
+    check(flash_prefills >= 1 and launches["flash_attn_hd"]
+          == cfg.n_layers * flash_prefills
+          == launches_ref["flash_attn_hd"],
+          f"(g) flash launches {launches['flash_attn_hd']} and "
+          f"{launches_ref['flash_attn_hd']} != {cfg.n_layers} x "
+          f"{flash_prefills}")
+    check(variants["flash_attn_hd"]["wgmma"] == launches["flash_attn_hd"],
+          f"(g) flash variants {variants['flash_attn_hd']}")
+    check(launches["jacobi_hd"] == launches["gemm_hd"] == 0,
+          f"(g) launched another kernel: {launches}")
+    check(all(0 <= t < cfg.vocab for st in got for t in st),
+          "(g) a generated token is outside the vocabulary")
+    finite = pool_logits_finite(torch, rep0)
+    print(f"serving (g) logits of a decode step on replica 0's restored "
+          f"cache finite: {finite}")
+    check(finite, "(g) non-finite logits after failover")
+    close_pool(pool, ckdir)
+    torch.cuda.empty_cache()
+    print(f"serving (g) phase {time.perf_counter() - t_phase:.3f} s")
+    return ({k: launches[k] + launches_ref[k] for k in launches},
+            {k: n + flash_ref[k]
+             for k, n in variants["flash_attn_hd"].items()})
+
+
 def logits_finite(torch, eng) -> bool:
     """Whether the engine's model gives finite logits for one prefill of
     the whole pool (every slot a prompt of PROMPTS[1] tokens) and one
@@ -866,9 +1188,10 @@ def serve_path(torch):
                      lambda: eng.add_request(prompts[1]))
     device_breakdown(torch, f"one decode step ({SERVE_SLOTS} slots, 2 live)",
                      eng.step, host_top=8)
+    bundle, params = eng.bundle, eng.params
     del eng
     torch.cuda.empty_cache()
-    return launches, variants, prefill_ms, decode_ms
+    return launches, variants, bundle, params
 
 
 def main() -> None:
@@ -901,16 +1224,10 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     jac, gemm = kernel_phase(torch)
-    jac_launches, jac_ms = jacobi_path(torch)
+    init, want = jacobi_data(torch)
+    jac_launches, jac_ms = jacobi_path(torch, init, want)
     gemm_launches, gemm_variants, gemm_step1_ms, gemm_step2_ms = \
         gemm_path(torch)
-    # the Jacobi path is its four schedules; the count is their sum
-    jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
-    jac["launches_by_schedule"] = {k: n["jacobi_hd"]
-                                   for k, n in jac_launches.items()}
-    jac["launches_by_variant"] = {"f32": jac["launches"]}
-    gemm["launches"] = gemm_launches["gemm_hd"]
-    gemm["launches_by_variant"] = gemm_variants["gemm_hd"]
     check(gemm_launches["jacobi_hd"] == 0 and gemm_launches["flash_attn_hd"]
           == 0, "the GEMM path launched another kernel")
     print(f"main path: jacobi ms/sweep by schedule "
@@ -921,10 +1238,30 @@ def main() -> None:
     print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB allocated")
     flash = flash_phase(torch)
-    serve_launches, serve_variants, _prefill_ms, _decode_ms = \
-        serve_path(torch)
-    flash["launches"] = serve_launches["flash_attn_hd"]
-    flash["launches_by_variant"] = serve_variants["flash_attn_hd"]
+    serve_launches, serve_variants, bundle, params = serve_path(torch)
+    # the resilience phases come last, so that every earlier phase runs
+    # as it did before they were added: (g) on the Engine's weights,
+    # then (e) and (f) on the Jacobi data once the weights are freed
+    pool_launches, pool_variants = pool_phase(torch, bundle, params)
+    del bundle, params
+    torch.cuda.empty_cache()
+    jac_launches["(e)"] = recovery_phase(torch, init, want)
+    jac_launches["(f)"] = rebalance_phase(torch, init, want)
+    del init, want
+    # the Jacobi path is its six schedules; the count is their sum
+    jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
+    jac["launches_by_schedule"] = {k: n["jacobi_hd"]
+                                   for k, n in jac_launches.items()}
+    jac["launches_by_variant"] = {"f32": jac["launches"]}
+    gemm["launches"] = gemm_launches["gemm_hd"]
+    gemm["launches_by_variant"] = gemm_variants["gemm_hd"]
+    flash["launches"] = (serve_launches["flash_attn_hd"]
+                         + pool_launches["flash_attn_hd"])
+    flash["launches_by_path"] = {"engine": serve_launches["flash_attn_hd"],
+                                 "(g) pool": pool_launches["flash_attn_hd"]}
+    flash["launches_by_variant"] = {
+        k: n + pool_variants[k]
+        for k, n in serve_variants["flash_attn_hd"].items()}
     print(json.dumps({"kernels": [jac, gemm, flash]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

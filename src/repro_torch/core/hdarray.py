@@ -108,6 +108,76 @@ class HDArray:
         self.sgdef.clear()
         self.events.append(hash(("write_replicated", self.name)))
 
+    def record_restore(self, per_device: Tuple[SectionSet, ...]) -> None:
+        """Checkpoint restore: device p's copy of per_device[p] becomes
+        the ONLY coherent one.  Unlike record_write this resets the
+        whole coherence state — pending sends computed against the
+        pre-fault epoch would replay stale sections into post-restore
+        plans, so the sGDEF empties and validity is rebuilt from the
+        restore layout alone.  The event append busts §4.2 plan-cache
+        history for this array."""
+        empty = SectionSet.empty(self.ndim)
+        self.sgdef.clear()
+        for p in range(self.nproc):
+            self.valid[p] = empty
+        for p in range(self.nproc):
+            w = per_device[p]
+            if w.is_empty():
+                continue
+            self.valid.union_at(p, w)
+            self._supersede(p, w)
+        self.events.append(hash(("restore", per_device)))
+
+    def mark_rank_lost(self, rank: int) -> None:
+        """Rank `rank` (and every byte it held) is gone: drop its valid
+        sections and every pending send to or from it.  The array may be
+        left without coherent cover — the caller must restore before the
+        next plan reads the lost sections."""
+        nd = self.ndim
+        empty = SectionSet.empty(nd)
+        full = SectionSet.full(self.shape)
+        self.valid[rank] = empty
+        self.sgdef.subtract_into_row(rank, full)     # rank sends nothing
+        lo, hi = full.bbox_bounds()
+        for q in self.sgdef.rows_overlapping(lo, hi):
+            if q != rank:
+                # pending sends TO the dead rank are moot, but q still
+                # holds the coherent copy — only the (q -> rank) entry
+                # clears, not q's whole row
+                self.sgdef.set_entry(int(q), rank, empty)
+        self.events.append(hash(("rank_lost", self.name, rank)))
+
+    def mark_rank_joined(self, rank: int) -> None:
+        """Rank `rank` (re)joined the mesh with an EMPTY, untrusted
+        buffer.  Its own state clears (no valid sections, nothing to
+        send), and — the restore-style rebuild — every owner q's
+        pending-send set to the joiner becomes q's coherent sections:
+        ``mark_rank_lost`` zeroed the ``sGDEF[q][rank]`` column when
+        the rank died (sends to a dead rank are moot), so without the
+        rebuild the planner would believe the joiner is already up to
+        date and the grow ``repartition`` would migrate nothing.
+        Sections valid on several owners are assigned to ONE sender
+        (lowest rank), so the migration is planned without duplicate
+        traffic.  The event append busts the §4.2 plan-cache history
+        like :meth:`record_restore` — plans computed while the rank
+        was absent must not replay onto the grown mesh by accident of
+        matching metadata."""
+        nd = self.ndim
+        empty = SectionSet.empty(nd)
+        full = SectionSet.full(self.shape)
+        self.valid[rank] = empty
+        self.sgdef.subtract_into_row(rank, full)   # it has nothing to send
+        remaining = full
+        for q in range(self.nproc):
+            if q == rank or remaining.is_empty():
+                continue
+            pend = self.valid[q].intersect(remaining)
+            if pend.is_empty():
+                continue
+            self.sgdef.set_entry(q, rank, pend)
+            remaining = remaining.subtract(pend)
+        self.events.append(hash(("rank_joined", self.name, rank)))
+
     def apply_messages_and_defs(
         self,
         send: Dict[Tuple[int, int], SectionSet],

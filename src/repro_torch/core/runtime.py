@@ -42,12 +42,19 @@ torch backend runs as one program (a CUDA graph on a card), and
 ``run_pipeline`` runs the steady state of a periodic program as one
 captured cycle (``Executor.capture_cycle``).
 
-Not ported yet (each raises NotImplementedError and is listed in
-ROADMAP.md): fault recovery and rebalancing in ``run_pipeline``
-(``recovery=`` / ``rebalance=``, ``ft/`` and ``ckpt/``).
+Fault recovery and measured rebalancing (``run_pipeline(recovery=,
+rebalance=)``, with :mod:`repro_torch.ft` and :mod:`repro_torch.ckpt`):
+checkpoint restore and replay, a planned shrink after a rank loss, a
+planned grow when a rank joins, and a repartition onto measured
+capability weights.  While a consumer of per-rank times is attached (a
+``Rebalancer``, a policy's ``StragglerMonitor``) the runtime asks the
+executor to time each rank (``Executor.time_ranks``, where the
+executor has it): on the torch backend such steps run unfused, each
+rank's sweep between two CUDA events.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -99,6 +106,12 @@ class HDArrayRuntime:
         self._scheduler = OverlapScheduler(self.executor) if overlap else None
         self.arrays: Dict[str, HDArray] = {}
         self.comm_log: list = []     # [(kernel, CommPlan bytes, kinds)]
+        # fault-recovery audit trail: one record per recovery cycle,
+        # rebalance, or mesh grow (run_pipeline's recovery= path)
+        self.recovery_log: list = []
+        # capability weights ranks held before being lost — a rejoin
+        # restores them (0 -> w) instead of guessing
+        self._lost_weights: Dict[int, float] = {}
 
     # -- lifecycle ------------------------------------------------------
     def create(self, name: str, shape, dtype=np.float32) -> HDArray:
@@ -185,16 +198,26 @@ class HDArrayRuntime:
         arrays: Sequence[HDArray],
         uses: Dict[str, Access],
         defs: Dict[str, Access],
+        _fault_hook: Optional[Callable[[str], None]] = None,
         **kw,
     ) -> CommPlan:
         """Paper Fig. 3: plan comm (Eqns 1-2) -> move data -> run kernel
         -> commit GDEF updates (Eqns 3-4).  Under ``overlap=True`` the
         move/commit (and, for halos, part of the kernel) run
-        concurrently — see the module docstring."""
+        concurrently — see the module docstring.
+
+        ``_fault_hook`` (recovery-path internal) is called with site
+        ``"commit"`` immediately before the Eqn (3)-(4) commit — under
+        overlap that is on the host thread while messages are still in
+        flight, and the scheduler joins the comm thread (on a card, the
+        host stream waits for the copies) before the fault leaves the
+        step — so fault injection can tear a step mid-commit."""
         part = self.parts[part_id]
         plan = self.planner.plan(kernel_name, part, arrays, uses, defs)
 
         def _commit() -> None:
+            if _fault_hook is not None:
+                _fault_hook("commit")
             self.planner.commit(plan, arrays, part)
 
         stats = self.planner.stats
@@ -230,6 +253,20 @@ class HDArrayRuntime:
         With ``overlap=True`` it runs the Fig. 7 schedule: step i+1's
         planning overlaps step i's message execution.
 
+        With ``recovery`` (a :class:`repro_torch.ft.faults.
+        RecoveryPolicy`) the pipeline survives faults: state checkpoints
+        every ``interval`` steps, a ``TransientFault`` restores the last
+        checkpoint and replays (retry/backoff via StepGuard), a
+        ``RankLostFault`` additionally shrinks every partition onto the
+        surviving ranks through coherence-gated ``repartition`` before
+        resuming, and a joining rank (``RankJoinedEvent`` or
+        ``RecoveryPolicy.register_rank``) grows them back.
+        Deterministic kernels replay bit-identically.  Recovery mode
+        steps serially, one ``apply_kernel`` per step (per-step §4.2
+        overlap still applies when ``overlap=True``; the cross-step
+        plan-ahead and the cycle capture of the fault-free paths would
+        run past a checkpoint boundary).
+
         Without overlap, the serial path watches for a *steady-state
         cycle*: a repeating step sequence whose every step replayed
         both its plan (§4.2 cache hit) and its commit (fingerprint
@@ -241,21 +278,61 @@ class HDArrayRuntime:
         ``comm_log`` and the GDEF state evolve exactly as the unfused
         schedule.  Host backends decline and nothing changes.  Per-rank
         kernel times, where the executor measures them, land in
-        ``PlannerStats.rank_step_times``."""
-        if recovery is not None or rebalance is not None:
-            raise NotImplementedError(
-                "run_pipeline(recovery=, rebalance=) is not ported yet: "
-                "fault recovery and rebalancing (ft/, ckpt/) are queued "
-                "in ROADMAP.md")
-        if self._scheduler is not None:
-            return self._scheduler.pipeline(self, list(steps))
-        return self._run_pipeline_serial(list(steps))
+        ``PlannerStats.rank_step_times``.
+
+        With ``rebalance`` (a :class:`repro_torch.ft.rebalance.
+        Rebalancer`, or ``RecoveryPolicy.rebalancer`` on the recovery
+        path) the pipeline watches the executor's per-rank kernel times
+        and, when they diverge persistently, repartitions mid-flight
+        onto measured capability-proportional weights: the rebalancer's
+        ``data_parts`` arrays migrate through the ordinary planned
+        ``repartition`` (bytes in ``comm_log``), the remaining steps'
+        work partitions are rewritten, and a ``"rebalance"`` record
+        lands in ``recovery_log``.  Cycle capture is gated on the mesh
+        looking balanced (``Rebalancer.allow_capture``), so captures
+        re-arm on the new layout."""
+        if recovery is not None:
+            reb = rebalance if rebalance is not None \
+                else getattr(recovery, "rebalancer", None)
+            timed = reb is not None \
+                or getattr(recovery, "monitor", None) is not None
+            with self._rank_timing(timed):
+                return self._run_pipeline_recoverable(list(steps), recovery,
+                                                      rebalance)
+        if self._scheduler is None:
+            if rebalance is None:
+                return self._run_pipeline_serial(list(steps))
+            # rebalancing rewrites the remaining steps' part ids: work
+            # on copies so the caller's dicts survive
+            with self._rank_timing(True):
+                return self._run_pipeline_serial(
+                    [dict(st) for st in steps], rebalance)
+        if rebalance is not None:
+            raise ValueError(
+                "rebalance requires the serial or recovery pipeline "
+                "path (overlap=False, or a RecoveryPolicy)")
+        return self._scheduler.pipeline(self, list(steps))
+
+    @contextlib.contextmanager
+    def _rank_timing(self, on: bool):
+        """Ask the executor for per-rank kernel times while a consumer
+        reads them (executors without the switch measure what they
+        measure, the Sim oracle always)."""
+        ex = self.executor
+        if not on or not hasattr(ex, "time_ranks"):
+            yield
+            return
+        ex.time_ranks = True
+        try:
+            yield
+        finally:
+            ex.time_ranks = False
 
     # -- steady-state capture (one dispatch for K steps) -----------------
     #: longest cycle period the serial pipeline looks for
     _MAX_CYCLE_PERIOD = 4
 
-    def _run_pipeline_serial(self, steps: list) -> list:
+    def _run_pipeline_serial(self, steps: list, rebalance=None) -> list:
         stats = self.planner.stats
         n = len(steps)
         plans: list = [None] * n
@@ -263,7 +340,8 @@ class HDArrayRuntime:
         try_capture = True
         i = 0
         while i < n:
-            if try_capture:
+            if try_capture and (rebalance is None
+                                or rebalance.allow_capture()):
                 d = self._cycle_period(steps, steady, i)
                 if d:
                     # only the upcoming steps that literally repeat the
@@ -309,6 +387,15 @@ class HDArrayRuntime:
             rank_times = getattr(self.executor, "last_rank_times", None)
             if rank_times is not None:
                 stats.note_rank_times(i, rank_times)
+            if rebalance is not None:
+                part = self.parts[st["part_id"]]
+                volumes = tuple(r.volume() for r in part.regions)
+                if rebalance.observe(i, rank_times, volumes,
+                                     weights=part.weights):
+                    # steps[i+1:] move to the reweighted partitions;
+                    # their steady-state witness rebuilds on the new
+                    # geometry before capture is offered again
+                    self._apply_rebalance(rebalance, steps, i + 1)
             i += 1
         return plans
 
@@ -356,6 +443,316 @@ class HDArrayRuntime:
                 f"wrong")
         self.log_plan(st["kernel_name"], plan)
         return plan
+
+    # -- fault-tolerant pipeline (docs/fault-tolerance.md) ---------------
+    def _run_pipeline_recoverable(self, steps: list, policy,
+                                  rebalance=None) -> list:
+        # ft imports stay function-local: repro_torch.ft imports repro_torch.core
+        from repro_torch.ft.faults import (RankJoinedEvent, RankLostFault,
+                                     StepGuard)
+
+        if policy.checkpoint is None:
+            raise ValueError("RecoveryPolicy.checkpoint is required: "
+                             "recovery without a restore point cannot "
+                             "replay")
+        cm = policy.checkpoint
+        stats = self.planner.stats
+        n = len(steps)
+        steps = [dict(st) for st in steps]   # part_ids rewritten on shrink
+        plans: list = [None] * n
+        initial_live = getattr(policy, "initial_live", None)
+        live = (sorted(int(p) for p in initial_live)
+                if initial_live is not None else sorted(range(self.nproc)))
+        saved: set = set()
+        reb = rebalance if rebalance is not None \
+            else getattr(policy, "rebalancer", None)
+        if reb is not None and reb.data_parts is None:
+            # share the policy's canonical-layout mapping so a shrink
+            # and a rebalance keep updating the same dict
+            reb.data_parts = policy.data_parts
+
+        def restore_fn():
+            k = cm.restore_runtime(self, parts=policy.data_parts,
+                                   live=live)
+            return k, None
+
+        guard = StepGuard(restore_fn, max_retries=policy.max_retries,
+                          backoff=policy.backoff, sleep=policy.sleep)
+        i = 0
+        while i < n:
+            # drain out-of-band joins (RecoveryPolicy.register_rank):
+            # a recovered rank re-registering grows the mesh back at
+            # the very next step boundary, automatically
+            pending = getattr(policy, "pending_joins", None)
+            if pending:
+                for r in list(pending):
+                    self._recover_rank_join(r, policy, steps, live,
+                                            rebalancer=reb, step=i)
+                pending.clear()
+            if (policy.interval and i % policy.interval == 0
+                    and i not in saved):
+                cm.save_runtime(i, self)
+                saved.add(i)
+            t0 = policy.clock()
+            try:
+                out, replay = guard.run(
+                    i, lambda st=steps[i], k=i: self._guarded_step(
+                        st, policy.injector, k))
+            except RankLostFault as e:
+                restored = self._recover_rank_loss(e.rank, policy, steps,
+                                                   live, rebalancer=reb)
+                stats.recoveries += 1
+                stats.steps_replayed += i - restored
+                i = restored
+                continue
+            except RankJoinedEvent as e:
+                resume = i
+                if e.site == "commit":
+                    # the step tore mid-commit: discard it via the last
+                    # checkpoint first, then grow, then replay — values
+                    # stay bit-identical (partition-independent)
+                    restored, _state = restore_fn()
+                    stats.recoveries += 1
+                    stats.steps_replayed += i - restored
+                    resume = restored
+                self._recover_rank_join(e.rank, policy, steps, live,
+                                        rebalancer=reb, step=i)
+                i = resume
+                continue
+            if replay is not None:
+                restored, _state = replay
+                stats.recoveries += 1
+                stats.steps_replayed += i - restored
+                i = restored
+                continue
+            dt = policy.clock() - t0
+            rank_times = getattr(self.executor, "last_rank_times", None)
+            if rank_times is not None:
+                stats.note_rank_times(i, rank_times)
+            if (policy.monitor is not None
+                    and policy.monitor.observe(i, dt,
+                                               rank_times=rank_times)):
+                stats.straggler_events += 1
+            if reb is not None:
+                part = self.parts[steps[i]["part_id"]]
+                volumes = tuple(r.volume() for r in part.regions)
+                if reb.observe(i, rank_times, volumes,
+                               weights=part.weights):
+                    self._apply_rebalance(reb, steps, i + 1, live=live)
+            plans[i] = out
+            i += 1
+        return plans
+
+    def _guarded_step(self, st: Dict, injector, i: int) -> CommPlan:
+        if injector is not None:
+            injector.maybe_fail(i, site="step")
+            hook = lambda site: injector.maybe_fail(i, site=site)  # noqa: E731
+        else:
+            hook = None
+        return self.apply_kernel(
+            st["kernel_name"], st["part_id"], st["kernel"], st["arrays"],
+            st["uses"], st["defs"], _fault_hook=hook, **st.get("kw", {}))
+
+    def _recover_rank_loss(self, rank: int, policy, steps: list,
+                           live: list, rebalancer=None) -> int:
+        """The planned-shrink path: mark the rank dead (coherence
+        metadata + executor buffers), restore the checkpoint onto a
+        staging layout over the survivors, repartition every array onto
+        its shrunken canonical layout (a PLANNED migration, coherence-
+        gated, visible in comm_log), and rewrite the remaining steps'
+        work partitions onto the surviving ranks.  Returns the step to
+        resume from."""
+        from repro_torch.ft.faults import (ElasticPlan, inherit_partition,
+                                     shrink_partition, survivor_partition)
+
+        if rank in live:
+            live.remove(rank)
+        if not live:
+            raise RuntimeError(f"rank {rank} lost and no survivors remain")
+        # remember the capability weight the rank carried so a later
+        # rejoin restores it (0 -> w) instead of guessing
+        for pid in (list((policy.data_parts or {}).values())
+                    + [st["part_id"] for st in steps]):
+            wts = self.parts[pid].weights
+            if wts is not None and wts[rank] > 0:
+                self._lost_weights[rank] = float(wts[rank])
+                break
+        for arr in self.arrays.values():
+            arr.mark_rank_lost(rank)
+            self.executor.drop_rank(arr, rank)
+        # restore staging: survivors keep their checkpointed sections
+        # where the old data layout permits (inherit), else an even
+        # survivor split; then rebalance with a planned repartition
+        data_parts = dict(policy.data_parts or {})
+        staging: Dict[str, int] = {}
+        targets: Dict[str, int] = {}
+        for name, arr in self.arrays.items():
+            if name in data_parts:
+                pid = inherit_partition(self, data_parts[name], live)
+                if pid is None:
+                    pid = survivor_partition(self, arr.shape, live)
+                staging[name] = pid
+                targets[name] = shrink_partition(self, data_parts[name],
+                                                 live)
+            else:
+                pid = survivor_partition(self, arr.shape, live)
+                staging[name] = pid
+                targets[name] = pid
+        restored = cm_step = policy.checkpoint.restore_runtime(
+            self, parts=staging, live=live)
+        migration = 0
+        for name, arr in self.arrays.items():
+            if targets[name] != staging[name]:
+                plan = self.repartition(arr, staging[name], targets[name])
+                migration += plan.bytes_total
+        if policy.data_parts is not None:
+            policy.data_parts.update(targets)
+        # remaining steps' WORK partitions shrink onto the survivors too
+        remap: Dict[int, int] = {}
+        for st in steps:
+            pid = st["part_id"]
+            if pid not in remap:
+                remap[pid] = shrink_partition(self, pid, live)
+            st["part_id"] = remap[pid]
+        if rebalancer is not None:
+            rebalancer.note_mesh_changed()
+        self.planner.stats.elastic_shrinks += 1
+        self.recovery_log.append({
+            "kind": "rank_loss", "rank": rank,
+            "restored_step": restored, "live": list(live),
+            "migration_bytes": migration,
+            "plan": ElasticPlan(len(live) + 1, len(live),
+                                (len(live),), migration)})
+        return cm_step
+
+    def _restored_weight(self, rank: int) -> Optional[float]:
+        """The capability weight a (re)joining rank comes back with:
+        the weight it carried before being lost, else the declared
+        DeviceProfileRegistry weight for a rank that was never lost
+        (genuine scale-up of a known device), else None —
+        ``grow_partition`` then defaults to the mean of the live
+        weights (neutral, like an unmeasured rank)."""
+        if rank in self._lost_weights:
+            return self._lost_weights[rank]
+        if self.profiles is not None:
+            try:
+                return float(self.profiles.weights()[rank])
+            except Exception:
+                return None
+        return None
+
+    def _recover_rank_join(self, rank: int, policy, steps: list,
+                           live: list, rebalancer=None,
+                           step: Optional[int] = None) -> None:
+        """The planned-GROW path, inverse of :meth:`_recover_rank_loss`:
+        a recovered (or newly added) rank enters the mesh mid-pipeline.
+        No checkpoint restore is needed — the survivors hold every
+        coherent byte — so the grow is pure planned migration: clear
+        the joiner's coherence metadata (its buffer is untrusted),
+        ``Executor.add_rank`` allocates the shard, ``grow_partition``
+        re-splits every canonical data layout with the rank's
+        capability weight restored (0 -> w), and a real ``repartition``
+        carries the migration bytes into ``comm_log``.  Remaining
+        steps' work partitions grow onto the joined mesh the same way."""
+        from repro_torch.ft.faults import ElasticPlan, grow_partition
+
+        if rank in live:
+            # idempotent: a rank re-registering while already live is
+            # an audit event, not a mesh change
+            self.recovery_log.append({
+                "kind": "rank_join", "rank": rank, "step": step,
+                "live": list(live), "migration_bytes": 0, "noop": True,
+                "plan": None})
+            return
+        if not 0 <= rank < self.nproc:
+            raise ValueError(
+                f"rank {rank} cannot join a mesh of nproc={self.nproc} "
+                f"(the executor allocation is fixed at nproc; grow "
+                f"beyond it is not supported)")
+        t_grow = policy.clock() if hasattr(policy, "clock") else None
+        live.append(rank)
+        live.sort()
+        for arr in self.arrays.values():
+            arr.mark_rank_joined(rank)
+            self.executor.add_rank(arr, rank)
+        w = self._restored_weight(rank)
+        remap: Dict[int, int] = {}
+
+        def grown(pid: int) -> int:
+            if pid not in remap:
+                remap[pid] = grow_partition(self, pid, live, rank,
+                                            weight=w)
+            return remap[pid]
+
+        migration = 0
+        data_parts = dict(policy.data_parts or {})
+        for name, pid in data_parts.items():
+            tgt = grown(pid)
+            plan = self.repartition(self.arrays[name], pid, tgt)
+            migration += plan.bytes_total
+        if policy.data_parts is not None:
+            policy.data_parts.update(
+                {name: remap[pid] for name, pid in data_parts.items()})
+        for st in steps:
+            st["part_id"] = grown(st["part_id"])
+        if rebalancer is not None:
+            rebalancer.note_mesh_changed()
+        self._lost_weights.pop(rank, None)
+        self.planner.stats.elastic_grows += 1
+        self.recovery_log.append({
+            "kind": "rank_join", "rank": rank, "step": step,
+            "live": list(live), "migration_bytes": migration,
+            "latency_s": ((policy.clock() - t_grow)
+                          if t_grow is not None else None),
+            "plan": ElasticPlan(len(live) - 1, len(live),
+                                (len(live),), migration)})
+
+    # -- measurement-driven rebalancing (ft/rebalance.py) -----------------
+    def _apply_rebalance(self, reb, steps: list, next_i: int,
+                         live=None) -> None:
+        """React to a Rebalancer trigger: rebuild every partition the
+        remaining steps (and the rebalancer's ``data_parts`` arrays)
+        use with the measured capability weights, migrate the data
+        arrays through the ordinary planned ``repartition`` (coherence-
+        gated, bytes in ``comm_log``), rewrite the remaining steps'
+        part ids, and append the audit record — per-rank timing history
+        included — to ``recovery_log``.  ``live`` masks the target
+        weights to the current mesh: after an elastic shrink a dead
+        rank must get zero weight even though ``target_weights`` hands
+        never-measured ranks the mean speed."""
+        from repro_torch.ft.rebalance import reweighted_partition
+
+        stats = self.planner.stats
+        weights = reb.target_weights(self.nproc)
+        if live is not None:
+            mask = set(live)
+            weights = tuple(w if p in mask else 0.0
+                            for p, w in enumerate(weights))
+        remap: Dict[int, int] = {}
+
+        def new_pid(old: int) -> int:
+            if old not in remap:
+                remap[old] = reweighted_partition(self, old, weights)
+            return remap[old]
+
+        migration = 0
+        if reb.data_parts:
+            for name, pid in list(reb.data_parts.items()):
+                tgt = new_pid(pid)
+                plan = self.repartition(self.arrays[name], pid, tgt)
+                migration += plan.bytes_total
+                reb.data_parts[name] = tgt
+        for st in steps[next_i:]:
+            st["part_id"] = new_pid(st["part_id"])
+        stats.rebalances += 1
+        self.recovery_log.append({
+            "kind": "rebalance", "step": next_i - 1,
+            "weights": tuple(weights),
+            # the per-rank divergence that triggered this decision
+            "rank_times": list(reb.history[-reb.patience:]),
+            "migration_bytes": migration,
+            "parts": dict(remap)})
+        reb.note_rebalanced(next_i - 1)
 
     def log_plan(self, kernel_name: str, plan: CommPlan) -> None:
         self.comm_log.append(

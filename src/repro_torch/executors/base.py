@@ -50,7 +50,10 @@ Every executor keeps ``bytes_moved`` (payload bytes of executed
 messages), ``messages_executed`` (one per transferred box) and
 ``reduce_elements`` (elements folded by local reductions).
 ``last_rank_times`` exposes the per-rank wall time of the latest kernel
-sweep when the backend can attribute it (sim; None elsewhere).
+sweep when the backend can attribute it: always on sim; on torch while
+its ``time_ranks`` switch is set (CUDA events on a card), which the
+runtime sets while a ``Rebalancer`` or a ``StragglerMonitor`` reads
+the times; None otherwise.
 """
 from __future__ import annotations
 

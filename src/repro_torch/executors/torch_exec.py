@@ -50,6 +50,23 @@ steady pipeline period (one graph, replayed ``reps`` times in one host
 call).  On the CPU the same steps run eagerly in the same order.  A
 failed capture, instantiate or replay raises: nothing falls back.
 
+**Per-rank times.**  While ``time_ranks`` is set (the runtime sets it
+while a ``Rebalancer`` or a ``StragglerMonitor`` reads the times), a
+device-kernel step runs unfused: the copies, then each rank's sweep
+between two CUDA events on the current stream, each after a short
+spin of the card that lets the host enqueue the rank's launches first
+(the host clock on the CPU, where the Sim oracle's ``rank_cost``
+slowdown model applies too),
+and ``last_rank_times`` holds the seconds per rank once the step's
+events are read.  Otherwise ``last_rank_times`` stays None: a fused
+program cannot be timed per rank.
+
+**Elasticity.**  ``drop_rank`` and ``add_rank`` poison and zero the
+rank's slice in place, and a checkpoint restore writes in place, so
+no resident tensor moves and a captured graph's addresses stay valid;
+a mesh change drops the graphs naming the array, since the new
+partitions make new step signatures.
+
 **Overlap.**  Under :class:`~repro_torch.executors.overlap.
 OverlapScheduler` the comm thread's copies run inside a fence from
 :meth:`TorchExecutor.comm_fence`: on the card, on a comm stream of
@@ -62,6 +79,7 @@ oracle's.  A fold on the device would change the summation order.
 from __future__ import annotations
 
 import threading
+import time
 from typing import (TYPE_CHECKING, Any, Callable, Dict, List, NamedTuple,
                     Optional, Sequence, Set, Tuple)
 
@@ -88,8 +106,21 @@ Group = Tuple["HDArray", List[Tuple[Tuple[int, int], "SectionSet"]], str]
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a numpy dtype."""
-    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+    """The torch dtype a numpy dtype is stored as: its own, except that
+    an unsigned integer wider than a byte is kept as the signed one of
+    its size, bit for bit (torch's uint16/32/64 take few operations;
+    bfloat16 data arrives as np.uint16 bits)."""
+    dtype = np.dtype(dtype)
+    if dtype.kind == "u" and dtype.itemsize > 1:
+        dtype = np.dtype(f"i{dtype.itemsize}")
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+def _as_stored(data: np.ndarray) -> np.ndarray:
+    """``data`` viewed as the numpy type of its torch storage."""
+    if data.dtype.kind == "u" and data.dtype.itemsize > 1:
+        return data.view(f"i{data.dtype.itemsize}")
+    return data
 
 
 class _Step(NamedTuple):
@@ -148,6 +179,14 @@ class _CommFence:
 class TorchExecutor(SimExecutor):
     """Executes plans over device-resident ``(nproc, *shape)`` tensors."""
 
+    #: time each rank's kernel sweep (see the module docstring)
+    time_ranks = False
+    #: cycles the card spins before each rank's first event in a timed
+    #: step (about 0.5 ms on an H100), so that the host enqueues that
+    #: rank's launches while the card is busy: without it a rank whose
+    #: predecessor finished first would count the host's launch latency
+    HEAD_START_CYCLES = 1 << 20
+
     def __init__(self, nproc: Optional[int] = None,
                  device: str = "cuda") -> None:
         super().__init__(nproc=nproc)
@@ -159,6 +198,9 @@ class TorchExecutor(SimExecutor):
             raise RuntimeError(
                 "TorchExecutor(device='cuda') needs a CUDA device; pass "
                 "device='cpu' to run on the host")
+        if dev.type == "cuda" and dev.index is None:
+            # "cuda" names the current card; tensors on it say "cuda:N"
+            dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.device_class = dev.type
         self.h2d_transfers = 0
@@ -202,6 +244,7 @@ class TorchExecutor(SimExecutor):
         self.sync_device(arr)
         dev[rank].fill_(float("nan") if dev.is_floating_point() else 0)
         self._host_ok[arr.name] = False
+        self._drop_graphs(arr.name)
 
     def add_rank(self, arr: "HDArray", rank: int) -> None:
         """Device ``rank`` (re)joined: its buffer restarts zeroed; only
@@ -212,6 +255,7 @@ class TorchExecutor(SimExecutor):
         self.sync_device(arr)
         dev[rank].zero_()
         self._host_ok[arr.name] = False
+        self._drop_graphs(arr.name)
 
     # -- residency hooks (Executor protocol) ----------------------------
     def sync_host(self, arr: "HDArray") -> None:
@@ -225,6 +269,7 @@ class TorchExecutor(SimExecutor):
             if comm is not None:       # copies the comm thread issued
                 torch.cuda.current_stream(self.device).wait_stream(comm)
             stacked = self._device[name].to("cpu", copy=True).numpy()
+            stacked = stacked.view(arr.dtype)
             self.buffers[name] = list(stacked)   # per-rank writable views
             self._host_ok[name] = True
             self.d2h_transfers += 1
@@ -238,21 +283,34 @@ class TorchExecutor(SimExecutor):
                 return
             dev = self._device[name]
             for p, buf in enumerate(self.buffers[name]):
-                dev[p].copy_(torch.from_numpy(buf))
+                dev[p].copy_(torch.from_numpy(_as_stored(buf)))
             self._device_ok[name] = True
             self.h2d_transfers += 1
 
     # -- controller I/O -------------------------------------------------
-    def write(self, arr: "HDArray", data: np.ndarray,
+    def write(self, arr: "HDArray", data,
               per_device: Sequence["SectionSet"]) -> None:
-        data = np.ascontiguousarray(data, dtype=arr.dtype)
-        if data.shape != arr.shape:
-            raise ValueError(f"write of shape {data.shape} into "
+        """Scatter ``data`` into each rank's sections, in place.  A
+        numpy array is uploaded once (one h2d); a tensor already on
+        this executor's device, of the storage dtype (``torch_dtype``),
+        is copied on the device and counts no transfer."""
+        dev = self._device[arr.name]
+        if isinstance(data, torch.Tensor):
+            if data.device != self.device or data.dtype != dev.dtype:
+                raise ValueError(
+                    f"write into {arr.name!r} takes a {dev.dtype} tensor "
+                    f"on {self.device}, not {data.dtype} on {data.device}")
+            src = data
+        else:
+            src = None
+            data = np.ascontiguousarray(data, dtype=arr.dtype)
+        if tuple(data.shape) != arr.shape:
+            raise ValueError(f"write of shape {tuple(data.shape)} into "
                              f"{arr.name!r} of shape {arr.shape}")
         self.sync_device(arr)
-        src = torch.from_numpy(data).to(self.device)
-        self.h2d_transfers += 1
-        dev = self._device[arr.name]
+        if src is None:
+            src = torch.from_numpy(_as_stored(data)).to(self.device)
+            self.h2d_transfers += 1
         for p, secs in enumerate(per_device):
             for sl in secs.iter_slices():
                 dev[p][sl] = src[sl]
@@ -262,13 +320,21 @@ class TorchExecutor(SimExecutor):
              per_device: Sequence["SectionSet"]) -> np.ndarray:
         if self._host_ok[arr.name]:
             return super().read(arr, per_device)
+        out = self.read_tensor(arr, per_device)
+        self.d2h_transfers += 1
+        return out.cpu().numpy().view(arr.dtype)
+
+    def read_tensor(self, arr: "HDArray",
+                    per_device: Sequence["SectionSet"]) -> torch.Tensor:
+        """``read`` without the download: the sections assembled into a
+        new tensor of the storage dtype on this executor's device."""
+        self.sync_device(arr)
         dev = self._device[arr.name]
         out = torch.zeros(arr.shape, dtype=dev.dtype, device=self.device)
         for p, secs in enumerate(per_device):
             for sl in secs.iter_slices():
                 out[sl] = dev[p][sl]
-        self.d2h_transfers += 1
-        return out.cpu().numpy()
+        return out
 
     # -- protocol: message execution ------------------------------------
     def execute_messages(self, arr: "HDArray",
@@ -319,13 +385,62 @@ class TorchExecutor(SimExecutor):
                 self._device_ok[a.name] = False
 
     def _run_device_kernel(self, kernel, part_regions, arrays, kw) -> None:
-        self.last_rank_times = None      # no per-rank host timing on device
         for a in arrays:
             self.sync_device(a)
-        for name in self._sweep(kernel, [(r,) for r in part_regions],
-                                arrays, kw):
+        boxes = [(r,) for r in part_regions]
+        if self.time_ranks:
+            defined = self._timed_sweep(kernel, boxes, arrays, kw)
+        else:
+            self.last_rank_times = None
+            defined = self._sweep(kernel, boxes, arrays, kw)
+        for name in defined:
             self._host_ok[name] = False
         self.device_kernel_launches += 1
+
+    def _timed_sweep(self, kernel, boxes_per_rank, arrays, kw) -> Set[str]:
+        """:meth:`_sweep` one rank at a time, each rank's launches
+        between two CUDA events (the host clock on the CPU, plus the
+        ``rank_cost`` model's busy time as in the Sim oracle); sets
+        ``last_rank_times`` in seconds, 0.0 for a rank with no work."""
+        cuda = self.device.type == "cuda"
+        n = len(boxes_per_rank)
+        marks: List[Any] = [None] * n
+        defined: Set[str] = set()
+        for p, boxes in enumerate(boxes_per_rank):
+            volume = sum(b.volume() for b in boxes if not b.is_empty())
+            if not volume:
+                continue
+            one = [()] * n
+            one[p] = boxes
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(self.HEAD_START_CYCLES)
+                start.record()
+                defined |= self._sweep(kernel, one, arrays, kw)
+                end.record()
+                marks[p] = (start, end)
+                continue
+            t0 = time.perf_counter()
+            defined |= self._sweep(kernel, one, arrays, kw)
+            cost = self.rank_cost.get(p)
+            if cost:
+                # busy-wait, as the Sim oracle does
+                target = t0 + cost * volume
+                while time.perf_counter() < target:
+                    pass
+            marks[p] = time.perf_counter() - t0
+        times = [0.0] * n
+        for p, m in enumerate(marks):
+            if m is None:
+                continue
+            if cuda:
+                m[1].synchronize()
+                times[p] = m[0].elapsed_time(m[1]) / 1e3
+            else:
+                times[p] = m
+        self.last_rank_times = tuple(times)
+        return defined
 
     def _sweep(self, kernel, boxes_per_rank, arrays, kw) -> Set[str]:
         """Issue ``kernel`` over each rank's boxes on that rank's views;
@@ -355,8 +470,8 @@ class TorchExecutor(SimExecutor):
         classic two-phase path and returns False."""
         kw = kw or {}
         kernel = resolve_kernel(kernel, self.device_class)
-        if kernel is None or not getattr(kernel, "__hdarray_device__",
-                                         False):
+        if self.time_ranks or kernel is None or not getattr(
+                kernel, "__hdarray_device__", False):
             return super().execute_step(
                 plan, arrays_by_name, kernel, part_regions, arrays,
                 uses=uses, defs=defs, kw=kw)
@@ -555,7 +670,8 @@ class TorchExecutor(SimExecutor):
 
     def _drop_graphs(self, name: str) -> None:
         """Forget every graph that names array ``name``: its tensor is
-        going, and the allocator may hand its addresses to another."""
+        going, and the allocator may hand its addresses to another; or
+        its mesh changed, which leaves the old step signatures behind."""
         self._graphs = {k: g for k, g in self._graphs.items()
                         if name not in g.names}
 

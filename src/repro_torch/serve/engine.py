@@ -23,17 +23,26 @@ the port of the reference's ``repro/serve/engine.py`` ``Engine``.
 
 The cache is updated in place by the model (the reference's steps are
 functional); the snapshot is a copy taken before each prefill.
-``RecoveryEngine`` (KV caches as HDArrays with failover) needs the
-``ft/`` and ``ckpt/`` ports and waits for them (ROADMAP).
+
+Failover: :class:`RecoveryEngine` backs the slot caches with HDArrays
+partitioned over serving instances (ranks), so an instance loss
+mid-request is the ft layer's planned shrink — the KV sections migrate
+to the survivors and the decode steps since the last checkpoint replay
+silently — and a rejoin is the planned grow.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import tempfile
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.ckpt.checkpoint import (_NUMPY_FLOATS, _SINT, _UINT,
+                                         from_host, to_host)
 
 
 class SlotsExhausted(RuntimeError):
@@ -351,3 +360,318 @@ class Engine:
             return [self.cache]
         return [g for g in self.cache.values()
                 if isinstance(g, dict) and "pos" in g]
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card, so that a host clock read after it counts
+    the device work and not only its launch."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# ----------------------------------------------------------------------
+class RecoveryEngine:
+    """Failure-aware serving: an :class:`Engine` whose slot caches are
+    backed by HDArrays partitioned over serving ``instances`` (ranks of
+    an :class:`~repro_torch.core.runtime.HDArrayRuntime`): rank p owns
+    the cache sections of its share of the slot pool, the way a
+    production stack spreads requests over replicas.
+
+    Every cache leaf with a slot axis mirrors into one HDArray (slot
+    axis moved to dim 0; dtypes numpy lacks, such as bfloat16, kept as
+    the unsigned integers of their size, bit for bit).  On the
+    ``"torch"`` backend (the default, on the engine's device) the
+    HDArrays live on that device and the mirror after each decode step
+    is a device copy (``TorchExecutor.write`` of a tensor): the
+    checkpoint's read is the only download.  A ``CheckpointManager``
+    snapshots the HDArrays, and the host slot table with the sampling
+    generator's state, after each admit, finish and cancel and every
+    ``checkpoint_interval`` decode steps.
+
+    ``fail_instance(rank)`` is the ft layer's planned shrink applied to
+    serving: mark the rank lost, restore the checkpoint onto the
+    survivors' staging layout, ``repartition`` the caches onto the
+    shrunken layout (migration bytes in ``rt.comm_log``), then silently
+    replay the decode steps since the snapshot — greedy decoding (or
+    the restored generator) makes the replay, and therefore every
+    in-flight token stream, repeat an uninterrupted run.
+    ``rejoin_instance(rank)`` is the planned grow: ``Executor.add_rank``
+    + ``grow_partition`` + a migrating ``repartition``, no replay
+    needed (the survivors hold every coherent byte).  The audit records
+    land in ``rt.recovery_log`` as ``kind="instance_loss"`` /
+    ``"instance_join"``.
+    """
+
+    def __init__(self, bundle, params, scfg: ServeConfig,
+                 instances: int = 2, seed: int = 0,
+                 checkpoint_interval: int = 2,
+                 ckpt_dir: Optional[str] = None, backend: str = "torch"):
+        from repro_torch.ckpt.checkpoint import CheckpointManager
+        from repro_torch.core import HDArrayRuntime
+
+        self.engine = Engine(bundle, params, scfg, seed)
+        self.scfg = scfg
+        self.instances = instances
+        self.rt = HDArrayRuntime(instances, backend=backend,
+                                 device=self.engine.device)
+        # a resident executor reads and writes tensors on its device
+        self._on_device = hasattr(self.rt.executor, "read_tensor")
+        self.live: List[int] = list(range(instances))
+        self._tmp = (tempfile.TemporaryDirectory()
+                     if ckpt_dir is None else None)
+        self.cm = CheckpointManager(ckpt_dir or self._tmp.name)
+        self.checkpoint_interval = max(1, int(checkpoint_interval))
+        self.recovery_log = self.rt.recovery_log
+        # one HDArray per slot-carrying cache leaf, row-partitioned
+        # (slot dim 0) over the instances
+        self._leaves: List[Tuple[str, str, int, torch.dtype]] = []
+        self._parts: Dict[str, int] = {}
+        for (path, leaf), (_p, ax) in zip(_leaves(self.engine.cache),
+                                          _leaves(self.engine._slot_axis)):
+            name = "kv" + path
+            self._leaves.append((name, path, int(ax), leaf.dtype))
+            if ax < 0:
+                continue
+            shape = (leaf.shape[ax],) + tuple(
+                s for d, s in enumerate(leaf.shape) if d != ax)
+            self.rt.create(name, shape, dtype=_numpy_dtype(leaf.dtype))
+            self._parts[name] = self.rt.partition_row(shape)
+        self._decode_count = 0
+        self._ckpt_step = 0
+        self._ckpt_decode = 0
+        self._host_snap: Optional[Dict[str, Any]] = None
+        # injected per-instance slowdown (seconds added to that
+        # instance's reported step latency): deterministic straggler
+        # modeling for tests
+        self.step_cost: Dict[int, float] = {}
+        self.last_step_time = 0.0
+        self._checkpoint()
+
+    # -- engine API (checkpointed) -------------------------------------
+    def add_request(self, prompt_tokens, extra_inputs=None,
+                    priority: int = 0) -> int:
+        sid = self.engine.add_request(np.asarray(prompt_tokens),
+                                      extra_inputs, priority=priority)
+        # checkpoint right after the admit so the replay window after
+        # a failure only ever contains decode steps
+        self._checkpoint()
+        return sid
+
+    def step(self) -> Dict[int, int]:
+        t0 = time.perf_counter()
+        out = self.engine.step()
+        _sync(self.engine.device)
+        dt = time.perf_counter() - t0
+        # per-instance step latency: the decode is one synchronous
+        # program over the slot pool, so each live instance's share of
+        # the step is the measured wall time plus its injected
+        # `step_cost`; dead instances report 0.0 (skipped by the
+        # monitor).  Lands in PlannerStats.rank_step_times for the
+        # straggler machinery and, through it, the load-aware router.
+        times = [dt + self.step_cost.get(r, 0.0) if r in self.live else 0.0
+                 for r in range(self.instances)]
+        self.rt.planner.stats.note_rank_times(self._decode_count, times)
+        self.last_step_time = max(times)
+        self._decode_count += 1
+        self._mirror()
+        if self._decode_count - self._ckpt_decode >= self.checkpoint_interval:
+            self._checkpoint()
+        return out
+
+    def finish(self, sid: int) -> List[int]:
+        out = self.engine.finish(sid)
+        self._checkpoint()
+        return out
+
+    def cancel(self, tid: int) -> Optional[List[int]]:
+        out = self.engine.cancel(tid)
+        self._checkpoint()
+        return out
+
+    def generate(self, prompt_tokens, n_tokens: int,
+                 extra_inputs=None) -> List[int]:
+        sid = self.add_request(np.asarray(prompt_tokens), extra_inputs)
+        for _ in range(n_tokens - 1):
+            self.step()
+        return self.finish(sid)
+
+    # -- elasticity ----------------------------------------------------
+    def fail_instance(self, rank: int) -> None:
+        """Instance `rank` died mid-serving.  Planned shrink + replay:
+        caller-visible token streams continue unchanged."""
+        from repro_torch.ft.faults import (ElasticPlan, inherit_partition,
+                                           shrink_partition,
+                                           survivor_partition)
+
+        if rank not in self.live:
+            raise ValueError(f"instance {rank} is not live ({self.live})")
+        self.live.remove(rank)
+        if not self.live:
+            raise RuntimeError(f"instance {rank} lost and no survivors "
+                               f"remain")
+        for arr in self.rt.arrays.values():
+            arr.mark_rank_lost(rank)
+            self.rt.executor.drop_rank(arr, rank)
+        staging: Dict[str, int] = {}
+        targets: Dict[str, int] = {}
+        for name, arr in self.rt.arrays.items():
+            pid = inherit_partition(self.rt, self._parts[name], self.live)
+            if pid is None:
+                pid = survivor_partition(self.rt, arr.shape, self.live)
+            staging[name] = pid
+            targets[name] = shrink_partition(self.rt, self._parts[name],
+                                             self.live)
+        self.cm.restore_runtime(self.rt, parts=staging, live=self.live)
+        migration = 0
+        for name, arr in self.rt.arrays.items():
+            if targets[name] != staging[name]:
+                plan = self.rt.repartition(arr, staging[name],
+                                           targets[name])
+                migration += plan.bytes_total
+        self._parts.update(targets)
+        # rebuild the engine at the checkpoint, then silently replay
+        replay = self._decode_count - self._ckpt_decode
+        slots_live = int(self.engine.slot_live.sum())
+        self._restore_host(self._host_snap)
+        self.engine.cache = self._cache_from_hdarrays()
+        self._decode_count = self._ckpt_decode
+        for _ in range(replay):
+            self.engine.step()
+            self._decode_count += 1
+            self._mirror()
+        self.rt.planner.stats.elastic_shrinks += 1
+        self.rt.recovery_log.append({
+            "kind": "instance_loss", "rank": rank, "live": list(self.live),
+            "migration_bytes": migration, "steps_replayed": replay,
+            "slots_live": slots_live,
+            "plan": ElasticPlan(len(self.live) + 1, len(self.live),
+                                (len(self.live),), migration)})
+
+    def rejoin_instance(self, rank: int) -> None:
+        """Instance `rank` (re)joined: planned grow — add_rank +
+        grow_partition + a migrating repartition.  No replay needed;
+        the survivors hold every coherent byte."""
+        from repro_torch.ft.faults import ElasticPlan, grow_partition
+
+        if rank in self.live:
+            self.rt.recovery_log.append({
+                "kind": "instance_join", "rank": rank,
+                "live": list(self.live), "migration_bytes": 0,
+                "noop": True, "plan": None})
+            return
+        self.live.append(rank)
+        self.live.sort()
+        for arr in self.rt.arrays.values():
+            arr.mark_rank_joined(rank)
+            self.rt.executor.add_rank(arr, rank)
+        migration = 0
+        for name, arr in self.rt.arrays.items():
+            tgt = grow_partition(self.rt, self._parts[name], self.live,
+                                 rank)
+            plan = self.rt.repartition(arr, self._parts[name], tgt)
+            migration += plan.bytes_total
+            self._parts[name] = tgt
+        self.rt.planner.stats.elastic_grows += 1
+        self.rt.recovery_log.append({
+            "kind": "instance_join", "rank": rank, "live": list(self.live),
+            "migration_bytes": migration,
+            "plan": ElasticPlan(len(self.live) - 1, len(self.live),
+                                (len(self.live),), migration)})
+
+    # -- cache <-> HDArray mirroring ------------------------------------
+    def _mirror(self) -> None:
+        """Write the engine's current cache leaves into their backing
+        HDArrays (slot axis first, bit views for dtypes numpy lacks)
+        under the current data layout: device copies on a resident
+        executor, host arrays otherwise."""
+        flat = dict(_leaves(self.engine.cache))
+        for name, path, ax, dtype in self._leaves:
+            if ax < 0:
+                continue
+            t = flat[path].movedim(ax, 0)
+            if not self._on_device:
+                t = to_host(t)
+            elif not _is_native(dtype):
+                t = t.view(_SINT[t.element_size()])
+            self.rt.write(self.rt.arrays[name], t, self._parts[name])
+
+    def _cache_from_hdarrays(self):
+        """Rebuild the engine's cache tree from the (restored +
+        repartitioned) HDArrays — the inverse of :meth:`_mirror`.
+        Leaves without a slot axis come from the host snapshot."""
+        static = self._host_snap["static_leaves"]
+        new: Dict[str, torch.Tensor] = {}
+        for name, path, ax, dtype in self._leaves:
+            if ax < 0:
+                new[path] = static[name].clone()
+                continue
+            arr = self.rt.arrays[name]
+            if self._on_device:
+                t = self.rt.executor.read_tensor(arr, tuple(arr.valid))
+                t = t.view(dtype) if t.dtype != dtype else t
+            else:
+                like = torch.empty(0, dtype=dtype, device=self.engine.device)
+                t = from_host(self.rt.read_coherent(arr), like)
+            new[path] = t.movedim(0, ax).contiguous()
+        return _with_leaves(self.engine.cache, new)
+
+    # -- host-state snapshots -------------------------------------------
+    def _checkpoint(self) -> None:
+        self._mirror()
+        self.cm.save_runtime(self._ckpt_step, self.rt)
+        self._ckpt_step += 1
+        self._ckpt_decode = self._decode_count
+        eng = self.engine
+        flat = dict(_leaves(eng.cache))
+        self._host_snap = {
+            "slot_pos": eng.slot_pos.copy(),
+            "slot_live": eng.slot_live.copy(),
+            "slot_tokens": [list(t) for t in eng.slot_tokens],
+            "kv_tokens": [list(t) for t in eng.kv_tokens],
+            "generator": eng._gen.get_state(),
+            "queue": list(eng.queue),
+            "admitted": dict(eng.admitted),
+            "next_ticket": eng._next_ticket,
+            "static_leaves": {name: flat[path].clone()
+                              for name, path, ax, _d in self._leaves
+                              if ax < 0},
+        }
+
+    def _restore_host(self, snap: Dict[str, Any]) -> None:
+        eng = self.engine
+        eng.slot_pos = snap["slot_pos"].copy()
+        eng.slot_live = snap["slot_live"].copy()
+        eng.slot_tokens = [list(t) for t in snap["slot_tokens"]]
+        eng.kv_tokens = [list(t) for t in snap["kv_tokens"]]
+        eng._gen.set_state(snap["generator"])
+        eng.queue = collections.deque(snap["queue"])
+        eng.admitted = dict(snap["admitted"])
+        eng._next_ticket = snap["next_ticket"]
+
+
+def _with_leaves(tree, new: Dict[str, Any], path: str = ""):
+    """``tree``'s structure with the leaf at each path taken from
+    ``new`` (paths as :func:`_leaves` spells them)."""
+    if isinstance(tree, dict):
+        return {k: _with_leaves(v, new, f"{path}/{k}")
+                for k, v in tree.items()}
+    return new[path]
+
+
+def _is_native(dtype: torch.dtype) -> bool:
+    """True for tensor dtypes numpy has (and an npz round-trips):
+    bfloat16 and the float8 types are not."""
+    return not dtype.is_floating_point or dtype in _NUMPY_FLOATS
+
+
+def _bit_view(dtype: torch.dtype):
+    """The same-itemsize unsigned numpy integer that stores a dtype
+    numpy lacks, bit for bit (np.uint16 for bfloat16)."""
+    return _UINT[torch.empty((), dtype=dtype).element_size()]
+
+
+def _numpy_dtype(dtype: torch.dtype):
+    """The numpy dtype of an HDArray backing a leaf of ``dtype``."""
+    if _is_native(dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(_bit_view(dtype))

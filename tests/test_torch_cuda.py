@@ -645,3 +645,138 @@ def test_failed_capture_raises(cuda):
         rt, [st] * len(plans), plans)
     assert rt.executor._graphs == {}
     torch.cuda.synchronize()
+
+
+# -- the resilience layer on the card -------------------------------------
+def _weighted_ping_pong(rt, n, sweeps, weights):
+    A, B = rt.create("A", (n, n)), rt.create("B", (n, n))
+    init = np.random.default_rng(5).standard_normal((n, n)).astype(
+        np.float32)
+    pd = rt.partition_row((n, n), weights=weights)
+    pw = rt.partition_row((n, n), region=Box.make((1, n - 1), (1, n - 1)),
+                          weights=weights)
+    rt.write(A, init, pd)
+    rt.write(B, init, pd)
+    ab, ba = make_jacobi_kernel("A", "B"), make_jacobi_kernel("B", "A")
+    fp = stencil(2, 1)
+    prog = [dict(kernel_name="jab", part_id=pw, kernel=ab, arrays=[A, B],
+                 uses={"A": fp}, defs={"B": IDENTITY_2D}) if i % 2 == 0 else
+            dict(kernel_name="jba", part_id=pw, kernel=ba, arrays=[A, B],
+                 uses={"B": fp}, defs={"A": IDENTITY_2D})
+            for i in range(sweeps)]
+    return A, pd, prog, init
+
+
+def test_rank_times_from_cuda_events(cuda):
+    """With ``time_ranks`` a step runs unfused and reports each rank's
+    kernel time from CUDA events; the rank with twice the rows takes
+    longer.  Without it steps stay fused and report none."""
+    rt = HDArrayRuntime(4)
+    A, _pd, prog, init = _weighted_ping_pong(rt, 2050, 6, (2, 1, 1, 1))
+    ex = rt.executor
+    ex.time_ranks = True
+    for st in prog[:4]:
+        rt.apply_kernel(st["kernel_name"], st["part_id"], st["kernel"],
+                        st["arrays"], st["uses"], st["defs"])
+        times = ex.last_rank_times
+        assert len(times) == 4 and all(t > 0 for t in times)
+    assert times[0] > max(times[1:])
+    assert rt.planner.stats.fused_steps == 0
+    ex.time_ranks = False
+    for st in prog[4:]:
+        rt.apply_kernel(st["kernel_name"], st["part_id"], st["kernel"],
+                        st["arrays"], st["uses"], st["defs"])
+        assert ex.last_rank_times is None
+    assert rt.planner.stats.fused_steps == 2
+    assert np.array_equal(rt.read_coherent(A), _plain_sweeps(init, 6, cuda))
+
+
+def _recovery_policy(tmp_path, pd, specs, **kw):
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ft import FaultInjector, RecoveryPolicy
+
+    return RecoveryPolicy(checkpoint=CheckpointManager(str(tmp_path)),
+                          interval=4, injector=FaultInjector(specs),
+                          data_parts={"A": pd, "B": pd}, **kw)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_recovery_on_card_bit_identical_to_plain_sweeps(cuda, tmp_path,
+                                                        overlap):
+    """A transient fault, rank 2 lost at a commit (under overlap while
+    the comm stream's copies are in flight) and its rejoin: the values
+    equal plain sweeps, and a mesh change drops the graphs of the old
+    partitions."""
+    from repro_torch.ft import FaultSpec
+
+    rt = HDArrayRuntime(4, overlap=overlap)
+    A, pd, prog, init = _weighted_ping_pong(rt, 130, 20, None)
+    specs = [FaultSpec(3, site="commit"),
+             FaultSpec(9, site="commit", kind="rank", rank=2),
+             FaultSpec(14, kind="join", rank=2)]
+    pol = _recovery_policy(tmp_path, pd, specs)
+    jacobi_kernel.jacobi_cuda.launches = 0
+    rt.run_pipeline(prog, recovery=pol)
+    st = rt.planner.stats
+    assert [r["kind"] for r in rt.recovery_log] == ["rank_loss", "rank_join"]
+    assert st.recoveries == 2 and st.elastic_shrinks == st.elastic_grows == 1
+    assert jacobi_kernel.jacobi_cuda.launches > 0
+    if not overlap:
+        assert st.fused_steps > 0
+        # the graphs of the 3-rank mesh went at the grow: every graph
+        # left sweeps rank 2's rows
+        graphs = rt.executor._graphs
+        assert graphs
+        empty = Box.make((0, 0), (0, 0)).bounds
+        assert all(step_key[2][2] != empty
+                   for key in graphs for step_key in key[1])
+    assert np.array_equal(rt.read_coherent(A), _plain_sweeps(init, 20, cuda))
+
+
+def test_rebalance_on_card_evens_measured_times(cuda):
+    from repro_torch.ft import Rebalancer
+
+    rt = HDArrayRuntime(4)
+    # rank 0's sweep about 0.3 ms: well above the launch latency
+    A, pd, prog, init = _weighted_ping_pong(rt, 16386, 24, (2, 1, 1, 1))
+    reb = Rebalancer(data_parts={"A": pd, "B": pd}, min_duration=1e-5)
+    rt.run_pipeline(prog, rebalance=reb)
+    recs = [r for r in rt.recovery_log if r["kind"] == "rebalance"]
+    # the ranks sweep rows at one speed: the measured weights undo the
+    # declared (2, 1, 1, 1), to within 10% of even
+    assert recs and max(abs(w - 0.25) for w in recs[-1]["weights"]) <= 0.025
+    assert np.array_equal(rt.read_coherent(A), _plain_sweeps(init, 24, cuda))
+
+
+def test_recovery_engine_failover_on_card(cuda, tmp_path):
+    """bf16 KV leaves live on the card as int16 bits; a failover and a
+    rejoin keep the greedy stream of an uninterrupted run."""
+    from repro_torch.serve import RecoveryEngine
+
+    cfg = get_config("yi-9b").reduced()
+    bundle = build(cfg, torch.bfloat16, "cuda")
+    params = bundle.init(0)
+    scfg = ServeConfig(max_seq=48, slots=2)
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab, 12)
+    want = Engine(bundle, params, scfg).generate(prompt, 10)
+    eng = RecoveryEngine(bundle, params, scfg, instances=2,
+                         checkpoint_interval=3, ckpt_dir=str(tmp_path))
+    ex = eng.rt.executor
+    assert ex.device.type == "cuda"
+    assert all(t.dtype in (torch.int16, torch.int32)
+               for t in ex._device.values())
+    sid = eng.add_request(prompt)
+    for _ in range(5):
+        eng.step()
+    h2d = ex.h2d_transfers
+    eng.step()                             # the mirror is a device copy
+    assert ex.h2d_transfers == h2d
+    eng.step()
+    eng.fail_instance(1)                   # replays the 7th step
+    eng.step()
+    eng.rejoin_instance(1)
+    eng.step()
+    assert eng.finish(sid) == want
+    assert [r["kind"] for r in eng.recovery_log] == ["instance_loss",
+                                                     "instance_join"]
+    assert eng.recovery_log[0]["steps_replayed"] == 1

@@ -151,11 +151,21 @@ def test_quickstart_sequence_matches_reference(n):
     assert gemm_kernel.gemm_cuda.launches == 0
 
 
-def test_unported_paths_raise_naming_the_roadmap():
+def test_unported_paths_raise_naming_the_roadmap(tmp_path):
+    """The paths still to port raise naming ROADMAP.md; fault recovery
+    and rebalancing in ``run_pipeline`` are ported and run."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.ft import RecoveryPolicy, Rebalancer
+    from repro_torch.models import build
+
     rt = port.HDArrayRuntime(2, backend="sim")
-    for kw in ({"recovery": object()}, {"rebalance": object()}):
+    pol = RecoveryPolicy(checkpoint=CheckpointManager(str(tmp_path)))
+    for kw in ({"recovery": pol}, {"rebalance": Rebalancer()}):
+        assert rt.run_pipeline([], **kw) == []
+    for name in ("qwen3-moe-30b-a3b", "gemma2-9b", "xlstm-125m"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.run_pipeline([], **kw)
+            build(get_config(name).reduced(), device="cpu")
 
 
 # ----------------------------------------------------------------------
