@@ -26,7 +26,11 @@
 3. Frees those buffers, holds the flash-attention kernel against its
    plain versions (bf16 at the serving path's prefill shape, small
    shapes with windows, softcaps, ragged and fully masked rows, odd
-   head dims, and float32), timing it beside SDPA; then drives the
+   head dims, and float32), timing it beside SDPA, and its backward
+   kernel against float64 dense autograd (small shapes, bf16, fp16 and
+   float32, GQA groups of 8 and 1, Dh 64 and 128) and the plain
+   blockwise backward at the training shape, timing it beside SDPA's
+   backward; then drives the
    second path, models -> serve Engine, with yi-9b at full width (48
    layers, random weights from a seeded generator) in bfloat16: three
    admits of 2048, 1536 and 1024 tokens into a 4-slot pool of 4096
@@ -55,12 +59,27 @@
    weights are within 10% of even, the median max/min rank-time ratio
    after is below the threshold, the values bit-identical, the
    migration bytes in comm_log.
+5. Trains, last, with every earlier buffer freed: (h) yi-9b at full
+   width (d_model 4096, 32/4 heads of 128, d_ff 11008, vocab 64000),
+   its depth cut to 8 of 48 layers, float32 masters, fp32 AdamW
+   moments, bf16 compute: a gate on one microbatch's gradients, taken
+   with the flash kernels and again with the plain blockwise
+   attention, leaf by leaf; then 6 steps of TokenPipeline batches
+   (seq_len 4096, global batch 2, 2 microbatches) through
+   make_train_step, printing ms per step, tokens/s, peak memory, a
+   device breakdown of a 7th step and the flash forward and backward
+   launches (forward 2 per layer and microbatch, the checkpointed
+   layer's recompute included; backward 1).  Then the training driver
+   on the card as the reference's system test runs it: setup
+   ("deepseek-7b", reduced), 40 steps, checkpoints every 10, a fault
+   at step 20: a recovery, finite losses, the mean of the last 5 below
+   that of the first 5.
    Every kernel launch counter, the total and each variant's, is set to
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
    counting at each replay.  Every GEMM-path launch must be the
    ``pipelined`` variant and every prefill launch the ``wgmma`` one.
-5. Prints one JSON line of kernel measurements, the card's name and
+6. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or
@@ -141,6 +160,39 @@ FLASH_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 2e-5}
 # both round p per kv tile, and differ by 3.9e-3 at most there (H100
 # 80GB HBM3, 700 W); 1e-2 leaves room above that
 FLASH_MAIN_TOL = 1e-2
+# the flash backward against float64 dense autograd on the same rounded
+# inputs.  float32: the reference's bound for its custom VJP (rtol =
+# atol = 2e-4, tests/test_flash_attention.py).  16-bit: p and dz are
+# rounded to the operand type before their products, and dq, dk, dv at
+# the end (2**-9 relative each in bf16), a Frobenius-relative error of
+# a few 1e-3; 2e-2 bounds it
+BWD_F32_TOL = 2e-4
+BWD_FRO_TOL = 2e-2
+# at the training shape the kernel also takes delta = sum dO * o from
+# its bf16 output o, where the plain blockwise backward keeps its
+# float32 output; the two differ by the same few bf16 roundings
+BWD_MAIN_TOL = 2e-2
+BWD_SHAPES = (  # B, T, S, Hq, Hkv, D, window, softcap, qpos
+    (2, 100, 130, 8, 1, 64, None, 0.0, "tail"),
+    (2, 100, 130, 8, 1, 64, 16, 0.0, "tail"),
+    (1, 257, 300, 8, 8, 128, None, 8.0, "tail"),
+    (2, 200, 200, 16, 2, 128, 40, 5.0, "tail"),
+    (2, 96, 80, 4, 2, 128, 5, 0.0, "ragged"),
+    (1, 130, 130, 8, 1, 64, None, 0.0, "ragged"))
+
+# (h) training: yi-9b at full width, depth cut to 8 of 48 layers (float32
+# masters, grads and two fp32 moments take 16 bytes a parameter: 1.91 B
+# parameters are 30.5 GB, all 48 layers would need about 147 GB)
+TRAIN_ARCH, TRAIN_LAYERS = "yi-9b", 8
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 6
+# the gate on one microbatch's gradients, kernels against the plain
+# blockwise attention on the same float32 masters, bf16 compute: the
+# two attentions round p and dz at other points (the kernel to bf16
+# before each product), a few bf16 ulps at each layer's attention,
+# carried back through 8 layers; Frobenius-relative per leaf
+TRAIN_GRAD_TOL = 5e-2
+# the training driver's fault path, as the reference's system test
+FAULT_ARCH, FAULT_STEPS, FAULT_EVERY, FAULT_AT = "deepseek-7b", 40, 10, 20
 
 
 def fail(msg: str) -> None:
@@ -497,13 +549,166 @@ def flash_phase(torch):
     return flash
 
 
+def dense64(torch, q, k, v, qpos, window=None, softcap=0.0):
+    """Dense GQA attention in float64 whose masked logits are -1e300,
+    not -inf: a fully masked row's softmax is finite (then zeroed), so
+    its backward carries no NaN into dk and dv."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kk, vv = (x.repeat_interleave(Hq // Hkv, 2) for x in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", q, kk) / D ** 0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(S, device=q.device)
+    qp = qpos.long()[:, None, :, None]
+    seen = (kpos <= qp) & (qp >= 0)
+    if window is not None:
+        seen &= kpos > qp - window
+    p = torch.softmax(torch.where(seen, s, -1e300), dim=-1)
+    p = torch.where(seen.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhts,bshd->bthd", p, vv)
+
+
+def flash_bwd_phase(torch):
+    """The flash backward kernel against float64 dense autograd at small
+    shapes and against the plain blockwise backward at the training
+    shape, then its time beside the plain backward's and SDPA's
+    backward at that shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.models.lm import BIG_WINDOW
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(dtype, B, T, S, Hq, Hkv, D, kind):
+        q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                       for sh in ((B, T, Hq, D), (B, S, Hkv, D),
+                                  (B, S, Hkv, D), (B, T, Hq, D)))
+        if kind == "tail":
+            qpos = torch.arange(S - T, S, dtype=torch.int32,
+                                device=dev).repeat(B, 1)
+        else:                   # ragged, padding rows, rows seeing nothing
+            qpos = torch.randint(-1, S + 10, (B, T), generator=g,
+                                 device=dev, dtype=torch.int32)
+            qpos[:, :9] = -1
+            qpos[-1, 20:30] = S + 200
+        return q, k, v, do, qpos
+
+    def kernel_grads(q, k, v, do, qpos, **kw):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fk.flash_attention_cuda(*leaves, qpos=qpos, **kw)
+        check(out.grad_fn is not None, "flash forward with grad has no "
+              "grad_fn")
+        out.backward(do)
+        return [x.grad for x in leaves]
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for B, T, S, Hq, Hkv, D, window, softcap, kind in BWD_SHAPES:
+            q, k, v, do, qpos = inputs(dtype, B, T, S, Hq, Hkv, D, kind)
+            kw = dict(window=window, softcap=softcap)
+            leaves = [x.double().requires_grad_() for x in (q, k, v)]
+            dense64(torch, *leaves, qpos, **kw).backward(do.double())
+            got = kernel_grads(q, k, v, do, qpos, **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for name, x, w in zip("qkv", got, leaves):
+                check(x.dtype == dtype and bool(torch.isfinite(x).all()),
+                      f"flash backward d{name} not finite {dtype}")
+                if dtype == torch.float32:
+                    e = (x.double() - w.grad).abs()
+                    bad = int((e > BWD_F32_TOL * (1 + w.grad.abs())).sum())
+                    check(bad == 0, f"flash backward d{name} float32 "
+                          f"differs from float64 at {(B, T, S, Hq, Hkv, D)}")
+                    errs.append(float(e.max()))
+                else:
+                    e = fro_rel(torch, x, w.grad)
+                    check(e <= BWD_FRO_TOL, f"flash backward d{name} "
+                          f"{dtype} at {(B, T, S, Hq, Hkv, D)}: {e}")
+                    errs.append(e)
+            print(f"flash bwd {str(dtype).split('.')[-1]} B,T,S,Hq,Hkv,D="
+                  f"{(B, T, S, Hq, Hkv, D)} window={window} softcap="
+                  f"{softcap} qpos={kind}: "
+                  + ("max_abs_err" if dtype == torch.float32 else "fro_rel")
+                  + " dq,dk,dv=" + ", ".join(f"{e:.3e}" for e in errs))
+
+    # -- the training shape: one layer of yi-9b at 4096 tokens ----------
+    cfg_T, Hq, Hkv, D = TRAIN_SEQ, 32, 4, 128
+    q, k, v, do, qpos = inputs(torch.bfloat16, 1, cfg_T, cfg_T, Hq, Hkv, D,
+                               "tail")
+    out, lse = fk._forward(q, k, v, qpos, BIG_WINDOW, 0.0, None,
+                           with_lse=True)
+    got = fk.flash_attention_bwd_cuda(do, q, k, v, out, lse, qpos=qpos,
+                                      window=BIG_WINDOW)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    out_p = blockwise_attention(*plain, qpos=qpos, window=BIG_WINDOW)
+    want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
+    torch.cuda.synchronize()
+    main_err, rels = 0.0, []
+    for name, x, w in zip("qkv", got, want):
+        rels.append(fro_rel(torch, x, w))
+        main_err = max(main_err, float((x.float() - w.float()).abs().max()))
+        check(rels[-1] <= BWD_MAIN_TOL, f"flash backward d{name} at the "
+              f"training shape: {rels[-1]} against the plain backward")
+    print(f"flash bwd main bf16 q {tuple(q.shape)} k,v {tuple(k.shape)} "
+          f"causal: fro_rel dq,dk,dv vs plain blockwise = "
+          + ", ".join(f"{e:.3e}" for e in rels)
+          + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={main_err:.3e}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    lib = torch.autograd.grad(o_s, (qt, kt, vt), do_t, retain_graph=True)
+    lib_err = max(fro_rel(torch, a.transpose(1, 2), b)
+                  for a, b in zip(lib, got))
+    print(f"flash bwd vs SDPA backward at the training shape: fro_rel "
+          f"{lib_err:.3e}")
+    check(lib_err <= 2 * BWD_MAIN_TOL, "SDPA's backward computes another "
+          "function than the kernel at the training shape")
+    seen = torch.clamp(qpos.long() + 1, 0, cfg_T)
+    pairs = int(seen.sum())
+    flops = pairs * Hq * (6 * D + 4 * D)
+    nbytes = 2 * (4 * cfg_T * Hq * D + 4 * cfg_T * Hkv * D) + 4 * Hq * cfg_T
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bwd = dict(
+        name="flash_attn_bwd_hd", route="cuda",
+        source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
+        replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
+        max_abs_err=main_err,
+        ms=cuda_ms(torch, lambda: fk.flash_attention_bwd_cuda(
+            do, q, k, v, out, lse, qpos=qpos, window=BIG_WINDOW), 10),
+        plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            out_p, plain, do, retain_graph=True), 3),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o_s, (qt, kt, vt), do_t, retain_graph=True), 10),
+        shape=[list(q.shape), list(k.shape)])
+    print(f"flash bwd at {tuple(q.shape)} x {tuple(k.shape)}: {flops:.4e} "
+          f"flops, {nbytes:.4e} bytes; kernel "
+          f"({fk.bwd_variant(q.dtype, D, D)}) {bwd['ms']:.4f} ms "
+          f"({flops / bwd['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * bwd['bound_ms'] / bwd['ms']:.1f}% of the bound), bound "
+          f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}), plain "
+          f"{bwd['plain_ms']:.4f} ms, SDPA backward "
+          f"{bwd['library_ms']:.4f} ms")
+    del q, k, v, do, out, lse, got, plain, out_p, want, qt, kt, vt, o_s, lib
+    torch.cuda.empty_cache()
+    return bwd
+
+
 def _wrappers():
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
     from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
     return {"jacobi_hd": jacobi_cuda, "gemm_hd": gemm_cuda,
-            "flash_attn_hd": flash_attention_cuda}
+            "flash_attn_hd": flash_attention_cuda,
+            "flash_attn_bwd_hd": flash_attention_bwd_cuda}
 
 
 def reset_launches():
@@ -1194,6 +1399,168 @@ def serve_path(torch):
     return launches, variants, bundle, params
 
 
+def train_phase(torch):
+    """(h) yi-9b at full width and 8 layers, trained on the card: the
+    gradient gate, then TRAIN_STEPS steps through make_train_step.
+    Returns its launches and launches by variant."""
+    import dataclasses
+    import functools
+
+    import repro_torch.models.layers as LY
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    bundle = build(cfg, torch.bfloat16, "cuda")
+    params = bundle.init(0, dtype=torch.float32)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"(h) {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {L} of 48 layers: {n_params / 1e9:.3f} B float32 "
+          f"parameters ({4 * n_params / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    pipe = TokenPipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in pipe.batch_at(i).items()}
+
+    # -- the gate: one microbatch, kernels against the plain attention --
+    grad_fn = value_and_grad(make_loss_fn(bundle, TrainConfig()))
+    mb = {k: v[0::TRAIN_MICRO] for k, v in batch_at(0).items()}
+    reset_launches()
+    loss_k, _, g_k = grad_fn(params, mb)
+    torch.cuda.synchronize()
+    got = read_launches()
+    check(got["flash_attn_hd"] == 2 * L and got["flash_attn_bwd_hd"] == L,
+          f"(h) one microbatch launched {got}")
+    real = LY.flash_attention
+    LY.flash_attention = functools.partial(ops.flash_attention,
+                                           impl="blockwise")
+    try:
+        loss_p, _, g_p = grad_fn(params, mb)
+    finally:
+        LY.flash_attention = real
+    torch.cuda.synchronize()
+    check(read_launches() == got, "(h) the plain attention launched a "
+          "flash kernel")
+    worst, worst_leaf = 0.0, None
+    names = [f"emb/{n}" for n in params["emb"]] + [
+        f"layer {i}/{n}" for i, layer in enumerate(params["main"])
+        for d in layer.values() for n in d]
+    leaves_k = (list(g_k["emb"].values())
+                + [t for layer in g_k["main"] for d in layer.values()
+                   for t in d.values()])
+    leaves_p = (list(g_p["emb"].values())
+                + [t for layer in g_p["main"] for d in layer.values()
+                   for t in d.values()])
+    for name, a, b in zip(names, leaves_k, leaves_p):
+        check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
+              f"(h) gradient of {name} is not finite or is zero")
+        e = fro_rel(torch, a, b)
+        if e > worst:
+            worst, worst_leaf = e, name
+    print(f"(h) one microbatch (1 x {TRAIN_SEQ}): loss kernels "
+          f"{float(loss_k):.6f}, plain {float(loss_p):.6f}; {len(names)} "
+          f"leaves finite and non-zero; worst fro_rel of a leaf's gradient "
+          f"{worst:.3e} ({worst_leaf}), bound {TRAIN_GRAD_TOL:g}")
+    check(worst <= TRAIN_GRAD_TOL, f"(h) kernel gradients differ from the "
+          f"plain attention's: {worst} at {worst_leaf}")
+    del g_k, g_p, leaves_k, leaves_p
+    torch.cuda.empty_cache()
+
+    # -- TRAIN_STEPS steps ------------------------------------------------
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=1000,
+                             moment_dtype="fp32")     # as launch.train.setup
+    step_fn = make_train_step(bundle, ocfg,
+                              TrainConfig(microbatches=TRAIN_MICRO))
+    state = adamw.init_opt_state(ocfg, params)
+    batches = [batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batches[i])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    launches, variants = read_launches(), read_variants()
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(ms[1:]) / len(ms[1:])
+    print(f"(h) {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{TRAIN_MICRO} microbatches: losses "
+          f"{[round(x, 4) for x in losses]}; ms per step "
+          f"{[round(x, 3) for x in ms]} (host clock after synchronize), "
+          f"steps 2-{TRAIN_STEPS} mean {steady:.3f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:.1f} tokens/s; "
+          f"max_memory_allocated {peak / 1e9:.3f} GB; launches {launches}, "
+          f"flash by variant {variants['flash_attn_hd']}, backward "
+          f"{variants['flash_attn_bwd_hd']}")
+    check(all(np.isfinite(losses)), f"(h) a loss is not finite: {losses}")
+    want_fwd = 2 * L * TRAIN_MICRO * TRAIN_STEPS
+    want_bwd = L * TRAIN_MICRO * TRAIN_STEPS
+    check(launches["flash_attn_hd"] == want_fwd
+          and variants["flash_attn_hd"]["wgmma"] == want_fwd,
+          f"(h) flash forward launched {launches['flash_attn_hd']}, want "
+          f"{want_fwd} wgmma (forward and checkpoint recompute)")
+    check(launches["flash_attn_bwd_hd"] == want_bwd
+          and variants["flash_attn_bwd_hd"]["mma_sync"] == want_bwd,
+          f"(h) flash backward launched {launches['flash_attn_bwd_hd']}, "
+          f"want {want_bwd} mma_sync")
+    check(launches["jacobi_hd"] == launches["gemm_hd"] == 0,
+          "(h) training launched a Jacobi or GEMM kernel")
+    check(int(state.step) == TRAIN_STEPS, "(h) the optimizer step count")
+    device_breakdown(torch, f"(h) train step {TRAIN_STEPS + 1}",
+                     lambda: step_fn(params, state, batches[TRAIN_STEPS]),
+                     top=8)
+    stats = dict(ms=ms, losses=losses, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+                 / steady * 1e3, peak_gb=peak / 1e9)
+    del bundle, params, state, batches, step_fn
+    torch.cuda.empty_cache()
+    return launches, variants, stats
+
+
+def train_fault_phase(torch):
+    """The training driver on the card with a fault, as the reference's
+    test_system.py:22-34: a recovery, finite losses, loss decreasing."""
+    from repro_torch.launch.train import setup, train
+
+    ckdir = ROOT / "build" / "smoke_ckpt_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    run = setup(FAULT_ARCH, reduced=True, seq_len=32, global_batch=4,
+                lr=5e-3, ckpt_dir=str(ckdir), total_steps=FAULT_STEPS)
+    out = train(run, FAULT_STEPS, ckpt_every=FAULT_EVERY,
+                inject_faults=[FAULT_AT], verbose=False)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    first, last = np.mean(out["losses"][:5]), np.mean(out["losses"][-5:])
+    print(f"(h) fault path: setup({FAULT_ARCH!r}, reduced) on "
+          f"{run.bundle.device}, {FAULT_STEPS} steps, checkpoints every "
+          f"{FAULT_EVERY}, fault at {FAULT_AT}: recoveries "
+          f"{out['recoveries']}, {len(out['losses'])} losses, mean of the "
+          f"first 5 {first:.4f}, last 5 {last:.4f}, {secs:.2f} s, "
+          f"checkpoints {run.ckpt.stats['saves']} saves and "
+          f"{run.ckpt.stats['restores']} restores, launches {launches}")
+    check(out["recoveries"] == [FAULT_AT], "(h) the fault did not recover")
+    check(bool(np.isfinite(out["losses"]).all()), "(h) a loss is not finite")
+    check(last < first, f"(h) the loss did not decrease: {first} -> {last}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
@@ -1238,6 +1605,7 @@ def main() -> None:
     print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB allocated")
     flash = flash_phase(torch)
+    flash_bwd = flash_bwd_phase(torch)
     serve_launches, serve_variants, bundle, params = serve_path(torch)
     # the resilience phases come last, so that every earlier phase runs
     # as it did before they were added: (g) on the Engine's weights,
@@ -1248,6 +1616,10 @@ def main() -> None:
     jac_launches["(e)"] = recovery_phase(torch, init, want)
     jac_launches["(f)"] = rebalance_phase(torch, init, want)
     del init, want
+    torch.cuda.empty_cache()
+    # training last, so that every earlier phase runs as it did before
+    train_launches, train_variants, _ = train_phase(torch)
+    fault_launches = train_fault_phase(torch)
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -1255,14 +1627,21 @@ def main() -> None:
     jac["launches_by_variant"] = {"f32": jac["launches"]}
     gemm["launches"] = gemm_launches["gemm_hd"]
     gemm["launches_by_variant"] = gemm_variants["gemm_hd"]
-    flash["launches"] = (serve_launches["flash_attn_hd"]
-                         + pool_launches["flash_attn_hd"])
     flash["launches_by_path"] = {"engine": serve_launches["flash_attn_hd"],
-                                 "(g) pool": pool_launches["flash_attn_hd"]}
+                                 "(g) pool": pool_launches["flash_attn_hd"],
+                                 "(h) train": train_launches["flash_attn_hd"],
+                                 "(h) fault path":
+                                     fault_launches["flash_attn_hd"]}
+    flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
-        k: n + pool_variants[k]
+        k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         for k, n in serve_variants["flash_attn_hd"].items()}
-    print(json.dumps({"kernels": [jac, gemm, flash]}))
+    flash_bwd["launches_by_path"] = {
+        "(h) train": train_launches["flash_attn_bwd_hd"],
+        "(h) fault path": fault_launches["flash_attn_bwd_hd"]}
+    flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
+    flash_bwd["launches_by_variant"] = train_variants["flash_attn_bwd_hd"]
+    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_unflatten
+
 # numpy's unsigned integer of each itemsize, and torch's signed one
 # (torch's unsigned types beyond uint8 support few operations)
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
@@ -75,7 +77,9 @@ def from_host(arr: np.ndarray, like):
     tensor."""
     if not isinstance(like, torch.Tensor):
         return np.asarray(arr)
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape (an
+    # optimizer's step counter is 0-d)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if arr.dtype.kind == "u" and arr.dtype.itemsize > 1:
         arr = arr.view(f"i{arr.dtype.itemsize}")
     t = torch.from_numpy(arr)
@@ -85,7 +89,8 @@ def from_host(arr: np.ndarray, like):
 
 
 def _leaf_paths(tree, prefix: str = "") -> Dict[str, Any]:
-    """{path: leaf} of a tree of dicts, lists and tuples."""
+    """{path: leaf} of a tree of dicts, lists and tuples (NamedTuples
+    such as an optimizer state included), in tree_leaves' order."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -96,18 +101,6 @@ def _leaf_paths(tree, prefix: str = "") -> Dict[str, Any]:
     for k, v in items:
         flat.update(_leaf_paths(v, f"{prefix}/{k}" if prefix else str(k)))
     return flat
-
-
-def _rebuild(like, leaves: Dict[str, Any], prefix: str = ""):
-    def key(k):
-        return f"{prefix}/{k}" if prefix else str(k)
-
-    if isinstance(like, dict):
-        return {k: _rebuild(v, leaves, key(k)) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, leaves, key(i))
-                          for i, v in enumerate(like))
-    return leaves[prefix]
 
 
 class CheckpointManager:
@@ -308,6 +301,6 @@ class CheckpointManager:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         d = os.path.join(self.dir, f"step_{step:08d}")
         data = np.load(os.path.join(d, f"shard_{self.host_id}.npz"))
-        leaves = {k: from_host(data[k], leaf)
-                  for k, leaf in _leaf_paths(like).items()}
-        return step, _rebuild(like, leaves)
+        # _leaf_paths walks the tree in tree_leaves' order
+        return step, tree_unflatten(like, [
+            from_host(data[k], leaf) for k, leaf in _leaf_paths(like).items()])

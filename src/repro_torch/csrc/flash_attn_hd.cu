@@ -10,7 +10,10 @@
 // kpos > qpos - window; masked logits -1e30; p cast to v's dtype
 // before p.v, which accumulates in float32; rows with no unmasked key
 // write exactly 0; query head h reads kv head h / (Hq / Hkv); a qpos
-// of -1 marks a padding row.
+// of -1 marks a padding row.  Given a non-null `lse`, each variant also
+// writes the row's log-sum-exp m + log(l) (B, Hq, T), float32, natural
+// log, -1e30 for a row with no visible key, which the backward
+// (flash_attn_bwd_hd.cu) rebuilds p from; serving passes null.
 //
 // Bound on an H100: operations.  The serving path's prefill, q (4,
 // 2048, 32, 128) against the (4, 4096, 4, 128) cache of a layer, does
@@ -66,6 +69,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 128;
 constexpr int kRows = 64;          // query rows per block, 16 per warp
 
@@ -75,6 +79,7 @@ struct Params {
   const void* v;
   const int* qpos;
   void* o;
+  float* lse;            // (B, Hq, T) or null
   int B, T, S, Hq, Hkv, Dh, Dv;
   // element strides: batch, position, head (the last dim is unit-stride)
   long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -122,6 +127,17 @@ __device__ __forceinline__ bool visible(long long key, int qp, int S,
                                         const Params& p) {
   return key < S && key <= qp && qp >= 0 &&
          (!p.has_window || key > (long long)qp - p.window);
+}
+
+// The log-sum-exp of row t from the online softmax's m and l, m in log2
+// units (the 16-bit variants) or natural ones (float32)
+__device__ __forceinline__ void write_lse(const Params& p, int b, int h,
+                                          int t, float m, float l,
+                                          bool log2_units) {
+  if (p.lse == nullptr || t >= p.T) return;
+  float v = kNegInf;
+  if (l > 0.f) v = log2_units ? (m + log2f(l)) * kLn2 : m + logf(l);
+  p.lse[((long long)b * p.Hq + h) * p.T + t] = v;
 }
 
 // Reads the block's query positions into `qpos_s` (-1 past T) and sets
@@ -405,6 +421,10 @@ fa_mma_kernel(const Params p) {
   // o = acc / l, or 0 where no key was visible
   T* ob = (T*)p.o + b * p.o_sb + h * p.o_sh;
   const int r0 = t0 + warp * 16 + g, r1 = r0 + 8;
+  if (tig == 0) {
+    write_lse(p, b, h, r0, m0, l0, true);
+    write_lse(p, b, h, r1, m1, l1, true);
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     if (n < dv_tiles) {
@@ -527,6 +547,7 @@ fa_f32_kernel(const Params p) {
   }
   __syncthreads();
   const int t = t0 + row;
+  if (lane8 == 0) write_lse(p, b, h, t, m_s[row], l_s[row], false);
   if (t < p.T) {
     const float l = l_s[row];
     float* orow = (float*)p.o + b * p.o_sb + h * p.o_sh + t * p.o_st;
@@ -1035,6 +1056,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // o = acc / l, or 0 where no key was visible
     T* ob = (T*)p.o + b * p.o_sb + h * p.o_sh;
     const int r0 = t0 + row0, r1 = r0 + 8;
+    if (r.tig == 0) {
+      write_lse(p, b, h, r0, r.m0, r.l0, true);
+      write_lse(p, b, h, r1, r.m1, r.l1, true);
+    }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + r.tig * 2;
@@ -1193,17 +1218,19 @@ int launch(int variant, int dtype, const Params& p, cudaStream_t stream) {
 // max(Dh, Dv); wgmma takes Dh = Dv = 64 or 128.  The caller checks
 // Dh, Dv <= 256, multiples of 8, Hq % Hkv == 0, 16-byte aligned rows
 // for 16-bit types, and grid limits.
+// lse: null, or (B, Hq, T) float32 contiguous for the rows' log-sum-exp.
 // Returns cudaGetLastError() after the launch, or a negative code when
 // a TMA tensor map could not be built (-1: no cuTensorMapEncodeTiled in
 // the driver; -1000 - r: it returned CUresult r).
 extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
-                             const int* qpos, void* o, int variant,
+                             const int* qpos, void* o, void* lse,
+                             int variant,
                              int dtype, int B, int T, int S, int Hq, int Hkv,
                              int Dh, int Dv, const long long* strides,
                              float scale, float softcap, int has_window,
                              long long window, void* stream) {
   if (B <= 0 || T <= 0 || Hq <= 0) return 0;
-  Params p{q, k, v, qpos, o, B, T, S, Hq, Hkv, Dh, Dv,
+  Params p{q, k, v, qpos, o, (float*)lse, B, T, S, Hq, Hkv, Dh, Dv,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], strides[12], strides[13],

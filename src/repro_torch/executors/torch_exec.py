@@ -123,6 +123,31 @@ def _as_stored(data: np.ndarray) -> np.ndarray:
     return data
 
 
+# the signed type that holds every value of an unsigned one, and the
+# mask that reads the stored signed bits as that value
+_WIDE = {2: (torch.int32, 0xFFFF), 4: (torch.int64, 0xFFFFFFFF)}
+
+
+def kernel_view(stored: torch.Tensor, dtype) -> torch.Tensor:
+    """What a device kernel sees of a rank's buffer of numpy ``dtype``:
+    the stored tensor itself, except for uint16 and uint32, which are
+    stored as signed bits and handed over as their values widened to
+    int32 and int64 (a new tensor; the executor narrows what the kernel
+    defines back into the storage, bit for bit).  So ``//``, shifts,
+    comparisons, min/max and casts see the unsigned values, as on the
+    Sim oracle's numpy buffers.  uint64 has no wider type: raises
+    NotImplementedError."""
+    dtype = np.dtype(dtype)
+    if dtype.kind != "u" or dtype.itemsize == 1:
+        return stored
+    if dtype.itemsize not in _WIDE:
+        raise NotImplementedError(
+            f"device kernels on {dtype} arrays: torch has no signed type "
+            f"wider than int64 to hold their values (run a host kernel)")
+    wide, mask = _WIDE[dtype.itemsize]
+    return stored.to(wide).bitwise_and_(mask)
+
+
 class _Step(NamedTuple):
     """One step of a one-program run, ready to issue."""
     groups: List[Group]
@@ -443,8 +468,9 @@ class TorchExecutor(SimExecutor):
         return defined
 
     def _sweep(self, kernel, boxes_per_rank, arrays, kw) -> Set[str]:
-        """Issue ``kernel`` over each rank's boxes on that rank's views;
-        returns the names it defined."""
+        """Issue ``kernel`` over each rank's boxes on that rank's views
+        (:func:`kernel_view`: unsigned arrays widened); returns the
+        names it defined."""
         defined: Set[str] = set()
         for p, boxes in enumerate(boxes_per_rank):
             bufs = None
@@ -452,11 +478,13 @@ class TorchExecutor(SimExecutor):
                 if box.is_empty():
                     continue
                 if bufs is None:
-                    bufs = {a.name: self._device[a.name][p] for a in arrays}
+                    bufs = {a.name: kernel_view(self._device[a.name][p],
+                                                a.dtype) for a in arrays}
                 res = kernel(box, bufs, **kw) or {}
                 for name, val in res.items():
-                    if val is not bufs[name]:     # a new tensor, not a put
-                        bufs[name].copy_(val)
+                    stored = self._device[name][p]
+                    if val is not stored:     # a new tensor or a widened put
+                        stored.copy_(val)     # narrows to the stored bits
                     defined.add(name)
         return defined
 

@@ -20,7 +20,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("jacobi_hd", "gemm_hd", "flash_attn_hd")
+SOURCES = ("jacobi_hd", "gemm_hd", "flash_attn_hd", "flash_attn_bwd_hd")
 # no --use_fast_math: the Jacobi sweep is held bit-identical to its
 # plain version, the GEMM to IEEE f32 (FFMA, not TF32), and flash
 # attention's f32 path to 2e-5 (accurate expf, tanhf and division)

@@ -1,4 +1,4 @@
-"""Blockwise online-softmax attention in plain PyTorch, forward only.
+"""Blockwise online-softmax attention in plain PyTorch.
 
 The module keeps the reference's name (``repro/kernels/flash_attention/
 jnp_impl.py``) so the two packages map file to file; here it holds
@@ -14,7 +14,14 @@ Two paths:
     the (window + block_q)-wide kv band that can possibly be visible.
     O(T·W) compute, the sub-quadratic local attention path.
 
-The reference's ``custom_vjp`` backward comes with training (ROADMAP).
+``blockwise`` is differentiable through the port of the reference's
+flash-style ``custom_vjp`` (``_BlockwiseAttention``, a
+``torch.autograd.Function``): the forward saves the float32 output and
+the per-row log-sum-exp, and the backward (``_bw_blocks``) recomputes
+each (bq x bk) probability block from them, so autograd never stores
+O(T·S) of them.  It is the plain version of the backward kernel in
+``csrc/flash_attn_bwd_hd.cu``.  ``banded`` is differentiated by
+autograd, as the reference's is by jax.
 """
 from __future__ import annotations
 
@@ -79,37 +86,134 @@ def _carries(B, Hkv, G, bq, Dv, device):
     return m0, l0, a0
 
 
-def blockwise_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
-                        scale: Optional[float] = None,
-                        block_q: int = 512, block_kv: int = 1024):
-    """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T).
-    ``window``: None (causal) or an int (sliding window).  Returns
-    (B,T,Hq,Dv) in q.dtype."""
+def _logits(qg_i, k_j, softcap, scale):
+    """z (f32) of a block pair: q.k times scale, softcapped."""
+    s = torch.einsum("btkgd,bskd->bkgts", qg_i.float(), k_j.float()) * scale
+    return torch.tanh(s / softcap) * softcap if softcap else s
+
+
+def _blocks(q, k, v, qpos, block_q, block_kv):
+    """The padded operands and block sizes: qg (B, nq*bq, Hkv, G, Dh),
+    qp (B, nq*bq) with -1 past T, k and v padded to nk*bk, kpos with -1
+    past S, and (bq, bk)."""
     B, T, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    G = Hq // Hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
-    w = window if window is not None else 1 << 30
     bq, bk = min(block_q, T), min(block_kv, S)
     nq, nk = -(-T // bq), -(-S // bk)
-    qg = _pad_to(q.reshape(B, T, Hkv, G, Dh), nq * bq, 1)
+    qg = _pad_to(q.reshape(B, T, Hkv, Hq // Hkv, Dh), nq * bq, 1)
     qp = _pad_to(qpos.to(torch.int64), nq * bq, 1, value=-1)
     kp_, vp_ = _pad_to(k, nk * bk, 1), _pad_to(v, nk * bk, 1)
     ar = torch.arange(nk * bk, device=q.device)
     kpos = torch.where(ar < S, ar, -1)
-    out = []
-    for i in range(nq):
+    return qg, qp, kp_, vp_, kpos, bq, bk
+
+
+def _fwd_blocks(qg, qp, kp_, vp_, kpos, w, softcap, scale, bq, bk):
+    """The forward over (q block outer, kv block inner) loops.  Returns
+    the float32 output (B, nq*bq, Hkv, G, Dv) and the per-row
+    log-sum-exp (B, Hkv, G, nq*bq), which the backward needs to rebuild
+    p without storing it."""
+    B, Tp, Hkv, G, _ = qg.shape
+    Dv = vp_.shape[-1]
+    out, lse = [], []
+    for i in range(Tp // bq):
         qg_i, qp_i = qg[:, i * bq:(i + 1) * bq], qp[:, i * bq:(i + 1) * bq]
-        m, l, acc = _carries(B, Hkv, G, bq, Dv, q.device)
-        for j in range(nk):
+        m, l, acc = _carries(B, Hkv, G, bq, Dv, qg.device)
+        for j in range(kp_.shape[1] // bk):
             sl = slice(j * bk, (j + 1) * bk)
             mask = _block_mask(qp_i, kpos[sl], w)
             m, l, acc = _attend_block(qg_i, kp_[:, sl], vp_[:, sl], mask,
                                       softcap, scale, m, l, acc)
         out.append(_finish(acc, l))
-    o = torch.cat(out, dim=1).reshape(B, nq * bq, Hq, Dv)
-    return o[:, :T].to(q.dtype)
+        lse.append(torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                               NEG_INF))
+    return torch.cat(out, dim=1), torch.cat(lse, dim=-1)
+
+
+def _bw_blocks(qg, qp, kp_, vp_, kpos, ob, lse, dob, w, softcap, scale,
+               bq, bk):
+    """Flash backward: recompute p per block pair from lse; never
+    materialize more than one (bq x bk) block of probabilities.  The
+    reference's loops (kv blocks outer, q blocks inner) and math, all
+    in float32.  Returns dq (B, nq*bq, Hkv, G, Dh), dk and dv
+    (B, nk*bk, Hkv, Dh|Dv), float32."""
+    nq, nk = qg.shape[1] // bq, kp_.shape[1] // bk
+    # delta[b,k,g,t] = sum_d do*o  (rows of the softmax jacobian)
+    delta = torch.einsum("btkgd,btkgd->bkgt", dob, ob)
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+    dks, dvs = [], []
+    for j in range(nk):
+        sl = slice(j * bk, (j + 1) * bk)
+        k_j, v_j, kp_j = kp_[:, sl].float(), vp_[:, sl].float(), kpos[sl]
+        dk_j = torch.zeros(k_j.shape, dtype=torch.float32, device=qg.device)
+        dv_j = torch.zeros(v_j.shape, dtype=torch.float32, device=qg.device)
+        for i in range(nq):
+            rows = slice(i * bq, (i + 1) * bq)
+            qg_i, do_i = qg[:, rows].float(), dob[:, rows]
+            mask = _block_mask(qp[:, rows], kp_j, w)[:, None, None]
+            z = _logits(qg_i, k_j, softcap, scale)
+            # a fully masked row has lse = NEG_INF: where, not a product
+            p = torch.where(mask, torch.exp(z - lse[..., rows, None]), 0.0)
+            dv_j += torch.einsum("bkgts,btkgd->bskd", p, do_i)
+            dp = torch.einsum("btkgd,bskd->bkgts", do_i, v_j)
+            dz = p * (dp - delta[..., rows, None])
+            if softcap:
+                dz = dz * (1.0 - torch.square(z / softcap))
+            dz = dz * scale
+            dq[:, rows] += torch.einsum("bkgts,bskd->btkgd", dz, k_j)
+            dk_j += torch.einsum("bkgts,btkgd->bskd", dz, qg_i)
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    return dq, torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """``blockwise_attention`` with the reference's flash-style custom
+    VJP (``_blockwise_cvjp_fwd`` / ``_blockwise_cvjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, w, softcap, scale, block_q, block_kv):
+        qg, qp, kp_, vp_, kpos, bq, bk = _blocks(q, k, v, qpos, block_q,
+                                                 block_kv)
+        ob, lse = _fwd_blocks(qg, qp, kp_, vp_, kpos, w, softcap, scale,
+                              bq, bk)
+        ctx.save_for_backward(q, k, v, qpos, ob, lse)
+        ctx.args = (w, softcap, scale, block_q, block_kv)
+        B, T, Hq, _ = q.shape
+        return ob[:, :T].reshape(B, T, Hq, -1).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qpos, ob, lse = ctx.saved_tensors
+        w, softcap, scale, block_q, block_kv = ctx.args
+        B, T, Hq, Dh = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        qg, qp, kp_, vp_, kpos, bq, bk = _blocks(q, k, v, qpos, block_q,
+                                                 block_kv)
+        dob = _pad_to(do.float().reshape(B, T, Hkv, Hq // Hkv, -1),
+                      qg.shape[1], 1)
+        dq, dk, dv = _bw_blocks(qg, qp, kp_, vp_, kpos, ob, lse, dob, w,
+                                softcap, scale, bq, bk)
+        return (dq[:, :T].reshape(B, T, Hq, Dh).to(q.dtype),
+                dk[:, :S].to(k.dtype), dv[:, :S].to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def blockwise_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        block_q: int = 512, block_kv: int = 1024):
+    """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T).
+    ``window``: None (causal) or an int (sliding window).  Returns
+    (B,T,Hq,Dv) in q.dtype.
+
+    Differentiable via the flash-style backward (``_BlockwiseAttention``):
+    it recomputes each (bq x bk) probability block from the saved
+    per-row log-sum-exp instead of letting autograd store every block."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    w = window if window is not None else 1 << 30
+    return _BlockwiseAttention.apply(q, k, v, qpos, w, float(softcap),
+                                     float(scale), int(block_q),
+                                     int(block_kv))
 
 
 def banded_attention(q, k, v, *, qpos, window: int, softcap: float = 0.0,

@@ -1,6 +1,14 @@
-"""Launch wrapper of the hand-written flash-attention kernels
-(``repro_torch/csrc/flash_attn_hd.cu``), the port of the reference's
-``flash_attention_pallas``.  The library builds on the first launch.
+"""Launch wrappers of the hand-written flash-attention kernels, the
+port of the reference's ``flash_attention_pallas`` (the forward,
+``repro_torch/csrc/flash_attn_hd.cu``) and of its ``custom_vjp``
+backward (``jnp_impl.py:_bw_blocks``; ``csrc/flash_attn_bwd_hd.cu``).
+The libraries build on their first launch.
+
+:func:`flash_attention_cuda` is differentiable: when grad is enabled
+and q, k or v requires it, it runs as :class:`FlashAttentionFunction`,
+whose forward also writes the rows' log-sum-exp and whose backward is
+:func:`flash_attention_bwd_cuda`.  Without grad the forward writes no
+log-sum-exp (the serving path).
 
 The source holds three variants; :func:`flash_variant` picks one from
 the dtype and head dims alone, and the wrapper launches it or raises:
@@ -9,6 +17,9 @@ the dtype and head dims alone, and the wrapper launches it or raises:
   serving prefill (warp-specialised, TMA-fed wgmma);
 * ``"mma_sync"``: the other bf16 and fp16 head dims;
 * ``"ffma"``: float32 (IEEE FFMA, no TF32).
+
+The backward has two: ``"mma_sync"`` for bf16 and fp16, ``"ffma"`` for
+float32, both for ``Dh == Dv`` in {64, 128} (:func:`bwd_variant`).
 """
 from __future__ import annotations
 
@@ -23,7 +34,9 @@ from repro_torch.kernels.counts import count_launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 VARIANTS = ("ffma", "mma_sync", "wgmma")     # the source's variant codes
+BWD_VARIANTS = ("ffma", "mma_sync")
 WGMMA_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128)
 WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1
 
@@ -38,15 +51,29 @@ def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     return "mma_sync"
 
 
+def bwd_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
+    """The backward kernel's variant for these types and head dims;
+    raises ValueError for head dims it does not take."""
+    if Dh != Dv or Dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash backward kernel takes Dh = Dv in "
+                         f"{BWD_HEAD_DIMS}, got Dh={Dh}, Dv={Dv} (ROADMAP "
+                         f"lists the other head dims as open)")
+    return "ffma" if dtype == torch.float32 else "mma_sync"
+
+
 # flash_attn_hd's C parameters, in order
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p]
+# flash_attn_bwd_hd's C parameters, in order
+BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
 
 
-def _entry():
-    fn = build.load("flash_attn_hd").flash_attn_hd
-    fn.argtypes = ARGTYPES
+def _entry(name: str = "flash_attn_hd", argtypes=ARGTYPES):
+    fn = getattr(build.load(name), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,23 +93,9 @@ def _strides(t: torch.Tensor, name: str, align: int):
     return strides
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, qpos: torch.Tensor, window: Optional[int] = None,
-                         softcap: float = 0.0,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
-    query positions, -1 for padding (kv position of slot s is s).
-    Returns a new (B,T,Hq,Dv) tensor of q's dtype.
-
-    :func:`flash_variant` picks the kernel.  Launches are counted in
-    ``flash_attention_cuda.launches`` and, by variant, in
-    ``flash_attention_cuda.by_variant``, as executions
-    (:mod:`repro_torch.kernels.counts`).
-
-    q, k and v share one dtype, float32, bfloat16 or float16, on one
-    CUDA device; any strides with a unit-stride last dim (a view of a
-    layer's KV cache goes in without a copy; 16-bit rows must start on
-    16 bytes).  Dh and Dv are multiples of 8 up to 256."""
+def _check(q, k, v, qpos):
+    """Validates the operands of the forward; returns
+    (B, T, S, Hq, Hkv, Dh, Dv)."""
     tensors = (q, k, v, qpos)
     if not all(t.is_cuda for t in tensors) or any(
             t.device != q.device for t in tensors):
@@ -110,14 +123,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(B, Hq) > 65535 or max(T, S) > _INT32_MAX:
         raise ValueError("flash_attention_cuda grid limits: B and Hq up to "
                          "65535, T and S under 2**31")
+    return B, T, S, Hq, Hkv, Dh, Dv
+
+
+def _forward(q, k, v, qpos, window, softcap, scale, with_lse: bool):
+    """One launch of the forward kernel; returns (out, lse), lse None
+    unless ``with_lse``."""
+    B, T, S, Hq, Hkv, Dh, Dv = _check(q, k, v, qpos)
     variant = flash_variant(q.dtype, Dh, Dv)
     if variant == "wgmma" and -(-T // WGMMA_ROWS) > 65535:
         raise ValueError(f"flash_attention_cuda's wgmma variant takes T up "
                          f"to {65535 * WGMMA_ROWS}, got {T}")
     align = 8 if q.dtype != torch.float32 else 1
     out = torch.empty((B, T, Hq, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if T == 0:
-        return out
+        return out, lse
     qpos = qpos.to(torch.int32)
     strides = (ctypes.c_longlong * 14)(
         *_strides(q, "q", align), *_strides(k, "k", align),
@@ -128,7 +150,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            out.data_ptr(), VARIANTS.index(variant), _DTYPES[q.dtype], B,
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            VARIANTS.index(variant), _DTYPES[q.dtype], B,
             T, S, Hq, Hkv, Dh, Dv,
             ctypes.addressof(strides),
             float(scale), float(softcap or 0.0), int(window is not None),
@@ -142,8 +165,131 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attn_hd ({variant}) launch failed with "
                            f"CUDA error {err}")
     count_launch(flash_attention_cuda, variant)
-    return out
+    return out, lse
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel pair as one differentiable op, the port of the
+    reference's ``custom_vjp`` (``jnp_impl.py:202-241``): the forward
+    kernel saves ``(o, lse)``, and the backward kernel rebuilds each
+    probability from ``lse`` instead of storing any of them.  ``o`` is
+    the kernel's output in the operands' type (the reference keeps its
+    float32 block output for delta = sum dO * o)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, window, softcap, scale):
+        out, lse = _forward(q, k, v, qpos, window, softcap, scale,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, qpos, out, lse)
+        ctx.args = (window, softcap, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, out, lse = ctx.saved_tensors
+        window, softcap, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd_cuda(
+            dout, q, k, v, out, lse, qpos=qpos, window=window,
+            softcap=softcap, scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, qpos: torch.Tensor, window: Optional[int] = None,
+                         softcap: float = 0.0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
+    query positions, -1 for padding (kv position of slot s is s).
+    Returns a new (B,T,Hq,Dv) tensor of q's dtype.
+
+    :func:`flash_variant` picks the kernel.  Launches are counted in
+    ``flash_attention_cuda.launches`` and, by variant, in
+    ``flash_attention_cuda.by_variant``, as executions
+    (:mod:`repro_torch.kernels.counts`).
+
+    q, k and v share one dtype, float32, bfloat16 or float16, on one
+    CUDA device; any strides with a unit-stride last dim (a view of a
+    layer's KV cache goes in without a copy; 16-bit rows must start on
+    16 bytes).  Dh and Dv are multiples of 8 up to 256.  With grad
+    enabled and q, k or v requiring it, the result has a ``grad_fn``
+    (:class:`FlashAttentionFunction`; the backward takes Dh = Dv in
+    {64, 128} and raises ValueError here for other head dims)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        bwd_variant(q.dtype, q.shape[-1], v.shape[-1])
+        return FlashAttentionFunction.apply(q, k, v, qpos, window, softcap,
+                                            scale)
+    return _forward(q, k, v, qpos, window, softcap, scale,
+                    with_lse=False)[0]
+
+
+def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
+                             k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, *,
+                             qpos: torch.Tensor,
+                             window: Optional[int] = None,
+                             softcap: float = 0.0,
+                             scale: Optional[float] = None):
+    """dq, dk, dv of attention from ``dout`` = dL/d``out``, where
+    ``out`` and ``lse`` (B, Hq, T) float32 are the forward kernel's
+    output and log-sum-exp on these q, k, v and qpos.  Returns new
+    tensors in the operands' dtype: dq (B,T,Hq,D), dk and dv
+    (B,S,Hkv,D).
+
+    One call launches the three kernels of ``csrc/flash_attn_bwd_hd.cu``
+    (delta, dK/dV, dQ) and counts one launch in
+    ``flash_attention_bwd_cuda.launches`` (and its variant in
+    ``by_variant``).  Takes Dh = Dv in {64, 128}; operands with any
+    strides whose last dim is unit-stride (16-byte rows for 16-bit
+    types)."""
+    B, T, S, Hq, Hkv, Dh, Dv = _check(q, k, v, qpos)
+    variant = bwd_variant(q.dtype, Dh, Dv)
+    for name, t, shape in (("out", out, (B, T, Hq, Dv)),
+                           ("dout", dout, (B, T, Hq, Dv))):
+        if tuple(t.shape) != shape or t.dtype != q.dtype or \
+                t.device != q.device:
+            raise ValueError(f"{name} must be {shape} {q.dtype} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    if (tuple(lse.shape) != (B, Hq, T) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous (B, Hq, T) = "
+                         f"{(B, Hq, T)} float32 tensor on {q.device}")
+    if Hkv > 65535:
+        raise ValueError("flash_attention_bwd_cuda grid limit: Hkv up to "
+                         "65535")
+    # the kernels write every row; with no query or no key all are 0
+    new = torch.empty if T and S else torch.zeros
+    kw = dict(dtype=q.dtype, device=q.device)
+    dq = new((B, T, Hq, Dh), **kw)
+    dk, dv = new((B, S, Hkv, Dh), **kw), new((B, S, Hkv, Dv), **kw)
+    if T == 0 or S == 0:
+        return dq, dk, dv
+    align = 8 if q.dtype != torch.float32 else 1
+    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    qpos = qpos.to(torch.int32)
+    strides = (ctypes.c_longlong * 17)(
+        *_strides(q, "q", align), *_strides(k, "k", align),
+        *_strides(v, "v", align), *_strides(out, "out", align),
+        *_strides(dout, "dout", align), *qpos.stride())
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    window = None if window is None else int(window)
+    with torch.cuda.device(q.device):
+        err = _entry("flash_attn_bwd_hd", BWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), qpos.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh,
+            ctypes.addressof(strides), float(scale), float(softcap or 0.0),
+            int(window is not None), window or 0,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attn_bwd_hd ({variant}) launch failed "
+                           f"with CUDA error {err}")
+    count_launch(flash_attention_bwd_cuda, variant)
+    return dq, dk, dv
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.by_variant = dict.fromkeys(BWD_VARIANTS, 0)

@@ -1,5 +1,5 @@
 """Shared model components: the part of the reference's
-``repro/models/common.py`` that serving needs.
+``repro/models/common.py`` that serving and training need.
 
 Every function keeps the reference's casts, because each is a place
 where two frameworks could round differently:
@@ -14,6 +14,13 @@ where two frameworks could round differently:
 ``resolve_device`` turns every entry point's ``device`` (default
 "cuda") into a torch.device and raises without a card.
 
+``cross_entropy_loss`` and ``fused_cross_entropy`` are the training
+losses, in float32.  The gold logit is a ``gather`` (the reference's
+iota-compare masked sum exists to keep a vocab-sharded axis local; on
+one card the two give the same value).  ``fused_cross_entropy`` runs
+each sequence chunk under ``torch.utils.checkpoint``, as the reference
+runs its ``lax.scan`` body under ``jax.checkpoint``.
+
 ``batch_update`` is the per-slot cache write of the reference's
 ``sharded_batch_update`` without the mesh.  It writes in place (the
 reference's is functional) and clamps each start into the cache the
@@ -26,6 +33,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def resolve_device(device) -> torch.device:
@@ -131,3 +139,51 @@ def batch_update(cache: torch.Tensor, new: torch.Tensor,
     bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
     cache[bidx, rows] = new.to(cache.dtype)
     return cache
+
+
+def _nll_sum(h_chunk, final_norm, w, labels, mask, final_softcap):
+    """Summed masked NLL of one sequence chunk: norm, head, CE."""
+    h = rms_norm(h_chunk, final_norm)
+    logits = softcap((h @ w).float(), final_softcap or None)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * mask)
+
+
+def fused_cross_entropy(x, final_norm, out_emb, labels, mask=None,
+                        final_softcap: float = 0.0,
+                        chunk: int = 512) -> torch.Tensor:
+    """Head matmul + CE fused over SEQUENCE CHUNKS, each under
+    ``torch.utils.checkpoint``: never materializes the (B, S, V) logits,
+    the biggest activation of a high-vocab train step.  The same float32
+    math per chunk as ``_head`` + :func:`cross_entropy_loss`."""
+    B, S, D = x.shape
+    c = min(chunk, S)
+    nc = -(-S // c)
+    Sp = nc * c
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if Sp != S:
+        x = F.pad(x, (0, 0, 0, Sp - S))
+        labels = F.pad(labels, (0, Sp - S))
+        mask = F.pad(mask, (0, Sp - S))
+    w = out_emb.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(
+            _nll_sum, x[:, sl], final_norm, w, labels[:, sl], mask[:, sl],
+            final_softcap, use_reentrant=False, preserve_rng_state=False)
+    return total / torch.clamp(mask.sum(), min=1)
+
+
+def cross_entropy_loss(logits, labels, mask=None) -> torch.Tensor:
+    """Token-level CE in float32; logits (B, S, V), labels (B, S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -7,7 +7,16 @@ Structure notes:
   * the per-layer window comes from ``_window_array`` as in the
     reference; only global attention (``attn_kind="full"``) is ported;
   * caches are dicts of ``(L, B, T_max, Hkv, Dh)`` tensors plus the
-    per-slot ``pos``, updated in place by prefill and decode.
+    per-slot ``pos``, updated in place by prefill and decode;
+  * ``forward`` and ``forward_fused`` (the train paths) run each layer
+    under ``torch.utils.checkpoint`` while grad is enabled, the
+    reference's ``remat=True`` (its ``jax.checkpoint`` of the scanned
+    layer): a layer's activations are recomputed in the backward, so
+    only each layer's input is kept;
+  * ``init(seed, dtype)`` stores the matrices in ``dtype``, the compute
+    dtype by default (serving's bf16 weights); training passes
+    float32 for the reference's float32 masters, which every use
+    casts to the compute dtype.
 
 ``build(cfg, compute_dtype, device)`` returns a ModelBundle of closures
 and raises ``NotImplementedError`` for the families not ported yet.
@@ -17,12 +26,14 @@ raises without a card.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as LY
-from .common import gated_mlp, resolve_device, rms_norm, softcap
+from .common import (fused_cross_entropy, gated_mlp, resolve_device,
+                     rms_norm, softcap)
 
 Params = Dict[str, Any]
 BIG_WINDOW = 1 << 30   # "global attention" as a window
@@ -30,12 +41,14 @@ BIG_WINDOW = 1 << 30   # "global attention" as a window
 
 class ModelBundle(NamedTuple):
     cfg: Any
-    init: Callable        # seed or torch.Generator -> params
+    init: Callable        # (seed or torch.Generator[, dtype]) -> params
     forward: Callable     # (params, batch) -> (logits, aux)
     prefill: Callable     # (params, batch, cache) -> (logits_last, cache)
     decode: Callable      # (params, batch, cache) -> (logits, cache)
     init_cache: Callable  # (B, T_max[, device]) -> cache
     device: torch.device
+    # the fused head+CE train path (never materializes B,S,V logits)
+    forward_fused: Optional[Callable] = None  # (params, batch) -> (loss, metrics)
 
 
 # ======================================================================
@@ -106,11 +119,24 @@ def _dense_block(cfg, pl, x, window, cache_sl):
     return x + f, new_c
 
 
-def _run_stack(cfg, stack_p, x, windows, cache):
+def _remat_block(cfg, pl, x, window):
+    """One layer without a cache, for ``torch.utils.checkpoint``."""
+    return _dense_block(cfg, pl, x, window, None)[0]
+
+
+def _run_stack(cfg, stack_p, x, windows, cache, remat: bool = False):
     """The layer loop over one group.  cache: None or dict(k, v, pos)
-    with (L, ...) k and v; returns (x, cache) with pos advanced by T."""
+    with (L, ...) k and v; returns (x, cache) with pos advanced by T.
+    ``remat`` (no cache, grad enabled): each layer under
+    ``torch.utils.checkpoint``."""
     pos = None if cache is None else cache["pos"]
+    remat = remat and cache is None and torch.is_grad_enabled()
     for i, (pl, w) in enumerate(zip(stack_p, windows)):
+        if remat:
+            # no layer draws random numbers: no RNG state to replay
+            x = checkpoint(_remat_block, cfg, pl, x, w, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
         csl = None if cache is None else {
             "k": cache["k"][i], "v": cache["v"][i], "pos": pos}
         x, _ = _dense_block(cfg, pl, x, w, csl)
@@ -123,17 +149,32 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
     """The dense decoder: embedding, one stack, head."""
     windows = _window_array(cfg)
 
-    def init(seed=0) -> Params:
+    def init(seed=0, dtype=None) -> Params:
+        """Matrices in ``dtype`` (default the compute dtype); norm
+        scales float32."""
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
-        return {"emb": _embed_params(gen, cfg, dt, dev),
-                "main": _dense_stack_params(gen, cfg, cfg.n_layers, dt, dev)}
+        pdt = dt if dtype is None else dtype
+        return {"emb": _embed_params(gen, cfg, pdt, dev),
+                "main": _dense_stack_params(gen, cfg, cfg.n_layers, pdt,
+                                            dev)}
 
     def forward(params, batch):
         x = _embed(params["emb"], batch["tokens"], cfg, dt)
-        x, _ = _run_stack(cfg, params["main"], x, windows, None)
+        x, _ = _run_stack(cfg, params["main"], x, windows, None, remat=True)
         return _head(params["emb"], x, cfg), {
             "aux_loss": torch.zeros((), device=x.device)}
+
+    def forward_fused(params, batch):
+        """Train path with the head+CE fused over sequence chunks."""
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        x, _ = _run_stack(cfg, params["main"], x, windows, None, remat=True)
+        emb = params["emb"]
+        loss = fused_cross_entropy(x, emb["final_norm"], emb["out_emb"],
+                                   batch["labels"], batch.get("mask"),
+                                   cfg.final_softcap)
+        return loss, {"ce": loss,
+                      "aux": torch.zeros((), device=x.device)}
 
     def init_cache(B, T_max, device=None):
         """``device`` defaults to the model's ("meta" probes shapes)."""
@@ -157,7 +198,8 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
                                       cache["main"])
         return _head(params["emb"], x, cfg), cache
 
-    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev)
+    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
+                       forward_fused)
 
 
 # ======================================================================

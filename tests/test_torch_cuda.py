@@ -780,3 +780,155 @@ def test_recovery_engine_failover_on_card(cuda, tmp_path):
     assert [r["kind"] for r in eng.recovery_log] == ["instance_loss",
                                                      "instance_join"]
     assert eng.recovery_log[0]["steps_replayed"] == 1
+
+
+# -- the flash backward kernel (csrc/flash_attn_bwd_hd.cu) ----------------
+# Against float64 dense autograd on the same (rounded) inputs.  float32:
+# the reference's own bound for its custom VJP, rtol = atol = 2e-4
+# (tests/test_flash_attention.py).  16-bit: p and dz are rounded to the
+# operand type before their products and dq, dk, dv to it at the end
+# (2**-9 relative each in bf16); their Frobenius-relative error stays
+# well under 2e-2 at these sizes
+BWD_FRO_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2}
+BWD_F32_TOL = 2e-4
+
+BWD_SHAPES = [  # B, T, S, Hq, Hkv, D, window, softcap, qpos
+    (2, 100, 130, 8, 1, 64, None, 0.0, "tail"),
+    (2, 100, 130, 8, 1, 64, 16, 0.0, "tail"),
+    (1, 257, 300, 8, 8, 128, None, 8.0, "tail"),
+    (2, 200, 200, 16, 2, 128, 40, 5.0, "tail"),
+    (2, 96, 80, 4, 2, 128, 5, 0.0, "ragged"),
+    (1, 130, 130, 8, 1, 64, None, 0.0, "ragged"),
+]
+
+
+def _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, D, kind, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((B, T, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                             (B, T, Hq, D)))
+    if kind == "tail":
+        qpos = torch.arange(S - T, S, dtype=torch.int32,
+                            device=cuda).repeat(B, 1)
+    else:                       # ragged, with padding and unseeing rows
+        qpos = torch.randint(-1, S + 10, (B, T), generator=g, device=cuda,
+                             dtype=torch.int32)
+        qpos[:, :9] = -1
+        qpos[-1, 20:30] = S + 200
+    return q, k, v, do, qpos
+
+
+def _dense64(q, k, v, qpos, window=None, softcap=0.0):
+    """Dense attention in float64 whose masked logits are -1e300, not
+    -inf: a fully masked row's softmax is then finite (and zeroed), so
+    its backward carries no NaN into dk and dv."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kk, vv = (x.repeat_interleave(Hq // Hkv, 2) for x in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", q, kk) / D ** 0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(S, device=q.device)
+    qp = qpos.long()[:, None, :, None]
+    seen = (kpos <= qp) & (qp >= 0)
+    if window is not None:
+        seen &= kpos > qp - window
+    p = torch.softmax(torch.where(seen, s, -1e300), dim=-1)
+    p = torch.where(seen.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhts,bshd->bthd", p, vv)
+
+
+def _dense_grads(q, k, v, do, qpos, **kw):
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    out = _dense64(*leaves, qpos=qpos, **kw)
+    out.backward(do.double())
+    return out.detach(), [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_cuda_matches_f64_dense_autograd(cuda, dtype, shape):
+    B, T, S, Hq, Hkv, D, window, softcap, kind = shape
+    q, k, v, do, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, D, kind)
+    kw = dict(window=window, softcap=softcap)
+    _, want = _dense_grads(q, k, v, do, qpos, **kw)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = flash_kernel.flash_attention_bwd_cuda.launches
+    out = flash_kernel.flash_attention_cuda(*leaves, qpos=qpos, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_bwd_cuda.launches == before + 1
+    for x, w in zip(leaves, want):
+        got = x.grad
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.double(), w, rtol=BWD_F32_TOL,
+                                       atol=BWD_F32_TOL)
+        else:
+            err = torch.linalg.norm(got.double() - w) / torch.linalg.norm(w)
+            assert float(err) <= BWD_FRO_TOL[dtype], float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forward_lse_matches_plain(cuda, dtype):
+    """The forward's log-sum-exp against float64: masked rows -1e30."""
+    B, T, S, Hq, Hkv, D = 2, 96, 80, 8, 2, 128
+    q, k, v, _, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, D,
+                                   "ragged")
+    out, lse = flash_kernel._forward(q, k, v, qpos, 7, 0.0, None,
+                                     with_lse=True)
+    z = torch.einsum("bthd,bshd->bhts", q.double(),
+                     k.double().repeat_interleave(Hq // Hkv, 2)) / D ** 0.5
+    kpos = torch.arange(S, device=cuda)
+    qp = qpos.long()[:, None, :, None]
+    seen = (kpos <= qp) & (kpos > qp - 7) & (qp >= 0)
+    want = torch.logsumexp(torch.where(seen, z, -torch.inf), dim=-1)
+    masked = ~seen.any(-1).expand_as(want)
+    assert bool((lse[masked] == -1e30).all())
+    torch.testing.assert_close(lse[~masked].double(), want[~masked],
+                               rtol=0, atol=2e-5 if dtype == torch.float32
+                               else 1e-3)
+
+
+def test_flash_with_grad_has_grad_fn_and_model_grads_finite(cuda):
+    """A forward with grad gives a grad_fn on the card; every parameter
+    of a small model at T >= FLASH_MIN_T (so each layer runs the kernel
+    pair) gets a finite, non-zero gradient."""
+    import dataclasses
+
+    from repro_torch.models.layers import FLASH_MIN_T
+    from repro_torch.train.step import TrainConfig, make_loss_fn
+
+    q = torch.randn((1, 64, 4, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    qpos = torch.arange(64, device=cuda, dtype=torch.int32)[None]
+    out = flash_kernel.flash_attention_cuda(q, kv, kv, qpos=qpos)
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        assert flash_kernel.flash_attention_cuda(
+            q, kv, kv, qpos=qpos).grad_fn is None
+
+    cfg = dataclasses.replace(get_config("yi-9b").reduced(), n_layers=2,
+                              d_head=64)
+    bundle = build(cfg, torch.bfloat16, "cuda")
+    params = bundle.init(0, dtype=torch.float32)
+    T = FLASH_MIN_T
+    toks = torch.randint(0, cfg.vocab, (1, T + 1), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = [p for layer in params["main"] for d in layer.values()
+              for p in d.values()] + list(params["emb"].values())
+    for p in leaves:
+        p.requires_grad_(True)
+    fwd = flash_kernel.flash_attention_cuda.launches
+    bwd = flash_kernel.flash_attention_bwd_cuda.launches
+    loss, _ = make_loss_fn(bundle, TrainConfig())(params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    # forward and its recompute under the per-layer checkpoint
+    assert flash_kernel.flash_attention_cuda.launches - fwd == 2 * 2
+    assert flash_kernel.flash_attention_bwd_cuda.launches - bwd == 2
+    for p in leaves:
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+        assert float(p.grad.abs().max()) > 0

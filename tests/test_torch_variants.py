@@ -75,13 +75,15 @@ def _c_params(source: str, name: str):
     return types
 
 
-@pytest.mark.parametrize("source, name, module", [
-    ("flash_attn_hd.cu", "flash_attn_hd", flash_kernel),
-    ("gemm_hd.cu", "gemm_hd", gemm_kernel)])
-def test_argtypes_match_the_c_entry_point(source, name, module):
+@pytest.mark.parametrize("source, name, module, attr", [
+    ("flash_attn_hd.cu", "flash_attn_hd", flash_kernel, "ARGTYPES"),
+    ("flash_attn_bwd_hd.cu", "flash_attn_bwd_hd", flash_kernel,
+     "BWD_ARGTYPES"),
+    ("gemm_hd.cu", "gemm_hd", gemm_kernel, "ARGTYPES")])
+def test_argtypes_match_the_c_entry_point(source, name, module, attr):
     """A wrapper that passes another argument list than the C function
     declares would pass garbage on the card; this holds them equal."""
-    assert module.ARGTYPES == _c_params(source, name)
+    assert getattr(module, attr) == _c_params(source, name)
 
 
 def test_plain_versions_on_cpu_launch_no_variant():
