@@ -27,11 +27,12 @@
    plain versions (bf16 at the serving path's prefill shape, small
    shapes with windows, softcaps, ragged and fully masked rows, odd
    head dims, and float32), timing it beside SDPA, and its backward
-   kernel against float64 dense autograd (small shapes, bf16, fp16 and
-   float32, GQA groups of 8 and 1, Dh 64 and 128) and the plain
-   blockwise backward at the training shape, timing it beside SDPA's
-   backward; then drives the
-   second path, models -> serve Engine, with yi-9b at full width (48
+   kernels, ``wgmma`` (``ffma`` in float32), against float64 dense
+   autograd (small shapes, bf16, fp16 and float32, GQA groups of 8 and
+   1, Dh 64 and 128) and the plain blockwise backward at the training
+   shape, timing it (and each of its launches) beside SDPA's backward;
+   then drives
+   the second path, models -> serve Engine, with yi-9b at full width (48
    layers, random weights from a seeded generator) in bfloat16: three
    admits of 2048, 1536 and 1024 tokens into a 4-slot pool of 4096
    positions, 16 decode steps after each, every request finished, and
@@ -78,7 +79,8 @@
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
    counting at each replay.  Every GEMM-path launch must be the
-   ``pipelined`` variant and every prefill launch the ``wgmma`` one.
+   ``pipelined`` variant, every prefill launch the ``wgmma`` one, and
+   every training backward the ``wgmma`` one.
 6. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -269,6 +271,30 @@ def device_breakdown(torch, label: str, fn, top: int = 4,
         for a in ops[:host_top]:
             print(f"  {a.self_cpu_time_total / 1e3:9.3f} ms host x{a.count:<5d} "
                   f"{a.key[:80]}")
+
+
+def ptxas_report(log: str, nvcc: str):
+    """(kernel, report) for each kernel in an ``nvcc -Xptxas -v`` log:
+    the kernel's name as the toolkit's ``cu++filt`` prints it, and its
+    registers and spills on one line."""
+    import re
+
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append((m.group(1), []))
+        elif out and ("Used" in line or "spill" in line):
+            out[-1][1].append(line.split(":", 1)[-1].strip())
+    syms = [sym for sym, _ in out]
+    # names only: a name that does not demangle stays as ptxas wrote it
+    names = subprocess.run([str(Path(nvcc).with_name("cu++filt")), "-p",
+                            *syms], capture_output=True, text=True,
+                           check=True).stdout.splitlines() if syms else []
+    check(len(names) == len(syms), f"cu++filt gave {len(names)} names for "
+          f"{len(syms)} kernels")
+    return [(name.replace("<unnamed>::", ""), "; ".join(lines))
+            for name, (_, lines) in zip(names, out)]
 
 
 def fro_rel(torch, got, want) -> float:
@@ -569,11 +595,60 @@ def dense64(torch, q, k, v, qpos, window=None, softcap=0.0):
     return torch.einsum("bhts,bshd->bthd", p, vv)
 
 
+def bwd_blocks(torch, qpos, S: int, Hq: int, rows: int = 64,
+               keys: int = 128):
+    """The wgmma dK and dV kernels' work at these query positions, as
+    their producers walk it: (blocks, tile steps in all, the longest
+    block's steps).  A block is (keys keys, query head, batch); a step
+    is one 64-row query tile some row of which sees one of its keys."""
+    B, T = qpos.shape
+    n = -(-T // rows)
+    pad = torch.full((B, n * rows), -1, dtype=torch.long, device=qpos.device)
+    pad[:, :T] = qpos.long()
+    tiles = pad.view(B, n, rows)
+    valid = tiles >= 0
+    hi = torch.where(valid, torch.clamp(tiles, max=S - 1), -1).amax(-1)
+    k0 = torch.arange(0, S, keys, device=qpos.device)
+    # causal (no window): a tile sees the block when its last row does
+    steps = (hi[:, None, :] >= k0[None, :, None]).sum(-1)   # (B, blocks)
+    return (B * Hq * len(k0), int(steps.sum()) * Hq, int(steps.max()))
+
+
+def bwd_split(torch, fn, reps: int = 5):
+    """Device ms per launch of each kernel of the wgmma backward, from
+    torch.profiler over ``reps`` calls of ``fn``."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = {"prep_kernel": "pre-pass", "dq_wgmma_kernel": "dQ",
+             "gqa_sum_kernel": "GQA sum"}
+    split = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"dkv_wgmma_kernel<[^>]*, (true|false)>", e.name)
+        label = ("dK" if m.group(1) == "true" else "dV") if m else next(
+            (v for k, v in names.items() if k in e.name), None)
+        if label is None:
+            continue
+        us, count = split.get(label, (0.0, 0))
+        split[label] = (us + e.time_range.end - e.time_range.start, count + 1)
+    return {k: us / 1e3 / count for k, (us, count) in split.items()}
+
+
 def flash_bwd_phase(torch):
-    """The flash backward kernel against float64 dense autograd at small
-    shapes and against the plain blockwise backward at the training
-    shape, then its time beside the plain backward's and SDPA's
-    backward at that shape."""
+    """The flash backward kernels, wgmma (ffma in float32), against
+    float64 dense autograd at small shapes and against the plain
+    blockwise backward at the training shape, then their time beside
+    the plain backward's and SDPA's backward at that shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -608,16 +683,24 @@ def flash_bwd_phase(torch):
 
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for B, T, S, Hq, Hkv, D, window, softcap, kind in BWD_SHAPES:
+            variant = fk.bwd_variant(dtype, D, D)
             q, k, v, do, qpos = inputs(dtype, B, T, S, Hq, Hkv, D, kind)
             kw = dict(window=window, softcap=softcap)
             leaves = [x.double().requires_grad_() for x in (q, k, v)]
             dense64(torch, *leaves, qpos, **kw).backward(do.double())
-            got = kernel_grads(q, k, v, do, qpos, **kw)
+            auto = kernel_grads(q, k, v, do, qpos, **kw)
+            out, lse = fk._forward(q, k, v, qpos, window, softcap, None,
+                                   with_lse=True)
+            got = fk.flash_attention_bwd_cuda(do, q, k, v, out, lse,
+                                              qpos=qpos, **kw)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, auto)),
+                  f"flash backward through autograd differs from a direct "
+                  f"launch at {(B, T, S, Hq, Hkv, D)}")
             errs = []
             for name, x, w in zip("qkv", got, leaves):
                 check(x.dtype == dtype and bool(torch.isfinite(x).all()),
-                      f"flash backward d{name} not finite {dtype}")
+                      f"flash backward {variant} d{name} not finite {dtype}")
                 if dtype == torch.float32:
                     e = (x.double() - w.grad).abs()
                     bad = int((e > BWD_F32_TOL * (1 + w.grad.abs())).sum())
@@ -626,12 +709,12 @@ def flash_bwd_phase(torch):
                     errs.append(float(e.max()))
                 else:
                     e = fro_rel(torch, x, w.grad)
-                    check(e <= BWD_FRO_TOL, f"flash backward d{name} "
-                          f"{dtype} at {(B, T, S, Hq, Hkv, D)}: {e}")
+                    check(e <= BWD_FRO_TOL, f"flash backward {variant} "
+                          f"d{name} {dtype} at {(B, T, S, Hq, Hkv, D)}: {e}")
                     errs.append(e)
-            print(f"flash bwd {str(dtype).split('.')[-1]} B,T,S,Hq,Hkv,D="
-                  f"{(B, T, S, Hq, Hkv, D)} window={window} softcap="
-                  f"{softcap} qpos={kind}: "
+            print(f"flash bwd {variant} {str(dtype).split('.')[-1]} "
+                  f"B,T,S,Hq,Hkv,D={(B, T, S, Hq, Hkv, D)} window={window} "
+                  f"softcap={softcap} qpos={kind}: "
                   + ("max_abs_err" if dtype == torch.float32 else "fro_rel")
                   + " dq,dk,dv=" + ", ".join(f"{e:.3e}" for e in errs))
 
@@ -641,12 +724,19 @@ def flash_bwd_phase(torch):
                                "tail")
     out, lse = fk._forward(q, k, v, qpos, BIG_WINDOW, 0.0, None,
                            with_lse=True)
-    got = fk.flash_attention_bwd_cuda(do, q, k, v, out, lse, qpos=qpos,
-                                      window=BIG_WINDOW)
+
+    def kernel():
+        return fk.flash_attention_bwd_cuda(do, q, k, v, out, lse, qpos=qpos,
+                                           window=BIG_WINDOW)
+
+    got = kernel()
+    again = kernel()
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     out_p = blockwise_attention(*plain, qpos=qpos, window=BIG_WINDOW)
     want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "two wgmma backward launches differ at the training shape")
     main_err, rels = 0.0, []
     for name, x, w in zip("qkv", got, want):
         rels.append(fro_rel(torch, x, w))
@@ -656,7 +746,8 @@ def flash_bwd_phase(torch):
     print(f"flash bwd main bf16 q {tuple(q.shape)} k,v {tuple(k.shape)} "
           f"causal: fro_rel dq,dk,dv vs plain blockwise = "
           + ", ".join(f"{e:.3e}" for e in rels)
-          + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={main_err:.3e}")
+          + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={main_err:.3e}, two "
+          f"launches bit-identical")
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -674,29 +765,37 @@ def flash_bwd_phase(torch):
     flops = pairs * Hq * (6 * D + 4 * D)
     nbytes = 2 * (4 * cfg_T * Hq * D + 4 * cfg_T * Hkv * D) + 4 * Hq * cfg_T
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    split = bwd_split(torch, kernel)
+    blocks, steps, longest = bwd_blocks(torch, qpos, cfg_T, Hq)
     bwd = dict(
         name="flash_attn_bwd_hd", route="cuda",
         source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
         replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
         max_abs_err=main_err,
-        ms=cuda_ms(torch, lambda: fk.flash_attention_bwd_cuda(
-            do, q, k, v, out, lse, qpos=qpos, window=BIG_WINDOW), 10),
+        ms=cuda_ms(torch, kernel, 10),
         plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             out_p, plain, do, retain_graph=True), 3),
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             o_s, (qt, kt, vt), do_t, retain_graph=True), 10),
+        wgmma_split_ms={k: round(x, 4) for k, x in split.items()},
         shape=[list(q.shape), list(k.shape)])
     print(f"flash bwd at {tuple(q.shape)} x {tuple(k.shape)}: {flops:.4e} "
-          f"flops, {nbytes:.4e} bytes; kernel "
-          f"({fk.bwd_variant(q.dtype, D, D)}) {bwd['ms']:.4f} ms "
-          f"({flops / bwd['ms'] / 1e9:.1f} TFLOP/s, "
-          f"{100 * bwd['bound_ms'] / bwd['ms']:.1f}% of the bound), bound "
+          f"flops (10 D a pair and head), {nbytes:.4e} bytes; bound "
           f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}), plain "
           f"{bwd['plain_ms']:.4f} ms, SDPA backward "
           f"{bwd['library_ms']:.4f} ms")
-    del q, k, v, do, out, lse, got, plain, out_p, want, qt, kt, vt, o_s, lib
+    print(f"  wgmma: {bwd['ms']:.4f} ms ({flops / bwd['ms'] / 1e9:.1f} "
+          f"TFLOP/s at 10 D, {100 * bwd['bound_ms'] / bwd['ms']:.1f}% of the "
+          f"bound)")
+    print(f"  wgmma per launch (torch.profiler, ms): "
+          + ", ".join(f"{k} {x:.4f}" for k, x in split.items())
+          + f"; dK, dV grid {blocks} blocks, {steps} tile steps, the "
+          f"longest {longest} ({100 * longest * 132 / steps:.1f}% of an "
+          f"SM's even share, from the tile counts)")
+    del q, k, v, do, out, lse, got, again, plain, out_p, want
+    del qt, kt, vt, o_s, lib
     torch.cuda.empty_cache()
     return bwd
 
@@ -1515,9 +1614,9 @@ def train_phase(torch):
           f"(h) flash forward launched {launches['flash_attn_hd']}, want "
           f"{want_fwd} wgmma (forward and checkpoint recompute)")
     check(launches["flash_attn_bwd_hd"] == want_bwd
-          and variants["flash_attn_bwd_hd"]["mma_sync"] == want_bwd,
+          and variants["flash_attn_bwd_hd"]["wgmma"] == want_bwd,
           f"(h) flash backward launched {launches['flash_attn_bwd_hd']}, "
-          f"want {want_bwd} mma_sync")
+          f"want {want_bwd} wgmma")
     check(launches["jacobi_hd"] == launches["gemm_hd"] == 0,
           "(h) training launched a Jacobi or GEMM kernel")
     check(int(state.step) == TRAIN_STEPS, "(h) the optimizer step count")
@@ -1585,10 +1684,13 @@ def main() -> None:
     logs = build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(build.SOURCES)})")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    # a library built earlier brings the log of its build along
+    for name in build.SOURCES:
+        for kernel, report in ptxas_report(logs[name], build._nvcc()):
+            print(f"  {name}: {kernel}: {report}")
+        faults = build.ptxas_faults(logs[name])
+        check(not faults, f"ptxas spills or serialises wgmmas in {name}: "
+              + "; ".join(faults))
 
     jac, gemm = kernel_phase(torch)
     init, want = jacobi_data(torch)

@@ -24,31 +24,66 @@
 // tensor-core peak.  Its bytes (q, k, v, o, dO read, dq, dk, dv written)
 // need far less at training lengths.
 //
-// The design is FlashAttention-2's split into three launches, none with
-// atomics, so every sum has one fixed order and the result is
-// deterministic:
-//   (a) delta: one warp per (b, t, h) row, float32;
-//   (b) dK, dV: a block per (64-key block, kv head, batch) owns those
-//       rows of dk and dv in float32 registers and loops over the G query
-//       heads of its group and over the query tiles whose qpos range can
-//       see the block (tiles that cannot are skipped after reading qpos),
-//       recomputing p and dz tile by tile;
-//   (c) dQ: a block per (64 query rows, query head, batch) loops over the
-//       key tiles its rows' qpos range can see (as the forward does) and
-//       owns its dq rows; longest blocks first.
-// 16-bit operands (bf16, fp16) go through mma.sync m16n8k16 with float32
-// accumulators, fragments by ldmatrix from shared memory filled with
-// cp.async; p and dz are rounded to the operand type for their products,
-// as FlashAttention-2 does (the reference keeps them float32; the tests
-// state the tolerance).  float32 goes through plain FFMA loops, not
-// TF32.  Head dims: D = Dh = Dv in {64, 128}.  This is the first, simple
-// design: single-buffered tiles, no wgmma or TMA (PERF.md has its time
-// against the bound).
+// Two variants, chosen by the operands' type (kernels/flash_attention/
+// kernel.py: bwd_variant).  Neither uses atomics: every sum has one
+// fixed order, so each is bit-deterministic across launches.
+//
+// * wgmma (bf16 and fp16, D = 64 or 128: every training launch).  Five
+//   launches.  (a) A pre-pass, a block per (64-row query tile, query
+//   head, batch): delta = sum dO * o per row and lse * log2(e) (1e30
+//   for a row that sees no key, so that its p underflows to 0), both
+//   float32, per tile; and, from the head-0 blocks, each row's visible
+//   keys as (lo, hi], each tile's hull of them and the keys all its
+//   rows see, so that no later launch reads qpos.  (b) dV and (c) dK:
+//   one kernel, instantiated twice, a block per (128 keys, query head,
+//   batch); key blocks in order, so under a causal mask the longest
+//   run first, and the G heads of a GQA group neighbours in the grid,
+//   so their K and V come from L2: at the training shape 1024 blocks
+//   of 33,792 tile steps in all, the longest 64 of them, a quarter of
+//   one SM's even share.  Three warpgroups;
+//   the last is the producer (setmaxnreg 24 / 240): one thread loads K
+//   (and V) once with TMA, then streams (Q, dO) tiles of 64 rows
+//   through a 2-stage ring on mbarriers (rows past T arrive as zeros),
+//   with the tile's lse and delta and row bounds as bulk copies,
+//   skipping tiles whose hull misses the block.  Each consumer
+//   warpgroup owns 64 keys: S^T = K Q^T (and dP^T = V dO^T; wgmma
+//   m64n64k16, both operands K-major in shared memory), then P^T =
+//   select(visible, 2^(z log2 e - lse log2 e), 0) (and dS^T = P^T
+//   (dP^T - delta) (softcap factor) scale) in place, the mask applied
+//   only on tiles where a row can miss one of the block's keys; the
+//   result rounded to the operand type in registers is already the A
+//   fragment of the next product, so dV += P^T dO (dK += dS^T Q; wgmma
+//   m64nDk16, A from registers, dO or Q read MN-major from the tile
+//   the scores came from) needs no transpose.  One kernel holding both
+//   dK and dV (64 + 64 float32 registers a thread at D = 128) beside
+//   S^T and dP^T does not fit the 168 registers ptxas allows a block
+//   of 384 threads: it serialises every wgmma and spills.  With G > 1
+//   each block writes its query head's float32 partial to scratch (2,
+//   B, S, Hq, D), and (e) sums the G partials of a kv head in head
+//   order and rounds.  (d) dQ: a block per (128 query rows, query
+//   head, batch), longest first: Q and dO loaded once, (K, V) tiles of
+//   64 keys streamed over the keys the rows see; per consumer S = Q K^T
+//   and dP = dO V^T, then dS, then dQ += dS K (K read MN-major); one
+//   store.  So (b)-(d) do 16 D flops per visible pair and query head
+//   (S three times, dP twice) against the bound's 10 D: the price of
+//   a deterministic sum without atomics within the register budget.
+// * ffma (float32): FlashAttention-2's split into three launches, as
+//   plain FFMA loops, not TF32: (a) delta, one warp per (b, t, h) row;
+//   (b) dK, dV, a block per (64-key block, kv head, batch) that loops
+//   over the G query heads of its group and the query tiles whose qpos
+//   range can see the block; (c) dQ, a block per (16 query rows, query
+//   head, batch) over the key tiles its rows can see, longest first.
+// wgmma rounds p and dz to the operand type for its products, as
+// FlashAttention-2 does (the reference keeps them float32; the tests
+// state the tolerance).  Head dims: D = Dh = Dv in {64, 128}.
+// Times against the bound are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -63,11 +98,18 @@ struct Params {
   const void* dout;
   const int* qpos;
   const float* lse;      // (B, Hq, T)
-  float* delta;          // (B, Hq, T), written by (a)
+  // written by (a): ffma (B, Hq, T) delta; wgmma (B, Hq,
+  // n_tiles, 2, 64), each tile's lse * log2(e), then its delta
+  float* delta;
+  // wgmma: (B, 64 n_tiles) int2 row bounds (lo, hi], then (B, n_tiles)
+  // int4 tile ranges, written by (a); else null
+  int* rows;
+  float* part;           // wgmma with G > 1: (2, B, S, Hq, D); else null
   void* dq;              // (B, T, Hq, D), contiguous
   void* dk;              // (B, S, Hkv, D), contiguous
   void* dv;              // (B, S, Hkv, D), contiguous
   int B, T, S, Hq, Hkv, D;
+  int n_tiles;           // wgmma: 64-row query tiles, 2 * ceil(T / 128)
   // element strides: batch, position, head of q, k, v, o and dout (the
   // last dim is unit-stride); batch and position of qpos
   long long q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -90,30 +132,12 @@ template <> struct Ops<__nv_bfloat16> {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
   }
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 };
 
 template <> struct Ops<__half> {
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 h = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 };
 
@@ -196,307 +220,6 @@ __device__ __forceinline__ void key_range(const Params& p, int lo, int hi,
   long long first = 0;
   if (p.has_window && hi >= 0) first = (long long)lo - p.window + 1;
   *key_begin = first > 0 ? first : 0;
-}
-
-// ---- mma.sync building blocks (16-bit operands) --------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return (unsigned)__cvta_generic_to_shared(ptr);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-// rows [row0, row0 + ROWS) x D of an operand whose rows are `stride`
-// elements apart, into shared rows of LD elements; zeros past `nrows`
-template <typename T, int ROWS, int D, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride, long long row0,
-                                          long long nrows) {
-  constexpr int kChunks = D / 8;            // 16 bytes each
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, cc = c % kChunks;
-    const bool in = row0 + r < nrows;
-    cp_async16(dst + r * LD + cc * 8, in ? src + (row0 + r) * stride + cc * 8
-                                         : src, in);
-  }
-}
-
-// c (16 rows x 8 NT columns, the m16n8 accumulator layout: c[n][0..1]
-// row g, c[n][2..3] row g + 8, columns 8 n + 2 tig + {0, 1}) = A B^T over
-// D, with A the 16 shared rows at `a` and B the 8 NT shared rows at `bm`,
-// both row-major over D with pitch LD
-template <typename T, int NT, int D, int LD>
-__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const T* a,
-                                        const T* bm) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, lmat = lane >> 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lrow + (lmat & 1) * 8) * LD + kk * 16 +
-                        (lmat >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, bm + (np * 16 + lrow + (lmat >> 1) * 8) * LD +
-                          kk * 16 + (lmat & 1) * 8);
-      Ops<T>::mma(c[2 * np], af, bf[0], bf[1]);
-      Ops<T>::mma(c[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 rows x D) += P Z, with P (16 rows x 16 KC) in registers in the
-// accumulator layout of mma_abt<.., 2 KC, ..>, rounded to T, and Z the
-// 16 KC shared rows at `z`, row-major over D with pitch LD
-template <typename T, int KC, int D, int LD>
-__device__ __forceinline__ void mma_pz(float (&acc)[D / 8][4],
-                                       const float (&pm)[2 * KC][4],
-                                       const T* z) {
-  const int lane = threadIdx.x & 31, lrow = lane & 7, lmat = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    const uint32_t af[4] = {Ops<T>::pack(pm[2 * kk][0], pm[2 * kk][1]),
-                            Ops<T>::pack(pm[2 * kk][2], pm[2 * kk][3]),
-                            Ops<T>::pack(pm[2 * kk + 1][0], pm[2 * kk + 1][1]),
-                            Ops<T>::pack(pm[2 * kk + 1][2], pm[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, z + (kk * 16 + lrow + (lmat & 1) * 8) * LD +
-                                np * 16 + (lmat >> 1) * 8);
-      Ops<T>::mma(acc[2 * np], af, bf[0], bf[1]);
-      Ops<T>::mma(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// 16 rows x D of float32 accumulators in the m16n8 layout, rounded to T,
-// into rows `row` and `row + 8` (when below `nrows`) of a contiguous
-// output whose rows are `stride` elements apart
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, long long stride,
-                                           long long row, long long nrows,
-                                           const float (&acc)[D / 8][4]) {
-  const int tig = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (row < nrows)
-      *reinterpret_cast<uint32_t*>(out + row * stride + col) =
-          Ops<T>::pack(acc[n][0], acc[n][1]);
-    if (row + 8 < nrows)
-      *reinterpret_cast<uint32_t*>(out + (row + 8) * stride + col) =
-          Ops<T>::pack(acc[n][2], acc[n][3]);
-  }
-}
-
-// ---- (b) dK, dV, 16-bit --------------------------------------------------
-// 64 keys a block, 16 per warp; query tiles of BQ rows.  Per warp and
-// tile: s^T = K_w Q^T, p^T, dv += p^T dO, dp^T = V_w dO^T, dz^T,
-// dk += dz^T Q.
-template <typename T, int D, int BQ, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads, 1) dkdv_mma_kernel(const Params p) {
-  constexpr int BK = 64, LD = D + 8, NT = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);       // [BK][LD]
-  T* Vs = Ks + BK * LD;                     // [BK][LD]
-  T* Qs = Vs + BK * LD;                     // [BQ][LD]
-  T* dOs = Qs + BQ * LD;                    // [BQ][LD]
-  __shared__ int qpos_s[BQ];
-  __shared__ float lse_s[BQ], delta_s[BQ];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int b = blockIdx.z, hk = blockIdx.y;
-  const int G = p.Hq / p.Hkv;
-  const long long kv0 = (long long)blockIdx.x * BK;
-  const long long kv_last = (kv0 + BK < p.S ? kv0 + BK : (long long)p.S) - 1;
-  load_tile<T, BK, D, LD>(Ks, (const T*)p.k + b * p.k_sb + hk * p.k_sh,
-                          p.k_ss, kv0, p.S);
-  load_tile<T, BK, D, LD>(Vs, (const T*)p.v + b * p.v_sb + hk * p.v_sh,
-                          p.v_ss, kv0, p.S);
-  cp_async_commit();
-  const T* Kw = Ks + warp * 16 * LD;
-  const T* Vw = Vs + warp * 16 * LD;
-  const long long key0 = kv0 + warp * 16 + g, key1 = key0 + 8;
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int t0 = 0; t0 < p.T; t0 += BQ) {
-    int lo, hi;                              // the same in every warp
-    warp_qpos_range(p, b, t0, BQ, lo, hi);
-    if (!tile_sees(p, lo, hi, kv0, kv_last)) continue;
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = hk * G + gi;
-      __syncthreads();                       // the last tile's reads are done
-      load_tile<T, BQ, D, LD>(Qs, (const T*)p.q + b * p.q_sb + h * p.q_sh,
-                              p.q_st, t0, p.T);
-      load_tile<T, BQ, D, LD>(dOs, (const T*)p.dout + b * p.d_sb + h * p.d_sh,
-                              p.d_st, t0, p.T);
-      cp_async_commit();
-      if (threadIdx.x < BQ) {
-        const int t = t0 + threadIdx.x;
-        const bool in = t < p.T;
-        qpos_s[threadIdx.x] = in ? p.qpos[b * p.p_sb + t * p.p_st] : -1;
-        lse_s[threadIdx.x] = in ? p.lse[lse_index(p, b, h, t)] : 0.f;
-        delta_s[threadIdx.x] = in ? p.delta[lse_index(p, b, h, t)] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-
-      float st[NT][4];                       // s^T, then p^T
-      mma_abt<T, NT, D, LD>(st, Kw, Qs);
-      float fac[kSoftcap ? NT : 1][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + tig * 2 + (e & 1);
-          float f;
-          const float z = logit(st[n][e], p, f);
-          if (kSoftcap) fac[n][e] = f;
-          st[n][e] = visible(e < 2 ? key0 : key1, qpos_s[col], p)
-                         ? expf(z - lse_s[col]) : 0.f;
-        }
-      mma_pz<T, BQ / 16, D, LD>(dv, st, dOs);
-      float dpt[NT][4];                      // dp^T, then dz^T
-      mma_abt<T, NT, D, LD>(dpt, Vw, dOs);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + tig * 2 + (e & 1);
-          float dz = st[n][e] * (dpt[n][e] - delta_s[col]);
-          if (kSoftcap) dz *= fac[n][e];
-          dpt[n][e] = dz * p.scale;
-        }
-      mma_pz<T, BQ / 16, D, LD>(dk, dpt, Qs);
-    }
-  }
-  cp_async_wait_all();   // a block that saw no query still owns its load
-  const long long pitch = (long long)p.Hkv * D;
-  const long long base = ((long long)b * p.S * p.Hkv + hk) * D;
-  store_rows<T, D>((T*)p.dk + base, pitch, key0, p.S, dk);
-  store_rows<T, D>((T*)p.dv + base, pitch, key0, p.S, dv);
-}
-
-// ---- (c) dQ, 16-bit ------------------------------------------------------
-// 64 query rows a block, 16 per warp; key tiles of 64.  Per warp and
-// tile: s = Q_w K^T, p, dp = dO_w V^T, dz, dq += dz K.
-template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads, 1) dq_mma_kernel(const Params p) {
-  constexpr int BQ = 64, BK = 64, LD = D + 8, NT = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);       // [BQ][LD]
-  T* dOs = Qs + BQ * LD;                    // [BQ][LD]
-  T* Ks = dOs + BQ * LD;                    // [BK][LD]
-  T* Vs = Ks + BK * LD;                     // [BK][LD]
-  __shared__ int qpos_s[BQ];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest first
-  const int hk = h / (p.Hq / p.Hkv);
-  const T* kb = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
-  const T* vb = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
-  load_tile<T, BQ, D, LD>(Qs, (const T*)p.q + b * p.q_sb + h * p.q_sh,
-                          p.q_st, t0, p.T);
-  load_tile<T, BQ, D, LD>(dOs, (const T*)p.dout + b * p.d_sb + h * p.d_sh,
-                          p.d_st, t0, p.T);
-  cp_async_commit();
-  if (threadIdx.x < BQ) {
-    const int t = t0 + threadIdx.x;
-    qpos_s[threadIdx.x] = t < p.T ? p.qpos[b * p.p_sb + t * p.p_st] : -1;
-  }
-  int lo, hi;
-  warp_qpos_range(p, b, t0, BQ, lo, hi);
-  long long key_begin, key_end;
-  key_range(p, lo, hi, &key_begin, &key_end);
-  __syncthreads();
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
-  const int q0 = qpos_s[r0], q1 = qpos_s[r1];
-  const bool in0 = t0 + r0 < p.T, in1 = t0 + r1 < p.T;
-  const float lse0 = in0 ? p.lse[lse_index(p, b, h, t0 + r0)] : 0.f;
-  const float lse1 = in1 ? p.lse[lse_index(p, b, h, t0 + r1)] : 0.f;
-  const float dl0 = in0 ? p.delta[lse_index(p, b, h, t0 + r0)] : 0.f;
-  const float dl1 = in1 ? p.delta[lse_index(p, b, h, t0 + r1)] : 0.f;
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  const long long tile_end = (key_end + BK - 1) / BK;
-  for (long long tile = key_begin / BK; tile < tile_end; ++tile) {
-    const long long kv0 = tile * BK;
-    __syncthreads();                         // the last tile's reads are done
-    load_tile<T, BK, D, LD>(Ks, kb, p.k_ss, kv0, p.S);
-    load_tile<T, BK, D, LD>(Vs, vb, p.v_ss, kv0, p.S);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-
-    float sc[NT][4];                         // s, then p
-    mma_abt<T, NT, D, LD>(sc, Qs + warp * 16 * LD, Ks);
-    float fac[kSoftcap ? NT : 1][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long long key = kv0 + n * 8 + tig * 2 + (e & 1);
-        float f;
-        const float z = logit(sc[n][e], p, f);
-        if (kSoftcap) fac[n][e] = f;
-        sc[n][e] = visible(key, e < 2 ? q0 : q1, p)
-                       ? expf(z - (e < 2 ? lse0 : lse1)) : 0.f;
-      }
-    float dp[NT][4];                         // dp, then dz
-    mma_abt<T, NT, D, LD>(dp, dOs + warp * 16 * LD, Vs);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float dz = sc[n][e] * (dp[n][e] - (e < 2 ? dl0 : dl1));
-        if (kSoftcap) dz *= fac[n][e];
-        dp[n][e] = dz * p.scale;
-      }
-    mma_pz<T, BK / 16, D, LD>(dq, dp, Ks);
-  }
-  cp_async_wait_all();   // a block that saw no key still owns its Q load
-  store_rows<T, D>((T*)p.dq + ((long long)b * p.T * p.Hq + h) * D,
-                   (long long)p.Hq * D, t0 + r0, p.T, dq);
 }
 
 // ---- float32: FFMA ---------------------------------------------------------
@@ -676,6 +399,515 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
   }
 }
 
+// ---- the wgmma variant -----------------------------------------------------
+namespace wg {
+
+// the dQ kernel: two consumer warpgroups of 64 rows, the producer last
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kTile = 64;        // query rows of a Q/dO tile, keys of a K/V one
+constexpr int kBlock = 64 * kConsumers;   // query rows of a dQ block
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNoKey = 1e30f;  // lse * log2(e) of a row that sees no key
+constexpr int kStatBytes = 2 * kTile * 4;      // a tile's lse2 and delta
+constexpr int kRowBytes = kTile * 8;           // a tile's row bounds
+
+// Row t sees exactly the keys in (lo, hi]: hi = min(qpos, S - 1), or -1
+// for a padding row or one past T; lo = qpos - window with a window,
+// else -1, clamped to [-1, hi].
+__device__ __forceinline__ void row_bounds(int qp, const Params& p, int& lo,
+                                           int& hi) {
+  hi = qp < 0 ? -1 : min(qp, p.S - 1);
+  long long l = p.has_window && qp >= 0 ? (long long)qp - p.window : -1;
+  lo = (int)(l < -1 ? -1 : (l > hi ? hi : l));
+}
+
+// A tile's keys, as int4 (x, y, z, w): every key a row of it sees is in
+// [x, y] (x > y when none); every row sees every key in [z, w].
+__device__ __forceinline__ bool tile_sees(int4 r, int k0, int k1) {
+  return r.y >= k0 && r.x <= k1;
+}
+__device__ __forceinline__ bool tile_full(int4 r, int k0, int k1) {
+  return r.z <= k0 && k1 <= r.w;
+}
+__device__ __forceinline__ const int4* tile_ranges(const Params& p, int b) {
+  return reinterpret_cast<const int4*>(
+             p.rows + 2LL * p.B * p.n_tiles * kTile) + (long long)b * p.n_tiles;
+}
+
+// (a) a block per (64-row query tile, query head, batch)
+template <typename T>
+__global__ void __launch_bounds__(256) prep_kernel(const Params p) {
+  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* st = p.delta + ((long long)(b * p.Hq + h) * p.n_tiles + i) * 2 * kTile;
+  for (int r = warp; r < kTile; r += 8) {
+    const int t = i * kTile + r;
+    float s = 0.f;
+    if (t < p.T) {
+      const T* o = (const T*)p.o + b * p.o_sb + t * p.o_st + h * p.o_sh;
+      const T* d = (const T*)p.dout + b * p.d_sb + t * p.d_st + h * p.d_sh;
+      for (int c = 2 * lane; c < p.D; c += 64)
+        s = fmaf(to_f(d[c]), to_f(o[c]), fmaf(to_f(d[c + 1]), to_f(o[c + 1]), s));
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      float l2 = kNoKey;
+      if (t < p.T) {
+        const float x = p.lse[lse_index(p, b, h, t)];
+        if (x > 0.5f * kNegInf) l2 = x * kLog2e;
+      }
+      st[r] = l2;
+      st[kTile + r] = s;
+    }
+  }
+  if (h != 0) return;                          // the rest is per (tile, b)
+  __shared__ int4 part_s[2];
+  if (threadIdx.x < kTile) {
+    const int t = i * kTile + threadIdx.x;
+    int lo, hi;
+    row_bounds(t < p.T ? p.qpos[b * p.p_sb + t * p.p_st] : -1, p, lo, hi);
+    reinterpret_cast<int2*>(p.rows)[(long long)b * p.n_tiles * kTile + t] =
+        make_int2(lo, hi);
+    const bool any = lo < hi;
+    int4 r = make_int4(any ? lo + 1 : INT_MAX, any ? hi : -1, lo + 1, hi);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      r.x = min(r.x, __shfl_xor_sync(0xffffffffu, r.x, off));
+      r.y = max(r.y, __shfl_xor_sync(0xffffffffu, r.y, off));
+      r.z = max(r.z, __shfl_xor_sync(0xffffffffu, r.z, off));
+      r.w = min(r.w, __shfl_xor_sync(0xffffffffu, r.w, off));
+    }
+    if (lane == 0) part_s[warp] = r;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int4 a = part_s[0], c = part_s[1];
+    const_cast<int4*>(tile_ranges(p, b))[i] = make_int4(
+        min(a.x, c.x), max(a.y, c.y), max(a.z, c.z), min(a.w, c.w));
+  }
+}
+
+// Issues d = A B^T over D, A the warpgroup's 64 rows of an operand of
+// ROWS rows at `a`, B the kTile rows at `bt`, both K-major, and commits
+// it as one wgmma group.  The descriptors are rebuilt from their base in
+// every call, so the compiler keeps two registers for them, not sixteen.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void issue_abt(float (&d)[kTile / 2], uint64_t a,
+                                          uint64_t bt) {
+  asm volatile("" : "+l"(a), "+l"(bt));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<T>(d, a + (((kk / 4) * ROWS * 128 + (kk % 4) * 32) >> 4),
+                bt + (((kk / 4) * kTile * 128 + (kk % 4) * 32) >> 4), kk > 0);
+  wgmma_commit();
+}
+
+// Issues acc += F Z and commits it: F (64 x kTile) in registers, columns
+// 16 kk .. 16 kk + 15 in f[4 kk .. 4 kk + 3]; Z the kTile x D tile at
+// `z`, read MN-major (its panels kTile * 128 bytes apart).
+template <typename T, int D>
+__device__ __forceinline__ void issue_fz(float (&acc)[D / 2],
+                                         const uint32_t (&f)[kTile / 4],
+                                         uint64_t z) {
+  asm volatile("" : "+l"(z));
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_rs<T>(acc, &f[4 * kk], z + ((kk * 16 * 128) >> 4));
+  wgmma_commit();
+}
+
+// the accumulator (64 x kTile, f32) rounded to T, packed as the A
+// fragments of issue_fz
+template <typename T>
+__device__ __forceinline__ void pack(uint32_t (&f)[kTile / 4],
+                                     const float (&d)[kTile / 2]) {
+#pragma unroll
+  for (int j = 0; j < kTile / 4; ++j) f[j] = Ops<T>::pack(d[2 * j], d[2 * j + 1]);
+}
+
+// Turns the score accumulator s (q.k) into p and, with kGrad, dp
+// (dO.v) into dz * scale, in place, for one thread's element.  lse2 and
+// delta are the element's row's, lo and hi its row bounds (used when
+// `masked`).
+template <bool kSoftcap, bool kGrad>
+__device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2,
+                                          float delta, int key, int lo,
+                                          int hi, bool masked,
+                                          const Params& p, float scale_log2) {
+  float z, fac = 1.f;
+  if (kSoftcap) {
+    const float th = tanhf(s * p.scale / p.softcap);
+    z = th * p.softcap * kLog2e;
+    fac = 1.f - th * th;
+  } else {
+    z = s * scale_log2;
+  }
+  float pe = ex2(z - lse2);
+  if (masked && !(key > lo && key <= hi)) pe = 0.f;
+  s = pe;
+  if (kGrad) {
+    float dz = pe * (dp - delta);
+    if (kSoftcap) dz *= fac;
+    dp = dz * p.scale;
+  }
+}
+
+template <int D>
+struct KVLayout {
+  static constexpr int kKVBytes = kBlock * D * 2;       // K or V
+  static constexpr int kTileBytes = kTile * D * 2;      // a Q or dO stage
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;               // + stage * kTileBytes
+  static constexpr int kO = kQ + kStages * kTileBytes;
+  static constexpr int kStat = kO + kStages * kTileBytes;   // + stage * kStatBytes
+  static constexpr int kRow = kStat + kStages * kStatBytes; // + stage * kRowBytes
+  // mbarriers: K and V full, then full [kStages], free [kStages]
+  static constexpr int kBar = kRow + kStages * kRowBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) {
+  return bars + 8 * (1 + s);
+}
+__device__ __forceinline__ uint32_t bar_free(uint32_t bars, int s) {
+  return bars + 8 * (1 + kStages + s);
+}
+
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full(bars, s), 1);
+      mbar_init(bar_free(bars, s), 4 * kConsumers);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// (b) dV and (c) dK: a block per (kBlock keys, query head, batch).  One
+// kernel holding both dK and dV (64 + 64 registers a thread at D = 128)
+// beside S^T and dP^T would pass the 168 registers ptxas gives a block
+// of 384 threads, and it then serialises the wgmmas and spills; two
+// kernels, each with one accumulator, pay for it with S^T computed twice.
+template <typename T, int D, bool kSoftcap, bool kDK>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = KVLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t bars = base + L::kBar;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int kv0 = blockIdx.y * kBlock;   // the first keys see the most rows
+  const int kv_last = kv0 + kBlock - 1;
+  const int4* tiles = tile_ranges(p, b);
+  init_bars(bars);
+
+  if (tid >= kConsumers * 128) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers * 128) {
+      mbar_expect_tx(bars, (kDK ? 2 : 1) * L::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < D / kTmaPanel; ++c) {
+        tma_load_4d(base + L::kK + c * kBlock * 128, &tm_k, bars,
+                    c * kTmaPanel, hk, kv0, b);
+        if (kDK)
+          tma_load_4d(base + L::kV + c * kBlock * 128, &tm_v, bars,
+                      c * kTmaPanel, hk, kv0, b);
+      }
+      const float* stats =
+          p.delta + (long long)(b * p.Hq + h) * p.n_tiles * 2 * kTile;
+      const int* rows = p.rows + (long long)b * p.n_tiles * kTile * 2;
+      int n = 0;
+      for (int i = 0; i < p.n_tiles; ++i) {
+        if (!tile_sees(__ldg(tiles + i), kv0, kv_last)) continue;
+        const int s = n % kStages;
+        mbar_wait(bar_free(bars, s), ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full(bars, s),
+                       2 * L::kTileBytes + kStatBytes + kRowBytes);
+#pragma unroll
+        for (int c = 0; c < D / kTmaPanel; ++c) {
+          tma_load_4d(base + L::kQ + s * L::kTileBytes + c * kTile * 128,
+                      &tm_q, bar_full(bars, s), c * kTmaPanel, h, i * kTile, b);
+          tma_load_4d(base + L::kO + s * L::kTileBytes + c * kTile * 128,
+                      &tm_do, bar_full(bars, s), c * kTmaPanel, h, i * kTile,
+                      b);
+        }
+        bulk_load(base + L::kStat + s * kStatBytes, stats + i * 2 * kTile,
+                  kStatBytes, bar_full(bars, s));
+        bulk_load(base + L::kRow + s * kRowBytes, rows + i * kTile * 2,
+                  kRowBytes, bar_full(bars, s));
+        ++n;
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 keys each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int tig = lane & 3;
+    const int kw0 = kv0 + 64 * wgi, kw_last = kw0 + 63;
+    const int key0 = kw0 + warp * 16 + (lane >> 2);    // and key0 + 8
+    const uint64_t k_desc = sw128_desc(base + L::kK + wgi * 64 * 128, 16);
+    const uint64_t v_desc = sw128_desc(base + L::kV + wgi * 64 * 128, 16);
+    const float scale_log2 = p.scale * kLog2e;
+    float acc[D / 2];                       // dK or dV rows key0, key0 + 8
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    mbar_wait(bars, 0);
+    int n = 0;
+    for (int i = 0; i < p.n_tiles; ++i) {
+      const int4 tr = __ldg(tiles + i);
+      if (!tile_sees(tr, kv0, kv_last)) continue;
+      const int s = n % kStages;
+      mbar_wait(bar_full(bars, s), (n / kStages) & 1);
+      if (tile_sees(tr, kw0, kw_last)) {
+        const uint32_t q_s = base + L::kQ + s * L::kTileBytes;
+        const uint32_t o_s = base + L::kO + s * L::kTileBytes;
+        const float* lse2 =
+            reinterpret_cast<const float*>(sm + L::kStat + s * kStatBytes);
+        const int* rb = reinterpret_cast<const int*>(sm + L::kRow + s * kRowBytes);
+        const bool masked = !tile_full(tr, kw0, kw_last);
+        float st[kTile / 2], dpt[kTile / 2];   // S^T then P^T; dP^T then dS^T
+        wgmma_fence();
+        issue_abt<T, D, kBlock>(st, k_desc, sw128_desc(q_s, 16));
+        if (kDK) issue_abt<T, D, kBlock>(dpt, v_desc, sw128_desc(o_s, 16));
+        wgmma_wait<0>();
+        fence_regs(st);
+        if (kDK) fence_regs(dpt);
+        // element 4 nn + e: key key0 + 8 (e >> 1), query row
+        // 8 nn + 2 tig + (e & 1) of the tile
+#pragma unroll
+        for (int nn = 0; nn < kTile / 8; ++nn) {
+          const int col = nn * 8 + tig * 2;
+          const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+          const float2 dl = kDK ? *reinterpret_cast<const float2*>(lse2 + kTile + col)
+                                : make_float2(0.f, 0.f);
+          int4 bnd = make_int4(0, 0, 0, 0);
+          if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            grad_elem<kSoftcap, kDK>(st[4 * nn + e], dpt[4 * nn + e],
+                                     (e & 1) ? l2.y : l2.x,
+                                     (e & 1) ? dl.y : dl.x, key0 + 8 * (e >> 1),
+                                     (e & 1) ? bnd.z : bnd.x,
+                                     (e & 1) ? bnd.w : bnd.y, masked, p,
+                                     scale_log2);
+        }
+        // dK += dS^T Q, or dV += P^T dO
+        uint32_t f[kTile / 4];
+        pack<T>(f, kDK ? dpt : st);
+        fence_regs(acc);
+        fence_regs(f);
+        wgmma_fence();
+        issue_fz<T, D>(acc, f, sw128_desc(kDK ? q_s : o_s, kTile * 128));
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(f);
+      }
+      release(bar_free(bars, s));
+      ++n;
+    }
+
+    // rows key0 and key0 + 8: this head's float32 partial, or with one
+    // query head per kv head the result
+    const long long other = kDK ? 0 : (long long)p.B * p.S * p.Hq * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key0 + 8 * half;
+      if (key >= p.S) continue;
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn) {
+        const int col = nn * 8 + tig * 2, j = 4 * nn + 2 * half;
+        if (p.part != nullptr) {
+          const long long at = (((long long)b * p.S + key) * p.Hq + h) * D + col;
+          *reinterpret_cast<float2*>(p.part + other + at) =
+              make_float2(acc[j], acc[j + 1]);
+        } else {
+          const long long at = (((long long)b * p.S + key) * p.Hkv + hk) * D + col;
+          *reinterpret_cast<uint32_t*>((T*)(kDK ? p.dk : p.dv) + at) =
+              Ops<T>::pack(acc[j], acc[j + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+struct QLayout {
+  static constexpr int kQBytes = kBlock * D * 2;        // Q or dO
+  static constexpr int kTileBytes = kTile * D * 2;      // a K or V stage
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;                // + stage * kTileBytes
+  static constexpr int kV = kK + kStages * kTileBytes;
+  // mbarriers: Q and dO full, then full [kStages], free [kStages]
+  static constexpr int kBar = kV + kStages * kTileBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+// (d) dQ: a block per (kBlock query rows, query head, batch)
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = QLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kBar;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kConsumers;   // longest first
+  const int4* tiles = tile_ranges(p, b);
+  init_bars(bars);
+  // the keys any row of the block sees, in kTile-key stages
+  const int4 ta = __ldg(tiles + i0), tb = __ldg(tiles + i0 + 1);
+  const int key_lo = min(ta.x, tb.x), key_hi = max(ta.y, tb.y);
+  const int tile_first = key_hi >= key_lo ? key_lo / kTile : 0;
+  const int n_stages = key_hi >= key_lo ? key_hi / kTile + 1 - tile_first : 0;
+
+  if (tid >= kConsumers * 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers * 128 && n_stages > 0) {
+      mbar_expect_tx(bars, 2 * L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / kTmaPanel; ++c) {
+        tma_load_4d(base + L::kQ + c * kBlock * 128, &tm_q, bars,
+                    c * kTmaPanel, h, i0 * kTile, b);
+        tma_load_4d(base + L::kO + c * kBlock * 128, &tm_do, bars,
+                    c * kTmaPanel, h, i0 * kTile, b);
+      }
+      for (int n = 0; n < n_stages; ++n) {
+        const int s = n % kStages;
+        const int kv0 = (tile_first + n) * kTile;
+        mbar_wait(bar_free(bars, s), ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full(bars, s), 2 * L::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < D / kTmaPanel; ++c) {
+          tma_load_4d(base + L::kK + s * L::kTileBytes + c * kTile * 128,
+                      &tm_k, bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
+          tma_load_4d(base + L::kV + s * L::kTileBytes + c * kTile * 128,
+                      &tm_v, bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int tig = lane & 3;
+    const int i = i0 + wgi;                         // this warpgroup's tile
+    const int4 tr = wgi ? tb : ta;
+    const int r0 = warp * 16 + (lane >> 2);         // and r0 + 8, in the tile
+    const float* stats =
+        p.delta + ((long long)(b * p.Hq + h) * p.n_tiles + i) * 2 * kTile;
+    const int2* rb = reinterpret_cast<const int2*>(p.rows) +
+                     ((long long)b * p.n_tiles + i) * kTile;
+    const float lse0 = stats[r0], lse1 = stats[r0 + 8];
+    const float dl0 = stats[kTile + r0], dl1 = stats[kTile + r0 + 8];
+    const int2 b0 = rb[r0], b1 = rb[r0 + 8];
+    const uint64_t q_desc = sw128_desc(base + L::kQ + wgi * 64 * 128, 16);
+    const uint64_t o_desc = sw128_desc(base + L::kO + wgi * 64 * 128, 16);
+    const float scale_log2 = p.scale * kLog2e;
+    float dq[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+    if (n_stages > 0) mbar_wait(bars, 0);
+    for (int n = 0; n < n_stages; ++n) {
+      const int s = n % kStages;
+      const int kv0 = (tile_first + n) * kTile;
+      mbar_wait(bar_full(bars, s), (n / kStages) & 1);
+      if (tile_sees(tr, kv0, kv0 + kTile - 1)) {
+        const uint32_t k_s = base + L::kK + s * L::kTileBytes;
+        const uint32_t v_s = base + L::kV + s * L::kTileBytes;
+        float sc[kTile / 2], dp[kTile / 2];     // S then P; dP then dS
+        wgmma_fence();
+        issue_abt<T, D, kBlock>(sc, q_desc, sw128_desc(k_s, 16));
+        issue_abt<T, D, kBlock>(dp, o_desc, sw128_desc(v_s, 16));
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        // element 4 n + e: row r0 + 8 (e >> 1), key kv0 + 8 n + 2 tig + (e & 1)
+        const bool masked = !tile_full(tr, kv0, kv0 + kTile - 1);
+#pragma unroll
+        for (int j = 0; j < kTile / 2; ++j) {
+          const bool up = (j & 3) >= 2;
+          grad_elem<kSoftcap, true>(sc[j], dp[j], up ? lse1 : lse0, up ? dl1 : dl0,
+                              kv0 + (j / 4) * 8 + tig * 2 + (j & 1),
+                              up ? b1.x : b0.x, up ? b1.y : b0.y, masked, p,
+                              scale_log2);
+        }
+        uint32_t sf[kTile / 4];
+        pack<T>(sf, dp);
+        fence_regs(dq);
+        fence_regs(sf);
+        wgmma_fence();
+        issue_fz<T, D>(dq, sf, sw128_desc(k_s, kTile * 128));   // dQ += dS K
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(sf);
+      }
+      release(bar_free(bars, s));
+    }
+    T* out = (T*)p.dq + h * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = i * kTile + r0 + 8 * half;
+      if (t >= p.T) continue;
+      T* row = out + ((long long)b * p.T + t) * p.Hq * D;
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn) {
+        const int j = 4 * nn + 2 * half;
+        *reinterpret_cast<uint32_t*>(row + nn * 8 + tig * 2) =
+            Ops<T>::pack(dq[j], dq[j + 1]);
+      }
+    }
+  }
+}
+
+// (e) dk and dv: the G float32 partials of each kv head, summed in head
+// order and rounded; four elements a thread
+template <typename T>
+__global__ void __launch_bounds__(256) gqa_sum_kernel(const Params p) {
+  const long long quads = (long long)p.B * p.S * p.Hkv * p.D / 4;
+  long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= 2 * quads) return;
+  const int which = i >= quads;                 // 0 dk, 1 dv
+  if (which) i -= quads;
+  const int G = p.Hq / p.Hkv;
+  const long long e = 4 * i;                    // into (B, S, Hkv, D)
+  const int d = (int)(e % p.D);
+  const long long bsk = e / p.D;                // (b S + s) Hkv + hk
+  const int hk = (int)(bsk % p.Hkv);
+  const float* src = p.part + which * ((long long)p.B * p.S * p.Hq * p.D) +
+                     ((bsk / p.Hkv) * p.Hq + (long long)hk * G) * p.D + d;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int gi = 1; gi < G; ++gi) {
+    const float4 x = *reinterpret_cast<const float4*>(src + (long long)gi * p.D);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  T* dst = (T*)(which ? p.dv : p.dk) + e;
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(Ops<T>::pack(acc.x, acc.y), Ops<T>::pack(acc.z, acc.w));
+}
+
+}  // namespace wg
+
 // ---- launches --------------------------------------------------------------
 template <typename K>
 int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t s) {
@@ -684,18 +916,6 @@ int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t s) {
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, kThreads, smem, s>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int D, bool kSoftcap>
-int launch_mma(const Params& p, cudaStream_t s) {
-  constexpr int BQ = D > 64 ? 32 : 64;      // registers: dk, dv and 2 tiles
-  int e = launch(dkdv_mma_kernel<T, D, BQ, kSoftcap>,
-                 dim3((p.S + 63) / 64, p.Hkv, p.B),
-                 (2 * 64 + 2 * BQ) * (D + 8) * (int)sizeof(T), p, s);
-  if (e != 0) return e;
-  return launch(dq_mma_kernel<T, D, kSoftcap>,
-                dim3((p.T + 63) / 64, p.Hq, p.B),
-                4 * 64 * (D + 8) * (int)sizeof(T), p, s);
 }
 
 template <int D>
@@ -714,42 +934,113 @@ int launch_delta(const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// one launch of a wgmma kernel with `smem` bytes of dynamic shared memory
+template <typename K>
+int launch_tma(K kern, dim3 grid, int smem, const CUtensorMap& m0,
+               const CUtensorMap& m1, const CUtensorMap& m2,
+               const CUtensorMap& m3, const Params& p, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, wg::kThreads, smem, s>>>(m0, m1, m2, m3, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool kSoftcap>
+int launch_wgmma(const Params& p, cudaStream_t s) {
+  constexpr CUtensorMapDataType type = tma_type<T>();
+  const long long key_blocks = (p.S + wg::kBlock - 1) / wg::kBlock;
+  const long long sum_blocks =
+      (2LL * p.B * p.S * p.Hkv * p.D / 4 + 255) / 256;
+  if (key_blocks > 65535 || p.n_tiles / 2 > 65535 ||
+      (long long)p.B * p.Hq > INT_MAX || sum_blocks > INT_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  // q and dO in tiles of 64 rows (dK, dV) and blocks of 128 (dQ); k and
+  // v in blocks of 128 keys (dK, dV) and tiles of 64 (dQ)
+  CUtensorMap q_t, o_t, k_b, v_b, q_b, o_b, k_t, v_t;
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    int heads, n;
+    long long sh, st, sb;
+    int rows;
+  } maps[8] = {
+      {&q_t, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kTile},
+      {&o_t, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kTile},
+      {&k_b, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, wg::kBlock},
+      {&v_b, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, wg::kBlock},
+      {&q_b, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kBlock},
+      {&o_b, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kBlock},
+      {&k_t, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, wg::kTile},
+      {&v_t, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, wg::kTile}};
+  for (const auto& m : maps) {
+    const int e = make_map(m.map, m.ptr, type, D, m.heads, m.n, p.B, m.sh,
+                           m.st, m.sb, m.rows);
+    if (e != 0) return e;
+  }
+  wg::prep_kernel<T><<<dim3(p.n_tiles, p.Hq, p.B), 256, 0, s>>>(p);
+  int e = (int)cudaGetLastError();
+  const dim3 kv_grid(p.B * p.Hq, (unsigned)key_blocks);
+  const int kv_smem = wg::KVLayout<D>::kBytes + 1024;   // + the alignment
+  if (e == 0)
+    e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, false>, kv_grid,
+                   kv_smem, q_t, o_t, k_b, v_b, p, s);
+  if (e == 0)
+    e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, true>, kv_grid,
+                   kv_smem, q_t, o_t, k_b, v_b, p, s);
+  if (e == 0)
+    e = launch_tma(wg::dq_wgmma_kernel<T, D, kSoftcap>,
+                   dim3(p.B * p.Hq, p.n_tiles / 2),
+                   wg::QLayout<D>::kBytes + 1024, q_b, o_b, k_t, v_t, p, s);
+  if (e != 0 || p.part == nullptr) return e;
+  wg::gqa_sum_kernel<T><<<(unsigned)sum_blocks, 256, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_16(const Params& p, cudaStream_t s) {
-  int e = launch_delta<T>(p, s);
-  if (e != 0) return e;
-  return p.softcap != 0.f ? launch_mma<T, D, true>(p, s)
-                          : launch_mma<T, D, false>(p, s);
+  return p.softcap != 0.f ? launch_wgmma<T, D, true>(p, s)
+                          : launch_wgmma<T, D, false>(p, s);
 }
 
 }  // namespace
 
-// dtype: 0 float32 (FFMA), 1 bfloat16, 2 float16 (mma.sync), for q, k, v,
-// o, dout, dq, dk and dv alike.  D = Dh = Dv must be 64 or 128; any other
-// D or dtype returns cudaErrorInvalidValue and launches nothing.
-// strides: 17 element strides, (batch, position, head) of q, k, v, o and
-// dout, then (batch, position) of qpos (int32); every last dim is
-// unit-stride.  lse (B, Hq, T) float32 from the forward; delta (B, Hq, T)
-// float32 scratch; dq (B, T, Hq, D), dk and dv (B, S, Hkv, D) contiguous
-// outputs, all allocated by the caller.  has_window = 0 means causal only.
-// The caller checks Hq % Hkv == 0, 16-byte aligned rows for 16-bit types
-// and grid limits; with B, T, S or Hq zero nothing is launched (the
-// caller's outputs are zeros).  Launches (a) delta, (b) dK/dV and (c) dQ on `stream`
-// and returns cudaGetLastError() after the first that fails, else 0.
+// dtype: 0 float32 (the ffma variant), 1 bfloat16 or 2 float16 (wgmma),
+// for q, k, v, o, dout, dq, dk and dv alike.  D = Dh = Dv must be 64 or
+// 128; any other D or dtype, or missing scratch, returns
+// cudaErrorInvalidValue and launches nothing.  strides: 17 element
+// strides, (batch, position, head) of q, k, v, o and dout, then (batch,
+// position) of qpos (int32); every last dim is unit-stride.  lse (B, Hq,
+// T) float32 from the forward.  Scratch, allocated by the caller, with
+// n = 2 ceil(T / 128): delta float32, (B, Hq, T) for ffma, (B, Hq, n, 2,
+// 64) for wgmma; rows int32 (B, 64 n, 2) then (B, n, 4) for wgmma, else
+// null; part float32 (2, B, S, Hq, D) for wgmma with Hq > Hkv, else
+// null.  dq (B, T, Hq, D), dk and dv (B, S, Hkv, D) contiguous outputs.
+// has_window = 0 means causal only.  The caller checks Hq % Hkv == 0,
+// 16-byte aligned rows for 16-bit types and grid limits; with B, T, S
+// or Hq zero nothing is launched (the caller's outputs are zeros).
+// Launches the dtype's kernels on `stream` and returns
+// cudaGetLastError() after the first that fails, else 0, or a negative
+// code when a TMA tensor map could not be built (-1: no
+// cuTensorMapEncodeTiled in the driver; -1000 - r: it returned CUresult
+// r).
 extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const int* qpos, const void* lse,
-                                 void* delta, void* dq, void* dk, void* dv,
-                                 int dtype, int B, int T, int S, int Hq,
-                                 int Hkv, int D, const long long* strides,
+                                 void* delta, void* rows, void* part,
+                                 void* dq, void* dk, void* dv, int dtype,
+                                 int B, int T, int S, int Hq, int Hkv, int D,
+                                 const long long* strides,
                                  float scale, float softcap, int has_window,
                                  long long window, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0) return 0;
   if ((D != 64 && D != 128) || dtype < 0 || dtype > 2 || Hkv <= 0 ||
-      Hq % Hkv != 0)
+      Hq % Hkv != 0 ||
+      (dtype != 0 && (rows == nullptr || (Hq > Hkv && part == nullptr))))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, qpos, (const float*)lse, (float*)delta,
-           dq, dk, dv, B, T, S, Hq, Hkv, D,
+           (int*)rows, dtype != 0 && Hq > Hkv ? (float*)part : nullptr,
+           dq, dk, dv, B, T, S, Hq, Hkv, D, (T + 127) / 128 * 2,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], strides[12], strides[13], strides[14],
@@ -763,5 +1054,6 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return D == 64 ? launch_16<__nv_bfloat16, 64>(p, s)
                    : launch_16<__nv_bfloat16, 128>(p, s);
-  return D == 64 ? launch_16<__half, 64>(p, s) : launch_16<__half, 128>(p, s);
+  return D == 64 ? launch_16<__half, 64>(p, s)
+                 : launch_16<__half, 128>(p, s);
 }

@@ -18,14 +18,15 @@ the dtype and head dims alone, and the wrapper launches it or raises:
 * ``"mma_sync"``: the other bf16 and fp16 head dims;
 * ``"ffma"``: float32 (IEEE FFMA, no TF32).
 
-The backward has two: ``"mma_sync"`` for bf16 and fp16, ``"ffma"`` for
-float32, both for ``Dh == Dv`` in {64, 128} (:func:`bwd_variant`).
+The backward has two, both for ``Dh == Dv`` in {64, 128}:
+:func:`bwd_variant` picks ``"wgmma"`` (warp-specialised, TMA-fed wgmma,
+every training launch) for bf16 and fp16 and ``"ffma"`` for float32.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,7 +35,7 @@ from repro_torch.kernels.counts import count_launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 VARIANTS = ("ffma", "mma_sync", "wgmma")     # the source's variant codes
-BWD_VARIANTS = ("ffma", "mma_sync")
+BWD_VARIANTS = ("ffma", "wgmma")
 WGMMA_HEAD_DIMS = (64, 128)
 BWD_HEAD_DIMS = (64, 128)
 WGMMA_ROWS = 128                             # query rows per wgmma block
@@ -58,7 +59,7 @@ def bwd_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
         raise ValueError(f"the flash backward kernel takes Dh = Dv in "
                          f"{BWD_HEAD_DIMS}, got Dh={Dh}, Dv={Dv} (ROADMAP "
                          f"lists the other head dims as open)")
-    return "ffma" if dtype == torch.float32 else "mma_sync"
+    return "ffma" if dtype == torch.float32 else "wgmma"
 
 
 # flash_attn_hd's C parameters, in order
@@ -66,7 +67,7 @@ ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
 # flash_attn_bwd_hd's C parameters, in order
-BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
 
@@ -222,6 +223,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     with_lse=False)[0]
 
 
+def bwd_scratch(variant: str, B: int, T: int, S: int, Hq: int, Hkv: int,
+                D: int, device) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                         Optional[torch.Tensor]]:
+    """The backward kernels' scratch (delta, rows, part), as the C entry
+    ``flash_attn_bwd_hd`` documents it: ``ffma`` takes delta (B, Hq, T)
+    float32 alone; ``wgmma`` takes per 64-row query
+    tile (n = 2 * ceil(T / 128) of them) the rows' lse and delta (B, Hq,
+    n, 2, 64) float32, row bounds and tile ranges (B*64n*2 + B*n*4)
+    int32, and with Hq > Hkv the float32 per-query-head partials of dk
+    and dv (2, B, S, Hq, D) that its last pass sums over the group."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if variant != "wgmma":
+        return torch.empty((B, Hq, T), **f32), None, None
+    n = 2 * -(-T // WGMMA_ROWS)
+    delta = torch.empty((B, Hq, n, 2, 64), **f32)
+    rows = torch.empty(B * 64 * n * 2 + B * n * 4, dtype=torch.int32,
+                       device=device)
+    part = torch.empty((2, B, S, Hq, D), **f32) if Hq > Hkv else None
+    return delta, rows, part
+
+
 def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
                              k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, *,
@@ -235,12 +257,13 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     tensors in the operands' dtype: dq (B,T,Hq,D), dk and dv
     (B,S,Hkv,D).
 
-    One call launches the three kernels of ``csrc/flash_attn_bwd_hd.cu``
-    (delta, dK/dV, dQ) and counts one launch in
+    One call launches the kernels of ``csrc/flash_attn_bwd_hd.cu`` for
+    :func:`bwd_variant`'s choice and counts one launch in
     ``flash_attention_bwd_cuda.launches`` (and its variant in
     ``by_variant``).  Takes Dh = Dv in {64, 128}; operands with any
     strides whose last dim is unit-stride (16-byte rows for 16-bit
-    types)."""
+    types).  A launch that fails raises; nothing falls back to another
+    variant or to the plain version."""
     B, T, S, Hq, Hkv, Dh, Dv = _check(q, k, v, qpos)
     variant = bwd_variant(q.dtype, Dh, Dv)
     for name, t, shape in (("out", out, (B, T, Hq, Dv)),
@@ -257,6 +280,9 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     if Hkv > 65535:
         raise ValueError("flash_attention_bwd_cuda grid limit: Hkv up to "
                          "65535")
+    if variant == "wgmma" and max(T, S) > 65535 * WGMMA_ROWS:
+        raise ValueError(f"flash_attention_bwd_cuda's wgmma variant takes T "
+                         f"and S up to {65535 * WGMMA_ROWS}, got {T}, {S}")
     # the kernels write every row; with no query or no key all are 0
     new = torch.empty if T and S else torch.zeros
     kw = dict(dtype=q.dtype, device=q.device)
@@ -265,7 +291,7 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     if T == 0 or S == 0:
         return dq, dk, dv
     align = 8 if q.dtype != torch.float32 else 1
-    delta = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    delta, rows, part = bwd_scratch(variant, B, T, S, Hq, Hkv, Dh, q.device)
     qpos = qpos.to(torch.int32)
     strides = (ctypes.c_longlong * 17)(
         *_strides(q, "q", align), *_strides(k, "k", align),
@@ -277,11 +303,18 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
         err = _entry("flash_attn_bwd_hd", BWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), qpos.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh,
-            ctypes.addressof(strides), float(scale), float(softcap or 0.0),
-            int(window is not None), window or 0,
+            delta.data_ptr(), None if rows is None else rows.data_ptr(),
+            None if part is None else part.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh, ctypes.addressof(strides), float(scale),
+            float(softcap or 0.0), int(window is not None), window or 0,
             torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise RuntimeError(
+            f"flash_attn_bwd_hd ({variant}) could not build a TMA tensor "
+            f"map: " + ("the driver has no cuTensorMapEncodeTiled"
+                        if err == -1 else f"cuTensorMapEncodeTiled returned "
+                        f"CUresult {-1000 - err}"))
     if err:
         raise RuntimeError(f"flash_attn_bwd_hd ({variant}) launch failed "
                            f"with CUDA error {err}")

@@ -845,6 +845,24 @@ def _dense_grads(q, k, v, do, qpos, **kw):
     return out.detach(), [x.grad for x in leaves]
 
 
+def _bwd(do, q, k, v, qpos, **kw):
+    """dq, dk, dv through autograd (FlashAttentionFunction)."""
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_kernel.flash_attention_cuda(*leaves, qpos=qpos, **kw).backward(do)
+    return [x.grad for x in leaves]
+
+
+def _check_grads(got, want, dtype):
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and torch.isfinite(x).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(x.double(), w, rtol=BWD_F32_TOL,
+                                       atol=BWD_F32_TOL)
+        else:
+            err = torch.linalg.norm(x.double() - w) / torch.linalg.norm(w)
+            assert float(err) <= BWD_FRO_TOL[dtype], float(err)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("shape", BWD_SHAPES)
@@ -853,21 +871,84 @@ def test_flash_bwd_cuda_matches_f64_dense_autograd(cuda, dtype, shape):
     q, k, v, do, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, D, kind)
     kw = dict(window=window, softcap=softcap)
     _, want = _dense_grads(q, k, v, do, qpos, **kw)
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = flash_kernel.flash_attention_bwd_cuda.launches
-    out = flash_kernel.flash_attention_cuda(*leaves, qpos=qpos, **kw)
-    out.backward(do)
+    fn = flash_kernel.flash_attention_bwd_cuda
+    variant = "ffma" if dtype == torch.float32 else "wgmma"
+    before, by = fn.launches, fn.by_variant[variant]
+    got = _bwd(do, q, k, v, qpos, **kw)
     torch.cuda.synchronize()
-    assert flash_kernel.flash_attention_bwd_cuda.launches == before + 1
-    for x, w in zip(leaves, want):
-        got = x.grad
-        assert got.dtype == dtype and torch.isfinite(got).all()
-        if dtype == torch.float32:
-            torch.testing.assert_close(got.double(), w, rtol=BWD_F32_TOL,
-                                       atol=BWD_F32_TOL)
-        else:
-            err = torch.linalg.norm(got.double() - w) / torch.linalg.norm(w)
-            assert float(err) <= BWD_FRO_TOL[dtype], float(err)
+    assert (fn.launches, fn.by_variant[variant]) == (before + 1, by + 1)
+    _check_grads(got, want, dtype)
+
+
+# shapes at the wgmma kernels' TMA and tiling edges: T and S off 64 and
+# 128, T != S, GQA groups of 1 and 8, a window shorter than a tile, Dh
+# 64 and 128; k and v strided views of one interleaved cache
+BWD_EDGES = [  # B, T, S, Hq, Hkv, D, window, softcap, qpos
+    (1, 1, 3, 2, 1, 64, None, 0.0, "tail"),
+    (2, 63, 65, 4, 4, 128, None, 0.0, "tail"),
+    (1, 129, 127, 8, 1, 64, None, 0.0, "ragged"),
+    (2, 190, 333, 8, 8, 128, 7, 0.0, "tail"),
+    (1, 300, 300, 16, 2, 128, 50, 0.0, "ragged"),
+    (2, 64, 200, 8, 1, 128, None, 3.0, "tail"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", BWD_EDGES)
+def test_flash_bwd_wgmma_edges_match_f64(cuda, dtype, shape):
+    B, T, S, Hq, Hkv, D, window, softcap, kind = shape
+    q, k, v, do, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, D, kind,
+                                    seed=T + S)
+    cache = torch.stack([k, v], 2)                 # (B, S, 2, Hkv, D)
+    k, v = cache[:, :, 0], cache[:, :, 1]          # strided views
+    kw = dict(window=window, softcap=softcap)
+    _, want = _dense_grads(q, k, v, do, qpos, **kw)
+    got = _bwd(do, q, k, v, qpos, **kw)
+    torch.cuda.synchronize()
+    _check_grads(got, want, dtype)
+
+
+def test_flash_bwd_wgmma_extent_one_dims_and_strided_q(cuda):
+    """One batch and one kv head (dims whose stride the wrapper passes
+    as 0; the tensor maps take the packed stride), q and dO as strided
+    views of wider buffers."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    wide = torch.randn((1, 130, 4, 256), generator=g, device=cuda)
+    q = wide.bfloat16()[..., 64:192]               # strides (.., 1024, 256, 1)
+    do = torch.randn((1, 130, 4, 256), generator=g,
+                     device=cuda).bfloat16()[..., 128:]
+    kv = torch.randn((1, 200, 2, 1, 128), generator=g,
+                     device=cuda).bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    qpos = torch.arange(70, 200, dtype=torch.int32, device=cuda)[None]
+    _, want = _dense_grads(q, k, v, do, qpos, window=50)
+    got = _bwd(do, q, k, v, qpos, window=50)
+    torch.cuda.synchronize()
+    _check_grads(got, want, torch.bfloat16)
+
+
+def test_flash_bwd_wgmma_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, do, qpos = _bwd_inputs(cuda, torch.bfloat16, 2, 300, 300, 16,
+                                    2, 128, "tail", seed=5)
+    out, lse = flash_kernel._forward(q, k, v, qpos, None, 0.0, None,
+                                     with_lse=True)
+    runs = [flash_kernel.flash_attention_bwd_cuda(
+        do, q, k, v, out, lse, qpos=qpos) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_wgmma_mid_shape_matches_f64(cuda):
+    """A mid shape of the training layout (32 query heads over 4 kv
+    heads of 128, 1024 tokens, causal), where the dK, dV grid has more
+    blocks than the card has SMs, within the 2e-2 bound."""
+    q, k, v, do, qpos = _bwd_inputs(cuda, torch.bfloat16, 1, 1024, 1024, 32,
+                                    4, 128, "tail", seed=6)
+    _, want = _dense_grads(q, k, v, do, qpos)
+    got = _bwd(do, q, k, v, qpos)
+    torch.cuda.synchronize()
+    _check_grads(got, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

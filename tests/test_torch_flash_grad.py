@@ -124,11 +124,33 @@ def test_auto_dispatch_on_cpu_is_differentiable_past_the_dense_limit():
 
 
 @pytest.mark.parametrize("dtype, Dh, Dv, want", [
-    (torch.bfloat16, 128, 128, "mma_sync"), (torch.float16, 64, 64,
-                                             "mma_sync"),
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.float16, 64, 64, "wgmma"),
     (torch.float32, 128, 128, "ffma"), (torch.float32, 64, 64, "ffma")])
 def test_backward_variant_by_dtype(dtype, Dh, Dv, want):
     assert kernel.bwd_variant(dtype, Dh, Dv) == want
+
+
+@pytest.mark.parametrize("variant, B, T, S, Hq, Hkv, D, shapes", [
+    ("wgmma", 1, 4096, 4096, 32, 4, 128,
+     ((1, 32, 64, 2, 64), (8448,), (2, 1, 4096, 32, 128))),
+    ("wgmma", 2, 100, 130, 8, 8, 64, ((2, 8, 2, 2, 64), (528,), None)),
+    ("wgmma", 1, 129, 300, 8, 1, 64, ((1, 8, 4, 2, 64), (528,),
+                                       (2, 1, 300, 8, 64))),
+    ("ffma", 2, 100, 130, 8, 1, 64, ((2, 8, 100), None, None)),
+    ("ffma", 1, 7, 9, 2, 2, 128, ((1, 2, 7), None, None))])
+def test_backward_scratch_by_variant(variant, B, T, S, Hq, Hkv, D, shapes):
+    """The scratch each variant's C entry reads: wgmma's per-tile lse
+    and delta over 2 * ceil(T / 128) tiles of 64 rows, its row bounds
+    and tile ranges, and with a GQA group the float32 partials of dk
+    and dv per query head (134 MB at the training shape)."""
+    got = kernel.bwd_scratch(variant, B, T, S, Hq, Hkv, D, "cpu")
+    assert tuple(None if t is None else tuple(t.shape) for t in got) == shapes
+    assert got[0].dtype == torch.float32
+    if got[1] is not None:
+        assert got[1].dtype == torch.int32
+    if got[2] is not None:
+        assert got[2].dtype == torch.float32
+        assert got[2].numel() * 4 == 2 * B * S * Hq * D * 4
 
 
 @pytest.mark.parametrize("Dh, Dv", [(32, 32), (256, 256), (192, 128),

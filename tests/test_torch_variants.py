@@ -105,3 +105,97 @@ def test_plain_versions_on_cpu_launch_no_variant():
                        gemm_ref(a, a.t().contiguous()))
     assert (dict(flash.by_variant), dict(mm.by_variant), flash.launches,
             mm.launches) == before
+
+
+def test_library_path_follows_every_header(tmp_path, monkeypatch):
+    """A source may include any header of csrc/, so the library's name
+    changes with a header's bytes as with the source's: a changed
+    header never loads a stale library."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert build.library_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
+
+
+def test_both_flash_sources_include_the_hopper_header():
+    """The forward and backward share one copy of the Hopper helpers."""
+    for source in ("flash_attn_hd.cu", "flash_attn_bwd_hd.cu"):
+        assert '#include "hopper.cuh"' in (CSRC / source).read_text()
+    assert "cuTensorMapEncodeTiled" in (CSRC / "hopper.cuh").read_text()
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_build_keeps_the_log_beside_the_library(tmp_path, monkeypatch):
+    """A library built earlier returns the ptxas report of its build,
+    so a check of spills runs on every load, not only after nvcc; a
+    library whose log is gone is built again."""
+    import sys
+
+    from repro_torch.kernels import build
+
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('library')\n"
+        f"open({str(calls)!r}, 'a').write('x')\n"
+        f"sys.stdout.write({_PTXAS_LOG!r})\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("// a kernel\n")
+
+    assert build.build(("k",)) == {"k": _PTXAS_LOG}
+    lib = build.library_path("k")
+    assert lib.read_text() == "library"
+    assert lib.with_suffix(".log").read_text() == _PTXAS_LOG
+    assert build.build(("k",)) == {"k": _PTXAS_LOG}
+    assert calls.read_text() == "x"              # the second load built none
+    lib.with_suffix(".log").unlink()
+    assert build.build(("k",)) == {"k": _PTXAS_LOG}
+    assert calls.read_text() == "xx"
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
+
+
+@pytest.mark.parametrize("line, fault", [
+    ("    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+     False),
+    ("    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+     False),
+    ("    40 bytes stack frame, 40 bytes spill stores, 40 bytes spill loads",
+     True),
+    ("    0 bytes stack frame, 0 bytes spill stores, 104 bytes spill loads",
+     True),
+    ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+     "instructions are serialized due to insufficient register resources "
+     "for the wgmma pipeline in the function '_Z1kv'", True),
+])
+def test_ptxas_faults_finds_spills_and_serialised_wgmmas(line, fault):
+    from repro_torch.kernels import build
+
+    log = _PTXAS_LOG.replace(
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        line)
+    assert build.ptxas_faults(log) == ([line.strip()] if fault else [])
