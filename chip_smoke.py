@@ -79,9 +79,36 @@
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
    counting at each replay.  Every GEMM-path launch must be the
-   ``pipelined`` variant, every prefill launch the ``wgmma`` one, and
-   every training backward the ``wgmma`` one.
-6. Prints one JSON line of kernel measurements, the card's name and
+   ``pipelined`` variant, every yi-9b and qwen3 prefill launch the
+   ``wgmma`` one, every gemma2 prefill launch ``mma_sync``, and every
+   training backward the ``wgmma`` one.
+6. Serves the other two ported families last, each at full width and
+   full depth in bfloat16 alone on the card, through load_engine and
+   the Engine with the yi-9b traffic above (admits of 2048, 1536, 1024
+   tokens into 4 slots x 4096, 16 decode steps each, the first prompt
+   again): gemma2-9b (alternating windows of 4096 and global, softcaps
+   50 and 30; Dh 256, so every prefill launches flash's mma_sync
+   variant, 42 per prefill; the re-admitted prompt must repeat) and
+   qwen3-moe-30b-a3b (128 experts top-8 under the reference's capacity
+   factor 1.25; 48 wgmma launches per prefill).  Under that capacity
+   one slot's tokens can drop another's, so in place of the re-admit
+   gate one prompt, admitted alone into a fresh Engine and decoded 16
+   steps, twice, must leave bit-identical KV caches (every layer's
+   input at every step; the streams, random weights' one token over
+   and over, are compared too but show little);
+   and layer 0's MoE at full width on the first admit's hidden state
+   must lie within 2e-2 (relative Frobenius) of a float32 evaluation
+   of the same routing.  Each prints its parameters against the bytes
+   allocated, max_memory_allocated, prefill ms per admit, median
+   decode ms, tokens/s and a device breakdown of one prefill and one
+   decode step.  The flash phase (3.) also holds mma_sync at gemma2's
+   heads against float64 (a window under T and softcap 50) and at
+   gemma2's prefill shape against the plain blockwise version (its
+   window of 4096, and one of 1000 that binds there), timed beside
+   compiled flex_attention with the softcap as a score_mod and the
+   window as a block mask (the library's one call for the function)
+   and SDPA without the softcap (not the same function).
+7. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or
@@ -92,6 +119,7 @@ and convolution the script times.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -149,6 +177,14 @@ POOL_CKPT_INTERVAL = 4
 POOL_FAIL_TICK, POOL_DOWN_FOR = 2, 6
 
 SERVE_ARCH = "yi-9b"
+# the other families served last, each at full width and depth alone on
+# the card: gemma2's Dh 256 takes flash's mma_sync variant, qwen3's 128
+# wgmma
+GEMMA2_ARCH, QWEN3_ARCH = "gemma2-9b", "qwen3-moe-30b-a3b"
+# one bf16 MoE layer against a float32 evaluation of the same routing:
+# the bf16 expert products round their operands and outputs (2**-9
+# relative each), a few 1e-3 in the Frobenius norm; 2e-2 bounds it
+MOE_LAYER_TOL = 2e-2
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
 PROMPTS = (2048, 1536, 1024)        # each >= FLASH_MIN_T: every prefill
 DECODE_STEPS = 16                   # reaches the flash kernel
@@ -461,7 +497,10 @@ def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
 def flash_phase(torch):
     """The flash-attention kernel against its plain versions on the
     card, each in its working type, then its time beside the plain
-    version's and SDPA's at the serving path's prefill shape."""
+    version's and SDPA's at the serving path's prefill shape; the same
+    for the mma_sync variant at gemma2's, beside flex_attention with the
+    softcap (SDPA without it is not the same function).  Returns the two
+    measurements."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -571,8 +610,114 @@ def flash_phase(torch):
           f"bound {flash['bound_ms']:.4f} ms ({flash['bound_by']}), plain "
           f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms")
     del q, k, v, qt, kt, vt
+
+    # -- mma_sync at gemma2's heads (16/8 of Dh 256): its local window
+    # under T with the softcap against float64, then the first admit's
+    # prefill shape against the plain blockwise version, at gemma2's
+    # window (which, like its odd layers' BIG_WINDOW, never binds in a
+    # 4096-position cache) and at one that binds there, off the tiles
+    g2 = get_config(GEMMA2_ARCH)
+    Hq2, Hkv2, D2, cap = g2.n_heads, g2.n_kv_heads, g2.head_dim, \
+        g2.attn_softcap
+    check(flash_variant(torch.bfloat16, D2, D2) == "mma_sync",
+          f"{GEMMA2_ARCH}'s Dh {D2} does not take the mma_sync variant")
+
+    def oracle(q, k, v, qpos, **kw):
+        return dense64(torch, q.double(), k.double(), v.double(), qpos, **kw)
+
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = inputs(dtype, 2, 200, 330, Hq2, Hkv2, D2)
+        q = q * 30                 # logits of about 30: the cap bends them
+        qp = torch.arange(130, 330, dtype=torch.int32, device=dev).repeat(2, 1)
+        compare(f"mma_sync Dh=Dv={D2} {Hq2}/{Hkv2} heads q x 30 window=40 "
+                f"softcap={cap:g} (float64 dense)", dtype, q, k, v, qp,
+                oracle, window=40, softcap=cap)
+    q2, k2, v2 = inputs(torch.bfloat16, B, T, S, Hq2, Hkv2, D2)
+    mma_err = 0.0
+    for w in (g2.window, 1000):
+        _, err = compare(f"mma_sync {GEMMA2_ARCH} prefill {tuple(q2.shape)} x "
+                         f"k,v {tuple(k2.shape)} strides {k2.stride()} "
+                         f"window={w} softcap={cap:g}", torch.bfloat16, q2,
+                         k2, v2, qpos, blockwise_attention,
+                         tol=FLASH_MAIN_TOL, window=w, softcap=cap)
+        mma_err = max(mma_err, err)
+    q2t, k2t, v2t = (x.transpose(1, 2) for x in (q2, k2, v2))
+    flops, nbytes = flash_work(torch, qpos, S, B, Hq2, Hkv2, D2, D2, 2)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    # the library's one call for this function; with q x 30 the cap
+    # bends the logits, so agreement there shows the same function
+    flex = flex_softcap(torch, k2, v2, qpos, g2.window, cap)
+    q30 = q2 * 30
+    lib_err = float((flex(q30.transpose(1, 2).contiguous()).transpose(1, 2)
+                     .float() - flash_attention_cuda(
+                         q30, k2, v2, qpos=qpos, window=g2.window,
+                         softcap=cap).float()).abs().max())
+    q2h = q2.transpose(1, 2).contiguous()
+    print(f"flash mma_sync vs flex_attention (softcap score_mod, window "
+          f"block mask, enable_gqa) at {GEMMA2_ARCH}'s prefill shape, q x 30: "
+          f"max_abs_diff={lib_err:.3e}")
+    check(lib_err <= FLASH_TOL["bfloat16"] * 4, "flex_attention computes "
+          "another function than the mma_sync kernel")
+    del q30
+    flash_mma = dict(
+        name="flash_attn_hd", variant="mma_sync", route="cuda",
+        source="src/repro_torch/csrc/flash_attn_hd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:80",
+        max_abs_err=mma_err,
+        ms=cuda_ms(torch, lambda: flash_attention_cuda(
+            q2, k2, v2, qpos=qpos, window=g2.window, softcap=cap), 10),
+        plain_ms=cuda_ms(torch, lambda: blockwise_attention(
+            q2, k2, v2, qpos=qpos, window=g2.window, softcap=cap), 3),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=cuda_ms(torch, lambda: flex(q2h), 10),
+        sdpa_without_softcap_ms=cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q2t, k2t, v2t, is_causal=True, enable_gqa=True), 10),
+        shape=[list(q2.shape), list(k2.shape)], window=g2.window,
+        softcap=cap)
+    print(f"flash mma_sync at {tuple(q2.shape)} x {tuple(k2.shape)} window "
+          f"{g2.window} softcap {cap:g}: {flops:.4e} flops, {nbytes:.4e} "
+          f"bytes; kernel {flash_mma['ms']:.4f} ms "
+          f"({flops / flash_mma['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * flash_mma['bound_ms'] / flash_mma['ms']:.1f}% of the "
+          f"bound), bound {flash_mma['bound_ms']:.4f} ms "
+          f"({flash_mma['bound_by']}), plain {flash_mma['plain_ms']:.4f} ms, "
+          f"flex_attention {flash_mma['library_ms']:.4f} ms; SDPA without "
+          f"the softcap, NOT the same function, "
+          f"{flash_mma['sdpa_without_softcap_ms']:.4f} ms")
+    del q2, k2, v2, q2t, k2t, v2t, q2h, flex
     torch.cuda.empty_cache()
-    return flash
+    return flash, flash_mma
+
+
+def flex_softcap(torch, k, v, qpos, window: int, softcap: float):
+    """One PyTorch call for causal GQA attention at ``qpos`` with a
+    ``window`` and a tanh ``softcap``: compiled flex_attention, whose
+    score_mod caps the scaled logits and whose block mask is the
+    window, on head-major copies of k and v.  Returns it as a function
+    of a head-major q (B, Hq, T, Dh), output (B, Hq, T, Dv)."""
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    inductor_config.compile_threads = 1        # no compile workers
+    qp = qpos.long()
+
+    def mask_mod(b, h, qi, ki):
+        p = qp[b, qi]
+        return (p >= 0) & (ki <= p) & (ki > p - window)
+
+    def score_mod(s, b, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    B, T = qp.shape
+    mask = create_block_mask(mask_mod, B, None, T, k.shape[1],
+                             device=k.device)
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda qt: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                         enable_gqa=True)
 
 
 def dense64(torch, q, k, v, qpos, window=None, softcap=0.0):
@@ -1395,43 +1540,62 @@ def logits_finite(torch, eng) -> bool:
     return ok
 
 
-def serve_path(torch):
-    """yi-9b at full width behind the slot Engine: admits, decode steps,
-    finishes, and the first prompt again."""
+def serve_prompts(vocab: int):
+    """The serving phases' prompts of PROMPTS tokens, from seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n) for n in PROMPTS]
+
+
+def serve_path(torch, arch: str, variant: str, label: str,
+               readmit_repeats: bool = True):
+    """``arch`` at full width and depth behind the slot Engine: admits,
+    decode steps, finishes, and the first prompt again, every prefill
+    launching the flash kernel's ``variant`` once per layer.  With
+    ``readmit_repeats`` the re-admitted prompt must repeat its greedy
+    continuation.  Returns (launches, launches by variant, bundle,
+    params); the engine and its cache are freed."""
+    from repro_torch.kernels.flash_attention.kernel import VARIANTS
     from repro_torch.launch.serve import load_engine
+    from repro_torch.models.lm import _window_array
 
     t0 = time.perf_counter()
-    eng = load_engine(SERVE_ARCH, reduced=False, slots=SERVE_SLOTS,
+    torch.cuda.reset_peak_memory_stats()
+    eng = load_engine(arch, reduced=False, slots=SERVE_SLOTS,
                       max_seq=SERVE_MAX_SEQ, seed=0)
     torch.cuda.synchronize()
     cfg = eng.cfg
     n_params = cfg.param_count()
     kv_bytes = 2 * cfg.n_layers * SERVE_SLOTS * SERVE_MAX_SEQ \
         * cfg.n_kv_heads * cfg.head_dim * 2
-    print(f"serving {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.head_dim} d_ff "
-          f"{cfg.d_ff} vocab {cfg.vocab}, bfloat16: param_count() "
-          f"{n_params} -> {2 * n_params / 1e9:.2f} GB of weights, KV cache "
-          f"{kv_bytes / 1e9:.2f} GB ({SERVE_SLOTS} slots x {SERVE_MAX_SEQ}); "
-          f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up "
-          f"(random weights from a seeded generator) "
+    ffn = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+           f"{cfg.moe.d_expert_ff} (capacity factor "
+           f"{cfg.moe.capacity_factor})" if cfg.moe else f"d_ff {cfg.d_ff}")
+    print(f"{label}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.head_dim} {ffn} "
+          f"vocab {cfg.vocab}, windows {sorted(set(_window_array(cfg)))}, "
+          f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, bfloat16: "
+          f"param_count() {n_params} -> {2 * n_params / 1e9:.2f} GB of "
+          f"weights, KV cache {kv_bytes / 1e9:.2f} GB ({SERVE_SLOTS} slots x "
+          f"{SERVE_MAX_SEQ}); allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up (random "
+          f"weights from a seeded generator) "
           f"{time.perf_counter() - t0:.2f} s")
 
     flash = _wrappers()["flash_attn_hd"]
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPTS]
+    prompts = serve_prompts(cfg.vocab)
     prefill_ms, per_prefill, decode_ms, decode_tokens = [], [], [], 0
 
     def admit(prompt):
-        n0, w0 = flash.launches, flash.by_variant["wgmma"]
+        n0, w0 = flash.launches, flash.by_variant[variant]
         torch.cuda.synchronize()
         t = time.perf_counter()
         sid = eng.add_request(prompt)
         torch.cuda.synchronize()
         prefill_ms.append(1e3 * (time.perf_counter() - t))
         per_prefill.append(flash.launches - n0)
-        check(flash.by_variant["wgmma"] - w0 == flash.launches - n0,
-              "a prefill launched another flash variant than wgmma")
+        check(flash.by_variant[variant] - w0 == flash.launches - n0,
+              f"a {label} prefill launched another flash variant than "
+              f"{variant}")
         return sid
 
     def decode(n):
@@ -1444,7 +1608,8 @@ def serve_path(torch):
             torch.cuda.synchronize()
             decode_ms.append(1e3 * (time.perf_counter() - t))
             decode_tokens += len(out)
-        check(flash.launches == n0, "a decode step launched flash attention")
+        check(flash.launches == n0, f"a {label} decode step launched flash "
+              f"attention")
 
     reset_launches()
     t_run = time.perf_counter()
@@ -1461,7 +1626,7 @@ def serve_path(torch):
     launches = read_launches()
     variants = read_variants()
     n_gen = len(streams[0]) - PROMPTS[0]
-    print(f"serving path: prefill ms per admit {[round(x, 3) for x in prefill_ms]} "
+    print(f"{label}: prefill ms per admit {[round(x, 3) for x in prefill_ms]} "
           f"(prompts {list(PROMPTS)} then {PROMPTS[0]} again; host clock, "
           f"synchronized); decode ms per step: median "
           f"{float(np.median(decode_ms)):.3f}, min {min(decode_ms):.3f}, "
@@ -1471,31 +1636,121 @@ def serve_path(torch):
           f"{t_run:.3f} s; flash launches per prefill {per_prefill}; "
           f"launches {launches}, flash by variant {variants['flash_attn_hd']}")
     check(per_prefill == [cfg.n_layers] * (len(PROMPTS) + 1),
-          f"flash launches per prefill {per_prefill} != {cfg.n_layers}")
-    check(launches["jacobi_hd"] == 0 and launches["gemm_hd"] == 0,
-          "the serving path launched another path's kernel")
+          f"{label}: flash launches per prefill {per_prefill} != "
+          f"{cfg.n_layers}")
+    check(launches["jacobi_hd"] == 0 and launches["gemm_hd"] == 0
+          and launches["flash_attn_bwd_hd"] == 0,
+          f"{label}: launched another path's kernel")
     check(variants["flash_attn_hd"] == {
-        "ffma": 0, "mma_sync": 0, "wgmma": launches["flash_attn_hd"]},
-        f"serving flash launches by variant {variants['flash_attn_hd']}: "
-        f"every one must be the wgmma kernel")
-    check(logits_finite(torch, eng), "non-finite logits on the serving path")
+        v: launches["flash_attn_hd"] if v == variant else 0
+        for v in VARIANTS},
+        f"{label}: flash launches by variant {variants['flash_attn_hd']}: "
+        f"every one must be the {variant} kernel")
+    check(logits_finite(torch, eng), f"non-finite logits on the {label}")
     same = again == streams[0]
-    print(f"re-admitted prompt repeats its greedy continuation of {n_gen} "
-          f"tokens: {same}")
-    check(same, "the same prompt gave another greedy continuation")
-    check(all(0 <= t < cfg.vocab for st in streams for t in st),
-          "a generated token is outside the vocabulary")
+    print(f"{label}: re-admitted prompt repeats its greedy continuation of "
+          f"{n_gen} tokens: {same}")
+    check(same or not readmit_repeats,
+          f"{label}: the same prompt gave another greedy continuation")
+    check(all(0 <= t < cfg.vocab for st in streams + [again] for t in st),
+          f"{label}: a generated token is outside the vocabulary")
 
     eng.add_request(prompts[2])
-    device_breakdown(torch, f"one prefill ({PROMPTS[1]} tokens, the whole "
-                     f"{SERVE_SLOTS}-slot pool)",
+    device_breakdown(torch, f"{label}: one prefill ({PROMPTS[1]} tokens, "
+                     f"the whole {SERVE_SLOTS}-slot pool)",
                      lambda: eng.add_request(prompts[1]))
-    device_breakdown(torch, f"one decode step ({SERVE_SLOTS} slots, 2 live)",
-                     eng.step, host_top=8)
+    device_breakdown(torch, f"{label}: one decode step ({SERVE_SLOTS} slots, "
+                     f"2 live)", eng.step, host_top=8)
+    print(f"{label}: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, weights "
+          f"{2 * n_params / 1e9:.3f} GB by param_count()")
     bundle, params = eng.bundle, eng.params
     del eng
     torch.cuda.empty_cache()
     return launches, variants, bundle, params
+
+
+def lone_prompt_repeats(torch, bundle, params, prompt, steps: int) -> None:
+    """One prompt admitted alone into a fresh Engine on ``params`` and
+    decoded ``steps`` steps, twice: every bit of both KV caches (each
+    layer's keys and values of every position, so every layer's input
+    at every step) must be equal, and the streams too, a secondary
+    check (random weights tend to decode one token over and over, so
+    equal streams alone show little).  Each run starts from
+    the same pool state (every slot empty), because under MoE capacity
+    the empty slots' rows compete for experts too."""
+    from repro_torch.serve import Engine, ServeConfig
+
+    streams, caches = [], []
+    for _ in range(2):
+        eng = Engine(bundle, params, ServeConfig(max_seq=SERVE_MAX_SEQ,
+                                                 slots=SERVE_SLOTS), seed=0)
+        sid = eng.add_request(prompt)
+        for _ in range(steps):
+            eng.step()
+        streams.append(eng.finish(sid))
+        caches.append(eng.cache["main"])
+        del eng
+    same = streams[0] == streams[1]
+    bits = all(torch.equal(caches[0][n], caches[1][n]) for n in ("k", "v"))
+    print(f"{bundle.cfg.name}: one prompt of {len(prompt)} tokens admitted "
+          f"alone into a fresh engine and decoded {steps} steps, twice: KV "
+          f"caches bit-identical {bits}; streams equal (secondary) {same} "
+          f"({streams[0][len(prompt):]})")
+    check(same and bits, f"{bundle.cfg.name}: the lone prompt's run "
+          f"changed between two runs from the same pool state")
+    del caches
+    torch.cuda.empty_cache()
+
+
+def moe_layer_check(torch, bundle, params, prompt) -> None:
+    """Layer 0's MoE feed-forward at full width on the hidden state of
+    the first admit's prefill (the whole pool: the prompt in slot 0,
+    empty slots of token 0 beside it), in bf16, against a float32
+    evaluation of the same routing (the same ids and weights, the same
+    capacity drops, every expert in float32, one expert at a time)."""
+    import repro_torch.models.layers as LY
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import rms_norm
+
+    cfg, mo = bundle.cfg, bundle.cfg.moe
+    pl = params["main"][0]
+    toks = np.zeros((SERVE_SLOTS, len(prompt)), np.int64)
+    toks[0] = prompt
+    with torch.no_grad():
+        x = lm._embed(params["emb"], torch.from_numpy(toks).cuda(), cfg,
+                      torch.bfloat16)
+        a, _ = LY.attention(pl["attn"], rms_norm(x, pl["norms"]["pre_attn"]),
+                            cfg=cfg, window=lm.BIG_WINDOW)
+        h = rms_norm(x + a, pl["norms"]["pre_mlp"])
+        got, _ = MOE.moe_ffn(pl["ffn"], h, mo, aux=False)
+        ms = cuda_ms(torch, lambda: MOE.moe_ffn(pl["ffn"], h, mo,
+                                                aux=False), 5)
+        B, T, D = h.shape
+        hf = h.reshape(-1, D)
+        w, ids, _ = MOE._route(pl["ffn"]["router"], hf, mo.top_k)
+        N, k = hf.shape[0], mo.top_k
+        C = max(1, int(mo.capacity_factor * N * k / mo.num_experts))
+        flat, wf = ids.reshape(-1), w.reshape(-1)
+        want = torch.zeros((N, D), dtype=torch.float32, device=h.device)
+        kept = 0
+        for e in range(mo.num_experts):
+            pairs = (flat == e).nonzero()[:, 0][:C]      # token-major, first C
+            kept += pairs.numel()
+            t = pairs // k
+            xe = hf[t].float()
+            g = xe @ pl["ffn"]["w_gate"][e].float()
+            u = xe @ pl["ffn"]["w_up"][e].float()
+            y = (torch.nn.functional.silu(g) * u) @ pl["ffn"]["w_down"][e].float()
+            want.index_add_(0, t, wf[pairs, None] * y)
+        err = float((got.float().reshape(N, D) - want).norm() / want.norm())
+    print(f"{cfg.name}: layer 0's MoE on the first admit's hidden state "
+          f"({B} x {T} tokens, C = {C}, {kept} of {N * k} pairs kept): bf16 "
+          f"against float32 on the same routing, relative Frobenius error "
+          f"{err:.3e} (gate {MOE_LAYER_TOL:g}); {ms:.3f} ms a call")
+    check(err <= MOE_LAYER_TOL, f"{cfg.name}: the bf16 MoE layer is "
+          f"{err:.3e} from the float32 evaluation of its routing")
 
 
 def train_phase(torch):
@@ -1670,6 +1925,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a "
              "CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
+    # flex_attention's timing compiles with inductor and triton: their
+    # caches stay in the checkout's build directory
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1706,9 +1966,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB allocated")
-    flash = flash_phase(torch)
+    flash, flash_mma = flash_phase(torch)
     flash_bwd = flash_bwd_phase(torch)
-    serve_launches, serve_variants, bundle, params = serve_path(torch)
+    serve_launches, serve_variants, bundle, params = serve_path(
+        torch, SERVE_ARCH, "wgmma", "serving path")
     # the resilience phases come last, so that every earlier phase runs
     # as it did before they were added: (g) on the Engine's weights,
     # then (e) and (f) on the Jacobi data once the weights are freed
@@ -1722,6 +1983,20 @@ def main() -> None:
     # training last, so that every earlier phase runs as it did before
     train_launches, train_variants, _ = train_phase(torch)
     fault_launches = train_fault_phase(torch)
+    # the other families' serving last, so that every earlier phase runs
+    # as it did before; each alone on the card (qwen3's weights are 61 GB)
+    torch.cuda.empty_cache()
+    g2_launches, g2_variants, bundle, params = serve_path(
+        torch, GEMMA2_ARCH, "mma_sync", "gemma2 serving")
+    del bundle, params
+    torch.cuda.empty_cache()
+    q3_launches, q3_variants, bundle, params = serve_path(
+        torch, QWEN3_ARCH, "wgmma", "qwen3 serving", readmit_repeats=False)
+    prompt = serve_prompts(bundle.cfg.vocab)[0]
+    lone_prompt_repeats(torch, bundle, params, prompt, DECODE_STEPS)
+    moe_layer_check(torch, bundle, params, prompt)
+    del bundle, params
+    torch.cuda.empty_cache()
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -1733,11 +2008,16 @@ def main() -> None:
                                  "(g) pool": pool_launches["flash_attn_hd"],
                                  "(h) train": train_launches["flash_attn_hd"],
                                  "(h) fault path":
-                                     fault_launches["flash_attn_hd"]}
+                                     fault_launches["flash_attn_hd"],
+                                 "gemma2 engine": g2_launches["flash_attn_hd"],
+                                 "qwen3 engine": q3_launches["flash_attn_hd"]}
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
+        + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         for k, n in serve_variants["flash_attn_hd"].items()}
+    flash_mma["launches"] = g2_variants["flash_attn_hd"]["mma_sync"]
+    flash["mma_sync_gemma2"] = flash_mma
     flash_bwd["launches_by_path"] = {
         "(h) train": train_launches["flash_attn_bwd_hd"],
         "(h) fault path": fault_launches["flash_attn_bwd_hd"]}

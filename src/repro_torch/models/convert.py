@@ -5,6 +5,13 @@
 layers stacked with a leading ``L`` (``repro/models/lm.py:99-112``), and
 returns the port's parameters: one dict per layer.
 
+Both ported families come across: the dense decoder (gemma2's
+``post_attn``/``post_mlp`` norms among its norms) and the moe decoder,
+whose ``ffn`` group is the router (L, D, E), kept float32 because
+``_route`` computes in float32 (``moe.py:63``), and the expert stacks
+``w_gate``/``w_up`` (L, E, D, F) and ``w_down`` (L, E, F, D), with a
+``shared`` group where the config has shared experts.
+
 Every matrix is stored in ``compute_dtype``.  The reference keeps
 float32 masters but casts each matrix to the compute dtype right
 before every use (``layers.py:121-124``, ``lm.py:72``, ``:80``,
@@ -38,24 +45,30 @@ def _t(x, dtype, device) -> torch.Tensor:
 
 def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
                     compute_dtype=torch.bfloat16) -> Params:
-    """The port's params of a dense decoder from the reference's
+    """The port's params of a dense or moe decoder from the reference's
     ``{"emb": ..., "main": {"attn", "norms", "ffn"}}`` pytree of numpy
     arrays."""
     dev = resolve_device(device)
     if set(params_np) != {"emb", "main"}:
         raise NotImplementedError(
-            f"from_jax_params carries the dense decoder only, got groups "
-            f"{sorted(params_np)}")
+            f"from_jax_params carries the dense and moe decoders without "
+            f"leading dense layers or MTP, got groups {sorted(params_np)}")
     emb = params_np["emb"]
     main = params_np["main"]
     mat = lambda x: _t(x, compute_dtype, dev)          # noqa: E731
     f32 = lambda x: _t(x, torch.float32, dev)          # noqa: E731
+
+    def ffn(group, i):
+        return {n: ffn(w, i) if isinstance(w, dict) else
+                (f32 if n == "router" else mat)(w[i])
+                for n, w in group.items()}
+
     layers = []
     for i in range(cfg.n_layers):
         layers.append({
             "attn": {n: mat(w[i]) for n, w in main["attn"].items()},
             "norms": {n: f32(w[i]) for n, w in main["norms"].items()},
-            "ffn": {n: mat(w[i]) for n, w in main["ffn"].items()},
+            "ffn": ffn(main["ffn"], i),
         })
     return {"emb": {"in_emb": mat(emb["in_emb"]),
                     "out_emb": mat(emb["out_emb"]),

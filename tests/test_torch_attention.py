@@ -51,7 +51,9 @@ def _t(*xs):
 CASES = [dict(), dict(window=16), dict(softcap=8.0),
          dict(window=7, softcap=5.0), dict(qpos="ragged"),
          dict(qpos="ragged", window=9), dict(Hq=4, Hkv=1, Dv=24),
-         dict(T=1, S=70)]
+         dict(T=1, S=70),
+         # gemma2's heads: 16 over 8 of Dh 256, its local window, softcap
+         dict(Hq=16, Hkv=8, Dh=256, window=16, softcap=50.0)]
 
 
 def _split(case):

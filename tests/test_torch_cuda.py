@@ -408,7 +408,8 @@ def _flash_inputs(dev, dtype, B=2, T=100, S=130, Hq=4, Hkv=2, Dh=64,
     dict(), dict(window=16), dict(softcap=8.0), dict(qpos="ragged"),
     dict(qpos="ragged", window=9, softcap=5.0), dict(Dh=256, Hkv=1),
     dict(Dh=192, Dv=128), dict(Dh=72, Dv=40, T=1, S=300),
-    dict(B=1, T=257, S=513, Hq=8, Hkv=2, Dh=128)])
+    dict(B=1, T=257, S=513, Hq=8, Hkv=2, Dh=128),
+    dict(Hq=16, Hkv=8, Dh=256, window=16, softcap=50.0)])
 def test_flash_cuda_matches_plain(cuda, dtype, case):
     case = dict(case)
     window, softcap = case.pop("window", None), case.pop("softcap", 0.0)
@@ -593,15 +594,16 @@ def _serve(eng, prompts, steps):
     return [eng.finish(s) for s in sids]
 
 
-def test_reduced_engine_on_card_matches_cpu(cuda):
-    """The same seeded reduced yi-9b, its weights drawn on the CPU and
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-9b", "qwen3-moe-30b-a3b"])
+def test_reduced_engine_on_card_matches_cpu(cuda, arch):
+    """The same seeded reduced model, its weights drawn on the CPU and
     carried to the card: a 1024-token prompt takes the flash kernel
     (one launch per layer, none in decode), a 30-token one the dense
     path, and the greedy tokens agree with the CPU run (float32
-    compute, TF32 off)."""
+    compute, TF32 off; the reduced MoE is dropless)."""
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, 256, 1024), rng.integers(0, 256, 30)]
-    cfg = get_config("yi-9b").reduced()
+    cfg = get_config(arch).reduced()
     bundle = build(cfg, torch.float32, "cpu")
     params = bundle.init(3)
     host = Engine(bundle, params, ServeConfig(max_seq=1100, slots=2))
