@@ -26,7 +26,8 @@
 3. Frees those buffers, holds the flash-attention kernel against its
    plain versions (bf16 at the serving path's prefill shape, small
    shapes with windows, softcaps, ragged and fully masked rows, odd
-   head dims, and float32), timing it beside SDPA, and its backward
+   head dims, Dh 192 / Dv 128 on the mma_sync variant, and float32),
+   timing it beside SDPA, and its backward
    kernels, ``wgmma`` (``ffma`` in float32), against float64 dense
    autograd (small shapes, bf16, fp16 and float32, GQA groups of 8 and
    1, Dh 64 and 128) and the plain blockwise backward at the training
@@ -79,16 +80,17 @@
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
    counting at each replay.  Every GEMM-path launch must be the
-   ``pipelined`` variant, every yi-9b and qwen3 prefill launch the
-   ``wgmma`` one, every gemma2 prefill launch ``mma_sync``, and every
-   training backward the ``wgmma`` one.
+   ``pipelined`` variant, every yi-9b, qwen3 and gemma2 prefill launch
+   the ``wgmma`` one (gemma2's at Dh 256), and every training backward
+   the ``wgmma`` one.
 6. Serves the other two ported families last, each at full width and
    full depth in bfloat16 alone on the card, through load_engine and
    the Engine with the yi-9b traffic above (admits of 2048, 1536, 1024
    tokens into 4 slots x 4096, 16 decode steps each, the first prompt
    again): gemma2-9b (alternating windows of 4096 and global, softcaps
-   50 and 30; Dh 256, so every prefill launches flash's mma_sync
-   variant, 42 per prefill; the re-admitted prompt must repeat) and
+   50 and 30; Dh 256, so every prefill launches flash's wgmma variant
+   at Dh 256, 42 per prefill and no mma_sync; the re-admitted prompt
+   must repeat) and
    qwen3-moe-30b-a3b (128 experts top-8 under the reference's capacity
    factor 1.25; 48 wgmma launches per prefill).  Under that capacity
    one slot's tokens can drop another's, so in place of the re-admit
@@ -101,13 +103,14 @@
    of the same routing.  Each prints its parameters against the bytes
    allocated, max_memory_allocated, prefill ms per admit, median
    decode ms, tokens/s and a device breakdown of one prefill and one
-   decode step.  The flash phase (3.) also holds mma_sync at gemma2's
-   heads against float64 (a window under T and softcap 50) and at
+   decode step.  The flash phase (3.) also holds wgmma at gemma2's
+   heads of 256 against float64 (a window under T and softcap 50) and at
    gemma2's prefill shape against the plain blockwise version (its
    window of 4096, and one of 1000 that binds there), timed beside
    compiled flex_attention with the softcap as a score_mod and the
    window as a block mask (the library's one call for the function)
-   and SDPA without the softcap (not the same function).
+   and SDPA without the softcap (not the same function), and prints
+   the ptxas registers and spills of its Dh-256 kernels.
 7. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -178,8 +181,7 @@ POOL_FAIL_TICK, POOL_DOWN_FOR = 2, 6
 
 SERVE_ARCH = "yi-9b"
 # the other families served last, each at full width and depth alone on
-# the card: gemma2's Dh 256 takes flash's mma_sync variant, qwen3's 128
-# wgmma
+# the card: gemma2's Dh 256 and qwen3's 128 take flash's wgmma variant
 GEMMA2_ARCH, QWEN3_ARCH = "gemma2-9b", "qwen3-moe-30b-a3b"
 # one bf16 MoE layer against a float32 evaluation of the same routing:
 # the bf16 expert products round their operands and outputs (2**-9
@@ -494,13 +496,16 @@ def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
     return flops, nbytes
 
 
-def flash_phase(torch):
+def flash_phase(torch, ptxas):
     """The flash-attention kernel against its plain versions on the
     card, each in its working type, then its time beside the plain
     version's and SDPA's at the serving path's prefill shape; the same
-    for the mma_sync variant at gemma2's, beside flex_attention with the
-    softcap (SDPA without it is not the same function).  Returns the two
-    measurements."""
+    for the wgmma variant at gemma2's (Dh 256), beside flex_attention
+    with the softcap (SDPA without it is not the same function), with
+    the ptxas report of its Dh-256 kernels (``ptxas``: flash_attn_hd's
+    (kernel, report) pairs).  Returns the two measurements."""
+    import re
+
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -549,6 +554,9 @@ def flash_phase(torch):
                           tol=FLASH_MAIN_TOL, window=BIG_WINDOW)
 
     # -- small shapes, each feature, against the dense oracle -----------
+    # (Dh 192 / Dv 128 holds the mma_sync variant, in bf16 and fp16)
+    by_variant = flash_attention_cuda.by_variant
+    mma0 = by_variant["mma_sync"]
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for name, shape, kw in (
                 ("window=16", (2, 100, 130, 4, 2, 64), dict(window=16)),
@@ -575,6 +583,9 @@ def flash_phase(torch):
                          window=5)
         masked = out[:, :9].abs().sum() + out[1, 20:30].abs().sum()
         check(float(masked) == 0.0, "fully masked flash rows are not 0")
+    check(by_variant["mma_sync"] - mma0 == 2, f"the small shapes launched "
+          f"mma_sync {by_variant['mma_sync'] - mma0} times, not twice "
+          f"(Dh 192 / Dv 128 in bf16 and fp16)")
 
     # -- time at the main shape -----------------------------------------
     q, k, v = inputs(torch.bfloat16, B, T, S, Hq, Hkv, Dh)
@@ -611,16 +622,24 @@ def flash_phase(torch):
           f"{flash['plain_ms']:.4f} ms, SDPA {flash['library_ms']:.4f} ms")
     del q, k, v, qt, kt, vt
 
-    # -- mma_sync at gemma2's heads (16/8 of Dh 256): its local window
+    # -- wgmma at gemma2's heads (16/8 of Dh 256): its local window
     # under T with the softcap against float64, then the first admit's
     # prefill shape against the plain blockwise version, at gemma2's
     # window (which, like its odd layers' BIG_WINDOW, never binds in a
-    # 4096-position cache) and at one that binds there, off the tiles
+    # 4096-position cache) and at one that binds there, off the tiles;
+    # fully masked rows exactly 0
     g2 = get_config(GEMMA2_ARCH)
     Hq2, Hkv2, D2, cap = g2.n_heads, g2.n_kv_heads, g2.head_dim, \
         g2.attn_softcap
-    check(flash_variant(torch.bfloat16, D2, D2) == "mma_sync",
-          f"{GEMMA2_ARCH}'s Dh {D2} does not take the mma_sync variant")
+    check(flash_variant(torch.bfloat16, D2, D2) == "wgmma",
+          f"{GEMMA2_ARCH}'s Dh {D2} does not take the wgmma variant")
+    reports = [(name, rep) for name, rep in ptxas
+               if re.search(r"fa_wgmma_kernel(<.*\b256\b|I.*Li256E)", name)]
+    check(len(reports) == 4, f"{len(reports)} Dh-256 wgmma kernels in the "
+          f"build log, not 4 (bf16 and fp16, with and without the softcap)")
+    for name, rep in reports:
+        print(f"flash wgmma Dh {D2} ptxas: {name}: {rep}")
+    wg0 = by_variant["wgmma"]
 
     def oracle(q, k, v, qpos, **kw):
         return dense64(torch, q.double(), k.double(), v.double(), qpos, **kw)
@@ -629,18 +648,28 @@ def flash_phase(torch):
         q, k, v = inputs(dtype, 2, 200, 330, Hq2, Hkv2, D2)
         q = q * 30                 # logits of about 30: the cap bends them
         qp = torch.arange(130, 330, dtype=torch.int32, device=dev).repeat(2, 1)
-        compare(f"mma_sync Dh=Dv={D2} {Hq2}/{Hkv2} heads q x 30 window=40 "
+        compare(f"wgmma Dh=Dv={D2} {Hq2}/{Hkv2} heads q x 30 window=40 "
                 f"softcap={cap:g} (float64 dense)", dtype, q, k, v, qp,
                 oracle, window=40, softcap=cap)
+        qp = qp.clone()
+        qp[:, :7] = -1                             # padding rows
+        qp[1, 50:60] = 400                         # window 4: keys > S
+        out, _ = compare(f"wgmma Dh=Dv={D2} ragged qpos, fully masked "
+                         f"rows, window=4 softcap={cap:g} (float64 dense)",
+                         dtype, q, k, v, qp, oracle, window=4, softcap=cap)
+        masked = out[:, :7].abs().sum() + out[1, 50:60].abs().sum()
+        check(float(masked) == 0.0, "fully masked Dh-256 flash rows are not 0")
     q2, k2, v2 = inputs(torch.bfloat16, B, T, S, Hq2, Hkv2, D2)
-    mma_err = 0.0
+    err256 = 0.0
     for w in (g2.window, 1000):
-        _, err = compare(f"mma_sync {GEMMA2_ARCH} prefill {tuple(q2.shape)} x "
+        _, err = compare(f"wgmma {GEMMA2_ARCH} prefill {tuple(q2.shape)} x "
                          f"k,v {tuple(k2.shape)} strides {k2.stride()} "
                          f"window={w} softcap={cap:g}", torch.bfloat16, q2,
                          k2, v2, qpos, blockwise_attention,
                          tol=FLASH_MAIN_TOL, window=w, softcap=cap)
-        mma_err = max(mma_err, err)
+        err256 = max(err256, err)
+    check(by_variant["wgmma"] - wg0 == 6, "a Dh-256 check launched another "
+          "variant than wgmma")
     q2t, k2t, v2t = (x.transpose(1, 2) for x in (q2, k2, v2))
     flops, nbytes = flash_work(torch, qpos, S, B, Hq2, Hkv2, D2, D2, 2)
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -653,17 +682,17 @@ def flash_phase(torch):
                          q30, k2, v2, qpos=qpos, window=g2.window,
                          softcap=cap).float()).abs().max())
     q2h = q2.transpose(1, 2).contiguous()
-    print(f"flash mma_sync vs flex_attention (softcap score_mod, window "
+    print(f"flash wgmma Dh {D2} vs flex_attention (softcap score_mod, window "
           f"block mask, enable_gqa) at {GEMMA2_ARCH}'s prefill shape, q x 30: "
           f"max_abs_diff={lib_err:.3e}")
     check(lib_err <= FLASH_TOL["bfloat16"] * 4, "flex_attention computes "
-          "another function than the mma_sync kernel")
+          "another function than the Dh-256 wgmma kernel")
     del q30
-    flash_mma = dict(
-        name="flash_attn_hd", variant="mma_sync", route="cuda",
+    flash_256 = dict(
+        name="flash_attn_hd", variant="wgmma", route="cuda",
         source="src/repro_torch/csrc/flash_attn_hd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:80",
-        max_abs_err=mma_err,
+        max_abs_err=err256,
         ms=cuda_ms(torch, lambda: flash_attention_cuda(
             q2, k2, v2, qpos=qpos, window=g2.window, softcap=cap), 10),
         plain_ms=cuda_ms(torch, lambda: blockwise_attention(
@@ -675,20 +704,20 @@ def flash_phase(torch):
             torch, lambda: F.scaled_dot_product_attention(
                 q2t, k2t, v2t, is_causal=True, enable_gqa=True), 10),
         shape=[list(q2.shape), list(k2.shape)], window=g2.window,
-        softcap=cap)
-    print(f"flash mma_sync at {tuple(q2.shape)} x {tuple(k2.shape)} window "
-          f"{g2.window} softcap {cap:g}: {flops:.4e} flops, {nbytes:.4e} "
-          f"bytes; kernel {flash_mma['ms']:.4f} ms "
-          f"({flops / flash_mma['ms'] / 1e9:.1f} TFLOP/s, "
-          f"{100 * flash_mma['bound_ms'] / flash_mma['ms']:.1f}% of the "
-          f"bound), bound {flash_mma['bound_ms']:.4f} ms "
-          f"({flash_mma['bound_by']}), plain {flash_mma['plain_ms']:.4f} ms, "
-          f"flex_attention {flash_mma['library_ms']:.4f} ms; SDPA without "
+        softcap=cap, ptxas=dict(reports))
+    print(f"flash wgmma Dh {D2} at {tuple(q2.shape)} x {tuple(k2.shape)} "
+          f"window {g2.window} softcap {cap:g}: {flops:.4e} flops, "
+          f"{nbytes:.4e} bytes; kernel {flash_256['ms']:.4f} ms "
+          f"({flops / flash_256['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * flash_256['bound_ms'] / flash_256['ms']:.1f}% of the "
+          f"bound), bound {flash_256['bound_ms']:.4f} ms "
+          f"({flash_256['bound_by']}), plain {flash_256['plain_ms']:.4f} ms, "
+          f"flex_attention {flash_256['library_ms']:.4f} ms; SDPA without "
           f"the softcap, NOT the same function, "
-          f"{flash_mma['sdpa_without_softcap_ms']:.4f} ms")
+          f"{flash_256['sdpa_without_softcap_ms']:.4f} ms")
     del q2, k2, v2, q2t, k2t, v2t, q2h, flex
     torch.cuda.empty_cache()
-    return flash, flash_mma
+    return flash, flash_256
 
 
 def flex_softcap(torch, k, v, qpos, window: int, softcap: float):
@@ -1656,9 +1685,10 @@ def serve_path(torch, arch: str, variant: str, label: str,
           f"{label}: a generated token is outside the vocabulary")
 
     eng.add_request(prompts[2])
+    # six names: gemma2's flash kernel comes fifth or later
     device_breakdown(torch, f"{label}: one prefill ({PROMPTS[1]} tokens, "
                      f"the whole {SERVE_SLOTS}-slot pool)",
-                     lambda: eng.add_request(prompts[1]))
+                     lambda: eng.add_request(prompts[1]), top=6)
     device_breakdown(torch, f"{label}: one decode step ({SERVE_SLOTS} slots, "
                      f"2 live)", eng.step, host_top=8)
     print(f"{label}: max_memory_allocated "
@@ -1945,8 +1975,10 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(build.SOURCES)})")
     # a library built earlier brings the log of its build along
+    ptxas = {name: ptxas_report(logs[name], build._nvcc())
+             for name in build.SOURCES}
     for name in build.SOURCES:
-        for kernel, report in ptxas_report(logs[name], build._nvcc()):
+        for kernel, report in ptxas[name]:
             print(f"  {name}: {kernel}: {report}")
         faults = build.ptxas_faults(logs[name])
         check(not faults, f"ptxas spills or serialises wgmmas in {name}: "
@@ -1966,7 +1998,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB allocated")
-    flash, flash_mma = flash_phase(torch)
+    flash, flash_256 = flash_phase(torch, ptxas["flash_attn_hd"])
     flash_bwd = flash_bwd_phase(torch)
     serve_launches, serve_variants, bundle, params = serve_path(
         torch, SERVE_ARCH, "wgmma", "serving path")
@@ -1987,7 +2019,7 @@ def main() -> None:
     # as it did before; each alone on the card (qwen3's weights are 61 GB)
     torch.cuda.empty_cache()
     g2_launches, g2_variants, bundle, params = serve_path(
-        torch, GEMMA2_ARCH, "mma_sync", "gemma2 serving")
+        torch, GEMMA2_ARCH, "wgmma", "gemma2 serving")
     del bundle, params
     torch.cuda.empty_cache()
     q3_launches, q3_variants, bundle, params = serve_path(
@@ -2016,8 +2048,8 @@ def main() -> None:
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         for k, n in serve_variants["flash_attn_hd"].items()}
-    flash_mma["launches"] = g2_variants["flash_attn_hd"]["mma_sync"]
-    flash["mma_sync_gemma2"] = flash_mma
+    flash_256["launches"] = g2_variants["flash_attn_hd"]["wgmma"]
+    flash["wgmma_dh256_gemma2"] = flash_256
     flash_bwd["launches_by_path"] = {
         "(h) train": train_launches["flash_attn_bwd_hd"],
         "(h) fault path": fault_launches["flash_attn_bwd_hd"]}

@@ -19,13 +19,15 @@
 // 2048, 32, 128) against the (4, 4096, 4, 128) cache of a layer, does
 // 4 * Dh flops for each of 8,392,704 visible (query, key) pairs per
 // head: 1.3751e11 flops, 0.139 ms at the 989 TFLOP/s dense bf16
-// tensor-core peak, against 0.045 ms for its bytes.  Only wgmma
-// reaches that peak on Hopper.
+// tensor-core peak, against 0.045 ms for its bytes.  gemma2's prefill,
+// q (4, 2048, 16, 256) against (4, 4096, 8, 256), does the same
+// operations (0.060 ms of bytes).  Only wgmma reaches that peak on
+// Hopper.
 //
 // Three variants, chosen by the caller (kernels/flash_attention/
 // kernel.py: flash_variant) and launched as asked or not at all:
 //
-// * wgmma (bf16 and fp16 with Dh = Dv in {64, 128}, every serving
+// * wgmma (bf16 and fp16 with Dh = Dv in {64, 128, 256}, every serving
 //   prefill).  A block takes 128 query rows of one (b, query head)
 //   and has three warpgroups.  Warpgroup 2 is the producer: after
 //   setmaxnreg gives its registers to the others (24 / 240), one of its
@@ -43,7 +45,15 @@
 //   registers: rows reduced over the 4 threads that share one, log2
 //   domain, one ex2.approx per score, the mask applied only on tiles
 //   where a row of the warp can miss a key, as two 32-bit compares
-//   against per-row key bounds.  The softcap is a template argument.
+//   against per-row key bounds.  The softcap is a template argument,
+//   its tanh one ex2.approx and one rcp.approx a score.  At Dh 256 the
+//   same tiles fit: Q takes 64 KB and two K/V stages 128 KB of shared
+//   memory (193 KB of the 227 a block may have), a consumer thread
+//   holds O's 128 accumulators, 32 scores and 16 packed p registers
+//   (252 registers), and O += P V is one m64n256k16 a k-step.  There
+//   the block has no producer warpgroup: ptxas spills the consumers
+//   under setmaxnreg (see kProducerWarpgroup), so the block is the two
+//   consumer warpgroups alone and their thread 0 issues the copies.
 //   Waits sleep on their mbarrier instead of spinning.  The kv loop
 //   spans only the tiles that hold a visible key, from the block's own
 //   qpos range (never assumed to be arange).  Blocks run longest first
@@ -53,9 +63,10 @@
 //   hopper.cuh, shared with the backward.  Its time against the
 //   tensor-core bound, what still holds it back and what was tried
 //   against it are in PERF.md.
-// * mma_sync (other bf16/fp16 head dims): one block of 4 warps per
-//   64 query rows, mma.sync m16n8k16 fed by ldmatrix from a two-stage
-//   cp.async pipeline, head dims padded to 64, 128 or 256.
+// * mma_sync (the other bf16/fp16 head dims, Dh != Dv among them): one
+//   block of 4 warps per 64 query rows, mma.sync m16n8k16 fed by
+//   ldmatrix from a two-stage cp.async pipeline, head dims padded to
+//   64, 128 or 256.
 // * ffma (float32): a plain FFMA loop (16 query rows, 32 keys per
 //   tile), not TF32, which would miss the reference's 2e-5 bound.
 #include <cuda.h>          // CUtensorMap; the driver is reached at run time
@@ -566,10 +577,26 @@ constexpr int kConsumers = 2;                 // warpgroups of 64 query rows
 constexpr int kRows = 64 * kConsumers;        // query rows per block
 // 64 keys per stage: 128 would put the scores, the p fragments and the
 // output accumulator of two products in flight past what ptxas fits
-// without serialising the wgmmas (measured slower, PERF.md)
+// without serialising the wgmmas (measured slower, PERF.md).  At Dh 256
+// (O alone 128 registers a thread) 64 keys take 252 registers, and
+// measured faster than 48 or 32 (PERF.md); a third K/V stage would pass
+// the 227 KB of shared memory there.
 constexpr int kKeys = 64;
 constexpr int kStages = 2;
-constexpr int kThreads = 128 * (kConsumers + 1);   // the producer is last
+// At Dh 64 and 128 a third warpgroup, last in the block, is the
+// producer, and setmaxnreg hands its registers to the consumers (24 /
+// 240).  At Dh 256 ptxas does not compile the consumers within
+// setmaxnreg's 240 (it spills and serialises the wgmmas, even at 32-key
+// tiles, while the same code fits 240 registers without setmaxnreg;
+// PERF.md), and a block of 9 warps is still allotted registers as 12
+// (168 a thread).  So there the block is the two consumer warpgroups
+// alone, up to 255 registers a thread, and their thread 0 issues the
+// copies between its own products.
+template <int D>
+constexpr bool kProducerWarpgroup = D != 256;
+template <int D>
+constexpr int kThreads = 128 * (kProducerWarpgroup<D> ? kConsumers + 1
+                                                  : kConsumers);
 constexpr int kPanel = 64;      // head-dim elements in one 128-byte row
 
 // Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
@@ -651,6 +678,24 @@ __device__ __forceinline__ void row_bounds(int qp, const Params& p, int& lo,
   lo = (int)(l < -1 ? -1 : (l > hi ? hi : l));
 }
 
+// tanh(y) from x = 2 y log2(e), as 1 - 2 / (2^x + 1): one ex2 and one
+// rcp, both approximate (MUFU), within about 5e-7 of tanh(y) (2^x = inf
+// gives 1, 0 gives -1), where the library's tanhf takes some twenty
+// instructions.  Times a softcap of 50 that is about 2.5e-5 of a
+// logit, far under the 2^-9 to which p is rounded.
+__device__ __forceinline__ float tanh_2log2e(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(ex2(x) + 1.f));
+  return fmaf(-2.f, r, 1.f);
+}
+
+// How a tile's scores q.k become logits in log2 units: times `in`, or
+// with the softcap tanh(q.k * `in`) * `out` (`in` = 2 log2(e) scale /
+// softcap, `out` = softcap log2(e)).
+struct Logits {
+  float in, out;
+};
+
 // The online softmax of one tile, in place: sc holds q.k of the rows
 // against keys kv0 .. kv0 + kKeys - 1 on entry and p on exit; m and l
 // move on, and c0, c1 get the factors that rescale the rows' earlier
@@ -658,18 +703,17 @@ __device__ __forceinline__ void row_bounds(int qp, const Params& p, int& lo,
 // carries no tanh code (whose registers would crowd the wgmmas').
 template <bool kSoftcap>
 __device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2], int kv0,
-                                             Rows& r, const Params& p,
-                                             float scale_log2, float& c0,
-                                             float& c1) {
+                                             Rows& r, const Logits& lg,
+                                             float& c0, float& c1) {
   // scores in the log2 domain, softcapped, then masked where this
   // warp's rows can miss a key of the tile
   if (kSoftcap) {
 #pragma unroll
     for (int j = 0; j < kKeys / 2; ++j)
-      sc[j] = tanhf(sc[j] * p.scale / p.softcap) * p.softcap * kLog2e;
+      sc[j] = tanh_2log2e(sc[j] * lg.in) * lg.out;
   } else {
 #pragma unroll
-    for (int j = 0; j < kKeys / 2; ++j) sc[j] *= scale_log2;
+    for (int j = 0; j < kKeys / 2; ++j) sc[j] *= lg.in;
   }
   int any0 = 1, any1 = 1;
   if (kv0 < r.full_lo || kv0 + kKeys - 1 > r.full_hi) {
@@ -741,8 +785,41 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[kKeys / 4],
 }
 
 
+// The block's copies into shared memory, each issued by one thread: Q
+// once, and tile j's K or V into stage j % kStages once every consumer
+// warp has freed that stage of tile j - kStages.
+template <int D>
+struct Loader {
+  const CUtensorMap *q, *k, *v;
+  uint32_t base, bars;
+  int tile_first, h, hk, t0, b;
+
+  __device__ __forceinline__ void load_q() const {
+    mbar_expect_tx(bars, Layout<D>::kQBytes);
+#pragma unroll
+    for (int c = 0; c < D / kPanel; ++c)
+      tma_load_4d(base + Layout<D>::kQ + c * kRows * 128, q, bars,
+                  c * kPanel, h, t0, b);
+  }
+  template <bool kIsV>
+  __device__ __forceinline__ void load(int j) const {
+    using L = Layout<D>;
+    const int s = j % kStages;
+    const uint32_t full = kIsV ? bar_v(bars, s) : bar_k(bars, s);
+    mbar_wait(kIsV ? bar_v_free(bars, s) : bar_k_free(bars, s),
+              ((j / kStages) & 1) ^ 1);
+    mbar_expect_tx(full, L::kKVBytes);
+    const uint32_t dst = base + (kIsV ? L::kV : L::kK) + s * L::kKVBytes;
+    const int kv0 = (tile_first + j) * kKeys;
+#pragma unroll
+    for (int c = 0; c < D / kPanel; ++c)
+      tma_load_4d(dst + c * kKeys * 128, kIsV ? v : k, full, c * kPanel,
+                  hk, kv0, b);
+  }
+};
+
 template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads<D>, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
@@ -772,37 +849,36 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   key_range<kRows>(p, b, t0, qpos_s, &lo_s, &hi_s, &key_begin, &key_end);
   const int tile_first = (int)(key_begin / kKeys);
   const int n_tiles = (int)((key_end + kKeys - 1) / kKeys) - tile_first;
+  const Loader<D> ld{&tm_q, &tm_k, &tm_v, base, bars, tile_first, h, hk,
+                     t0, b};
 
-  if (tid >= kConsumers * 128) {
+  if (kProducerWarpgroup<D> && tid >= kConsumers * 128) {
     // ---- producer warpgroup: one thread issues every copy ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (kProducerWarpgroup<D>)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == kConsumers * 128 && n_tiles > 0) {
-      mbar_expect_tx(bars, L::kQBytes);
-#pragma unroll
-      for (int c = 0; c < D / kPanel; ++c)
-        tma_load_4d(base + L::kQ + c * kRows * 128, &tm_q, bars, c * kPanel,
-                    h, t0, b);
+      ld.load_q();
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        const uint32_t free_parity = ((i / kStages) & 1) ^ 1;
-        const int kv0 = (tile_first + i) * kKeys;
-        mbar_wait(bar_k_free(bars, s), free_parity);
-        mbar_expect_tx(bar_k(bars, s), L::kKVBytes);
-#pragma unroll
-        for (int c = 0; c < D / kPanel; ++c)
-          tma_load_4d(base + L::kK + s * L::kKVBytes + c * kKeys * 128, &tm_k,
-                      bar_k(bars, s), c * kPanel, hk, kv0, b);
-        mbar_wait(bar_v_free(bars, s), free_parity);
-        mbar_expect_tx(bar_v(bars, s), L::kKVBytes);
-#pragma unroll
-        for (int c = 0; c < D / kPanel; ++c)
-          tma_load_4d(base + L::kV + s * L::kKVBytes + c * kKeys * 128, &tm_v,
-                      bar_v(bars, s), c * kPanel, hk, kv0, b);
+        ld.template load<false>(i);
+        ld.template load<true>(i);
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (kProducerWarpgroup<D>)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    // without a producer warpgroup thread 0 issues the copies: Q and the
+    // first kStages tiles now, tile i + kStages - 1's K as tile i starts
+    // (its stage freed by tile i - 1's q k^T), and tile i - 1 +
+    // kStages's V once tile i - 1's p v is done
+    const bool producer = !kProducerWarpgroup<D> && tid == 0;
+    if (producer && n_tiles > 0) {
+      ld.load_q();
+      for (int j = 0; j < kStages && j < n_tiles; ++j) {
+        ld.template load<false>(j);
+        ld.template load<true>(j);
+      }
+    }
     const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
     const int row0 = wgi * 64 + warp * 16 + (lane >> 2);   // and row0 + 8
     Rows r;
@@ -824,7 +900,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     r.tig = lane & 3;
     r.m0 = r.m1 = kNegInf;
     r.l0 = r.l1 = 0.f;
-    const float scale_log2 = p.scale * kLog2e;
+    const Logits lg =
+        kSoftcap ? Logits{2.f * kLog2e * p.scale / p.softcap,
+                          p.softcap * kLog2e}
+                 : Logits{p.scale * kLog2e, 0.f};
     const uint64_t q_desc = sw128_desc(base + L::kQ + wgi * 64 * 128, 16);
     const uint64_t k_desc = sw128_desc(base + L::kK, 16);
     const uint64_t v_desc = sw128_desc(base + L::kV, kKeys * 128);
@@ -845,12 +924,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_regs(sc);
       release(bar_k_free(bars, 0));
-      softmax_tile<kSoftcap>(sc, tile_first * kKeys, r, p, scale_log2, c0,
-                             c1);
+      softmax_tile<kSoftcap>(sc, tile_first * kKeys, r, lg, c0, c1);
       pack_p<T>(pf, sc);
       // tile i: q k_i^T and p_{i-1} v_{i-1} in flight together
       for (int i = 1; i < n_tiles; ++i) {
         const int s = i % kStages, sp = (i - 1) % kStages;
+        if (producer && i + kStages - 1 < n_tiles)
+          ld.template load<false>(i + kStages - 1);
         mbar_wait(bar_k(bars, s), (i / kStages) & 1);
         mbar_wait(bar_v(bars, sp), ((i - 1) / kStages) & 1);
         fence_regs(acc);
@@ -861,12 +941,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();               // q k_i^T is done
         fence_regs(sc);
         release(bar_k_free(bars, s));
-        softmax_tile<kSoftcap>(sc, (tile_first + i) * kKeys, r, p,
-                               scale_log2, c0, c1);
+        softmax_tile<kSoftcap>(sc, (tile_first + i) * kKeys, r, lg, c0, c1);
         wgmma_wait<0>();               // p_{i-1} v_{i-1} is done
         fence_regs(acc);
         fence_regs(pf);
         release(bar_v_free(bars, sp));
+        if (producer && i - 1 + kStages < n_tiles)
+          ld.template load<true>(i - 1 + kStages);
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
           acc[4 * n] *= c0;
@@ -888,24 +969,25 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(pf);
     }
 
-    // o = acc / l, or 0 where no key was visible
+    // o = acc / l, as acc times 1 / l (one division a row, not one an
+    // element), or 0 where no key was visible
     T* ob = (T*)p.o + b * p.o_sb + h * p.o_sh;
     const int r0 = t0 + row0, r1 = r0 + 8;
     if (r.tig == 0) {
       write_lse(p, b, h, r0, r.m0, r.l0, true);
       write_lse(p, b, h, r1, r.m1, r.l1, true);
     }
+    const float inv0 = r.l0 > 0.f ? 1.f / r.l0 : 0.f;
+    const float inv1 = r.l1 > 0.f ? 1.f / r.l1 : 0.f;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + r.tig * 2;
       if (r0 < p.T)
-        *reinterpret_cast<uint32_t*>(ob + r0 * p.o_st + col) = Ops<T>::pack(
-            r.l0 > 0.f ? acc[4 * n] / r.l0 : 0.f,
-            r.l0 > 0.f ? acc[4 * n + 1] / r.l0 : 0.f);
+        *reinterpret_cast<uint32_t*>(ob + r0 * p.o_st + col) =
+            Ops<T>::pack(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
       if (r1 < p.T)
-        *reinterpret_cast<uint32_t*>(ob + r1 * p.o_st + col) = Ops<T>::pack(
-            r.l1 > 0.f ? acc[4 * n + 2] / r.l1 : 0.f,
-            r.l1 > 0.f ? acc[4 * n + 3] / r.l1 : 0.f);
+        *reinterpret_cast<uint32_t*>(ob + r1 * p.o_st + col) =
+            Ops<T>::pack(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
     }
   }
 }
@@ -937,7 +1019,7 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.B * p.Hq, (unsigned)q_tiles);
-  kern<<<grid, wg::kThreads, smem, stream>>>(mq, mk, mv, p);
+  kern<<<grid, wg::kThreads<D>, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
 
@@ -980,15 +1062,15 @@ int launch(int variant, int dtype, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // variant: 0 ffma (float32), 1 mma_sync (16-bit, head dims wgmma does
-// not take), 2 wgmma (16-bit, Dh = Dv in {64, 128}), as the caller chose
-// it from the types and head dims; any other pairing returns
+// not take), 2 wgmma (16-bit, Dh = Dv in {64, 128, 256}), as the caller
+// chose it from the types and head dims; any other pairing returns
 // cudaErrorInvalidValue and launches nothing.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o alike).
 // strides: 14 element strides, (batch, position, head) of q, k, v and
 // o, then (batch, position) of qpos (int32); every last dim is
 // unit-stride.  has_window = 0 means causal only.  ffma and mma_sync
 // compile the head width as the smallest of 64, 128, 256 that holds
-// max(Dh, Dv); wgmma takes Dh = Dv = 64 or 128.  The caller checks
+// max(Dh, Dv); wgmma takes Dh = Dv = 64, 128 or 256.  The caller checks
 // Dh, Dv <= 256, multiples of 8, Hq % Hkv == 0, 16-byte aligned rows
 // for 16-bit types, and grid limits.
 // lse: null, or (B, Hq, T) float32 contiguous for the rows' log-sum-exp.
@@ -1009,15 +1091,18 @@ extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
            strides[10], strides[11], strides[12], strides[13],
            scale, softcap, has_window, window};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool wgmma_dims = Dh == Dv && (Dh == 64 || Dh == 128);
+  const bool wgmma_dims = Dh == Dv && (Dh == 64 || Dh == 128 || Dh == 256);
   if ((variant == 2) != (dtype != 0 && wgmma_dims))
     return (int)cudaErrorInvalidValue;
   if (variant == 2) {
     if (Dh == 64)
       return dtype == 1 ? launch_wgmma<__nv_bfloat16, 64>(p, s)
                         : launch_wgmma<__half, 64>(p, s);
-    return dtype == 1 ? launch_wgmma<__nv_bfloat16, 128>(p, s)
-                      : launch_wgmma<__half, 128>(p, s);
+    if (Dh == 128)
+      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 128>(p, s)
+                        : launch_wgmma<__half, 128>(p, s);
+    return dtype == 1 ? launch_wgmma<__nv_bfloat16, 256>(p, s)
+                      : launch_wgmma<__half, 256>(p, s);
   }
   const int width = Dh > Dv ? Dh : Dv;
   if (width <= 64) return launch<64>(variant, dtype, p, s);

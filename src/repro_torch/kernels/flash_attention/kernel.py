@@ -13,9 +13,10 @@ log-sum-exp (the serving path).
 The source holds three variants; :func:`flash_variant` picks one from
 the dtype and head dims alone, and the wrapper launches it or raises:
 
-* ``"wgmma"``: bf16 and fp16 with ``Dh == Dv`` in {64, 128}, every
+* ``"wgmma"``: bf16 and fp16 with ``Dh == Dv`` in {64, 128, 256}, every
   serving prefill (warp-specialised, TMA-fed wgmma);
-* ``"mma_sync"``: the other bf16 and fp16 head dims;
+* ``"mma_sync"``: the other bf16 and fp16 head dims (``Dh != Dv``, or
+  neither 64, 128 nor 256);
 * ``"ffma"``: float32 (IEEE FFMA, no TF32).
 
 The backward has two, both for ``Dh == Dv`` in {64, 128}:
@@ -36,7 +37,7 @@ from repro_torch.kernels.counts import count_launch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 VARIANTS = ("ffma", "mma_sync", "wgmma")     # the source's variant codes
 BWD_VARIANTS = ("ffma", "wgmma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128)
 WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1

@@ -502,6 +502,73 @@ def test_flash_wgmma_extent_one_dims_and_strided_q(cuda):
     tol = _FLASH_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
+# gemma2's heads at Dh 256: 16 query heads over 8 kv heads
+_DH256 = dict(Hq=16, Hkv=8, Dh=256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", [
+    dict(T=200, S=300), dict(T=128, S=64), dict(T=257, S=513, window=40),
+    dict(T=200, S=330, window=40, softcap=50.0, q_scale=30.0),
+    dict(T=150, S=330, qpos="ragged", window=9, softcap=5.0),
+    dict(T=96, S=80, qpos="ragged")])
+def test_flash_wgmma_dh256_matches_dense(cuda, dtype, case):
+    """The wgmma kernel at Dh 256 (gemma2's and recurrentgemma's head
+    dim), with T and S off its 128-row and 64-key tiles, a window that
+    binds, the softcap on logits of about 30 (q x 30, so the cap bends
+    them), ragged qpos with padding rows, k and v strided views of one
+    interleaved cache; against the dense oracle."""
+    case = dict(case)
+    window, softcap = case.pop("window", None), case.pop("softcap", 0.0)
+    q_scale = case.pop("q_scale", 1.0)
+    q, k, v, qpos = _flash_inputs(cuda, dtype, B=2, **_DH256, **case)
+    q = q * q_scale
+    assert k.stride(1) == 2 * 8 * 256             # interleaved k and v rows
+    n0 = flash_kernel.flash_attention_cuda.by_variant["wgmma"]
+    got = flash_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
+    want = dense_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_dh256_extent_one_dims_and_strided_q(cuda, dtype):
+    """Dh 256 with one batch and one kv head (strides passed as 0) and q
+    a strided view of a wider buffer, with gemma2's softcap."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    wide = torch.randn((1, 130, 4, 512), generator=g, device=cuda)
+    q = wide.to(dtype)[..., 128:384]               # strides (.., 2048, 512, 1)
+    kv = torch.randn((1, 200, 2, 1, 256), generator=g, device=cuda).to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    qpos = torch.arange(70, 200, dtype=torch.int32, device=cuda)[None]
+    n0 = flash_kernel.flash_attention_cuda.by_variant["wgmma"]
+    got = flash_attention(q, k, v, qpos=qpos, window=50, softcap=50.0)
+    assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
+    want = dense_attention(q, k, v, qpos=qpos, window=50, softcap=50.0)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_dh256_fully_masked_rows_are_zero(cuda, dtype):
+    q, k, v, _ = _flash_inputs(cuda, dtype, T=300, S=200, **_DH256)
+    qpos = torch.arange(300, dtype=torch.int32, device=cuda).repeat(2, 1)
+    qpos[0, 5:140] = -1                      # padding, across two blocks
+    qpos[1, 130:140] = 400                   # window 4: keys 397..400 > S
+    n0 = flash_kernel.flash_attention_cuda.by_variant["wgmma"]
+    out = flash_kernel.flash_attention_cuda(q, k, v, qpos=qpos, window=4,
+                                            softcap=50.0)
+    assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
+    assert torch.equal(out[0, 5:140], torch.zeros_like(out[0, 5:140]))
+    assert torch.equal(out[1, 130:140], torch.zeros_like(out[1, 130:140]))
+    assert bool(out[0, :5].abs().sum() > 0)
+    assert bool(out[1, 140:].abs().sum() > 0)
+    want = dense_attention(q, k, v, qpos=qpos, window=4, softcap=50.0)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_wgmma_fully_masked_rows_are_zero(cuda, dtype):
     q, k, v, _ = _flash_inputs(cuda, dtype, T=300, S=200, Dh=128)
@@ -521,11 +588,11 @@ def test_flash_cuda_counts_launches_by_variant(cuda):
     fn.by_variant = dict.fromkeys(fn.by_variant, 0)
     for dtype, D, Dv in ((torch.bfloat16, 128, 128), (torch.float16, 64, 64),
                          (torch.bfloat16, 256, 256), (torch.float32, 128, 128),
-                         (torch.bfloat16, 192, 128)):
+                         (torch.bfloat16, 192, 128), (torch.float16, 96, 96)):
         q, k, v, qpos = _flash_inputs(cuda, dtype, Dh=D, Dv=Dv)
         flash_attention(q, k, v, qpos=qpos)
-    assert fn.by_variant == {"ffma": 1, "mma_sync": 2, "wgmma": 2}
-    assert fn.launches == 5
+    assert fn.by_variant == {"ffma": 1, "mma_sync": 2, "wgmma": 3}
+    assert fn.launches == 6
 
 
 _RAGGED = (1, 127, 129, 1000)
@@ -954,9 +1021,10 @@ def test_flash_bwd_wgmma_mid_shape_matches_f64(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_forward_lse_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_forward_lse_matches_plain(cuda, dtype, D):
     """The forward's log-sum-exp against float64: masked rows -1e30."""
-    B, T, S, Hq, Hkv, D = 2, 96, 80, 8, 2, 128
+    B, T, S, Hq, Hkv = 2, 96, 80, 8, 2
     q, k, v, _, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, D,
                                    "ragged")
     out, lse = flash_kernel._forward(q, k, v, qpos, 7, 0.0, None,

@@ -32,10 +32,12 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
     (F32, 128, 128, "ffma"), (F32, 64, 64, "ffma"), (F32, 192, 128, "ffma"),
     (BF16, 128, 128, "wgmma"), (F16, 128, 128, "wgmma"),
     (BF16, 64, 64, "wgmma"), (F16, 64, 64, "wgmma"),
-    (BF16, 256, 256, "mma_sync"), (F16, 256, 256, "mma_sync"),
-    (BF16, 192, 128, "mma_sync"), (BF16, 128, 64, "mma_sync"),
+    (BF16, 256, 256, "wgmma"), (F16, 256, 256, "wgmma"),
+    (BF16, 192, 128, "mma_sync"), (F16, 192, 128, "mma_sync"),
+    (BF16, 128, 64, "mma_sync"), (BF16, 256, 128, "mma_sync"),
     (F16, 72, 40, "mma_sync"), (BF16, 96, 96, "mma_sync"),
-    (BF16, 8, 8, "mma_sync")])
+    (F16, 96, 96, "mma_sync"), (BF16, 8, 8, "mma_sync"),
+    (F32, 256, 256, "ffma")])
 def test_flash_variant_by_dtype_and_head_dims(dtype, Dh, Dv, want):
     assert flash_kernel.flash_variant(dtype, Dh, Dv) == want
 
@@ -48,6 +50,27 @@ def test_serving_prefill_takes_the_wgmma_variant():
                                       cfg.head_dim) == "wgmma"
     assert flash_kernel.flash_variant(F32, cfg.head_dim,
                                       cfg.head_dim) == "ffma"
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "recurrentgemma-2b"])
+def test_dh256_families_take_the_wgmma_variant(arch):
+    """gemma2's and recurrentgemma's bf16 prefills (head dim 256) run
+    the wgmma kernel, not the first mma_sync design."""
+    cfg = get_config(arch)
+    assert cfg.head_dim == 256
+    assert flash_kernel.flash_variant(BF16, cfg.head_dim,
+                                      cfg.head_dim) == "wgmma"
+
+
+def test_wgmma_entry_takes_the_head_dims_flash_variant_sends_it():
+    """The C entry's wgmma check names the same head dims as
+    WGMMA_HEAD_DIMS: a dim the wrapper sends to wgmma that the entry
+    refused would fail every launch on the card."""
+    text = (CSRC / "flash_attn_hd.cu").read_text()
+    m = re.search(r"const bool wgmma_dims = Dh == Dv && \(([^;]*)\);", text)
+    assert m, "no wgmma_dims check in flash_attn_hd.cu"
+    dims = tuple(int(d) for d in re.findall(r"Dh == (\d+)", m.group(1)))
+    assert dims == flash_kernel.WGMMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("in_dtype, out_dtype, want", [
