@@ -111,6 +111,20 @@
    window as a block mask (the library's one call for the function)
    and SDPA without the softcap (not the same function), and prints
    the ptxas registers and spills of its Dh-256 kernels.
+   Last, recurrentgemma-2b: first its RG-LRU scan kernel against
+   float64 and its plain float32 loop within 2e-4 of max|h| (bf16, a
+   prefill of the pool, 4 x 2048 x 2560, and a decode step from a
+   state), timed beside the loop and its byte bound; then the family
+   at full width and depth (26 layers, 18 RG-LRU and 8 local-attention
+   on the sliding-window ring of 2048, MQA 10/1 at Dh 256), in bf16,
+   with the traffic above: every prefill launches flash's wgmma 8
+   times and the scan 18 times, every decode step the scan 18 times
+   and no flash.  The first prompt's decode crosses position 2048, so
+   the ring wraps.  Its Engine, like the reference's, resets only
+   ``pos`` when it reuses a slot, so a re-admitted prompt starts from
+   the last occupant's state: the lone-prompt gate from fresh engines,
+   over every cache leaf, takes the re-admit gate's place.  Weights
+   and cache are printed from the bytes of their tensors.
 7. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -183,6 +197,15 @@ SERVE_ARCH = "yi-9b"
 # the other families served last, each at full width and depth alone on
 # the card: gemma2's Dh 256 and qwen3's 128 take flash's wgmma variant
 GEMMA2_ARCH, QWEN3_ARCH = "gemma2-9b", "qwen3-moe-30b-a3b"
+# served last: 18 RG-LRU layers (the scan kernel) and 8 attention layers
+# on the ring cache (flash's wgmma variant at Dh 256, window 2048)
+RG_ARCH = "recurrentgemma-2b"
+# the RG-LRU scan kernel against float64 and its plain float32 loop,
+# relative to max|h|: with decays up to a = 0.998 (lam -6) the float32
+# recurrence carries about 1 / (1 - a) = 500 roundings of 2**-24 at
+# worst, 3e-5; the kernel's accurate expf, log1pf and sqrtf differ from
+# torch's by an ulp or two; 2e-4 bounds both
+SCAN_TOL = 2e-4
 # one bf16 MoE layer against a float32 evaluation of the same routing:
 # the bf16 expert products round their operands and outputs (2**-9
 # relative each), a few 1e-3 in the Frobenius norm; 2e-2 bounds it
@@ -483,13 +506,16 @@ def kernel_phase(torch):
 
 
 def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
-               Dv: int, itemsize: int):
+               Dv: int, itemsize: int, window=None):
     """(flops, bytes) that causal attention needs for these query
-    positions: 4 * Dh flops (q.k and p.v) per visible (query, key) pair
-    and head; q and o once, and the k and v rows some query sees."""
-    seen = torch.clamp(qpos.long() + 1, 0, S)          # visible keys
-    pairs = int(seen.sum())
-    rows = int(seen.amax(dim=1).sum())                # kv rows read
+    positions (and window): 4 * Dh flops (q.k and p.v) per visible
+    (query, key) pair and head; q and o once, and the k and v rows some
+    query sees."""
+    hi = torch.clamp(qpos.long() + 1, 0, S)           # keys [lo, hi)
+    lo = torch.zeros_like(hi) if window is None else \
+        torch.clamp(qpos.long() + 1 - window, 0, S)
+    pairs = int((hi - lo).sum())
+    rows = int((hi.amax(dim=1) - lo.amin(dim=1)).clamp(min=0).sum())
     T = qpos.shape[1]
     flops = 2 * Hq * (Dh + Dv) * pairs
     nbytes = itemsize * (B * T * Hq * (Dh + Dv) + rows * Hkv * (Dh + Dv))
@@ -716,6 +742,53 @@ def flash_phase(torch, ptxas):
           f"the softcap, NOT the same function, "
           f"{flash_256['sdpa_without_softcap_ms']:.4f} ms")
     del q2, k2, v2, q2t, k2t, v2t, q2h, flex
+
+    # -- wgmma at recurrentgemma's ring prefill, as the engine calls it:
+    # 10 query heads over 1 kv head of Dh 256, k and v this call's own
+    # contiguous projection (S = T), window 2048, no softcap; the pool's
+    # qpos, the admitted slot's from 0 and the other slots' from the
+    # positions they hold after their prompts and decode steps
+    rg = get_config(RG_ARCH)
+    Hq3, Hkv3, D3 = rg.n_heads, rg.n_kv_heads, rg.head_dim
+    check(flash_variant(torch.bfloat16, D3, D3) == "wgmma",
+          f"{RG_ARCH}'s Dh {D3} does not take the wgmma variant")
+    q3 = torch.randn((B, T, Hq3, D3), generator=g, device=dev).bfloat16()
+    k3, v3 = (torch.randn((B, T, Hkv3, D3), generator=g, device=dev)
+              .bfloat16() for _ in range(2))
+    held = torch.tensor((0,) + tuple(p + DECODE_STEPS for p in PROMPTS),
+                        dtype=torch.int32, device=dev)[:B]
+    qpos3 = held[:, None] + torch.arange(T, dtype=torch.int32, device=dev)
+    wg0, n0 = by_variant["wgmma"], flash_attention_cuda.launches
+    _, err_rg = compare(f"wgmma {RG_ARCH} ring prefill {tuple(q3.shape)} x "
+                        f"k,v {tuple(k3.shape)} qpos from {held.tolist()} "
+                        f"window={rg.window}", torch.bfloat16, q3, k3, v3,
+                        qpos3, blockwise_attention, tol=FLASH_MAIN_TOL,
+                        window=rg.window)
+    check(by_variant["wgmma"] - wg0 == 1
+          and flash_attention_cuda.launches - n0 == 1,
+          f"{RG_ARCH}'s ring prefill check launched "
+          f"{flash_attention_cuda.launches - n0} flash kernels, "
+          f"{by_variant['wgmma'] - wg0} of them wgmma, not 1")
+    flops, nbytes = flash_work(torch, qpos3, T, B, Hq3, Hkv3, D3, D3, 2,
+                               window=rg.window)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    flash_256["recurrentgemma"] = dict(
+        max_abs_err=err_rg,
+        ms=cuda_ms(torch, lambda: flash_attention_cuda(
+            q3, k3, v3, qpos=qpos3, window=rg.window), 10),
+        plain_ms=cuda_ms(torch, lambda: blockwise_attention(
+            q3, k3, v3, qpos=qpos3, window=rg.window), 3),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        shape=[list(q3.shape), list(k3.shape)], window=rg.window)
+    r = flash_256["recurrentgemma"]
+    print(f"flash wgmma Dh {D3} at {RG_ARCH}'s ring prefill "
+          f"{tuple(q3.shape)} x {tuple(k3.shape)} window {rg.window}: "
+          f"{flops:.4e} flops, {nbytes:.4e} bytes; kernel {r['ms']:.4f} ms "
+          f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms")
+    del q3, k3, v3
     torch.cuda.empty_cache()
     return flash, flash_256
 
@@ -974,14 +1047,102 @@ def flash_bwd_phase(torch):
     return bwd
 
 
+def scan_f64(torch, x, ga, gi, lam, h0):
+    """The RG-LRU recurrence of ``rglru_scan_ref`` in float64."""
+    x, ga, gi, lam = (t.double() for t in (x, ga, gi, lam))
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * torch.sigmoid(ga)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-12)) \
+        * torch.sigmoid(gi) * x
+    h = torch.zeros_like(b[:, 0]) if h0 is None else h0.double()
+    out = torch.empty_like(b)
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+def scan_phase(torch):
+    """The RG-LRU scan kernel against float64 and its plain float32
+    loop at recurrentgemma's shapes in bf16, as the engine calls it:
+    a prefill of the whole pool (SERVE_SLOTS x PROMPTS[0] x lru_width)
+    from the slots' states h0, which are not 0 on a reused or live slot,
+    and a decode step (T = 1 from h0); and the prefill without a state,
+    as a forward calls it.  lam spreads over decays from a near 1 to the
+    init's a near 0.  Each call adds one launch.  Times the kernel and
+    the plain version at the prefill shape from h0 with CUDA events; its
+    bound is the bytes (each input read once, h written once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    W = get_config(RG_ARCH).rg.lru_width
+    B, T = SERVE_SLOTS, PROMPTS[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lam = torch.rand((W,), generator=g, device="cuda") * 10 - 6
+    errs, cases = {}, {}
+    for name, t, with_h0 in (("prefill", T, True), ("decode", 1, True),
+                             ("prefill without state", T, False)):
+        x, ga, gi = (torch.randn((B, t, W), generator=g, device="cuda")
+                     .bfloat16() for _ in range(3))
+        h0 = torch.randn((B, W), generator=g, device="cuda") \
+            if with_h0 else None
+        n0 = rglru_scan_cuda.launches
+        got = rglru_scan_cuda(x, ga, gi, lam, h0)
+        check(rglru_scan_cuda.launches - n0 == 1,
+              f"rglru_scan {name}: one call added "
+              f"{rglru_scan_cuda.launches - n0} launches, not 1")
+        plain = rglru_scan_ref(x, ga, gi, lam, h0)
+        want = scan_f64(torch, x, ga, gi, lam, h0)
+        torch.cuda.synchronize()
+        top = float(want.abs().max())
+        e64 = float((got.double() - want).abs().max()) / top
+        eplain = float((got - plain).abs().max()) / top
+        errs[name] = float((got - plain).abs().max())
+        print(f"rglru_scan {name} {(B, t, W)} bf16"
+              f"{' from h0' if with_h0 else ''}: max|err| / max|h| against "
+              f"float64 {e64:.3e}, against the plain loop {eplain:.3e} "
+              f"(bound {SCAN_TOL:g})")
+        check(e64 <= SCAN_TOL and eplain <= SCAN_TOL,
+              f"rglru_scan {name}: {e64}, {eplain} > {SCAN_TOL}")
+        cases[name] = (x, ga, gi, h0)
+    x, ga, gi, h0 = cases["prefill"]
+    x1, ga1, gi1, h01 = cases["decode"]
+    entry = dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/models/rglru.py:73",
+        max_abs_err=max(errs["prefill"], errs["prefill without state"]),
+        ms=cuda_ms(torch, lambda: rglru_scan_cuda(x, ga, gi, lam, h0), 20),
+        plain_ms=cuda_ms(torch, lambda: rglru_scan_ref(x, ga, gi, lam, h0),
+                         2),
+        # three bf16 inputs and h0 read once, h written once in float32
+        bound_ms=1e3 * (B * T * W * (3 * 2 + 4) + B * W * 4)
+        / HBM_BYTES_PER_S,
+        bound_by="bytes", library_ms=None,
+        decode_ms=cuda_ms(torch, lambda: rglru_scan_cuda(x1, ga1, gi1, lam,
+                                                         h01), 50),
+        decode_max_abs_err=errs["decode"],
+        shape=[B, T, W])
+    print(f"rglru_scan at {entry['shape']} bf16 from h0: kernel "
+          f"{entry['ms']:.4f} ms, plain loop {entry['plain_ms']:.4f} ms, "
+          f"bound {entry['bound_ms']:.4f} ms (bytes); a decode step "
+          f"{(B, 1, W)} {entry['decode_ms']:.4f} ms")
+    del cases, x, ga, gi, h0, x1, ga1, gi1, h01
+    torch.cuda.empty_cache()
+    return entry
+
+
 def _wrappers():
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
     return {"jacobi_hd": jacobi_cuda, "gemm_hd": gemm_cuda,
             "flash_attn_hd": flash_attention_cuda,
-            "flash_attn_bwd_hd": flash_attention_bwd_cuda}
+            "flash_attn_bwd_hd": flash_attention_bwd_cuda,
+            "rglru_scan": rglru_scan_cuda}
 
 
 def reset_launches():
@@ -996,9 +1157,9 @@ def read_launches():
 
 
 def read_variants():
-    """Launches per variant of each kernel (the Jacobi source has one)."""
-    return {name: dict(getattr(fn, "by_variant", {"f32": fn.launches}))
-            for name, fn in _wrappers().items()}
+    """Launches per variant of each kernel whose source has variants."""
+    return {name: dict(fn.by_variant) for name, fn in _wrappers().items()
+            if hasattr(fn, "by_variant")}
 
 
 def jacobi_program(rt, init, weights=None):
@@ -1575,11 +1736,20 @@ def serve_prompts(vocab: int):
     return [rng.integers(0, vocab, n) for n in PROMPTS]
 
 
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a tree of dicts and lists."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
 def serve_path(torch, arch: str, variant: str, label: str,
-               readmit_repeats: bool = True):
+               readmit_repeats: bool = True, per_step=None):
     """``arch`` at full width and depth behind the slot Engine: admits,
     decode steps, finishes, and the first prompt again, every prefill
-    launching the flash kernel's ``variant`` once per layer.  With
+    launching the flash kernel's ``variant``.  ``per_step`` maps each
+    kernel the family launches to its launches per prefill and per
+    decode step (default: flash once per layer in a prefill, never in
+    decode); every other kernel must launch no time.  With
     ``readmit_repeats`` the re-admitted prompt must repeat its greedy
     continuation.  Returns (launches, launches by variant, bundle,
     params); the engine and its cache are freed."""
@@ -1593,52 +1763,62 @@ def serve_path(torch, arch: str, variant: str, label: str,
                       max_seq=SERVE_MAX_SEQ, seed=0)
     torch.cuda.synchronize()
     cfg = eng.cfg
+    per_step = per_step or {"flash_attn_hd": (cfg.n_layers, 0)}
     n_params = cfg.param_count()
-    kv_bytes = 2 * cfg.n_layers * SERVE_SLOTS * SERVE_MAX_SEQ \
-        * cfg.n_kv_heads * cfg.head_dim * 2
+    w_bytes, cache_bytes = tensor_bytes(eng.params), tensor_bytes(eng.cache)
     ffn = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
            f"{cfg.moe.d_expert_ff} (capacity factor "
            f"{cfg.moe.capacity_factor})" if cfg.moe else f"d_ff {cfg.d_ff}")
+    if cfg.rg:
+        ffn += (f", lru_width {cfg.rg.lru_width}, conv width "
+                f"{cfg.rg.conv_width}, {cfg.rg.pattern} rec per attention")
     print(f"{label}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.head_dim} {ffn} "
           f"vocab {cfg.vocab}, windows {sorted(set(_window_array(cfg)))}, "
           f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, bfloat16: "
-          f"param_count() {n_params} -> {2 * n_params / 1e9:.2f} GB of "
-          f"weights, KV cache {kv_bytes / 1e9:.2f} GB ({SERVE_SLOTS} slots x "
-          f"{SERVE_MAX_SEQ}); allocated "
+          f"weights {w_bytes / 1e9:.3f} GB (param_count() {n_params}), "
+          f"cache {cache_bytes / 1e9:.3f} GB ({SERVE_SLOTS} slots x "
+          f"{SERVE_MAX_SEQ}), both from the tensors' bytes; allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up (random "
           f"weights from a seeded generator) "
           f"{time.perf_counter() - t0:.2f} s")
 
-    flash = _wrappers()["flash_attn_hd"]
+    wrappers = _wrappers()
+    flash = wrappers["flash_attn_hd"]
     prompts = serve_prompts(cfg.vocab)
     prefill_ms, per_prefill, decode_ms, decode_tokens = [], [], [], 0
 
+    def counts():
+        return {k: wrappers[k].launches for k in per_step}
+
     def admit(prompt):
-        n0, w0 = flash.launches, flash.by_variant[variant]
+        n0, w0 = counts(), flash.by_variant[variant]
         torch.cuda.synchronize()
         t = time.perf_counter()
         sid = eng.add_request(prompt)
         torch.cuda.synchronize()
         prefill_ms.append(1e3 * (time.perf_counter() - t))
-        per_prefill.append(flash.launches - n0)
-        check(flash.by_variant[variant] - w0 == flash.launches - n0,
+        per_prefill.append({k: n - n0[k] for k, n in counts().items()})
+        check(flash.by_variant[variant] - w0
+              == per_prefill[-1]["flash_attn_hd"],
               f"a {label} prefill launched another flash variant than "
               f"{variant}")
         return sid
 
     def decode(n):
         nonlocal decode_tokens
-        n0 = flash.launches
         for _ in range(n):
+            n0 = counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = eng.step()
             torch.cuda.synchronize()
             decode_ms.append(1e3 * (time.perf_counter() - t))
             decode_tokens += len(out)
-        check(flash.launches == n0, f"a {label} decode step launched flash "
-              f"attention")
+            got = {k: m - n0[k] for k, m in counts().items()}
+            check(got == {k: d for k, (_, d) in per_step.items()},
+                  f"a {label} decode step launched {got}, not "
+                  f"{ {k: d for k, (_, d) in per_step.items()} }")
 
     reset_launches()
     t_run = time.perf_counter()
@@ -1662,14 +1842,15 @@ def serve_path(torch, arch: str, variant: str, label: str,
           f"max {max(decode_ms):.3f} over {len(decode_ms)} steps; "
           f"{decode_tokens} decode tokens in {sum(decode_ms) / 1e3:.3f} s = "
           f"{decode_tokens / (sum(decode_ms) / 1e3):.1f} tokens/s; whole run "
-          f"{t_run:.3f} s; flash launches per prefill {per_prefill}; "
-          f"launches {launches}, flash by variant {variants['flash_attn_hd']}")
-    check(per_prefill == [cfg.n_layers] * (len(PROMPTS) + 1),
-          f"{label}: flash launches per prefill {per_prefill} != "
-          f"{cfg.n_layers}")
-    check(launches["jacobi_hd"] == 0 and launches["gemm_hd"] == 0
-          and launches["flash_attn_bwd_hd"] == 0,
-          f"{label}: launched another path's kernel")
+          f"{t_run:.3f} s; launches per prefill {per_prefill}, per decode "
+          f"step { {k: d for k, (_, d) in per_step.items()} }; launches "
+          f"{launches}, flash by variant {variants['flash_attn_hd']}")
+    check(per_prefill == [{k: p for k, (p, _) in per_step.items()}]
+          * (len(PROMPTS) + 1),
+          f"{label}: launches per prefill {per_prefill}, not "
+          f"{ {k: p for k, (p, _) in per_step.items()} }")
+    check(all(n == 0 for k, n in launches.items() if k not in per_step),
+          f"{label}: launched another path's kernel: {launches}")
     check(variants["flash_attn_hd"] == {
         v: launches["flash_attn_hd"] if v == variant else 0
         for v in VARIANTS},
@@ -1693,7 +1874,7 @@ def serve_path(torch, arch: str, variant: str, label: str,
                      f"2 live)", eng.step, host_top=8)
     print(f"{label}: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, weights "
-          f"{2 * n_params / 1e9:.3f} GB by param_count()")
+          f"{w_bytes / 1e9:.3f} GB")
     bundle, params = eng.bundle, eng.params
     del eng
     torch.cuda.empty_cache()
@@ -1702,14 +1883,18 @@ def serve_path(torch, arch: str, variant: str, label: str,
 
 def lone_prompt_repeats(torch, bundle, params, prompt, steps: int) -> None:
     """One prompt admitted alone into a fresh Engine on ``params`` and
-    decoded ``steps`` steps, twice: every bit of both KV caches (each
-    layer's keys and values of every position, so every layer's input
-    at every step) must be equal, and the streams too, a secondary
-    check (random weights tend to decode one token over and over, so
-    equal streams alone show little).  Each run starts from
-    the same pool state (every slot empty), because under MoE capacity
-    the empty slots' rows compete for experts too."""
+    decoded ``steps`` steps, twice: every bit of both caches (every
+    leaf: for a decoder each layer's keys and values of every position,
+    so every layer's input at every step; for recurrentgemma also each
+    recurrent layer's state and conv tail and the ring's positions)
+    must be equal, and the streams too, a secondary check (random
+    weights tend to decode one token over and over, so equal streams
+    alone show little).  Each run starts from the same pool state
+    (every slot empty): under MoE capacity the empty slots' rows
+    compete for experts too, and recurrentgemma's Engine, like the
+    reference's, resets only ``pos`` when it reuses a slot."""
     from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
 
     streams, caches = [], []
     for _ in range(2):
@@ -1719,13 +1904,15 @@ def lone_prompt_repeats(torch, bundle, params, prompt, steps: int) -> None:
         for _ in range(steps):
             eng.step()
         streams.append(eng.finish(sid))
-        caches.append(eng.cache["main"])
+        caches.append(tree_leaves(eng.cache))
         del eng
     same = streams[0] == streams[1]
-    bits = all(torch.equal(caches[0][n], caches[1][n]) for n in ("k", "v"))
+    bits = len(caches[0]) == len(caches[1]) and all(
+        torch.equal(a, b) for a, b in zip(*caches))
     print(f"{bundle.cfg.name}: one prompt of {len(prompt)} tokens admitted "
-          f"alone into a fresh engine and decoded {steps} steps, twice: KV "
-          f"caches bit-identical {bits}; streams equal (secondary) {same} "
+          f"alone into a fresh engine and decoded {steps} steps, twice: "
+          f"every one of the {len(caches[0])} cache leaves bit-identical "
+          f"{bits}; streams equal (secondary) {same} "
           f"({streams[0][len(prompt):]})")
     check(same and bits, f"{bundle.cfg.name}: the lone prompt's run "
           f"changed between two runs from the same pool state")
@@ -2029,6 +2216,25 @@ def main() -> None:
     moe_layer_check(torch, bundle, params, prompt)
     del bundle, params
     torch.cuda.empty_cache()
+    # recurrentgemma last, so that every earlier phase runs as it did
+    # before: its scan kernel against its plain version, then its
+    # serving.  The reference's Engine resets only `pos` when it reuses
+    # a slot, so a re-admitted prompt starts from the last occupant's
+    # recurrent state (the port keeps that behaviour): lone prompts
+    # from fresh engines take the re-admit gate's place
+    scan = scan_phase(torch)
+    from repro_torch.configs import get_config
+    rg_cfg = get_config(RG_ARCH)
+    n_attn = rg_cfg.n_layers // (rg_cfg.rg.pattern + 1)
+    n_rec = rg_cfg.n_layers - n_attn
+    rg_launches, rg_variants, bundle, params = serve_path(
+        torch, RG_ARCH, "wgmma", "recurrentgemma serving",
+        readmit_repeats=False,
+        per_step={"flash_attn_hd": (n_attn, 0), "rglru_scan": (n_rec, n_rec)})
+    lone_prompt_repeats(torch, bundle, params,
+                        serve_prompts(bundle.cfg.vocab)[0], DECODE_STEPS)
+    del bundle, params
+    torch.cuda.empty_cache()
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -2042,20 +2248,29 @@ def main() -> None:
                                  "(h) fault path":
                                      fault_launches["flash_attn_hd"],
                                  "gemma2 engine": g2_launches["flash_attn_hd"],
-                                 "qwen3 engine": q3_launches["flash_attn_hd"]}
+                                 "qwen3 engine": q3_launches["flash_attn_hd"],
+                                 "recurrentgemma engine":
+                                     rg_launches["flash_attn_hd"]}
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
+        + rg_variants["flash_attn_hd"][k]
         for k, n in serve_variants["flash_attn_hd"].items()}
-    flash_256["launches"] = g2_variants["flash_attn_hd"]["wgmma"]
+    # every Dh-256 launch: gemma2's and recurrentgemma's prefills
+    flash_256["launches"] = (g2_variants["flash_attn_hd"]["wgmma"]
+                             + rg_variants["flash_attn_hd"]["wgmma"])
     flash["wgmma_dh256_gemma2"] = flash_256
     flash_bwd["launches_by_path"] = {
         "(h) train": train_launches["flash_attn_bwd_hd"],
         "(h) fault path": fault_launches["flash_attn_bwd_hd"]}
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["launches_by_variant"] = train_variants["flash_attn_bwd_hd"]
-    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd]}))
+    scan["launches_by_path"] = {"recurrentgemma engine":
+                                rg_launches["rglru_scan"]}
+    scan["launches"] = rg_launches["rglru_scan"]
+    scan["ptxas"] = dict(ptxas["rglru_scan"])
+    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd, scan]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,105 @@
+"""Launch wrapper of the hand-written RG-LRU scan
+(``repro_torch/csrc/rglru_scan.cu``), the port of the reference's
+``_rglru_scan`` (``repro/models/rglru.py:73``).  The library builds on
+its first launch."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.counts import count_launch
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# rglru_scan_hd's C parameters, in order
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _entry():
+    fn = build.load("rglru_scan").rglru_scan_hd
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x_in, gate_a, gate_i, lam, h0):
+    """Validates the operands; returns (B, T, W)."""
+    tensors = [x_in, gate_a, gate_i, lam] + ([h0] if h0 is not None else [])
+    if not all(t.is_cuda and t.device == x_in.device for t in tensors):
+        raise ValueError("rglru_scan_cuda needs every operand on one CUDA "
+                         "device")
+    if x_in.dtype not in _DTYPES or gate_a.dtype != x_in.dtype \
+            or gate_i.dtype != x_in.dtype:
+        raise TypeError(f"rglru_scan_cuda takes x_in, gate_a and gate_i "
+                        f"of one type, float32 or bfloat16, got "
+                        f"{x_in.dtype}, {gate_a.dtype}, {gate_i.dtype}")
+    if x_in.dim() != 3:
+        raise ValueError(f"x_in must be (B, T, W), got {tuple(x_in.shape)}")
+    B, T, W = x_in.shape
+    for name, t in (("gate_a", gate_a), ("gate_i", gate_i)):
+        if t.shape != x_in.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} is not x_in's "
+                             f"{tuple(x_in.shape)}")
+    for name, t in (("x_in", x_in), ("gate_a", gate_a), ("gate_i", gate_i)):
+        if t.stride(2) != 1 and W > 1:
+            raise ValueError(f"rglru_scan_cuda needs a unit-stride last dim "
+                             f"of {name}, got strides {t.stride()}")
+    if lam.dtype != torch.float32 or tuple(lam.shape) != (W,) \
+            or not lam.is_contiguous():
+        raise ValueError(f"lam must be a contiguous ({W},) float32 tensor, "
+                         f"got {tuple(lam.shape)} {lam.dtype}")
+    if h0 is not None and (h0.dtype != torch.float32
+                           or tuple(h0.shape) != (B, W)
+                           or (h0.stride(1) != 1 and W > 1)):
+        raise ValueError(f"h0 must be a ({B}, {W}) float32 tensor with a "
+                         f"unit-stride last dim, got {tuple(h0.shape)} "
+                         f"{h0.dtype} strides {h0.stride()}")
+    if B > 65535:
+        raise ValueError(f"rglru_scan_cuda's grid takes B up to 65535, "
+                         f"got {B}")
+    return B, T, W
+
+
+def rglru_scan_cuda(x_in: torch.Tensor, gate_a: torch.Tensor,
+                    gate_i: torch.Tensor, lam: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h (B, T, W) float32 of the RG-LRU recurrence over axis 1 (the
+    function of :func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan_ref`)
+    in one launch.  x_in, gate_a and gate_i are (B, T, W), float32 or
+    bfloat16, with any batch and time strides and a unit-stride last
+    dim; lam (W,) float32; h0 (B, W) float32 or None.  Launches are
+    counted in ``rglru_scan_cuda.launches`` as executions
+    (:mod:`repro_torch.kernels.counts`).  The kernel has no backward:
+    with grad enabled and an input that requires it, this raises."""
+    B, T, W = _check(x_in, gate_a, gate_i, lam, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x_in, gate_a, gate_i, lam, h0)):
+        raise NotImplementedError(
+            "rglru_scan_cuda has no backward yet (ROADMAP: Queue 1 item 4, "
+            "training recurrentgemma)")
+    out = torch.empty((B, T, W), dtype=torch.float32, device=x_in.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 7)(
+        x_in.stride(0), x_in.stride(1), gate_a.stride(0), gate_a.stride(1),
+        gate_i.stride(0), gate_i.stride(1),
+        0 if h0 is None else h0.stride(0))
+    with torch.cuda.device(x_in.device):
+        err = _entry()(
+            x_in.data_ptr(), gate_a.data_ptr(), gate_i.data_ptr(),
+            lam.data_ptr(), None if h0 is None else h0.data_ptr(),
+            out.data_ptr(), _DTYPES[x_in.dtype], B, T, W,
+            ctypes.addressof(strides),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan_hd launch failed with CUDA error "
+                           f"{err}")
+    count_launch(rglru_scan_cuda)
+    return out
+
+
+rglru_scan_cuda.launches = 0

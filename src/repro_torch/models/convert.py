@@ -5,12 +5,17 @@
 layers stacked with a leading ``L`` (``repro/models/lm.py:99-112``), and
 returns the port's parameters: one dict per layer.
 
-Both ported families come across: the dense decoder (gemma2's
-``post_attn``/``post_mlp`` norms among its norms) and the moe decoder,
+The ported families come across: the dense decoder (gemma2's
+``post_attn``/``post_mlp`` norms among its norms), the moe decoder,
 whose ``ffn`` group is the router (L, D, E), kept float32 because
 ``_route`` computes in float32 (``moe.py:63``), and the expert stacks
 ``w_gate``/``w_up`` (L, E, D, F) and ``w_down`` (L, E, F, D), with a
-``shared`` group where the config has shared experts.
+``shared`` group where the config has shared experts, and the hybrid
+recurrentgemma, whose ``{"emb", "rec", "attn", "mlp", "norms"}``
+groups each unstack by their own leading dim (18 recurrent, 8
+attention and 26 mlp and norm layers at full size).  Its ``lam`` and
+recurrent biases stay float32: ``lam`` is read in float32
+(``rglru.py:78``), the biases cast at each use.
 
 Every matrix is stored in ``compute_dtype``.  The reference keeps
 float32 masters but casts each matrix to the compute dtype right
@@ -43,20 +48,39 @@ def _t(x, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+_HYBRID = {"emb", "rec", "attn", "mlp", "norms"}
+_REC_F32 = ("lam", "conv_b", "b_a", "b_i")
+
+
 def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
                     compute_dtype=torch.bfloat16) -> Params:
     """The port's params of a dense or moe decoder from the reference's
     ``{"emb": ..., "main": {"attn", "norms", "ffn"}}`` pytree of numpy
-    arrays."""
+    arrays, or of recurrentgemma from its ``{"emb", "rec", "attn",
+    "mlp", "norms"}``."""
     dev = resolve_device(device)
+    mat = lambda x: _t(x, compute_dtype, dev)          # noqa: E731
+    f32 = lambda x: _t(x, torch.float32, dev)          # noqa: E731
+    emb = params_np["emb"]
+    emb_p = {"in_emb": mat(emb["in_emb"]), "out_emb": mat(emb["out_emb"]),
+             "final_norm": f32(emb["final_norm"])}
+    if set(params_np) == _HYBRID:
+        def unstack(group, f32_names=()):
+            n = len(next(iter(group.values())))
+            return [{k: (f32 if k in f32_names else mat)(w[i])
+                     for k, w in group.items()} for i in range(n)]
+        return {"emb": emb_p,
+                "rec": unstack(params_np["rec"], _REC_F32),
+                "attn": unstack(params_np["attn"]),
+                "mlp": unstack(params_np["mlp"]),
+                "norms": unstack(params_np["norms"], tuple(
+                    params_np["norms"]))}
     if set(params_np) != {"emb", "main"}:
         raise NotImplementedError(
             f"from_jax_params carries the dense and moe decoders without "
-            f"leading dense layers or MTP, got groups {sorted(params_np)}")
-    emb = params_np["emb"]
+            f"leading dense layers or MTP and recurrentgemma, got groups "
+            f"{sorted(params_np)}")
     main = params_np["main"]
-    mat = lambda x: _t(x, compute_dtype, dev)          # noqa: E731
-    f32 = lambda x: _t(x, torch.float32, dev)          # noqa: E731
 
     def ffn(group, i):
         return {n: ffn(w, i) if isinstance(w, dict) else
@@ -70,10 +94,7 @@ def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
             "norms": {n: f32(w[i]) for n, w in main["norms"].items()},
             "ffn": ffn(main["ffn"], i),
         })
-    return {"emb": {"in_emb": mat(emb["in_emb"]),
-                    "out_emb": mat(emb["out_emb"]),
-                    "final_norm": f32(emb["final_norm"])},
-            "main": layers}
+    return {"emb": emb_p, "main": layers}
 
 
 def _moment(m, like: np.ndarray, i, block: int, dev):

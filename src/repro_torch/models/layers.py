@@ -1,5 +1,6 @@
-"""Transformer building blocks with cache support: the dense-attention
-part of the reference's ``repro/models/layers.py``.
+"""Transformer building blocks with cache support: the attention part
+of the reference's ``repro/models/layers.py``, with the full cache and
+the sliding-window ring cache.
 
 Conventions:
   * params are plain dicts of tensors, one dict per layer (the
@@ -78,6 +79,25 @@ def norms_params(d_model: int, names, *, device="cuda") -> Params:
 # ----------------------------------------------------------------------
 # attention (one layer)
 # ----------------------------------------------------------------------
+def _update_ring(cache_kv: torch.Tensor, kpos: torch.Tensor,
+                 new_kv: torch.Tensor, new_pos: torch.Tensor):
+    """Sliding-window ring cache of width W, written in place: new
+    (B, t, H, Dh) goes to slots (new_pos + i) % W, and kpos (B, W) takes
+    the absolute positions (-1 = empty slot).  A t > W writes only the
+    last W tokens, the ones that survive, so no slot is written twice
+    and the result does not depend on the order of a scatter.  Returns
+    (cache_kv, kpos)."""
+    W = cache_kv.shape[1]
+    t = new_kv.shape[1]
+    t0 = max(0, t - W)
+    p = new_pos.long()[:, None] + torch.arange(t0, t, device=cache_kv.device)
+    idx = p % W
+    bidx = torch.arange(cache_kv.shape[0], device=cache_kv.device)[:, None]
+    cache_kv[bidx, idx] = new_kv[:, t0:].to(cache_kv.dtype)
+    kpos[bidx, idx] = p.to(kpos.dtype)
+    return cache_kv, kpos
+
+
 def attention(p: Params, x: torch.Tensor, *, cfg, window=None,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               attn_softcap: float = 0.0, rope_base: float = 10000.0
@@ -85,10 +105,12 @@ def attention(p: Params, x: torch.Tensor, *, cfg, window=None,
     """One GQA attention layer.
 
     ``window``: sliding-window size (an int; the decoder stacks pass a
-    huge one for global attention) or None.  cache: None (forward) or
+    huge one for global attention) or None.  cache: None (forward),
     dict(k, v, pos) -- this layer's (B, T_max, Hkv, Dh) cache views and
-    the per-sequence write offset (B,).  Returns (out, new_cache), where
-    new_cache holds the same k and v tensors, written in place.
+    the per-sequence write offset (B,) -- or dict(k, v, kpos, pos), a
+    ring of (B, W, Hkv, Dh) with W = ``cfg.window`` and the absolute
+    position of each slot (B, W).  Returns (out, new_cache), where
+    new_cache holds the same k, v (and kpos) tensors, written in place.
     """
     B, T, D = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -111,33 +133,49 @@ def attention(p: Params, x: torch.Tensor, *, cfg, window=None,
             out = gqa_attention(q, k, v, mask, attn_softcap)
         new_cache = None
     else:
-        if "kpos" in cache:
-            raise NotImplementedError(
-                "the sliding-window ring cache is not ported yet (ROADMAP: "
-                "'Still to port', the other model families: ring and local "
-                "windows)")
         pos = cache["pos"]                       # (B,)
         positions = pos[:, None] + torch.arange(T, device=x.device)[None, :]
         q = rope(q, positions, rope_base)
         k = rope(k, positions, rope_base)
-        ck = batch_update(cache["k"], k, pos)
-        cv = batch_update(cache["v"], v, pos)
-        Tmax = ck.shape[1]
-        if T >= FLASH_MIN_T:
-            # a bf16 cache in a bf16 model goes in as the cache's view
-            out = flash_attention(q, ck.to(cdt), cv.to(cdt),
-                                  qpos=positions.to(torch.int32),
-                                  window=window,
-                                  softcap=attn_softcap or 0.0)
-        else:
-            kpos = torch.arange(Tmax, device=x.device)[None, :]
-            qpos = positions
-            valid = kpos[:, None, :] <= qpos[:, :, None]
-            if window is not None:
-                valid &= kpos[:, None, :] > qpos[:, :, None] - window
-            out = gqa_attention(q, ck.to(cdt), cv.to(cdt), valid,
-                                attn_softcap)
-        new_cache = {"k": ck, "v": cv, "pos": pos + T}
+        if "kpos" in cache:                      # ring (sliding window)
+            ck, kp = _update_ring(cache["k"], cache["kpos"], k, pos)
+            cv, _ = _update_ring(cache["v"], cache["kpos"], v, pos)
+            if T > 1:
+                # windowed prefill over THIS call's tokens, as the
+                # reference: the ring's slots are overwritten T/W times
+                # in a long prefill, so they cannot serve early queries.
+                # Exact for a prefill from 0
+                out = flash_attention(q, k, v, qpos=positions.to(torch.int32),
+                                      window=int(cfg.window),
+                                      softcap=attn_softcap or 0.0)
+            else:
+                # decode: the ring slots holding positions (qpos-W, qpos]
+                qpos = positions                 # (B, T)
+                valid = (kp[:, None, :] <= qpos[:, :, None]) & \
+                        (kp[:, None, :] > qpos[:, :, None] - cfg.window) & \
+                        (kp[:, None, :] >= 0)
+                out = gqa_attention(q, ck.to(cdt), cv.to(cdt), valid,
+                                    attn_softcap)
+            new_cache = {"k": ck, "v": cv, "kpos": kp, "pos": pos + T}
+        else:                                    # full cache
+            ck = batch_update(cache["k"], k, pos)
+            cv = batch_update(cache["v"], v, pos)
+            Tmax = ck.shape[1]
+            if T >= FLASH_MIN_T:
+                # a bf16 cache in a bf16 model goes in as the cache's view
+                out = flash_attention(q, ck.to(cdt), cv.to(cdt),
+                                      qpos=positions.to(torch.int32),
+                                      window=window,
+                                      softcap=attn_softcap or 0.0)
+            else:
+                kpos = torch.arange(Tmax, device=x.device)[None, :]
+                qpos = positions
+                valid = kpos[:, None, :] <= qpos[:, :, None]
+                if window is not None:
+                    valid &= kpos[:, None, :] > qpos[:, :, None] - window
+                out = gqa_attention(q, ck.to(cdt), cv.to(cdt), valid,
+                                    attn_softcap)
+            new_cache = {"k": ck, "v": cv, "pos": pos + T}
     out = out.reshape(B, T, Hq * Dh) @ p["wo"].to(cdt)
     return out, new_cache
 
@@ -157,3 +195,16 @@ def init_full_cache(cfg, n_layers: int, B: int, T_max: int,
     shape = (n_layers, B, T_max, Hkv, Dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_ring_cache(cfg, n_layers: int, B: int, dtype=torch.bfloat16,
+                    device="cuda"):
+    """The sliding-window ring of ``cfg.window`` slots a layer; every
+    slot starts empty (``kpos`` -1)."""
+    device = resolve_device(device)
+    W, Hkv, Dh = cfg.window, cfg.n_kv_heads, cfg.head_dim
+    shape = (n_layers, B, W, Hkv, Dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "kpos": torch.full((n_layers, B, W), -1, dtype=torch.int32,
+                               device=device)}

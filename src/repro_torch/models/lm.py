@@ -1,6 +1,7 @@
 """Model assembly: init / forward / prefill / decode, the decoder
 families of the reference's ``repro/models/lm.py``: dense (global,
-local or gemma2's alternating attention) and moe.
+local or gemma2's alternating attention) and moe.  ``build`` also
+dispatches the hybrid family (recurrentgemma) to ``models/hybrid.py``.
 
 Structure notes:
   * layers are a Python list of per-layer parameter dicts, run in a
@@ -23,7 +24,8 @@ Structure notes:
     casts to the compute dtype.
 
 ``build(cfg, compute_dtype, device)`` returns a ModelBundle of closures
-and raises ``NotImplementedError`` for the families not ported yet.
+and raises ``NotImplementedError`` for the families not ported yet
+(xlstm, encdec, vlm, mla).
 Every entry point runs on ``device``, which defaults to "cuda" and
 raises without a card.
 """
@@ -230,10 +232,13 @@ _NOT_PORTED = ("is not ported yet (ROADMAP: 'Still to port', the other "
 def build(cfg, compute_dtype=torch.bfloat16, device="cuda") -> ModelBundle:
     """The model of ``cfg`` in ``compute_dtype`` on ``device``.  Ported:
     the dense decoder with global, local or alternating attention
-    (yi-9b, deepseek-7b, mistral-large-123b, gemma2-9b) and the moe
+    (yi-9b, deepseek-7b, mistral-large-123b, gemma2-9b), the moe
     decoder without MLA, leading dense layers or MTP
-    (qwen3-moe-30b-a3b)."""
+    (qwen3-moe-30b-a3b) and the RG-LRU hybrid (recurrentgemma-2b)."""
     dev = resolve_device(device)
+    if cfg.family == "hybrid" and cfg.rg is not None:
+        from .hybrid import build_recurrentgemma
+        return build_recurrentgemma(cfg, compute_dtype, dev)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name} ({cfg.family}) {_NOT_PORTED}")
     if cfg.mla is not None or cfg.dense_layers > 0 or cfg.mtp:

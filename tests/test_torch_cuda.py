@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention.ref import dense_attention
 from repro_torch.kernels.gemm_hd import kernel as gemm_kernel
 from repro_torch.kernels.gemm_hd.ops import gemm
 from repro_torch.kernels.hd import make_gemm_kernel, make_jacobi_kernel
+from repro_torch.kernels.rglru_scan import kernel as rglru_kernel
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.stencil_hd import kernel as jacobi_kernel
 from repro_torch.kernels.stencil_hd.ops import jacobi_step
 from repro_torch.kernels.stencil_hd.ref import jacobi_ref
@@ -1083,3 +1085,130 @@ def test_flash_with_grad_has_grad_fn_and_model_grads_finite(cuda):
     for p in leaves:
         assert p.grad is not None and torch.isfinite(p.grad).all()
         assert float(p.grad.abs().max()) > 0
+
+
+# ----------------------------------------------------------------------
+# recurrentgemma: the RG-LRU scan kernel, flash at its heads, the engine
+# ----------------------------------------------------------------------
+def _f64_scan(x, ga, gi, lam, h0):
+    """The RG-LRU recurrence of rglru_scan_ref in float64."""
+    x, ga, gi, lam = (t.double() for t in (x, ga, gi, lam))
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * torch.sigmoid(ga)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-12)) \
+        * torch.sigmoid(gi) * x
+    h = torch.zeros_like(b[:, 0]) if h0 is None else h0.double()
+    out = torch.empty_like(b)
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out
+
+
+# the scan against float64 and its plain float32 loop, relative to
+# max|h|: with decays up to a = 0.998 (lam -6) the float32 recurrence
+# carries about 1 / (1 - a) = 500 roundings of 2**-24 at worst, 3e-5;
+# the kernel's accurate expf, log1pf and sqrtf differ from torch's by
+# an ulp or two; 2e-4 bounds both
+_SCAN_TOL = 2e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 257, 2048])
+@pytest.mark.parametrize("W", [100, 2560])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_cuda_matches_plain_and_f64(cuda, dtype, T, W, with_h0):
+    """W = 100 is not a multiple of the kernel's 64-thread block, T = 257
+    not one of its 16-step chunks; x and gate_i are strided views of one
+    buffer, h0 a view with a batch stride wider than W."""
+    g = torch.Generator(device=cuda).manual_seed(T + W)
+    B = 3
+    xi = torch.randn((B, T, 2, W), generator=g, device=cuda).to(dtype)
+    x, gi = xi[:, :, 0], xi[:, :, 1]
+    ga = torch.randn((B, T, W), generator=g, device=cuda).to(dtype)
+    lam = torch.rand((W,), generator=g, device=cuda) * 10 - 6
+    h0 = torch.randn((B, W + 8), generator=g, device=cuda)[:, :W] \
+        if with_h0 else None
+    n0 = rglru_kernel.rglru_scan_cuda.launches
+    got = rglru_scan(x, ga, gi, lam, h0)
+    assert rglru_kernel.rglru_scan_cuda.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (B, T, W)
+    want = _f64_scan(x, ga, gi, lam, h0)
+    plain = rglru_scan_ref(x, ga, gi, lam, h0)
+    top = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= _SCAN_TOL * top
+    assert float((got - plain).abs().max()) <= _SCAN_TOL * top
+
+
+def test_rglru_scan_cuda_rejects_bad_input_and_grad(cuda):
+    x = torch.randn((2, 8, 64), device=cuda, dtype=torch.bfloat16)
+    lam = torch.zeros(64, device=cuda)
+    n0 = rglru_kernel.rglru_scan_cuda.launches
+    with pytest.raises(TypeError):
+        rglru_scan(x, x.float(), x, lam)
+    with pytest.raises(TypeError):
+        rglru_scan(x.half(), x.half(), x.half(), lam)
+    with pytest.raises(ValueError, match="unit-stride last dim"):
+        wide = torch.zeros((2, 8, 128), device=cuda, dtype=torch.bfloat16)
+        rglru_scan(x, wide[..., ::2], x, lam)
+    with pytest.raises(ValueError, match="lam"):
+        rglru_scan(x, x, x, lam.bfloat16())
+    with pytest.raises(ValueError, match="h0"):
+        rglru_scan(x, x, x, lam, torch.zeros((2, 64), device=cuda,
+                                             dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rglru_scan(x, x, x, lam.cpu())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rglru_scan(x, x, x, lam.clone().requires_grad_())
+    assert rglru_kernel.rglru_scan_cuda.launches == n0
+
+
+@pytest.mark.parametrize("T, S", [(2100, 2100), (300, 2600)])
+def test_flash_wgmma_dh256_recurrentgemma_heads(cuda, T, S):
+    """recurrentgemma's ring prefill: 10 query heads over 1 kv head of
+    256, window 2048, S beyond the window so that it binds."""
+    q, k, v, qpos = _flash_inputs(cuda, torch.bfloat16, B=1, T=T, S=S,
+                                  Hq=10, Hkv=1, Dh=256)
+    n0 = flash_kernel.flash_attention_cuda.by_variant["wgmma"]
+    got = flash_attention(q, k, v, qpos=qpos, window=2048)
+    assert flash_kernel.flash_attention_cuda.by_variant["wgmma"] == n0 + 1
+    want = dense_attention(q, k, v, qpos=qpos, window=2048)
+    tol = _FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_reduced_recurrentgemma_engine_on_card_matches_cpu(cuda):
+    """The seeded reduced model in float32 on the card and on the CPU:
+    every prefill launches flash once (its one attention layer) and the
+    scan once per recurrent layer, every decode step the scan alone;
+    the greedy tokens agree."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, 40), rng.integers(0, 256, 9)]
+    cfg = get_config("recurrentgemma-2b").reduced()
+    bundle = build(cfg, torch.float32, "cpu")
+    params = bundle.init(3)
+    for layer in params["rec"]:            # decays that carry the state
+        layer["lam"] = torch.linspace(-6, 4, cfg.rg.lru_width)
+    host = Engine(bundle, params, ServeConfig(max_seq=64, slots=2))
+    card = Engine(build(cfg, torch.float32, "cuda"), _tree_to(params, cuda),
+                  ServeConfig(max_seq=64, slots=2))
+    want = _serve(host, prompts, 24)
+    flash, scan = flash_kernel.flash_attention_cuda, rglru_kernel.rglru_scan_cuda
+    f0, s0 = flash.launches, scan.launches
+    got = _serve(card, prompts, 24)
+    assert flash.launches - f0 == len(prompts)
+    assert scan.launches - s0 == 3 * (len(prompts) + 24)
+    assert got == want
+
+
+def test_recurrentgemma_with_grad_on_card_raises(cuda):
+    bundle = build(get_config("recurrentgemma-2b").reduced(),
+                   torch.bfloat16, "cuda")
+    params = bundle.init(0, dtype=torch.float32)
+    params["rec"][0]["w_a"].requires_grad_(True)
+    toks = torch.randint(0, 256, (1, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bundle.forward(params, {"tokens": toks})
+    with torch.no_grad():
+        logits, _ = bundle.forward(params, {"tokens": toks})
+    assert bool(torch.isfinite(logits).all())
