@@ -111,20 +111,25 @@
    window as a block mask (the library's one call for the function)
    and SDPA without the softcap (not the same function), and prints
    the ptxas registers and spills of its Dh-256 kernels.
-   Last, recurrentgemma-2b: first its RG-LRU scan kernel against
-   float64 and its plain float32 loop within 2e-4 of max|h| (bf16, a
-   prefill of the pool, 4 x 2048 x 2560, and a decode step from a
-   state), timed beside the loop and its byte bound; then the family
-   at full width and depth (26 layers, 18 RG-LRU and 8 local-attention
-   on the sliding-window ring of 2048, MQA 10/1 at Dh 256), in bf16,
-   with the traffic above: every prefill launches flash's wgmma 8
-   times and the scan 18 times, every decode step the scan 18 times
-   and no flash.  The first prompt's decode crosses position 2048, so
-   the ring wraps.  Its Engine, like the reference's, resets only
-   ``pos`` when it reuses a slot, so a re-admitted prompt starts from
-   the last occupant's state: the lone-prompt gate from fresh engines,
-   over every cache leaf, takes the re-admit gate's place.  Weights
-   and cache are printed from the bytes of their tensors.
+   Last, recurrentgemma-2b: first its RG-LRU scan kernel, both
+   variants, against float64 and its plain float32 loop within 2e-4 of
+   max|h| (bf16, a prefill of the pool, 4 x 2048 x 2560, from a state
+   and without, on chunked and sequential; a decode step from a state
+   on sequential), the chunked kernel's branch-free reciprocal and
+   square root against IEEE on every float32 it can meet, both
+   variants timed beside the loop and the byte bound, the decode call
+   by CUDA events and torch.profiler; then the family at full width
+   and depth (26 layers, 18 RG-LRU and 8 local-attention on the
+   sliding-window ring of 2048, MQA 10/1 at Dh 256), in bf16, with the
+   traffic above: every prefill launches flash's wgmma 8 times and the
+   scan's chunked variant 18 times, every decode step the scan's
+   sequential variant 18 times and no flash.  The first prompt's
+   decode crosses position 2048, so the ring wraps.  Its Engine, like
+   the reference's, resets only ``pos`` when it reuses a slot, so a
+   re-admitted prompt starts from the last occupant's state: the
+   lone-prompt gate from fresh engines, over every cache leaf, takes
+   the re-admit gate's place.  Weights and cache are printed from the
+   bytes of their tensors.
 7. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -135,6 +140,7 @@ and convolution the script times.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -1063,74 +1069,151 @@ def scan_f64(torch, x, ga, gi, lam, h0):
 
 
 def scan_phase(torch):
-    """The RG-LRU scan kernel against float64 and its plain float32
-    loop at recurrentgemma's shapes in bf16, as the engine calls it:
-    a prefill of the whole pool (SERVE_SLOTS x PROMPTS[0] x lru_width)
-    from the slots' states h0, which are not 0 on a reused or live slot,
-    and a decode step (T = 1 from h0); and the prefill without a state,
-    as a forward calls it.  lam spreads over decays from a near 1 to the
-    init's a near 0.  Each call adds one launch.  Times the kernel and
-    the plain version at the prefill shape from h0 with CUDA events; its
-    bound is the bytes (each input read once, h written once)."""
+    """The RG-LRU scan kernel's two variants against float64 and the
+    plain float32 loop at recurrentgemma's shapes in bf16, as the engine
+    calls them: a prefill of the whole pool (SERVE_SLOTS x PROMPTS[0] x
+    lru_width) from the slots' states h0, which are not 0 on a reused or
+    live slot, and without a state, as a forward calls it, on both
+    variants; a decode step (T = 1 from h0) on ``sequential``, the one
+    the wrapper picks for it.  lam spreads over decays from a near 1 to
+    the init's a near 0.  Each call adds one launch, to its variant.
+    Checks the chunked kernel's branch-free reciprocal and square root
+    against IEEE on every float32 it can meet.  Times both variants back
+    to back at the prefill shape from h0 (CUDA events) beside the plain
+    loop and the bound (each input read once, h written once), and the
+    decode call both back to back (CUDA events) and as device time
+    (torch.profiler)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rglru_scan.kernel import (
+        CHUNK_CLUSTER, rglru_scan_cuda, scan_variant)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     W = get_config(RG_ARCH).rg.lru_width
     B, T = SERVE_SLOTS, PROMPTS[0]
+    check(scan_variant(B, T, W) == "chunked"
+          and scan_variant(B, 1, W) == "sequential",
+          "the scan's variant choice does not send prefills to chunked "
+          "and decode steps to sequential")
+    lib = build.load("rglru_scan")
+    bad = torch.zeros(2, dtype=torch.int64, device="cuda")
+    check(lib.rglru_scan_math_check(
+        ctypes.c_void_p(bad.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) == 0,
+        "rglru_scan_math_check did not launch")
+    n_rcp, n_sqrt = (int(n) for n in bad.tolist())
+    print(f"rglru_scan chunked math: the branch-free reciprocal differs "
+          f"from IEEE division on {n_rcp} floats of [1, 2^126], the square "
+          f"root from sqrtf on {n_sqrt} of [1e-12, 1]")
+    check(n_rcp == 0 and n_sqrt == 0,
+          "the chunked scan's reciprocal or square root is not IEEE's")
+    clusters = ctypes.c_int(0)
+    check(lib.rglru_scan_max_clusters(ctypes.byref(clusters)) == 0,
+          "cudaOccupancyMaxActiveClusters failed")
+    need = B * -(-W // 64)              # a cluster per 64 channels in bf16
+    print(f"rglru_scan chunked grid at the prefill: {need} clusters of "
+          f"{CHUNK_CLUSTER} blocks; the card holds {clusters.value} at once")
+    check(clusters.value >= need, "the chunked scan's prefill grid no "
+          "longer fits on the card in one wave")
     g = torch.Generator(device="cuda").manual_seed(0)
     lam = torch.rand((W,), generator=g, device="cuda") * 10 - 6
     errs, cases = {}, {}
-    for name, t, with_h0 in (("prefill", T, True), ("decode", 1, True),
-                             ("prefill without state", T, False)):
+    for name, t, with_h0, variants in (
+            ("prefill", T, True, ("chunked", "sequential")),
+            ("decode", 1, True, ("sequential",)),
+            ("prefill without state", T, False, ("chunked", "sequential"))):
         x, ga, gi = (torch.randn((B, t, W), generator=g, device="cuda")
                      .bfloat16() for _ in range(3))
         h0 = torch.randn((B, W), generator=g, device="cuda") \
             if with_h0 else None
-        n0 = rglru_scan_cuda.launches
-        got = rglru_scan_cuda(x, ga, gi, lam, h0)
-        check(rglru_scan_cuda.launches - n0 == 1,
-              f"rglru_scan {name}: one call added "
-              f"{rglru_scan_cuda.launches - n0} launches, not 1")
         plain = rglru_scan_ref(x, ga, gi, lam, h0)
         want = scan_f64(torch, x, ga, gi, lam, h0)
-        torch.cuda.synchronize()
         top = float(want.abs().max())
-        e64 = float((got.double() - want).abs().max()) / top
-        eplain = float((got - plain).abs().max()) / top
-        errs[name] = float((got - plain).abs().max())
-        print(f"rglru_scan {name} {(B, t, W)} bf16"
-              f"{' from h0' if with_h0 else ''}: max|err| / max|h| against "
-              f"float64 {e64:.3e}, against the plain loop {eplain:.3e} "
-              f"(bound {SCAN_TOL:g})")
-        check(e64 <= SCAN_TOL and eplain <= SCAN_TOL,
-              f"rglru_scan {name}: {e64}, {eplain} > {SCAN_TOL}")
+        for v in variants:
+            n0, v0 = rglru_scan_cuda.launches, rglru_scan_cuda.by_variant[v]
+            got = rglru_scan_cuda(x, ga, gi, lam, h0, variant=v)
+            check(rglru_scan_cuda.launches - n0 == 1
+                  and rglru_scan_cuda.by_variant[v] - v0 == 1,
+                  f"rglru_scan {name} {v}: one call did not add one launch "
+                  f"to its variant")
+            torch.cuda.synchronize()
+            e64 = float((got.double() - want).abs().max()) / top
+            eplain = float((got - plain).abs().max()) / top
+            errs[(name, v)] = float((got - plain).abs().max())
+            print(f"rglru_scan {v} {name} {(B, t, W)} bf16"
+                  f"{' from h0' if with_h0 else ''}: max|err| / max|h| "
+                  f"against float64 {e64:.3e}, against the plain loop "
+                  f"{eplain:.3e} (bound {SCAN_TOL:g})")
+            check(e64 <= SCAN_TOL and eplain <= SCAN_TOL,
+                  f"rglru_scan {v} {name}: {e64}, {eplain} > {SCAN_TOL}")
         cases[name] = (x, ga, gi, h0)
     x, ga, gi, h0 = cases["prefill"]
     x1, ga1, gi1, h01 = cases["decode"]
+    # three bf16 inputs and h0 read once, h written once in float32
+    nbytes = B * T * W * (3 * 2 + 4) + B * W * 4
+
+    def call(v):
+        return lambda: rglru_scan_cuda(x, ga, gi, lam, h0, variant=v)
+    ms = {v: cuda_ms(torch, call(v), 20) for v in ("chunked", "sequential")}
+    ms["chunked again"] = cuda_ms(torch, call("chunked"), 20)
+    decode = lambda: rglru_scan_cuda(x1, ga1, gi1, lam, h01)  # noqa: E731
     entry = dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/csrc/rglru_scan.cu",
         replaces="src/repro/models/rglru.py:73",
-        max_abs_err=max(errs["prefill"], errs["prefill without state"]),
-        ms=cuda_ms(torch, lambda: rglru_scan_cuda(x, ga, gi, lam, h0), 20),
+        max_abs_err=max(errs[("prefill", "chunked")],
+                        errs[("prefill without state", "chunked")]),
+        ms=ms["chunked"],
         plain_ms=cuda_ms(torch, lambda: rglru_scan_ref(x, ga, gi, lam, h0),
                          2),
-        # three bf16 inputs and h0 read once, h written once in float32
-        bound_ms=1e3 * (B * T * W * (3 * 2 + 4) + B * W * 4)
-        / HBM_BYTES_PER_S,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
         bound_by="bytes", library_ms=None,
-        decode_ms=cuda_ms(torch, lambda: rglru_scan_cuda(x1, ga1, gi1, lam,
-                                                         h01), 50),
-        decode_max_abs_err=errs["decode"],
+        ms_by_variant={"chunked": ms["chunked"],
+                       "sequential": ms["sequential"],
+                       "chunked again": ms["chunked again"]},
+        gb_per_s=nbytes / ms["chunked"] / 1e6,
+        decode_ms=cuda_ms(torch, decode, 50),
+        decode_max_abs_err=errs[("decode", "sequential")],
         shape=[B, T, W])
-    print(f"rglru_scan at {entry['shape']} bf16 from h0: kernel "
-          f"{entry['ms']:.4f} ms, plain loop {entry['plain_ms']:.4f} ms, "
-          f"bound {entry['bound_ms']:.4f} ms (bytes); a decode step "
-          f"{(B, 1, W)} {entry['decode_ms']:.4f} ms")
+    entry["decode_device_ms"], seen = scan_device_ms(torch, decode, 50)
+    dev = entry["decode_device_ms"]
+    print(f"rglru_scan at {entry['shape']} bf16 from h0: chunked "
+          f"{ms['chunked']:.4f} ms ({entry['gb_per_s']:.1f} GB/s; "
+          f"{ms['chunked again']:.4f} again), sequential "
+          f"{ms['sequential']:.4f} ms, plain loop {entry['plain_ms']:.4f} "
+          f"ms, bound {entry['bound_ms']:.4f} ms (bytes); a decode step "
+          f"{(B, 1, W)} on sequential {entry['decode_ms']:.4f} ms a call "
+          f"back to back (CUDA events), "
+          f"{'not measured' if dev is None else f'{dev:.4f} ms'} of device "
+          f"time (torch.profiler, {seen} of 50 launches seen)")
     del cases, x, ga, gi, h0, x1, ga1, gi1, h01
     torch.cuda.empty_cache()
     return entry
+
+
+def scan_device_ms(torch, fn, reps: int):
+    """(mean device time of one launch of the scan kernel that ``fn``
+    launches, launches seen), from torch.profiler's kernel intervals in
+    ``reps`` calls, with CPU and CUDA activities as ``device_breakdown``
+    profiles.  Late in a long process the profiler has kept only some
+    of a short window's kernels (33 and 36 of 50 in two runs, none in a
+    third with CUDA activity alone), so the mean is over those it kept,
+    and None if it kept none: a measurement, not a gate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "rglru" in e.name]
+    check(len(us) <= reps, f"the profiler saw {len(us)} scan kernels in "
+          f"{reps} calls")
+    return (sum(us) / len(us) / 1e3 if us else None), len(us)
 
 
 def _wrappers():
@@ -1743,13 +1826,17 @@ def tensor_bytes(tree) -> int:
 
 
 def serve_path(torch, arch: str, variant: str, label: str,
-               readmit_repeats: bool = True, per_step=None):
+               readmit_repeats: bool = True, per_step=None,
+               step_variants=None):
     """``arch`` at full width and depth behind the slot Engine: admits,
     decode steps, finishes, and the first prompt again, every prefill
     launching the flash kernel's ``variant``.  ``per_step`` maps each
     kernel the family launches to its launches per prefill and per
     decode step (default: flash once per layer in a prefill, never in
-    decode); every other kernel must launch no time.  With
+    decode); every other kernel must launch no time.
+    ``step_variants`` maps a kernel of ``per_step`` to the variant every
+    one of its prefill launches and every one of its decode launches
+    must take.  With
     ``readmit_repeats`` the re-admitted prompt must repeat its greedy
     continuation.  Returns (launches, launches by variant, bundle,
     params); the engine and its cache are freed."""
@@ -1788,11 +1875,26 @@ def serve_path(torch, arch: str, variant: str, label: str,
     prompts = serve_prompts(cfg.vocab)
     prefill_ms, per_prefill, decode_ms, decode_tokens = [], [], [], 0
 
+    step_variants = step_variants or {}
+
     def counts():
         return {k: wrappers[k].launches for k in per_step}
 
+    def by_variant(phase):
+        """Launches so far of each kernel of step_variants in the variant
+        it must take in ``phase`` (0 prefill, 1 decode)."""
+        return {k: wrappers[k].by_variant[v[phase]]
+                for k, v in step_variants.items()}
+
+    def check_variants(phase, n0, got):
+        for k, n in by_variant(phase).items():
+            check(n - n0[k] == got[k],
+                  f"a {label} {('prefill', 'decode step')[phase]} launched "
+                  f"{k} in another variant than "
+                  f"{step_variants[k][phase]}")
+
     def admit(prompt):
-        n0, w0 = counts(), flash.by_variant[variant]
+        n0, w0, v0 = counts(), flash.by_variant[variant], by_variant(0)
         torch.cuda.synchronize()
         t = time.perf_counter()
         sid = eng.add_request(prompt)
@@ -1803,12 +1905,13 @@ def serve_path(torch, arch: str, variant: str, label: str,
               == per_prefill[-1]["flash_attn_hd"],
               f"a {label} prefill launched another flash variant than "
               f"{variant}")
+        check_variants(0, v0, per_prefill[-1])
         return sid
 
     def decode(n):
         nonlocal decode_tokens
         for _ in range(n):
-            n0 = counts()
+            n0, v0 = counts(), by_variant(1)
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = eng.step()
@@ -1819,6 +1922,7 @@ def serve_path(torch, arch: str, variant: str, label: str,
             check(got == {k: d for k, (_, d) in per_step.items()},
                   f"a {label} decode step launched {got}, not "
                   f"{ {k: d for k, (_, d) in per_step.items()} }")
+            check_variants(1, v0, got)
 
     reset_launches()
     t_run = time.perf_counter()
@@ -1844,7 +1948,8 @@ def serve_path(torch, arch: str, variant: str, label: str,
           f"{decode_tokens / (sum(decode_ms) / 1e3):.1f} tokens/s; whole run "
           f"{t_run:.3f} s; launches per prefill {per_prefill}, per decode "
           f"step { {k: d for k, (_, d) in per_step.items()} }; launches "
-          f"{launches}, flash by variant {variants['flash_attn_hd']}")
+          f"{launches}, by variant "
+          f"{ {k: variants[k] for k in per_step if k in variants} }")
     check(per_prefill == [{k: p for k, (p, _) in per_step.items()}]
           * (len(PROMPTS) + 1),
           f"{label}: launches per prefill {per_prefill}, not "
@@ -2230,7 +2335,8 @@ def main() -> None:
     rg_launches, rg_variants, bundle, params = serve_path(
         torch, RG_ARCH, "wgmma", "recurrentgemma serving",
         readmit_repeats=False,
-        per_step={"flash_attn_hd": (n_attn, 0), "rglru_scan": (n_rec, n_rec)})
+        per_step={"flash_attn_hd": (n_attn, 0), "rglru_scan": (n_rec, n_rec)},
+        step_variants={"rglru_scan": ("chunked", "sequential")})
     lone_prompt_repeats(torch, bundle, params,
                         serve_prompts(bundle.cfg.vocab)[0], DECODE_STEPS)
     del bundle, params
@@ -2269,6 +2375,7 @@ def main() -> None:
     scan["launches_by_path"] = {"recurrentgemma engine":
                                 rg_launches["rglru_scan"]}
     scan["launches"] = rg_launches["rglru_scan"]
+    scan["launches_by_variant"] = rg_variants["rglru_scan"]
     scan["ptxas"] = dict(ptxas["rglru_scan"])
     print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd, scan]}))
     print(card_line())

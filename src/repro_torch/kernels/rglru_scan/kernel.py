@@ -1,7 +1,18 @@
 """Launch wrapper of the hand-written RG-LRU scan
 (``repro_torch/csrc/rglru_scan.cu``), the port of the reference's
 ``_rglru_scan`` (``repro/models/rglru.py:73``).  The library builds on
-its first launch."""
+its first launch.
+
+The source holds two variants; :func:`scan_variant` picks one from the
+shape, and the wrapper launches it or raises:
+
+* ``"sequential"``: one thread per (batch, channel) walks T; a decode
+  step (T = 1) and other short T;
+* ``"chunked"``: T cut into windows of ``CHUNK_WINDOW`` steps and
+  sub-chunks of ``CHUNK_STEPS``, the gates computed in parallel and the
+  sub-chunks' aggregates composed, clusters of ``CHUNK_CLUSTER``
+  blocks passing the carry from window to window; every prefill.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -13,9 +24,24 @@ from repro_torch.kernels import build
 from repro_torch.kernels.counts import count_launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("sequential", "chunked")         # the source's variant codes
+# the chunked kernel's kSteps, kWindow and kCluster
+CHUNK_STEPS, CHUNK_WINDOW, CHUNK_CLUSTER = 8, 32, 4
+# the shortest T that takes the chunked variant: at B 4, W 2560 (bf16,
+# from a state) the chunked kernel takes 0.0076 ms of device time from
+# T = 1 to 16 and the sequential one 0.0032 ms at T = 1, 0.0074 at 12,
+# 0.0090 at 16 (NVIDIA H100 80GB HBM3, 700 W; torch.profiler, by
+# tools/rglru_scan_layouts.py)
+CHUNKED_MIN_T = 16
 # rglru_scan_hd's C parameters, in order
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.c_void_p]
+
+
+def scan_variant(B: int, T: int, W: int) -> str:
+    """The kernel variant that scans (B, T, W) inputs: ``chunked`` from
+    ``CHUNKED_MIN_T`` steps on, ``sequential`` below (a decode step)."""
+    return "chunked" if T >= CHUNKED_MIN_T else "sequential"
 
 
 def _entry():
@@ -65,16 +91,24 @@ def _check(x_in, gate_a, gate_i, lam, h0):
 
 def rglru_scan_cuda(x_in: torch.Tensor, gate_a: torch.Tensor,
                     gate_i: torch.Tensor, lam: torch.Tensor,
-                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    h0: Optional[torch.Tensor] = None,
+                    variant: Optional[str] = None) -> torch.Tensor:
     """h (B, T, W) float32 of the RG-LRU recurrence over axis 1 (the
     function of :func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan_ref`)
     in one launch.  x_in, gate_a and gate_i are (B, T, W), float32 or
     bfloat16, with any batch and time strides and a unit-stride last
-    dim; lam (W,) float32; h0 (B, W) float32 or None.  Launches are
-    counted in ``rglru_scan_cuda.launches`` as executions
+    dim; lam (W,) float32; h0 (B, W) float32 or None.  ``variant``
+    names one of ``VARIANTS``; by default :func:`scan_variant` picks
+    it.  Launches are counted in ``rglru_scan_cuda.launches`` and
+    ``rglru_scan_cuda.by_variant`` as executions
     (:mod:`repro_torch.kernels.counts`).  The kernel has no backward:
     with grad enabled and an input that requires it, this raises."""
     B, T, W = _check(x_in, gate_a, gate_i, lam, h0)
+    if variant is None:
+        variant = scan_variant(B, T, W)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x_in, gate_a, gate_i, lam, h0)):
@@ -92,14 +126,16 @@ def rglru_scan_cuda(x_in: torch.Tensor, gate_a: torch.Tensor,
         err = _entry()(
             x_in.data_ptr(), gate_a.data_ptr(), gate_i.data_ptr(),
             lam.data_ptr(), None if h0 is None else h0.data_ptr(),
-            out.data_ptr(), _DTYPES[x_in.dtype], B, T, W,
+            out.data_ptr(), _DTYPES[x_in.dtype], VARIANTS.index(variant),
+            B, T, W,
             ctypes.addressof(strides),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"rglru_scan_hd launch failed with CUDA error "
                            f"{err}")
-    count_launch(rglru_scan_cuda)
+    count_launch(rglru_scan_cuda, variant)
     return out
 
 
 rglru_scan_cuda.launches = 0
+rglru_scan_cuda.by_variant = dict.fromkeys(VARIANTS, 0)

@@ -4,8 +4,9 @@ temporal conv, mixed 2:1 with local attention by ``models/hybrid.py``.
 
 The recurrence  h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 runs in ``kernels/rglru_scan``: on the card the hand-written kernel
-(``csrc/rglru_scan.cu``, one launch a block for a prefill and for a
-decode step alike), on the CPU its plain float32 loop.  The reference
+(``csrc/rglru_scan.cu``, one launch a block: its ``chunked`` variant
+for a prefill, its ``sequential`` one for a decode step), on the CPU
+its plain float32 loop.  The reference
 runs it as an ``associative_scan``; the two round in another order,
 within 1e-5 relative in float32.
 

@@ -1163,6 +1163,126 @@ def test_rglru_scan_cuda_rejects_bad_input_and_grad(cuda):
     assert rglru_kernel.rglru_scan_cuda.launches == n0
 
 
+# T on each side of the variant threshold and of the chunked kernel's
+# sub-chunk and window, and over several rounds of its cluster with a
+# ragged last window
+_SCAN_EDGE_T = sorted({
+    rglru_kernel.CHUNKED_MIN_T - 1, rglru_kernel.CHUNKED_MIN_T,
+    rglru_kernel.CHUNK_STEPS - 1, rglru_kernel.CHUNK_STEPS,
+    rglru_kernel.CHUNK_STEPS + 1, rglru_kernel.CHUNK_WINDOW - 1,
+    rglru_kernel.CHUNK_WINDOW, rglru_kernel.CHUNK_WINDOW + 1,
+    5 * rglru_kernel.CHUNK_WINDOW * rglru_kernel.CHUNK_CLUSTER + 13})
+
+
+def _scan_inputs(dev, B, T, W, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, ga, gi = (torch.randn((B, T, W), generator=g, device=dev).to(dtype)
+                 for _ in range(3))
+    lam = torch.rand((W,), generator=g, device=dev) * 10 - 6
+    h0 = torch.randn((B, W), generator=g, device=dev)
+    return x, ga, gi, lam, h0
+
+
+def _assert_scan_close(got, x, ga, gi, lam, h0):
+    want = _f64_scan(x, ga, gi, lam, h0)
+    plain = rglru_scan_ref(x, ga, gi, lam, h0)
+    top = float(want.abs().max())
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert float((got.double() - want).abs().max()) <= _SCAN_TOL * top
+    assert float((got - plain).abs().max()) <= _SCAN_TOL * top
+
+
+@pytest.mark.parametrize("variant", rglru_kernel.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", _SCAN_EDGE_T)
+@pytest.mark.parametrize("W", [100, 2560])
+def test_rglru_scan_variants_match_f64_at_window_edges(cuda, variant, dtype,
+                                                       T, W):
+    """Both variants by name, from a state h0, at every edge of the
+    chunked kernel's decomposition; W = 100 leaves a strip part full."""
+    args = _scan_inputs(cuda, 3, T, W, dtype, T * 7 + W)
+    got = rglru_kernel.rglru_scan_cuda(*args, variant=variant)
+    _assert_scan_close(got, *args)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W", [101, 2560])
+def test_rglru_scan_chunked_takes_unpaired_channels(cuda, dtype, W):
+    """Inputs one element off a 4-byte boundary (and W = 101 odd): the
+    chunked kernel's bfloat16 lanes cannot load channel pairs as one
+    word, so it takes one channel a lane and loads through registers."""
+    B, T = 2, 3 * rglru_kernel.CHUNK_WINDOW * rglru_kernel.CHUNK_CLUSTER + 9
+    g = torch.Generator(device=cuda).manual_seed(W)
+    buf = torch.randn((3, B, T, W + 1), generator=g, device=cuda).to(dtype)
+    x, ga, gi = buf[0, ..., 1:], buf[1, ..., 1:], buf[2, ..., 1:]
+    lam = torch.rand((W,), generator=g, device=cuda) * 10 - 6
+    h0 = torch.randn((B, W), generator=g, device=cuda)
+    got = rglru_kernel.rglru_scan_cuda(x, ga, gi, lam, h0, variant="chunked")
+    _assert_scan_close(got, x, ga, gi, lam, h0)
+
+
+@pytest.mark.parametrize("variant", rglru_kernel.VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rglru_scan_carries_the_state_across_every_boundary(cuda, variant,
+                                                             dtype):
+    """x = 0 after step 0 and a large h0, decays near 1: h_t = h_0 times
+    the product of a, so a carry dropped or doubled at a sub-chunk,
+    window or cluster-round boundary puts the element off by about its
+    own size.  Held elementwise, relative to each |h_t|."""
+    B, W = 2, 2560
+    T = 3 * rglru_kernel.CHUNK_WINDOW * rglru_kernel.CHUNK_CLUSTER + 5
+    x, ga, gi, _, h0 = _scan_inputs(cuda, B, T, W, dtype, 11)
+    x[:, 1:] = 0
+    ga = (ga.float() * 0.1 - 2).to(dtype)      # a near 0.9976 at lam -6
+    lam = torch.full((W,), -6.0, device=cuda)
+    h0 = h0 * 100
+    got = rglru_kernel.rglru_scan_cuda(x, ga, gi, lam, h0, variant=variant)
+    want = _f64_scan(x, ga, gi, lam, h0)
+    assert bool((want.abs() > 0).all())
+    rel = (got.double() - want).abs() / want.abs()
+    assert float(rel.max()) <= _SCAN_TOL
+
+
+@pytest.mark.parametrize("B", [1, 12])
+def test_rglru_scan_chunked_one_row_and_many_waves(cuda, B):
+    """B = 1, and B = 12 at lru_width 2560: 1,920 blocks, more than the
+    card holds at once, so clusters of a later wave carry too."""
+    T = 2 * rglru_kernel.CHUNK_WINDOW * rglru_kernel.CHUNK_CLUSTER + 7
+    args = _scan_inputs(cuda, B, T, 2560, torch.bfloat16, B)
+    got = rglru_kernel.rglru_scan_cuda(*args, variant="chunked")
+    _assert_scan_close(got, *args)
+
+
+def test_rglru_scan_chunked_math_is_ieee(cuda):
+    """The chunked kernel's branch-free reciprocal and square root round
+    as IEEE division and sqrtf on every float32 the kernel gives them
+    (d in [1, 2^126], x in [1e-12, 1])."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    bad = torch.zeros(2, dtype=torch.int64, device=cuda)
+    lib = build.load("rglru_scan")
+    assert lib.rglru_scan_math_check(
+        ctypes.c_void_p(bad.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) == 0
+    assert bad.tolist() == [0, 0]
+
+
+def test_rglru_scan_counts_launches_by_variant(cuda):
+    """Each call adds one launch, to the variant scan_variant names for
+    its shape."""
+    fn = rglru_kernel.rglru_scan_cuda
+    W = 256
+    for T in (1, rglru_kernel.CHUNKED_MIN_T - 1, rglru_kernel.CHUNKED_MIN_T,
+              2048):
+        args = _scan_inputs(cuda, 4, T, W, torch.bfloat16, T)
+        n0, v0 = fn.launches, dict(fn.by_variant)
+        rglru_scan(*args)
+        want = rglru_kernel.scan_variant(4, T, W)
+        assert fn.launches == n0 + 1
+        assert fn.by_variant == {v: n + (v == want) for v, n in v0.items()}
+
+
 @pytest.mark.parametrize("T, S", [(2100, 2100), (300, 2600)])
 def test_flash_wgmma_dh256_recurrentgemma_heads(cuda, T, S):
     """recurrentgemma's ring prefill: 10 query heads over 1 kv head of
@@ -1181,6 +1301,8 @@ def test_reduced_recurrentgemma_engine_on_card_matches_cpu(cuda):
     """The seeded reduced model in float32 on the card and on the CPU:
     every prefill launches flash once (its one attention layer) and the
     scan once per recurrent layer, every decode step the scan alone;
+    the 40-token prompt takes the scan's chunked variant, the 9-token
+    one (under CHUNKED_MIN_T) and the decode steps its sequential one;
     the greedy tokens agree."""
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 256, 40), rng.integers(0, 256, 9)]
@@ -1194,10 +1316,14 @@ def test_reduced_recurrentgemma_engine_on_card_matches_cpu(cuda):
                   ServeConfig(max_seq=64, slots=2))
     want = _serve(host, prompts, 24)
     flash, scan = flash_kernel.flash_attention_cuda, rglru_kernel.rglru_scan_cuda
-    f0, s0 = flash.launches, scan.launches
+    f0, s0, v0 = flash.launches, scan.launches, dict(scan.by_variant)
     got = _serve(card, prompts, 24)
     assert flash.launches - f0 == len(prompts)
     assert scan.launches - s0 == 3 * (len(prompts) + 24)
+    assert [rglru_kernel.scan_variant(2, len(p), cfg.rg.lru_width)
+            for p in prompts] == ["chunked", "sequential"]
+    assert scan.by_variant["chunked"] - v0["chunked"] == 3
+    assert scan.by_variant["sequential"] - v0["sequential"] == 3 * (1 + 24)
     assert got == want
 
 

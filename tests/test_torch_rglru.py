@@ -4,9 +4,11 @@ reference, on ``get_config("recurrentgemma-2b").reduced()`` (d_model
 
 Tolerances:
 
-* the plain RG-LRU scan (a float32 loop over T) against the
+* the plain RG-LRU scan (a float32 loop over T), and an emulation of
+  the chunked kernel's decomposition (sub-chunk aggregates composed,
+  windows carried, 1 - a**2 for 1 - exp(2 log_a)), against the
   reference's float32 ``associative_scan``: within 1e-5 relative
-  (the two sum the recurrence in other orders);
+  (they sum the recurrence in other orders);
 * ``_conv1d`` in float32: within 1e-6 (the same taps summed in the
   same order);
 * ``rglru_block`` in float32: within 1e-5 relative;
@@ -15,6 +17,9 @@ Tolerances:
   bf16 ring within one bf16 ulp of the reference's (2**-7
   relative: the float32 k and v products may round either way).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +34,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.rglru_scan import kernel as scan_kernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
     rglru_scan, rglru_scan_ref)
+from repro_torch.kernels.rglru_scan.ref import gates  # noqa: E402
 from repro_torch.models import layers, rglru  # noqa: E402
 
 ARCH = "recurrentgemma-2b"
@@ -95,6 +101,89 @@ def test_scan_dispatch_on_cpu_runs_the_plain_version():
     assert scan_kernel.rglru_scan_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA device"):
         scan_kernel.rglru_scan_cuda(*args)
+
+
+# ----------------------------------------------------------------------
+# the chunked kernel's decomposition and the variant choice
+# ----------------------------------------------------------------------
+def _chunked_scan(x_in, gate_a, gate_i, lam, h0, steps, window):
+    """The chunked kernel's arithmetic in float32: windows of ``window``
+    steps, each cut into sub-chunks of ``steps``; every sub-chunk's
+    aggregate (A = prod a, B = its end state from 0), the aggregates of
+    the sub-chunks before it composed into its carry-in, which it
+    re-walks; the window's whole aggregate gives the next window's
+    carry, h0 (or 0) the first.  b takes 1 - a**2 (rounded once) for
+    1 - exp(2 log_a), as the kernel does; steps past T are the
+    identity."""
+    a, _ = gates(x_in, gate_a, gate_i, lam)
+    mult = torch.sqrt(torch.clamp((1 - a.double() ** 2).float(), min=1e-12))
+    b = mult * (torch.sigmoid(gate_i.float()) * x_in.float())
+    B, T, W = a.shape
+    S, nwin = window // steps, -(-T // window)
+    pad = nwin * window - T
+    a = torch.nn.functional.pad(a, (0, 0, 0, pad), value=1.0)
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad), value=0.0)
+    a = a.view(B, nwin, S, steps, W)
+    b = b.view(B, nwin, S, steps, W)
+    agg_a, agg_b = a[:, :, :, 0], b[:, :, :, 0]
+    for u in range(1, steps):
+        agg_a = agg_a * a[:, :, :, u]
+        agg_b = a[:, :, :, u] * agg_b + b[:, :, :, u]
+    carry = torch.zeros((B, W)) if h0 is None else h0.float()
+    out = torch.empty_like(a)
+    for w in range(nwin):
+        p, q = torch.ones((B, W)), torch.zeros((B, W))
+        for s in range(S):
+            h = p * carry + q
+            for u in range(steps):
+                h = a[:, w, s, u] * h + b[:, w, s, u]
+                out[:, w, s, u] = h
+            q = agg_a[:, w, s] * q + agg_b[:, w, s]
+            p = agg_a[:, w, s] * p
+        carry = p * carry + q
+    return out.view(B, nwin * window, W)[:, :T]
+
+
+_WINDOW = scan_kernel.CHUNK_WINDOW
+
+
+@pytest.mark.parametrize("T", [1, 7, 130, _WINDOW - 1, _WINDOW,
+                               _WINDOW + 1])
+@pytest.mark.parametrize("h0", [False, True])
+def test_chunked_decomposition_matches_reference(T, h0):
+    args = _scan_inputs(2, T, 48, T + 100, h0)
+    want = ref_rglru._rglru_scan(*map(_j, args))
+    got = _chunked_scan(*map(_t, args), scan_kernel.CHUNK_STEPS, _WINDOW)
+    assert got.shape == (2, T, 48)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("B, T, W, want", [
+    (4, 1, 2560, "sequential"),
+    (4, scan_kernel.CHUNKED_MIN_T - 1, 2560, "sequential"),
+    (4, scan_kernel.CHUNKED_MIN_T, 2560, "chunked"),
+    (4, 2048, 2560, "chunked"),
+    (1, 40, 64, "chunked")])
+def test_scan_variant_by_shape(B, T, W, want):
+    """Decode steps take the sequential variant, every prefill from
+    CHUNKED_MIN_T tokens on the chunked one."""
+    assert scan_kernel.scan_variant(B, T, W) == want
+    assert want in scan_kernel.VARIANTS
+
+
+def test_chunked_constants_match_the_source():
+    """The wrapper's CHUNK_* constants (the emulation above reads them)
+    are the kernel's kSteps, kSubChunks * kSteps and kCluster."""
+    text = (Path(scan_kernel.__file__).resolve().parents[2] / "csrc"
+            / "rglru_scan.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert m, f"no constexpr int {name} in rglru_scan.cu"
+        return int(m.group(1))
+    assert scan_kernel.CHUNK_STEPS == const("kSteps")
+    assert scan_kernel.CHUNK_WINDOW == const("kSubChunks") * const("kSteps")
+    assert scan_kernel.CHUNK_CLUSTER == const("kCluster")
 
 
 # ----------------------------------------------------------------------
