@@ -212,6 +212,19 @@ RG_ARCH = "recurrentgemma-2b"
 # worst, 3e-5; the kernel's accurate expf, log1pf and sqrtf differ from
 # torch's by an ulp or two; 2e-4 bounds both
 SCAN_TOL = 2e-4
+# served last: 10 mLSTM blocks (plain PyTorch, as the reference's einsums)
+# and 2 sLSTM blocks, each one launch of the sLSTM kernel a step
+XLSTM_ARCH = "xlstm-125m"
+# the sLSTM kernel against float64 and its plain float32 loop, relative to
+# max|h| (|h| <= 1 from a state the recurrence can reach).  Each step's
+# rounding feeds back through the recurrent weights, so the float32 loop
+# itself drifts from float64 along T, by 0.9-1.6e-4 of max|h| at T 2048
+# from pre_x ~ N(0, 1) (the model's pre-activations) at xlstm-125m's
+# width on an H100 (slstm_phase prints it); kernel and plain loop drift
+# that much each, in other directions (other summation orders); 1e-3
+# bounds both, while a gate read from its head's own outputs parts by
+# over 1e-2 in one step
+SLSTM_TOL = 1e-3
 # one bf16 MoE layer against a float32 evaluation of the same routing:
 # the bf16 expert products round their operands and outputs (2**-9
 # relative each), a few 1e-3 in the Frobenius norm; 2e-2 bounds it
@@ -1216,16 +1229,151 @@ def scan_device_ms(torch, fn, reps: int):
     return (sum(us) / len(us) / 1e3 if us else None), len(us)
 
 
+def slstm_f64(torch, pre_x, r, state):
+    """hs of the sLSTM recurrence of ``slstm_scan_ref`` in float64."""
+    B, T, D4 = pre_x.shape
+    D, (H, Dh, _) = D4 // 4, r.shape
+    c, n, h, m = (s.double() for s in state)
+    r = r.double()
+    hs = torch.empty((B, T, D), dtype=torch.float64, device=r.device)
+    for t in range(T):
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, Dh), r)
+        i_, f_, z_, o_ = torch.split(pre_x[:, t].double()
+                                     + rec.reshape(B, 4 * D), D, dim=-1)
+        m_new = torch.maximum(f_ + m, i_)
+        i_g, f_g = torch.exp(i_ - m_new), torch.exp(f_ + m - m_new)
+        c, n = f_g * c + i_g * torch.tanh(z_), f_g * n + i_g
+        h = torch.sigmoid(o_) * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        hs[:, t] = h
+    return hs
+
+
+def slstm_phase(torch):
+    """The sLSTM recurrence kernel against float64 and the plain float32
+    loop at xlstm-125m's shapes, as the engine calls it: a prefill of
+    the whole pool (SERVE_SLOTS x PROMPTS[0] x d_model) in bf16 from the
+    slots' states, which are not 0 on a reused or live slot, and without
+    a state, as a forward calls it; a decode step (T = 1) from a state.
+    pre_x ~ N(0, 1), the model's pre-activations; r with the model's
+    scale; the state one the recurrence can reach (n > 0, |c| <= n).
+    Each call adds one launch.  Prints the clusters the card holds and
+    the shared memory a block takes; times the kernel at the prefill
+    shape (CUDA events) beside the plain loop and the operations bound,
+    and the decode call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.slstm_scan.kernel import (
+        CLUSTER, ROWS, slstm_scan_cuda, smem_bytes)
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+
+    cfg = get_config(XLSTM_ARCH)
+    D, H = cfg.d_model, cfg.n_heads
+    Dh = D // H
+    B, T = SERVE_SLOTS, PROMPTS[0]
+    lib = build.load("slstm_scan")
+    smem = smem_bytes(D, H)
+    clusters = ctypes.c_int(0)
+    check(lib.slstm_scan_max_clusters(D, H, ctypes.byref(clusters)) == 0,
+          "cudaOccupancyMaxActiveClusters failed for slstm_scan")
+    need = -(-B // ROWS)
+    print(f"slstm_scan grid at the prefill: {need} cluster(s) of {CLUSTER} "
+          f"blocks, {smem} bytes of shared memory a block; the card holds "
+          f"{clusters.value} at once")
+    check(clusters.value >= need, "the sLSTM kernel's prefill grid does not "
+          "fit on the card in one wave")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    r = torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda") \
+        * (0.5 / Dh ** 0.5)
+
+    def state():
+        n = torch.rand((B, D), generator=g, device="cuda") * 4 + 0.1
+        c = n * (torch.rand((B, D), generator=g, device="cuda") * 2 - 1)
+        h = torch.rand((B, D), generator=g, device="cuda") * 2 - 1
+        m = torch.randn((B, D), generator=g, device="cuda") * 3
+        return c, n, h, m
+
+    errs, cases = {}, {}
+    for name, t, st in (("prefill", T, state()),
+                        ("decode", 1, state()),
+                        ("prefill without state", T, None)):
+        pre_x = torch.randn((B, t, 4 * D), generator=g,
+                            device="cuda").bfloat16()
+        n0 = slstm_scan_cuda.launches
+        hs, fin = slstm_scan_cuda(pre_x, r, st)
+        check(slstm_scan_cuda.launches - n0 == 1,
+              f"slstm_scan {name}: one call did not add one launch")
+        torch.cuda.synchronize()
+        zero = torch.zeros((B, D), device="cuda")
+        want = slstm_f64(torch, pre_x, r, st or (zero,) * 4)
+        plain, _ = slstm_scan_ref(pre_x, r, st)
+        top = float(want.abs().max())
+        e64 = float((hs.double() - want).abs().max()) / top
+        eplain = float((hs - plain).abs().max()) / top
+        eloop = float((plain.double() - want).abs().max()) / top
+        errs[name] = float((hs - plain).abs().max())
+        print(f"slstm_scan {name} {(B, t, D)} bf16"
+              f"{' from a state' if st is not None else ''}: max|h| "
+              f"{top:.4f}; max|err| / max|h| against float64 {e64:.3e}, "
+              f"against the plain loop {eplain:.3e} (bound {SLSTM_TOL:g}); "
+              f"the plain loop's own against float64 {eloop:.3e}")
+        check(top <= 1.0, f"slstm_scan {name}: max|h| {top} > 1")
+        check(e64 <= SLSTM_TOL and eplain <= SLSTM_TOL,
+              f"slstm_scan {name}: {e64}, {eplain} > {SLSTM_TOL}")
+        check(torch.equal(fin[2], hs[:, -1]),
+              f"slstm_scan {name}: the final h is not the last step's")
+        cases[name] = (pre_x, st)
+    pre_x, st = cases["prefill"]
+    pre1, st1 = cases["decode"]
+    # operations: 2 B H Dh 4Dh a step; bytes: pre_x (bf16) and r read
+    # once, hs written once, the state read and written once
+    flops = 2 * B * H * Dh * 4 * Dh * T
+    nbytes = B * T * 4 * D * 2 + B * T * D * 4 + r.numel() * 4 \
+        + 8 * B * D * 4
+    ms = cuda_ms(torch, lambda: slstm_scan_cuda(pre_x, r, st), 10)
+    entry = dict(
+        name="slstm_scan", route="cuda",
+        source="src/repro_torch/csrc/slstm_scan.cu",
+        replaces="src/repro/models/xlstm.py:187",
+        max_abs_err=max(errs["prefill"], errs["prefill without state"]),
+        ms=ms,
+        plain_ms=cuda_ms(torch, lambda: slstm_scan_ref(pre_x, r, st), 2),
+        bound_ms=1e3 * max(flops / FP32_FLOPS_PER_S,
+                           nbytes / HBM_BYTES_PER_S),
+        bound_by="operations" if flops / FP32_FLOPS_PER_S
+        >= nbytes / HBM_BYTES_PER_S else "bytes",
+        library_ms=None,
+        ms_per_step=ms / T,
+        ms_again=cuda_ms(torch, lambda: slstm_scan_cuda(pre_x, r, st), 10),
+        bytes_bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+        decode_ms=cuda_ms(torch, lambda: slstm_scan_cuda(pre1, r, st1), 50),
+        decode_max_abs_err=errs["decode"],
+        smem_bytes=smem, max_clusters=clusters.value,
+        shape=[B, T, D])
+    print(f"slstm_scan at {entry['shape']} bf16 from a state: "
+          f"{ms:.4f} ms ({entry['ms_again']:.4f} again; "
+          f"{1e3 * entry['ms_per_step']:.3f} us a step), plain loop "
+          f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}; bytes {entry['bytes_bound_ms']:.4f} ms); "
+          f"a decode step {(B, 1, D)} {entry['decode_ms']:.4f} ms a call "
+          f"back to back (CUDA events); no PyTorch call computes the "
+          f"recurrence")
+    del cases, pre_x, st, pre1, st1
+    torch.cuda.empty_cache()
+    return entry
+
+
 def _wrappers():
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.slstm_scan.kernel import slstm_scan_cuda
     from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
     return {"jacobi_hd": jacobi_cuda, "gemm_hd": gemm_cuda,
             "flash_attn_hd": flash_attention_cuda,
             "flash_attn_bwd_hd": flash_attention_bwd_cuda,
-            "rglru_scan": rglru_scan_cuda}
+            "rglru_scan": rglru_scan_cuda, "slstm_scan": slstm_scan_cuda}
 
 
 def reset_launches():
@@ -1830,10 +1978,11 @@ def serve_path(torch, arch: str, variant: str, label: str,
                step_variants=None):
     """``arch`` at full width and depth behind the slot Engine: admits,
     decode steps, finishes, and the first prompt again, every prefill
-    launching the flash kernel's ``variant``.  ``per_step`` maps each
-    kernel the family launches to its launches per prefill and per
-    decode step (default: flash once per layer in a prefill, never in
-    decode); every other kernel must launch no time.
+    launching the flash kernel's ``variant`` (where ``per_step`` has
+    flash).  ``per_step`` maps each kernel the family launches to its
+    launches per prefill and per decode step (default: flash once per
+    layer in a prefill, never in decode); every other kernel, flash
+    included, must launch no time.
     ``step_variants`` maps a kernel of ``per_step`` to the variant every
     one of its prefill launches and every one of its decode launches
     must take.  With
@@ -1859,6 +2008,12 @@ def serve_path(torch, arch: str, variant: str, label: str,
     if cfg.rg:
         ffn += (f", lru_width {cfg.rg.lru_width}, conv width "
                 f"{cfg.rg.conv_width}, {cfg.rg.pattern} rec per attention")
+    if cfg.xlstm:
+        xl = cfg.xlstm
+        ffn = (f"mLSTM inner width {int(cfg.d_model * xl.proj_factor)}, "
+               f"sLSTM every {xl.slstm_every} layers, its ffn "
+               f"{int(cfg.d_model * 4 * xl.ff_factor) // 2 * 2}, no "
+               f"attention")
     print(f"{label}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.head_dim} {ffn} "
           f"vocab {cfg.vocab}, windows {sorted(set(_window_array(cfg)))}, "
@@ -1894,17 +2049,19 @@ def serve_path(torch, arch: str, variant: str, label: str,
                   f"{step_variants[k][phase]}")
 
     def admit(prompt):
-        n0, w0, v0 = counts(), flash.by_variant[variant], by_variant(0)
+        n0, v0 = counts(), by_variant(0)
+        w0 = flash.by_variant.get(variant, 0)
         torch.cuda.synchronize()
         t = time.perf_counter()
         sid = eng.add_request(prompt)
         torch.cuda.synchronize()
         prefill_ms.append(1e3 * (time.perf_counter() - t))
         per_prefill.append({k: n - n0[k] for k, n in counts().items()})
-        check(flash.by_variant[variant] - w0
-              == per_prefill[-1]["flash_attn_hd"],
-              f"a {label} prefill launched another flash variant than "
-              f"{variant}")
+        if "flash_attn_hd" in per_step:
+            check(flash.by_variant[variant] - w0
+                  == per_prefill[-1]["flash_attn_hd"],
+                  f"a {label} prefill launched another flash variant than "
+                  f"{variant}")
         check_variants(0, v0, per_prefill[-1])
         return sid
 
@@ -1956,6 +2113,8 @@ def serve_path(torch, arch: str, variant: str, label: str,
           f"{ {k: p for k, (p, _) in per_step.items()} }")
     check(all(n == 0 for k, n in launches.items() if k not in per_step),
           f"{label}: launched another path's kernel: {launches}")
+    check("flash_attn_hd" in per_step or launches["flash_attn_hd"] == 0,
+          f"{label}: a family without attention launched flash")
     check(variants["flash_attn_hd"] == {
         v: launches["flash_attn_hd"] if v == variant else 0
         for v in VARIANTS},
@@ -1991,13 +2150,14 @@ def lone_prompt_repeats(torch, bundle, params, prompt, steps: int) -> None:
     decoded ``steps`` steps, twice: every bit of both caches (every
     leaf: for a decoder each layer's keys and values of every position,
     so every layer's input at every step; for recurrentgemma also each
-    recurrent layer's state and conv tail and the ring's positions)
+    recurrent layer's state and conv tail and the ring's positions; for
+    xlstm every mLSTM and sLSTM layer's state)
     must be equal, and the streams too, a secondary check (random
     weights tend to decode one token over and over, so equal streams
     alone show little).  Each run starts from the same pool state
     (every slot empty): under MoE capacity the empty slots' rows
-    compete for experts too, and recurrentgemma's Engine, like the
-    reference's, resets only ``pos`` when it reuses a slot."""
+    compete for experts too, and recurrentgemma's and xlstm's Engines,
+    like the reference's, reset only ``pos`` when they reuse a slot."""
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.tree import tree_leaves
 
@@ -2341,6 +2501,21 @@ def main() -> None:
                         serve_prompts(bundle.cfg.vocab)[0], DECODE_STEPS)
     del bundle, params
     torch.cuda.empty_cache()
+    # xlstm last, so that every earlier phase runs as it did before: its
+    # sLSTM kernel against its plain version, then its serving.  Its
+    # Engine, like recurrentgemma's, resets only `pos` on a reused slot:
+    # lone prompts from fresh engines take the re-admit gate's place
+    slstm = slstm_phase(torch)
+    xl_cfg = get_config(XLSTM_ARCH)
+    n_slstm = xl_cfg.n_layers // xl_cfg.xlstm.slstm_every
+    xl_launches, xl_variants, bundle, params = serve_path(
+        torch, XLSTM_ARCH, None, "xlstm serving", readmit_repeats=False,
+        per_step={"slstm_scan": (n_slstm, n_slstm)},
+        step_variants={"slstm_scan": ("cluster", "cluster")})
+    lone_prompt_repeats(torch, bundle, params,
+                        serve_prompts(bundle.cfg.vocab)[0], DECODE_STEPS)
+    del bundle, params
+    torch.cuda.empty_cache()
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -2356,12 +2531,13 @@ def main() -> None:
                                  "gemma2 engine": g2_launches["flash_attn_hd"],
                                  "qwen3 engine": q3_launches["flash_attn_hd"],
                                  "recurrentgemma engine":
-                                     rg_launches["flash_attn_hd"]}
+                                     rg_launches["flash_attn_hd"],
+                                 "xlstm engine": xl_launches["flash_attn_hd"]}
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
-        + rg_variants["flash_attn_hd"][k]
+        + rg_variants["flash_attn_hd"][k] + xl_variants["flash_attn_hd"][k]
         for k, n in serve_variants["flash_attn_hd"].items()}
     # every Dh-256 launch: gemma2's and recurrentgemma's prefills
     flash_256["launches"] = (g2_variants["flash_attn_hd"]["wgmma"]
@@ -2377,7 +2553,12 @@ def main() -> None:
     scan["launches"] = rg_launches["rglru_scan"]
     scan["launches_by_variant"] = rg_variants["rglru_scan"]
     scan["ptxas"] = dict(ptxas["rglru_scan"])
-    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd, scan]}))
+    slstm["launches_by_path"] = {"xlstm engine": xl_launches["slstm_scan"]}
+    slstm["launches"] = xl_launches["slstm_scan"]
+    slstm["launches_by_variant"] = xl_variants["slstm_scan"]
+    slstm["ptxas"] = dict(ptxas["slstm_scan"])
+    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd, scan,
+                                  slstm]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

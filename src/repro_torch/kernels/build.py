@@ -25,11 +25,12 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("jacobi_hd", "gemm_hd", "flash_attn_hd", "flash_attn_bwd_hd",
-           "rglru_scan")
+           "rglru_scan", "slstm_scan")
 # no --use_fast_math: the Jacobi sweep is held bit-identical to its
 # plain version, the GEMM to IEEE f32 (FFMA, not TF32), flash
 # attention's f32 path to 2e-5 (accurate expf, tanhf and division) and
-# the RG-LRU scan to float64 (accurate expf, log1pf and sqrtf)
+# the RG-LRU scan to float64 (accurate expf, log1pf and sqrtf) and the
+# sLSTM recurrence to float64 (accurate expf and tanhf, IEEE division)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

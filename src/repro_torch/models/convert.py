@@ -15,7 +15,11 @@ recurrentgemma, whose ``{"emb", "rec", "attn", "mlp", "norms"}``
 groups each unstack by their own leading dim (18 recurrent, 8
 attention and 26 mlp and norm layers at full size).  Its ``lam`` and
 recurrent biases stay float32: ``lam`` is read in float32
-(``rglru.py:78``), the biases cast at each use.
+(``rglru.py:78``), the biases cast at each use.  The xLSTM LM's
+``{"emb", "mlstm", "slstm", "norms"}`` groups unstack the same way (10
+mLSTM, 2 sLSTM and 12 norm layers at full size); its sLSTM recurrent
+weights ``r_in`` stay float32, because the recurrence reads them in
+float32 (``xlstm.py:201``), and so do the biases ``b_in`` and ``b_if``.
 
 Every matrix is stored in ``compute_dtype``.  The reference keeps
 float32 masters but casts each matrix to the compute dtype right
@@ -50,25 +54,35 @@ def _t(x, dtype, device) -> torch.Tensor:
 
 _HYBRID = {"emb", "rec", "attn", "mlp", "norms"}
 _REC_F32 = ("lam", "conv_b", "b_a", "b_i")
+_XLSTM = {"emb", "mlstm", "slstm", "norms"}
+_XLSTM_F32 = ("r_in", "b_in", "b_if")
 
 
 def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
                     compute_dtype=torch.bfloat16) -> Params:
     """The port's params of a dense or moe decoder from the reference's
     ``{"emb": ..., "main": {"attn", "norms", "ffn"}}`` pytree of numpy
-    arrays, or of recurrentgemma from its ``{"emb", "rec", "attn",
-    "mlp", "norms"}``."""
+    arrays, of recurrentgemma from its ``{"emb", "rec", "attn", "mlp",
+    "norms"}``, or of the xLSTM LM from its ``{"emb", "mlstm", "slstm",
+    "norms"}``."""
     dev = resolve_device(device)
     mat = lambda x: _t(x, compute_dtype, dev)          # noqa: E731
     f32 = lambda x: _t(x, torch.float32, dev)          # noqa: E731
     emb = params_np["emb"]
     emb_p = {"in_emb": mat(emb["in_emb"]), "out_emb": mat(emb["out_emb"]),
              "final_norm": f32(emb["final_norm"])}
+    def unstack(group, f32_names=()):
+        n = len(next(iter(group.values())))
+        return [{k: (f32 if k in f32_names else mat)(w[i])
+                 for k, w in group.items()} for i in range(n)]
+
+    if set(params_np) == _XLSTM:
+        return {"emb": emb_p,
+                "mlstm": unstack(params_np["mlstm"], _XLSTM_F32),
+                "slstm": unstack(params_np["slstm"], _XLSTM_F32),
+                "norms": unstack(params_np["norms"], tuple(
+                    params_np["norms"]))}
     if set(params_np) == _HYBRID:
-        def unstack(group, f32_names=()):
-            n = len(next(iter(group.values())))
-            return [{k: (f32 if k in f32_names else mat)(w[i])
-                     for k, w in group.items()} for i in range(n)]
         return {"emb": emb_p,
                 "rec": unstack(params_np["rec"], _REC_F32),
                 "attn": unstack(params_np["attn"]),
@@ -78,8 +92,8 @@ def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
     if set(params_np) != {"emb", "main"}:
         raise NotImplementedError(
             f"from_jax_params carries the dense and moe decoders without "
-            f"leading dense layers or MTP and recurrentgemma, got groups "
-            f"{sorted(params_np)}")
+            f"leading dense layers or MTP, recurrentgemma and the xLSTM LM, "
+            f"got groups {sorted(params_np)}")
     main = params_np["main"]
 
     def ffn(group, i):

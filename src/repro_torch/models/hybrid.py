@@ -1,7 +1,9 @@
-"""RecurrentGemma: the hybrid of RG-LRU blocks and local attention,
-the port of ``build_recurrentgemma`` in the reference's
-``repro/models/hybrid.py``: super-blocks of (rec, rec, attn) and a
-tail of rec layers (26 layers: 18 recurrent, 8 attention).
+"""The recurrent hybrids of the reference's ``repro/models/hybrid.py``:
+RecurrentGemma (``build_recurrentgemma``), RG-LRU blocks and local
+attention in super-blocks of (rec, rec, attn) and a tail of rec layers
+(26 layers: 18 recurrent, 8 attention), and the xLSTM LM
+(``build_xlstm_lm``), mLSTM blocks with every ``slstm_every``-th block
+an sLSTM (12 layers: 10 mLSTM, 2 sLSTM at layers 5 and 11).
 
 Structure notes:
   * params are ``{"emb", "rec", "attn", "mlp", "norms"}`` as in the
@@ -20,6 +22,14 @@ Structure notes:
     ``remat=True``.  On the card no backward exists yet for the RG-LRU
     kernel nor for flash attention at Dh 256, so a bundle whose
     parameters require grad raises there, naming ROADMAP.
+
+The xLSTM LM's params are ``{"emb", "mlstm", "slstm", "norms"}``, each a
+list of per-layer dicts; its cache is the reference's ``{"m": {C, n,
+m}, "s": {c, n, h, m}, "pos"}`` (mLSTM state (n_m, B, H, Dh, Dh),
+(n_m, B, H, Dh), (n_m, B, H); sLSTM state (n_s, B, D) each; all
+float32), whose size does not depend on ``T_max``.  Prefill and decode
+update it in place.  No backward exists yet for the sLSTM kernel, so on
+the card a bundle whose parameters require grad raises, naming ROADMAP.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from repro_torch.tree import tree_leaves
 
 from . import layers as LY
 from . import rglru as RG
+from . import xlstm as XL
 from .common import fused_cross_entropy, gated_mlp, rms_norm
 from .lm import ModelBundle, Params, _embed, _embed_params, _head
 
@@ -157,6 +168,112 @@ def build_recurrentgemma(cfg, dt, dev) -> ModelBundle:
         pos = batch["pos"]
         x = _run(params, x, cache, pos)
         cache["pos"] = pos + 1
+        return _head(params["emb"], x, cfg), cache
+
+    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
+                       forward_fused)
+
+
+# ======================================================================
+# xLSTM LM: (slstm_every - 1 mLSTM, 1 sLSTM) repeating
+# ======================================================================
+def build_xlstm_lm(cfg, dt, dev) -> ModelBundle:
+    ev = cfg.xlstm.slstm_every
+    n_s = cfg.n_layers // ev
+    n_m = cfg.n_layers - n_s
+
+    def init(seed=0, dtype=None) -> Params:
+        """Matrices in ``dtype`` (default the compute dtype); ``r_in``,
+        the biases and the norm scales float32."""
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=dev).manual_seed(int(seed))
+        pdt = dt if dtype is None else dtype
+        kw = dict(dtype=pdt, device=dev)
+        return {
+            "emb": _embed_params(gen, cfg, pdt, dev),
+            "mlstm": [XL.mlstm_params(gen, cfg, **kw) for _ in range(n_m)],
+            "slstm": [XL.slstm_params(gen, cfg, **kw)
+                      for _ in range(max(n_s, 1))],
+            "norms": [LY.norms_params(cfg.d_model, ["pre"], device=dev)
+                      for _ in range(cfg.n_layers)]}
+
+    def _block(params, kind, i, j, x, cache):
+        """Block i of ``kind`` ("m" or "s"; global layer j) with its
+        pre-norm and residual; its state in ``cache``'s rows i, updated
+        in place."""
+        h = rms_norm(x, params["norms"][j]["pre"])
+        csl = None if cache is None else \
+            {k: v[i] for k, v in cache[kind].items()}
+        if kind == "s":
+            o, _ = XL.slstm_block(params["slstm"][i], h, cfg, cache=csl)
+        else:
+            o, new_c = XL.mlstm_block(params["mlstm"][i], h, cfg, cache=csl)
+            if csl is not None:
+                for k, v in new_c.items():
+                    csl[k].copy_(v)
+        return x + o
+
+    def _run(params, x, cache):
+        """All layers in order; with a cache, its rows updated in place.
+        Without one, each layer runs under ``torch.utils.checkpoint``
+        while grad is enabled."""
+        if x.is_cuda and torch.is_grad_enabled() and any(
+                t.requires_grad for t in tree_leaves(params)):
+            raise NotImplementedError(
+                f"{cfg.name} has no backward on the card yet: the sLSTM "
+                f"recurrence kernel has none (ROADMAP: Queue 1 item 4)")
+        remat = cache is None and torch.is_grad_enabled()
+        mi = si = 0
+        for j in range(cfg.n_layers):
+            if (j + 1) % ev == 0:
+                args = ("s", si, j, x, cache)
+                si += 1
+            else:
+                args = ("m", mi, j, x, cache)
+                mi += 1
+            if remat:
+                # no layer draws random numbers: no RNG state to replay
+                x = checkpoint(_block, params, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _block(params, *args)
+        return x
+
+    def forward(params, batch):
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        x = _run(params, x, None)
+        return _head(params["emb"], x, cfg), {
+            "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+    def forward_fused(params, batch):
+        """Train path with the head+CE fused over sequence chunks."""
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        x = _run(params, x, None)
+        emb = params["emb"]
+        loss = fused_cross_entropy(x, emb["final_norm"], emb["out_emb"],
+                                   batch["labels"], batch.get("mask"),
+                                   cfg.final_softcap)
+        return loss, {"ce": loss}
+
+    def init_cache(B, T_max, device=None) -> Dict[str, torch.Tensor]:
+        """``device`` defaults to the model's ("meta" probes shapes).
+        The state is O(width): ``T_max`` is unused."""
+        del T_max
+        on = dev if device is None else device
+        c = XL.init_xlstm_caches(cfg, n_m, max(n_s, 1), B, device=on)
+        c["pos"] = torch.zeros((B,), dtype=torch.int32, device=on)
+        return c
+
+    def prefill(params, batch, cache):
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        x = _run(params, x, cache)
+        cache["pos"] = cache["pos"] + x.shape[1]
+        return _head(params["emb"], x[:, -1:, :], cfg), cache
+
+    def decode(params, batch, cache):
+        x = _embed(params["emb"], batch["token"], cfg, dt)
+        x = _run(params, x, cache)
+        cache["pos"] = batch["pos"] + 1
         return _head(params["emb"], x, cfg), cache
 
     return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,

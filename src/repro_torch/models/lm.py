@@ -1,7 +1,8 @@
 """Model assembly: init / forward / prefill / decode, the decoder
 families of the reference's ``repro/models/lm.py``: dense (global,
 local or gemma2's alternating attention) and moe.  ``build`` also
-dispatches the hybrid family (recurrentgemma) to ``models/hybrid.py``.
+dispatches the hybrid family (recurrentgemma) and the ssm family's
+xLSTM to ``models/hybrid.py``.
 
 Structure notes:
   * layers are a Python list of per-layer parameter dicts, run in a
@@ -25,7 +26,7 @@ Structure notes:
 
 ``build(cfg, compute_dtype, device)`` returns a ModelBundle of closures
 and raises ``NotImplementedError`` for the families not ported yet
-(xlstm, encdec, vlm, mla).
+(encdec, vlm, mla).
 Every entry point runs on ``device``, which defaults to "cuda" and
 raises without a card.
 """
@@ -234,11 +235,15 @@ def build(cfg, compute_dtype=torch.bfloat16, device="cuda") -> ModelBundle:
     the dense decoder with global, local or alternating attention
     (yi-9b, deepseek-7b, mistral-large-123b, gemma2-9b), the moe
     decoder without MLA, leading dense layers or MTP
-    (qwen3-moe-30b-a3b) and the RG-LRU hybrid (recurrentgemma-2b)."""
+    (qwen3-moe-30b-a3b), the RG-LRU hybrid (recurrentgemma-2b) and the
+    xLSTM LM (xlstm-125m)."""
     dev = resolve_device(device)
     if cfg.family == "hybrid" and cfg.rg is not None:
         from .hybrid import build_recurrentgemma
         return build_recurrentgemma(cfg, compute_dtype, dev)
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        from .hybrid import build_xlstm_lm
+        return build_xlstm_lm(cfg, compute_dtype, dev)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name} ({cfg.family}) {_NOT_PORTED}")
     if cfg.mla is not None or cfg.dense_layers > 0 or cfg.mtp:

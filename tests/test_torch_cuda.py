@@ -24,6 +24,8 @@ from repro_torch.kernels.gemm_hd.ops import gemm
 from repro_torch.kernels.hd import make_gemm_kernel, make_jacobi_kernel
 from repro_torch.kernels.rglru_scan import kernel as rglru_kernel
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
+from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.kernels.stencil_hd import kernel as jacobi_kernel
 from repro_torch.kernels.stencil_hd.ops import jacobi_step
 from repro_torch.kernels.stencil_hd.ref import jacobi_ref
@@ -1332,6 +1334,183 @@ def test_recurrentgemma_with_grad_on_card_raises(cuda):
                    torch.bfloat16, "cuda")
     params = bundle.init(0, dtype=torch.float32)
     params["rec"][0]["w_a"].requires_grad_(True)
+    toks = torch.randint(0, 256, (1, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bundle.forward(params, {"tokens": toks})
+    with torch.no_grad():
+        logits, _ = bundle.forward(params, {"tokens": toks})
+    assert bool(torch.isfinite(logits).all())
+
+
+# ----------------------------------------------------------------------
+# xlstm: the sLSTM recurrence kernel, the engine
+# ----------------------------------------------------------------------
+def _f64_slstm(pre_x, r, state):
+    """hs and the final state of slstm_scan_ref's recurrence in float64."""
+    B, T, D4 = pre_x.shape
+    D, (H, Dh, _) = D4 // 4, r.shape
+    c, n, h, m = (torch.zeros((B, D), dtype=torch.float64, device=r.device)
+                  if s is None else s.double()
+                  for s in (state or (None,) * 4))
+    r = r.double()
+    hs = torch.empty((B, T, D), dtype=torch.float64, device=r.device)
+    for t in range(T):
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, Dh), r)
+        i_, f_, z_, o_ = torch.split(pre_x[:, t].double()
+                                     + rec.reshape(B, 4 * D), D, dim=-1)
+        m_new = torch.maximum(f_ + m, i_)
+        i_g, f_g = torch.exp(i_ - m_new), torch.exp(f_ + m - m_new)
+        c, n = f_g * c + i_g * torch.tanh(z_), f_g * n + i_g
+        h = torch.sigmoid(o_) * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        hs[:, t] = h
+    return hs, (c, n, h, m)
+
+
+# the sLSTM kernel against float64 and its plain float32 loop, relative
+# to max|h| (|h| <= 1 from a state the recurrence can reach).  The
+# recurrence feeds each step's rounding back through r, so the float32
+# loop itself drifts from float64 along T: by 0.9-1.6e-4 of max|h| at
+# T 2048 on xlstm-125m's width from pre_x ~ N(0, 1) in bf16 (the
+# model's pre-activations; chip_smoke.py's slstm_phase on an H100),
+# about 1e-5 at T 256.  Kernel and plain loop each
+# drift that much, in other directions (the kernel sums the recurrent
+# product in another order, with FMAs); 1e-3 bounds both, while a gate
+# read from its head's own outputs parts by over 1e-2 in one step
+# (tests/test_torch_xlstm_blocks.py)
+_SLSTM_TOL = 1e-3
+
+
+def _slstm_inputs(B, T, D, H, dtype, with_state, device, seed):
+    """pre_x (B, T, 4D) as a view with batch and time strides of its own
+    (a slice of a longer buffer), r with the model's scale, and a state
+    the recurrence can reach (n > 0, |c| <= n) or None."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    buf = torch.randn((B, T + 3, 4 * D), generator=g, device=device)
+    pre_x = buf.to(dtype)[:, 2:2 + T]
+    Dh = D // H
+    r = torch.randn((H, Dh, 4 * Dh), generator=g, device=device) \
+        * (0.5 / Dh ** 0.5)
+    state = None
+    if with_state:
+        n = torch.rand((B, D), generator=g, device=device) * 4 + 0.1
+        c = n * (torch.rand((B, D), generator=g, device=device) * 2 - 1)
+        h = torch.rand((B, D), generator=g, device=device) * 2 - 1
+        m = torch.randn((B, D), generator=g, device=device) * 3
+        state = (c, n, h, m)
+    return pre_x, r, state
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 7, 256, 2048])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_slstm_scan_cuda_matches_plain_and_f64(cuda, dtype, T, B,
+                                               with_state):
+    """xlstm-125m's width (D 768, 4 heads of 192); the final state is the
+    last step's."""
+    pre_x, r, state = _slstm_inputs(B, T, 768, 4, dtype, with_state, cuda,
+                                    T + B)
+    n0 = slstm_kernel.slstm_scan_cuda.launches
+    hs, st = slstm_scan(pre_x, r, state)
+    assert slstm_kernel.slstm_scan_cuda.launches == n0 + 1
+    assert hs.dtype == torch.float32 and hs.shape == (B, T, 768)
+    want, want_st = _f64_slstm(pre_x, r, state)
+    plain, plain_st = slstm_scan_ref(pre_x, r, state)
+    top = float(want.abs().max())
+    assert top <= 1.0
+    assert float((hs.double() - want).abs().max()) <= _SLSTM_TOL * top
+    assert float((hs - plain).abs().max()) <= _SLSTM_TOL * top
+    assert torch.equal(st[2], hs[:, -1])
+    for got, w64 in zip(st, want_st):
+        assert float((got.double() - w64).abs().max()) <= \
+            _SLSTM_TOL * max(1.0, float(w64.abs().max()))
+
+
+@pytest.mark.parametrize("B, D, H", [(3, 64, 4), (5, 72, 4), (2, 48, 2)])
+def test_slstm_scan_cuda_ragged_shapes(cuda, B, D, H):
+    """Rows that do not fill a cluster's group of 4, blocks with empty
+    units (D 72: 5 units a block, 80 places), two gates in one head (2
+    heads)."""
+    pre_x, r, state = _slstm_inputs(B, 300, D, H, torch.bfloat16, True,
+                                    cuda, D)
+    hs, st = slstm_scan(pre_x, r, state)
+    want, _ = _f64_slstm(pre_x, r, state)
+    top = float(want.abs().max())
+    assert float((hs.double() - want).abs().max()) <= _SLSTM_TOL * top
+    assert torch.equal(st[2], hs[:, -1])
+
+
+def test_slstm_scan_cuda_writes_the_state_in_place(cuda):
+    """``out`` = the state's own tensors, rows of a cache: the final state
+    lands there, the neighbouring rows stay as they were."""
+    B, T, D = 4, 33, 768
+    pre_x, r, state = _slstm_inputs(B, T, D, 4, torch.bfloat16, True, cuda,
+                                    9)
+    want_hs, want_st = slstm_scan(pre_x, r, state)
+    cache = torch.zeros((4, 2, B, D), device=cuda)
+    for k, s in enumerate(state):
+        cache[k, 1] = s
+    rows = tuple(cache[k, 1] for k in range(4))
+    hs, st = slstm_scan(pre_x, r, rows, out=rows)
+    assert all(a is b for a, b in zip(st, rows))
+    assert torch.equal(hs, want_hs)
+    assert all(torch.equal(a, b) for a, b in zip(rows, want_st))
+    assert float(cache[:, 0].abs().max()) == 0.0
+
+
+def test_slstm_scan_cuda_rejects_bad_input_and_grad(cuda):
+    pre_x, r, state = _slstm_inputs(2, 8, 64, 4, torch.bfloat16, True, cuda,
+                                    1)
+    n0 = slstm_kernel.slstm_scan_cuda.launches
+    with pytest.raises(TypeError):
+        slstm_scan(pre_x.half(), r)
+    with pytest.raises(ValueError, match="unit-stride last dim"):
+        wide = torch.zeros((2, 8, 512), device=cuda, dtype=torch.bfloat16)
+        slstm_scan(wide[..., ::2], r)
+    with pytest.raises(ValueError, match="r must be"):
+        slstm_scan(pre_x, r.bfloat16())
+    with pytest.raises(ValueError, match="r must be"):
+        slstm_scan(pre_x, r.reshape(2, 32, 64))
+    with pytest.raises(ValueError, match="state must hold"):
+        slstm_scan(pre_x, r, tuple(s.bfloat16() for s in state))
+    with pytest.raises(ValueError, match="device of pre_x"):
+        slstm_scan(pre_x, r, tuple(s.cpu() for s in state))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        slstm_scan(pre_x, r.clone().requires_grad_())
+    with torch.no_grad():
+        slstm_scan(pre_x, r.clone().requires_grad_())
+    assert slstm_kernel.slstm_scan_cuda.launches == n0 + 1
+
+
+def test_reduced_xlstm_engine_on_card_matches_cpu(cuda):
+    """The seeded reduced model in float32 on the card and on the CPU:
+    every prefill and every decode step launches the sLSTM kernel once
+    per sLSTM layer (2) and nothing else; a 512-token prompt takes the
+    mLSTM's chunk scan, a 40-token one a single chunk; the greedy tokens
+    agree."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, 512), rng.integers(0, 256, 40)]
+    cfg = get_config("xlstm-125m").reduced()
+    bundle = build(cfg, torch.float32, "cpu")
+    params = bundle.init(3)
+    host = Engine(bundle, params, ServeConfig(max_seq=64, slots=2))
+    card = Engine(build(cfg, torch.float32, "cuda"), _tree_to(params, cuda),
+                  ServeConfig(max_seq=64, slots=2))
+    want = _serve(host, prompts, 24)
+    flash, sl = flash_kernel.flash_attention_cuda, slstm_kernel.slstm_scan_cuda
+    f0, s0 = flash.launches, sl.launches
+    got = _serve(card, prompts, 24)
+    assert flash.launches == f0
+    assert sl.launches - s0 == 2 * (len(prompts) + 24)
+    assert got == want
+
+
+def test_xlstm_with_grad_on_card_raises(cuda):
+    bundle = build(get_config("xlstm-125m").reduced(), torch.bfloat16,
+                   "cuda")
+    params = bundle.init(0, dtype=torch.float32)
+    params["slstm"][0]["w_in"].requires_grad_(True)
     toks = torch.randint(0, 256, (1, 16), device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bundle.forward(params, {"tokens": toks})

@@ -271,7 +271,7 @@ def test_load_engine_and_device_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             build(get_config(ARCH).reduced())          # device="cuda"
-    for name in ("xlstm-125m", "whisper-base", "deepseek-v3-671b"):
+    for name in ("whisper-base", "deepseek-v3-671b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(get_config(name).reduced(), device="cpu")
 

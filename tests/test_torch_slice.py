@@ -163,7 +163,7 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path):
     pol = RecoveryPolicy(checkpoint=CheckpointManager(str(tmp_path)))
     for kw in ({"recovery": pol}, {"rebalance": Rebalancer()}):
         assert rt.run_pipeline([], **kw) == []
-    for name in ("xlstm-125m", "whisper-base", "deepseek-v3-671b"):
+    for name in ("whisper-base", "deepseek-v3-671b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(get_config(name).reduced(), device="cpu")
 

@@ -23,6 +23,7 @@ from repro_torch.kernels.gemm_hd import kernel as gemm_kernel
 from repro_torch.kernels.gemm_hd.ops import gemm
 from repro_torch.kernels.gemm_hd.ref import gemm_ref
 from repro_torch.kernels.rglru_scan import kernel as rglru_kernel
+from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
@@ -104,7 +105,8 @@ def _c_params(source: str, name: str):
     ("flash_attn_bwd_hd.cu", "flash_attn_bwd_hd", flash_kernel,
      "BWD_ARGTYPES"),
     ("gemm_hd.cu", "gemm_hd", gemm_kernel, "ARGTYPES"),
-    ("rglru_scan.cu", "rglru_scan_hd", rglru_kernel, "ARGTYPES")])
+    ("rglru_scan.cu", "rglru_scan_hd", rglru_kernel, "ARGTYPES"),
+    ("slstm_scan.cu", "slstm_scan_hd", slstm_kernel, "ARGTYPES")])
 def test_argtypes_match_the_c_entry_point(source, name, module, attr):
     """A wrapper that passes another argument list than the C function
     declares would pass garbage on the card; this holds them equal."""
