@@ -129,7 +129,15 @@
    re-admitted prompt starts from the last occupant's state: the
    lone-prompt gate from fresh engines, over every cache leaf, takes
    the re-admit gate's place.  Weights and cache are printed from the
-   bytes of their tensors.
+   bytes of their tensors.  Last, xlstm-125m: first its sLSTM kernel,
+   ``cluster`` on a prefill of the pool (4 x 2048 x 768, bf16, from a
+   state and without) and ``step`` on a decode step written over its
+   state, against float64 and its plain loop within 1e-3 of max|h|,
+   timed beside the loop, the operations bound and the exchange probe
+   (the ``cluster`` step loop without the product and the gates); then
+   the model at full width and depth: every prefill launches
+   ``cluster`` twice, every decode step ``step`` twice, and no other
+   kernel; the lone-prompt gate as for recurrentgemma.
 7. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -1204,11 +1212,14 @@ def scan_phase(torch):
     return entry
 
 
-def scan_device_ms(torch, fn, reps: int):
-    """(mean device time of one launch of the scan kernel that ``fn``
-    launches, launches seen), from torch.profiler's kernel intervals in
+def scan_device_ms(torch, fn, reps: int, kernel: str = "rglru",
+                   not_kernel: str | None = None):
+    """(mean device time of one launch of the kernel named with
+    ``kernel`` that ``fn`` launches, launches seen), from
+    torch.profiler's kernel intervals in
     ``reps`` calls, with CPU and CUDA activities as ``device_breakdown``
-    profiles.  Late in a long process the profiler has kept only some
+    profiles; fails where a kernel named with ``not_kernel`` ran in
+    them.  Late in a long process the profiler has kept only some
     of a short window's kernels (33 and 36 of 50 in two runs, none in a
     third with CUDA activity alone), so the mean is over those it kept,
     and None if it kept none: a measurement, not a gate."""
@@ -1222,10 +1233,14 @@ def scan_device_ms(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
     us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "rglru" in e.name]
-    check(len(us) <= reps, f"the profiler saw {len(us)} scan kernels in "
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(len(us) <= reps, f"the profiler saw {len(us)} {kernel} kernels in "
           f"{reps} calls")
+    check(not_kernel is None or not any(not_kernel in n for n in names),
+          f"a {not_kernel} kernel ran where only {kernel} should")
     return (sum(us) / len(us) / 1e3 if us else None), len(us)
 
 
@@ -1249,37 +1264,53 @@ def slstm_f64(torch, pre_x, r, state):
     return hs
 
 
-def slstm_phase(torch):
-    """The sLSTM recurrence kernel against float64 and the plain float32
-    loop at xlstm-125m's shapes, as the engine calls it: a prefill of
-    the whole pool (SERVE_SLOTS x PROMPTS[0] x d_model) in bf16 from the
-    slots' states, which are not 0 on a reused or live slot, and without
-    a state, as a forward calls it; a decode step (T = 1) from a state.
-    pre_x ~ N(0, 1), the model's pre-activations; r with the model's
-    scale; the state one the recurrence can reach (n > 0, |c| <= n).
-    Each call adds one launch.  Prints the clusters the card holds and
-    the shared memory a block takes; times the kernel at the prefill
-    shape (CUDA events) beside the plain loop and the operations bound,
-    and the decode call."""
+def slstm_phase(torch, ptxas):
+    """The sLSTM recurrence kernel's two variants against float64 and the
+    plain float32 loop at xlstm-125m's shapes, as the engine calls them:
+    a prefill of the whole pool (SERVE_SLOTS x PROMPTS[0] x d_model) in
+    bf16 from the slots' states, which are not 0 on a reused or live
+    slot, and without a state, as a forward calls it, both on
+    ``cluster``; a decode step (T = 1) from a state on ``step``, written
+    over its state as the engine writes it.  pre_x ~ N(0, 1), the
+    model's pre-activations; r with the model's scale; the state one the
+    recurrence can reach (n > 0, |c| <= n).  Each call adds one launch,
+    to its variant.  Prints each instantiation's ptxas registers and
+    spills (``ptxas``: slstm_scan's report), the clusters the card holds
+    and the shared memory a block takes; times ``cluster`` at the
+    prefill shape (CUDA events) beside the plain loop and the
+    operations bound, the exchange probe (the ``cluster`` step loop
+    without the product and the gates) at the same shape, and the
+    decode call on ``step``, back to back (CUDA events) and as device
+    time (torch.profiler), beside its plain loop and its bound (r's
+    bytes).  The profiler's kernel names hold each call to its
+    variant."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.slstm_scan.kernel import (
-        CLUSTER, ROWS, slstm_scan_cuda, smem_bytes)
+        CLUSTER, PROBE, slstm_scan_cuda, slstm_scan_kernel, slstm_variant,
+        smem_bytes)
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
 
     cfg = get_config(XLSTM_ARCH)
     D, H = cfg.d_model, cfg.n_heads
     Dh = D // H
     B, T = SERVE_SLOTS, PROMPTS[0]
+    for kernel, report in ptxas:
+        print(f"slstm_scan ptxas: {kernel}: {report}")
+    check(slstm_variant(B, T, D, H) == "cluster"
+          and slstm_variant(B, 1, D, H) == "step",
+          "the sLSTM kernel's variant choice does not send prefills to "
+          "cluster and decode steps to step")
     lib = build.load("slstm_scan")
-    smem = smem_bytes(D, H)
     clusters = ctypes.c_int(0)
     check(lib.slstm_scan_max_clusters(D, H, ctypes.byref(clusters)) == 0,
           "cudaOccupancyMaxActiveClusters failed for slstm_scan")
-    need = -(-B // ROWS)
-    print(f"slstm_scan grid at the prefill: {need} cluster(s) of {CLUSTER} "
-          f"blocks, {smem} bytes of shared memory a block; the card holds "
-          f"{clusters.value} at once")
+    need = B
+    print(f"slstm_scan cluster grid at the prefill: {need} cluster(s) of "
+          f"{CLUSTER} blocks, {smem_bytes(D, H, 'cluster')} bytes of shared "
+          f"memory a block; the card holds {clusters.value} at once; step: "
+          f"{smem_bytes(D, H, 'step')} bytes of dynamic shared memory a "
+          f"block")
     check(clusters.value >= need, "the sLSTM kernel's prefill grid does not "
           "fit on the card in one wave")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1294,25 +1325,28 @@ def slstm_phase(torch):
         return c, n, h, m
 
     errs, cases = {}, {}
-    for name, t, st in (("prefill", T, state()),
-                        ("decode", 1, state()),
-                        ("prefill without state", T, None)):
+    for name, t, st, v in (("prefill", T, state(), "cluster"),
+                           ("decode", 1, state(), "step"),
+                           ("prefill without state", T, None, "cluster")):
         pre_x = torch.randn((B, t, 4 * D), generator=g,
                             device="cuda").bfloat16()
-        n0 = slstm_scan_cuda.launches
-        hs, fin = slstm_scan_cuda(pre_x, r, st)
-        check(slstm_scan_cuda.launches - n0 == 1,
-              f"slstm_scan {name}: one call did not add one launch")
-        torch.cuda.synchronize()
         zero = torch.zeros((B, D), device="cuda")
         want = slstm_f64(torch, pre_x, r, st or (zero,) * 4)
-        plain, _ = slstm_scan_ref(pre_x, r, st)
+        plain, plain_st = slstm_scan_ref(pre_x, r, st)
+        # the decode step writes over its state, as the engine's does
+        out = tuple(s.clone() for s in st) if name == "decode" else None
+        n0, v0 = slstm_scan_cuda.launches, slstm_scan_cuda.by_variant[v]
+        hs, fin = slstm_scan_cuda(pre_x, r, out or st, out=out)
+        check(slstm_scan_cuda.launches - n0 == 1
+              and slstm_scan_cuda.by_variant[v] - v0 == 1,
+              f"slstm_scan {name}: one call did not add one launch to {v}")
+        torch.cuda.synchronize()
         top = float(want.abs().max())
         e64 = float((hs.double() - want).abs().max()) / top
         eplain = float((hs - plain).abs().max()) / top
         eloop = float((plain.double() - want).abs().max()) / top
         errs[name] = float((hs - plain).abs().max())
-        print(f"slstm_scan {name} {(B, t, D)} bf16"
+        print(f"slstm_scan {v} {name} {(B, t, D)} bf16"
               f"{' from a state' if st is not None else ''}: max|h| "
               f"{top:.4f}; max|err| / max|h| against float64 {e64:.3e}, "
               f"against the plain loop {eplain:.3e} (bound {SLSTM_TOL:g}); "
@@ -1322,15 +1356,32 @@ def slstm_phase(torch):
               f"slstm_scan {name}: {e64}, {eplain} > {SLSTM_TOL}")
         check(torch.equal(fin[2], hs[:, -1]),
               f"slstm_scan {name}: the final h is not the last step's")
+        efin = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(fin, plain_st))
+        check(efin <= SLSTM_TOL, f"slstm_scan {name}: the final state is "
+              f"{efin} from the plain loop's")
         cases[name] = (pre_x, st)
     pre_x, st = cases["prefill"]
     pre1, st1 = cases["decode"]
-    # operations: 2 B H Dh 4Dh a step; bytes: pre_x (bf16) and r read
-    # once, hs written once, the state read and written once
-    flops = 2 * B * H * Dh * 4 * Dh * T
-    nbytes = B * T * 4 * D * 2 + B * T * D * 4 + r.numel() * 4 \
-        + 8 * B * D * 4
+    out1 = tuple(s.clone() for s in st1)
+
+    def bound(t):
+        """(ms, "operations" or "bytes", the bytes' ms): the least time of
+        a call at T t.  2 B H Dh 4Dh operations a step over the card's
+        float32 rate; pre_x (bf16) and r read once, hs written once, the
+        state read and written once, over its memory rate."""
+        ops_s = 2 * B * H * Dh * 4 * Dh * t / FP32_FLOPS_PER_S
+        bytes_s = (B * t * 4 * D * 2 + B * t * D * 4 + r.numel() * 4
+                   + 8 * B * D * 4) / HBM_BYTES_PER_S
+        return (1e3 * max(ops_s, bytes_s),
+                "operations" if ops_s >= bytes_s else "bytes", 1e3 * bytes_s)
     ms = cuda_ms(torch, lambda: slstm_scan_cuda(pre_x, r, st), 10)
+    probe = cuda_ms(torch, lambda: slstm_scan_kernel(pre_x, r, st, PROBE), 10)
+
+    def decode():
+        return slstm_scan_cuda(pre1, r, out1, out=out1)
+    bound_ms, bound_by, bytes_ms = bound(T)
+    dec_bound_ms, dec_bound_by, _ = bound(1)
     entry = dict(
         name="slstm_scan", route="cuda",
         source="src/repro_torch/csrc/slstm_scan.cu",
@@ -1338,27 +1389,49 @@ def slstm_phase(torch):
         max_abs_err=max(errs["prefill"], errs["prefill without state"]),
         ms=ms,
         plain_ms=cuda_ms(torch, lambda: slstm_scan_ref(pre_x, r, st), 2),
-        bound_ms=1e3 * max(flops / FP32_FLOPS_PER_S,
-                           nbytes / HBM_BYTES_PER_S),
-        bound_by="operations" if flops / FP32_FLOPS_PER_S
-        >= nbytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=None,
-        ms_per_step=ms / T,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        us_per_step=1e3 * ms / T,
         ms_again=cuda_ms(torch, lambda: slstm_scan_cuda(pre_x, r, st), 10),
-        bytes_bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-        decode_ms=cuda_ms(torch, lambda: slstm_scan_cuda(pre1, r, st1), 50),
+        probe_us_per_step=1e3 * probe / T,
+        bytes_bound_ms=bytes_ms,
+        decode_ms=cuda_ms(torch, decode, 50),
+        decode_plain_ms=cuda_ms(
+            torch, lambda: slstm_scan_ref(pre1, r, st1), 50),
+        decode_bound_ms=dec_bound_ms, decode_bound_by=dec_bound_by,
         decode_max_abs_err=errs["decode"],
-        smem_bytes=smem, max_clusters=clusters.value,
-        shape=[B, T, D])
-    print(f"slstm_scan at {entry['shape']} bf16 from a state: "
+        smem_bytes={v: smem_bytes(D, H, v) for v in ("cluster", "step")},
+        max_clusters=clusters.value,
+        ptxas=dict(ptxas), shape=[B, T, D])
+    entry["ms_by_variant"] = {"cluster": ms, "step": entry["decode_ms"]}
+    # the device's kernel names: a prefill runs `cluster` and a decode
+    # call `step`, and neither the other.  The profiler drops up to 16 of
+    # a window's first kernels (none of 3 prefills kept in one run, 7 of
+    # 20 in another, 34 of 50 decode calls), so each window is 50 calls.
+    entry["prefill_device_ms"], seen_p = scan_device_ms(
+        torch, lambda: slstm_scan_cuda(pre_x, r, st), 50, "slstm_cluster",
+        "slstm_step")
+    entry["decode_device_ms"], seen = scan_device_ms(
+        torch, decode, 50, "slstm_step", "slstm_cluster")
+    check(seen_p > 0 and seen > 0, f"the profiler saw {seen_p} cluster "
+          f"kernels in 50 prefills and {seen} step kernels in 50 decode "
+          f"calls")
+    dev = entry["decode_device_ms"]
+    print(f"slstm_scan cluster at {entry['shape']} bf16 from a state: "
           f"{ms:.4f} ms ({entry['ms_again']:.4f} again; "
-          f"{1e3 * entry['ms_per_step']:.3f} us a step), plain loop "
-          f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-          f"({entry['bound_by']}; bytes {entry['bytes_bound_ms']:.4f} ms); "
-          f"a decode step {(B, 1, D)} {entry['decode_ms']:.4f} ms a call "
-          f"back to back (CUDA events); no PyTorch call computes the "
-          f"recurrence")
-    del cases, pre_x, st, pre1, st1
+          f"{entry['prefill_device_ms']:.4f} ms of device time, {seen_p} "
+          f"of 50 launches seen; "
+          f"{entry['us_per_step']:.3f} us a step), the exchange probe "
+          f"{probe:.4f} ms ({entry['probe_us_per_step']:.3f} us a step), "
+          f"plain loop {entry['plain_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}; bytes "
+          f"{entry['bytes_bound_ms']:.4f} ms); a decode step {(B, 1, D)} on "
+          f"step {entry['decode_ms']:.4f} ms a call back to back (CUDA "
+          f"events), {dev:.4f} ms of device time (torch.profiler, {seen} "
+          f"of 50 launches seen), plain loop "
+          f"{entry['decode_plain_ms']:.4f} ms, bound "
+          f"{entry['decode_bound_ms']:.5f} ms ({entry['decode_bound_by']}); "
+          f"no PyTorch call computes the recurrence")
+    del cases, pre_x, st, pre1, st1, out1
     torch.cuda.empty_cache()
     return entry
 
@@ -2505,13 +2578,13 @@ def main() -> None:
     # sLSTM kernel against its plain version, then its serving.  Its
     # Engine, like recurrentgemma's, resets only `pos` on a reused slot:
     # lone prompts from fresh engines take the re-admit gate's place
-    slstm = slstm_phase(torch)
+    slstm = slstm_phase(torch, ptxas["slstm_scan"])
     xl_cfg = get_config(XLSTM_ARCH)
     n_slstm = xl_cfg.n_layers // xl_cfg.xlstm.slstm_every
     xl_launches, xl_variants, bundle, params = serve_path(
         torch, XLSTM_ARCH, None, "xlstm serving", readmit_repeats=False,
         per_step={"slstm_scan": (n_slstm, n_slstm)},
-        step_variants={"slstm_scan": ("cluster", "cluster")})
+        step_variants={"slstm_scan": ("cluster", "step")})
     lone_prompt_repeats(torch, bundle, params,
                         serve_prompts(bundle.cfg.vocab)[0], DECODE_STEPS)
     del bundle, params
@@ -2556,7 +2629,6 @@ def main() -> None:
     slstm["launches_by_path"] = {"xlstm engine": xl_launches["slstm_scan"]}
     slstm["launches"] = xl_launches["slstm_scan"]
     slstm["launches_by_variant"] = xl_variants["slstm_scan"]
-    slstm["ptxas"] = dict(ptxas["slstm_scan"])
     print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd, scan,
                                   slstm]}))
     print(card_line())

@@ -1,5 +1,4 @@
-// The sLSTM recurrence of xLSTM (arXiv:2405.04517), one layer's whole
-// scan over T in one launch:
+// The sLSTM recurrence of xLSTM (arXiv:2405.04517) over T steps:
 //
 //   rec   = einsum("bhd,hde->bhe", h.reshape(B, H, Dh), r).reshape(B, 4D)
 //   pre   = pre_x_t + rec;   i, f, z, o = split(pre, 4)   (D units each)
@@ -16,52 +15,177 @@
 // every unit's gates read all of h_{t-1}, not its own head's Dh.
 //
 // Replaces the `lax.scan` of `slstm_block` in src/repro/models/xlstm.py
-// (:187, the scan at :217; a float32 scan, not a Pallas kernel: on the
-// card a loop of PyTorch ops over T launches about 18 kernels a step).
+// (:187, the step at :203-215, the scan at :217; a float32 scan, not a
+// Pallas kernel: on the card a loop of PyTorch ops over T launches
+// about 18 kernels a step).
 //
 // Bound on an H100: the sequential chain.  A step is 2 B H Dh 4Dh
 // operations (4.72 MFLOP at B 4 and xlstm-125m's D 768, H 4), which the
-// card's 67 TFLOP/s of float32 would do in 0.07 us, and reads Bx4D
-// values of pre_x; step t + 1 cannot start before every unit of step t
-// is known.  At B 4, T 2048 the operations bound is 0.144 ms and the
-// byte bound (pre_x once, hs once, r once) 0.023 ms; what a step costs
-// is the latency of the product, the gates and the exchange of h.
+// card's 67 TFLOP/s of float32 would do in 0.07 us; step t + 1 cannot
+// start before every unit of step t is known.  At B 4, T 2048 the
+// operations bound is 0.144 ms and the byte bound (pre_x, hs, r once)
+// 0.023 ms; what a step costs is the latency of one dot product, the
+// gates and one exchange of h among the blocks that hold r.
 //
-// Design (the first, simple one): one cluster of kCluster = 16 blocks
-// (a non-portable cluster size) takes kRows = 4 batch rows.  Block k of
-// the cluster owns U = ceil(D / 16) units (48 at D 768), i.e. 4U gate
-// columns, and keeps their slice of r, Dh x 4U floats (147 KB at D 768),
-// in shared memory for the whole launch, so r is read from device
-// memory once a launch and once a step from shared memory for all kRows
-// rows.  Each block also holds all of h_{t-1} for its rows, double
-// buffered.  A step: thread c of the block computes column c's dot
-// product for the kRows rows (float4 h values, a broadcast within a
-// warp) and adds pre_x (loaded two steps ahead into registers); thread
-// (b, u) computes unit u's gates and state for row b in registers and
-// writes h to hs; the block then stores its U new h values into every
-// block's next buffer through distributed shared memory (16-byte
-// st.shared::cluster, one per unit and block) and the cluster meets at
-// one barrier (arrive.release / wait.acquire) before the next step.
-// Only 16 of the 132 SMs work, one barrier a step: the kernel is far
-// from its bound, which a later design is to close.
+// The first design (one 16-block cluster per 4 batch rows, r in shared
+// memory, two block barriers and a cluster barrier a step) took 9.9227
+// ms at B 4, T 2048, D 768 (4.845 us a step) and 0.0616 ms a decode
+// call back to back (NVIDIA H100 80GB HBM3, 700.00 W).  It was held
+// back by (1) 16 of 132 SMs at B 4, (2) r re-read from shared memory
+// every step, (3) a serial exchange ending in a full cluster barrier,
+// and (4) a decode call paying the whole set-up (147 KB of r a block
+// into shared memory, a non-portable cluster) for one step.  Two
+// variants replace it; the wrapper picks one from the shape
+// (slstm_variant) and launches it by its code through
+// slstm_scan_kernel_hd, while slstm_scan_hd applies the same rule
+// (variant_for) for a caller that names none:
+//
+// `cluster`, for a prefill: the whole chain in one launch, for latency.
+//  (1) One cluster of kCluster = 16 blocks a batch row, so at B 4 four
+//      clusters on 64 SMs.  Block k owns U = ceil(D / 16) units (48 at
+//      D 768) and their 4U gate columns.
+//  (2) The block's slice of r (Dh x 4U floats, 147 KB at D 768) stays
+//      in registers for the whole launch.  A warp takes kCols = 4
+//      neighbouring units, all four gates: lane g 8 + dg holds the 4
+//      columns of gate g (one head) over its d-group's 24 d, 96 floats,
+//      so each h value it loads feeds 4 FMAs, and the 8 d-groups take
+//      interleaved 16-byte chunks (4 (dg + 8 k)), so the 8 lanes of a
+//      quarter warp read 8 chunks on distinct banks.  The 8 partial
+//      sums of the 4 columns reduce by a transposing shuffle (4
+//      shuffles, each lane ends with one column), and the gates of a
+//      unit meet by 4 more: no block barrier in the step loop.  The
+//      only shared-memory reads of a step are the h_{t-1} values.
+//  (3) The exchange: each block sends its units' new h into every
+//      block's next h buffer with st.async, which completes the bytes
+//      that buffer's mbarrier expects (4 D a step); a warp's units are
+//      neighbours, so it sends them as one 16-byte store per
+//      destination block.  A block waits only on its own buffer's
+//      mbarrier.  Three buffers: a block can only send h_t once every
+//      unit of h_{t-1} has reached it, so every peer has finished its
+//      reads of the buffer that h_t overwrites (h_{t-3}'s, read at step
+//      t - 2).  Each step's pre_x is loaded two steps ahead, and the
+//      hs stores go out after the sends, while the block waits.
+// `step`, for short T (a decode step is T = 1), with no cluster.
+//  (4) Blocks of kStepUnits units x kStepRows rows take all four gates
+//      of their units: 96 blocks at D 768, B 4, 2 an SM at most, so at
+//      most kStepMaxBlocks = 192 (D up to 1536 at B 4).  A thread reads
+//      r straight from L2 or device memory as 16-byte loads of four
+//      neighbouring units (a warp reads 32-byte runs of 4 rows of r),
+//      for d = its d-group, + 32, ..., the first kStepPre into
+//      registers before the block fills h_{-1}, so the two latencies
+//      overlap; the 32 d-groups reduce by shuffles and shared memory,
+//      and one warp does the gates and writes h.  No shared-memory fill
+//      of r, no cluster.
+//      The hazard: with out = state every block reads all of h_{-1},
+//      and writes its units' h_T.  Each block copies the h_{-1} of its
+//      rows into shared memory, then arrives at a grid barrier (a
+//      count and generation in device memory, one of kBarSlots slots
+//      taken in turn by the host, so launches on other streams do not
+//      share one); it waits on that barrier only before writing the
+//      final state, by when every block has long arrived.  A split
+//      arrive / wait hides the barrier's latency, which a cooperative
+//      launch's grid.sync() would put on the path; the launch is
+//      still cooperative, so that the runtime refuses a grid that
+//      could not be resident at once.  For T > 1 the steps meet at the
+//      same kind of barrier after each step's h is written to hs.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py and
+// tools/slstm_scan_variants.py, CUDA events and torch.profiler): at B
+// 4, T 2048, D 768 in bf16 from a state `cluster` takes 3.0182 ms,
+// 1.474 us a step, against the first design's 9.9208 in the same run.
+// What bounds it is the chain, in series: the exchange alone (the
+// probe: the step loop without the product and the gates) 0.81 us a
+// step, the product 0.48, the gates 0.16 (probes of each cut, in
+// builds that also held the layouts below).  Layouts tried, in builds
+// of this file that were not kept: one cluster for 4 rows (4.8 us a
+// step) or 2 (2.6), both spilling; 2 columns a lane (1.85); one column
+// split over 2 lanes (3.40: one h load an FMA, the heads' h on the same
+// banks); a bulk copy a peer in place of the st.asyncs (1.55); spinning
+// on the mbarrier (1.45).  `step` takes 0.0056-0.0061 ms of device time
+// a decode call (B 4, T 1), 7.5-8.1x its bound (r's 2.36 MB read once,
+// 0.00074 ms), bound by latency: the launch, the h_{-1} fill and r's
+// loads (overlapped), the reduction and the gates; `cluster` is faster
+// from T 3 (kStepMaxT).
 //
 // Numbers: accurate expf and tanhf and IEEE division (no fast math);
-// the dot products are summed in order of d with FMAs, where PyTorch's
-// einsum sums in its own order.
+// the dot products are float32 FMAs summed in another order than
+// PyTorch's einsum (partial sums over lanes or d-groups).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <atomic>
 
-constexpr int kCluster = 16;     // blocks a cluster, all units of a row
-constexpr int kRows = 4;         // batch rows a cluster (one float4 of h)
-constexpr int kMaxThreads = 512; // 4U threads: U <= 128, D <= 2048
-static_assert(kRows == 4, "a row group is one float4 of h");
+namespace {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// component k of a float4 (k known at compile time once unrolled)
+__device__ __forceinline__ float component(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// one step of a unit's gates and state
+__device__ __forceinline__ void gate_step(float i_, float f_, float z_,
+                                          float o_, float& cs, float& ns,
+                                          float& ms, float& hv) {
+  const float fm = f_ + ms;
+  const float m_new = fmaxf(fm, i_);
+  const float ig = expf(i_ - m_new);
+  const float fg = expf(fm - m_new);
+  cs = fg * cs + ig * tanhf(z_);
+  ns = fg * ns + ig;
+  ms = m_new;
+  hv = (1.0f / (1.0f + expf(-o_))) * (cs / fmaxf(ns, 1e-6f));
+}
+
+// Sets a kernel's launch attributes once per device (bit `dev` of
+// `ready`); returns the CUDA error.
+template <typename K>
+cudaError_t prepare(K* kernel, std::atomic<unsigned long long>& ready,
+                    cudaFuncAttribute attr, int value) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit != 0 && (ready.load(std::memory_order_acquire) & bit)) return err;
+  err = cudaFuncSetAttribute(kernel, attr, value);
+  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ---------------------------------------------------------------------
+// `cluster`
+// ---------------------------------------------------------------------
+constexpr int kCluster = 16;   // blocks a cluster: all units of its row
+constexpr int kUnits = 48;     // units a block at most: D <= 768
+constexpr int kMaxDh = 192;    // head width the registers hold
+constexpr int kDGroups = 8;    // lanes a column: 4 gates x 8 = a warp
+constexpr int kBufs = 3;       // h buffers a block
+constexpr int kCols = 4;       // units a warp, columns a lane
+
+__host__ __device__ inline int units_per_block(int D) {
+  return (D + kCluster - 1) / kCluster;
+}
+
+// a head's places in an h buffer: Dh rounded up to 16-byte chunks
+__host__ __device__ inline int head_stride(int Dh) { return (Dh + 3) / 4 * 4; }
+
+// dynamic shared memory of a `cluster` block: kBufs h buffers, each H x
+// head_stride(Dh) floats
+__host__ __device__ inline size_t cluster_smem(int D, int H) {
+  return sizeof(float) * kBufs * (size_t)H * head_stride(D / H);
+}
+
+__host__ __device__ inline int cluster_threads(int D) {
+  return (units_per_block(D) + kCols - 1) / kCols * 32;
+}
+
+__host__ __device__ inline bool cluster_fits(int D, int H) {
+  return units_per_block(D) <= kUnits && D / H <= kMaxDh;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -74,8 +198,6 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
-// every thread of every block of the cluster; orders the shared-memory
-// stores before it (remote ones included) before the reads after it
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
@@ -93,164 +215,553 @@ __device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
   return out;
 }
 
-__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float4 v) {
+// asynchronous stores of 4 floats or 1 into the shared memory of a block
+// of the cluster, each completing its bytes of the transaction count of
+// that block's mbarrier `bar` (no fence: the receiver's wait on the
+// barrier sees the values)
+__device__ __forceinline__ void st_async4(uint32_t addr, const float* v,
+                                          uint32_t bar) {
   asm volatile(
-      "st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async1(uint32_t addr, float v,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], "
+      "%1, [%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
       : "memory");
 }
 
-__host__ __device__ inline int units_per_block(int D) {
-  return (D + kCluster - 1) / kCluster;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-__host__ __device__ inline int block_threads(int D) {
-  return (4 * units_per_block(D) + 31) / 32 * 32;
+// Waits until the phase of parity `parity` of a local mbarrier has
+// completed.  The thread sleeps in the wait (up to the 10 ms hint).  h
+// arrives within microseconds; a wait beyond 2^32 cycles (over 2 s)
+// traps, so a fault ends the launch with an error, not a hang.
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity), "r"(10000000)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - start > (1ll << 32)) __trap();
 }
 
-// dynamic shared memory: h double-buffered (2 D float4), the block's
-// new h (U float4), the step's pre-activations (kRows x 4U) and the
-// slice of r (Dh x 4U)
-__host__ __device__ inline size_t smem_bytes(int D, int H) {
-  const size_t U = units_per_block(D), Dh = D / H;
-  return sizeof(float4) * (2 * (size_t)D + U) +
-         sizeof(float) * 4 * U * (kRows + Dh);
+// Grid (kCluster, B), clusters of kCluster along x: cluster y takes
+// batch row y.  Block `rank` owns units [rank U, rank U + U); its warp w
+// the kCols units uw .. uw + 3, uw = rank U + w kCols: lane g 8 + dg
+// holds the 4 columns j = g D + uw + c of gate g and the d of its chunks
+// 4 (dg + 8 k) + (0 .. 3), and after the reduction the sum of column c
+// = dg >> 1, whose unit's gates and state it keeps (lanes dg and dg ^ 1
+// of each gate alike).  kProbe: the exchange probe, the step loop
+// without the product and the gates (not the function).  c0 == nullptr:
+// a zero state.
+template <typename In, bool kProbe>
+__global__ void __launch_bounds__(kUnits / kCols * 32, 1)
+slstm_cluster_kernel(const In* __restrict__ px, const float* __restrict__ r,
+                     const float* c0, const float* n0, const float* h0,
+                     const float* m0, float* __restrict__ hs, float* c1,
+                     float* n1, float* h1, float* m1, int B, int T, int D,
+                     int H, long long psb, long long pst) {
+  constexpr int kD = kMaxDh / kDGroups;   // d a lane
+  constexpr int kChunks = kD / 4;         // its 4-wide chunks
+  extern __shared__ __align__(16) float hbuf[];     // [kBufs][H][hsd]
+  __shared__ __align__(8) unsigned long long bar[kBufs];
+
+  const int U = units_per_block(D);
+  const int Dh = D / H, E = 4 * Dh, hsd = head_stride(Dh);
+  const int nbuf = H * hsd;                         // floats a buffer
+  const uint32_t rank = cluster_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 3, dg = lane & 7;
+  const int uw = (int)rank * U + warp * kCols;      // the warp's unit 0
+  const int row = blockIdx.y;
+  auto place = [&](int v) { return (v / Dh) * hsd + v % Dh; };
+  auto unit_live = [&](int c) {
+    return warp * kCols + c < U && uw + c < D;
+  };
+
+  // the lane's columns' r over its d, in registers for the whole
+  // launch: rr[c kD + 4 k + i] = r[head, d, e] at d = 4 (dg + 8 k) + i;
+  // hoff[c]: the column's head in a buffer.  Where the 4 columns are
+  // neighbours in one head, 16 bytes aligned, one load takes all 4.
+  float rr[kCols * kD];
+  int hoff[kCols], eo[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const bool lc = unit_live(c);
+    const int j = g * D + uw + c;
+    hoff[c] = lc || c == 0 ? (lc ? j / E : 0) * hsd : hoff[0];
+    eo[c] = lc ? (j / E) * Dh * E + j % E : -1;     // r[head, 0, e]
+  }
+  bool one_head = true;
+#pragma unroll
+  for (int c = 1; c < kCols; ++c) one_head = one_head && hoff[c] == hoff[0];
+  const bool vec = one_head && eo[kCols - 1] == eo[0] + kCols - 1 &&
+                   eo[0] % 4 == 0;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 4 * (dg + kDGroups * k) + i;
+      const bool in = !kProbe && d < Dh;
+      if (vec) {
+        const float4 q =
+            in ? __ldg(reinterpret_cast<const float4*>(
+                     r + eo[0] + (long long)d * E))
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) rr[c * kD + 4 * k + i] = component(q, c);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          rr[c * kD + 4 * k + i] =
+              in && eo[c] >= 0 ? __ldg(r + eo[c] + (long long)d * E) : 0.0f;
+      }
+    }
+
+  // h_{-1} of the row into buffer 0, every unit; the padding of every
+  // buffer to 0 (read, times r's zeros, by the last chunks)
+  for (int k = threadIdx.x; k < kBufs * nbuf; k += blockDim.x)
+    hbuf[k] = 0.0f;
+  __syncthreads();
+  for (int v = threadIdx.x; v < D; v += blockDim.x)
+    hbuf[place(v)] = h0 != nullptr ? h0[(long long)row * D + v] : 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBufs; ++s) mbar_init(smem_u32(&bar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive(smem_u32(&bar[0]));     // buffer 0 holds h_{-1} already
+  }
+
+  // the lane's unit after the reduction, and its state
+  const int u = uw + (dg >> 1);
+  const bool live = unit_live(dg >> 1);
+  const int j = g * D + u;
+  const long long idx = (long long)row * D + u;
+  const bool st = live && c0 != nullptr;
+  float cs = st ? c0[idx] : 0.0f;
+  float ns = st ? n0[idx] : 0.0f;
+  float ms = st ? m0[idx] : 0.0f;
+  float hv = st ? h0[idx] : 0.0f;
+  const In* pxc = px + (live ? row * psb + j : 0);
+  // pre_x of column j at step t
+  auto load = [&](int t) {
+    return (live && t < T) ? to_float(pxc[(long long)t * pst]) : 0.0f;
+  };
+
+  // the warp's units are neighbours in one head at a 16-byte aligned
+  // place: one store of 4 floats a destination block
+  const bool packed = warp * kCols + kCols <= U && uw + kCols <= D &&
+                      uw / Dh == (uw + kCols - 1) / Dh &&
+                      place(uw) % 4 == 0;
+  const bool sender = g == 0 && (dg & 1) == 0;
+  const uint32_t hbuf_u32 = smem_u32(hbuf);
+
+  // step t on pre_x xt; loads step t + 2's pre_x into xn
+  auto step = [&](int t, float xt, float& xn) {
+    const int s = t % kBufs;
+    xn = load(t + 2);
+    mbar_wait(smem_u32(&bar[s]), (t / kBufs) & 1);
+    // the next buffer's phase waits for every unit's h_t: armed now,
+    // off the step's path (its last phase, h_{t-3}'s, completed at
+    // step t - 2)
+    if (t + 1 < T && threadIdx.x == 0)
+      mbar_expect_tx(smem_u32(&bar[(t + 1) % kBufs]), 4u * D);
+
+    float pre;
+    if constexpr (kProbe) {
+      pre = xt;
+    } else {
+      const float* hp = hbuf + s * nbuf;
+      float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+      // column c's chunk 4 (dg + 8 k) .. + 3 of its head
+      auto madd = [&](int c, int k, const float4& hq) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[c] = fmaf(rr[c * kD + 4 * k + i], component(hq, i), acc[c]);
+      };
+      if (one_head) {
+#pragma unroll
+        for (int k = 0; k < kChunks; ++k) {
+          const int ch = dg + kDGroups * k;
+          if (4 * ch < Dh) {
+            const float4 hq =
+                *reinterpret_cast<const float4*>(hp + hoff[0] + 4 * ch);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) madd(c, k, hq);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kChunks; ++k) {
+          const int ch = dg + kDGroups * k;
+          if (4 * ch < Dh) {
+#pragma unroll
+            for (int c = 0; c < kCols; ++c)
+              madd(c, k,
+                   *reinterpret_cast<const float4*>(hp + hoff[c] + 4 * ch));
+          }
+        }
+      }
+      // the 8 d-groups' sums, 4 columns transposed over the lanes: lane
+      // dg ends with column dg >> 1
+      const bool hi = dg & 4, mid = dg & 2;
+      float k0 = hi ? acc[2] : acc[0];
+      float k1 = hi ? acc[3] : acc[1];
+      k0 += __shfl_xor_sync(0xffffffffu, hi ? acc[0] : acc[2], 4);
+      k1 += __shfl_xor_sync(0xffffffffu, hi ? acc[1] : acc[3], 4);
+      float kv = (mid ? k1 : k0) +
+                 __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 2);
+      kv += __shfl_xor_sync(0xffffffffu, kv, 1);
+      pre = kv + xt;
+    }
+
+    // the unit's four gates from the lanes of its d-group in each gate;
+    // every lane of the unit keeps the same state
+    const float i_ = __shfl_sync(0xffffffffu, pre, dg);
+    const float f_ = __shfl_sync(0xffffffffu, pre, 8 + dg);
+    const float z_ = __shfl_sync(0xffffffffu, pre, 16 + dg);
+    const float o_ = __shfl_sync(0xffffffffu, pre, 24 + dg);
+    if constexpr (kProbe)
+      hv = i_ + f_ + z_ + o_;
+    else
+      gate_step(i_, f_, z_, o_, cs, ns, ms, hv);
+
+    // h_t into every block's next buffer
+    if (t + 1 < T) {
+      const int sn = (t + 1) % kBufs;
+      const uint32_t dst = hbuf_u32 + 4u * (uint32_t)(sn * nbuf);
+      const uint32_t nbar = smem_u32(&bar[sn]);
+      if (packed) {
+        float seg[kCols];         // unit c's h at c
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          seg[c] = __shfl_sync(0xffffffffu, hv, c << 1);
+        const uint32_t peer = lane & (kCluster - 1);
+        if (lane < kCluster)
+          st_async4(cluster_map(dst + 4u * (uint32_t)place(uw), peer), seg,
+                    cluster_map(nbar, peer));
+      } else if (live) {
+        // the unit's 8 lanes share the kCluster blocks
+        const uint32_t at = dst + 4u * (uint32_t)place(u);
+        for (int peer = g << 1 | (dg & 1); peer < kCluster; peer += 8)
+          st_async1(cluster_map(at, (uint32_t)peer), hv,
+                    cluster_map(nbar, (uint32_t)peer));
+      }
+    }
+    if (!kProbe && sender && live)
+      hs[((long long)row * T + t) * D + u] = hv;
+  };
+
+  float xa = load(0), xb = load(1), xc;
+  // every block holds h_{-1} and its barriers are ready
+  cluster_sync();
+  // three steps an iteration, so that the pre_x loaded at step t is
+  // first read, by its own name, at step t + 2: no register move at the
+  // end of a step waits for a load from device memory
+  for (int t = 0; t < T; t += 3) {
+    step(t, xa, xc);
+    if (t + 1 < T) step(t + 1, xb, xa);
+    if (t + 2 < T) step(t + 2, xc, xb);
+  }
+
+  // no block leaves while a peer may still use its shared memory
+  cluster_sync();
+  if (sender && live) {
+    c1[idx] = cs;
+    n1[idx] = ns;
+    h1[idx] = hv;
+    m1[idx] = ms;
+  }
 }
 
-// Grid (kCluster, ceil(B / kRows)), one cluster along x per group of
-// kRows batch rows.  c0 == nullptr: a zero state.
+template <typename In, bool kProbe>
+cudaError_t cluster_config(int D, int H, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute* attr) {
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err =
+      prepare(slstm_cluster_kernel<In, kProbe>, ready,
+              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cfg.blockDim = dim3(cluster_threads(D));
+  cfg.dynamicSmemBytes = cluster_smem(D, H);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename In, bool kProbe>
+int launch_cluster(const void* px, const void* r, const void* c0,
+                   const void* n0, const void* h0, const void* m0, void* hs,
+                   void* c1, void* n1, void* h1, void* m1, int B, int T,
+                   int D, int H, long long psb, long long pst,
+                   cudaStream_t stream) {
+  if (!cluster_fits(D, H) || B > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config<In, kProbe>(D, H, cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3(kCluster, B);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, slstm_cluster_kernel<In, kProbe>,
+                           (const In*)px, (const float*)r, (const float*)c0,
+                           (const float*)n0, (const float*)h0,
+                           (const float*)m0, (float*)hs, (float*)c1,
+                           (float*)n1, (float*)h1, (float*)m1, B, T, D, H,
+                           psb, pst);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// `step`
+// ---------------------------------------------------------------------
+constexpr int kStepUnits = 8;      // units a block, all four gates
+constexpr int kStepRows = 4;       // batch rows a block (a float4 of h)
+constexpr int kStepThreads = 256;  // 8 quads of columns x 32 d-groups
+constexpr int kStepMaxT = 3;       // shorter T takes `step`
+constexpr int kStepPre = 6;        // d of r a thread holds: Dh <= 192
+constexpr int kStepMinBlocks = 2;  // blocks an SM (at most 128 registers)
+constexpr int kStepMaxBlocks = 192;  // resident at once on any H100
+constexpr int kBarSlots = 64;      // grid barriers, taken in turn
+static_assert(kStepRows == 4, "a unit's rows are one float4 of h");
+
+__host__ __device__ inline int step_blocks(int B, int D) {
+  return (D + kStepUnits - 1) / kStepUnits *
+         ((B + kStepRows - 1) / kStepRows);
+}
+
+__host__ __device__ inline bool step_fits(int B, int D) {
+  return step_blocks(B, D) <= kStepMaxBlocks;
+}
+
+// dynamic shared memory of a `step` block: h_{t-1} of its rows, every
+// unit (at most 24 KB: kStepMaxBlocks bounds D by 1536)
+__host__ __device__ inline size_t step_smem(int D) {
+  return sizeof(float4) * (size_t)D;
+}
+
+// A grid barrier in device memory: arrivals are counted, and the last
+// one resets the count and moves the generation on.  Self-resetting, so
+// consecutive launches reuse a slot without a memset.
+struct GridBar {
+  unsigned count, gen;
+};
+__device__ GridBar g_grid_bar[kBarSlots][2];
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// One thread of the block, after a __syncthreads that follows the
+// block's reads and writes to order: arrives, and returns the
+// generation to wait on.
+__device__ __forceinline__ unsigned grid_arrive(GridBar* b, unsigned n) {
+  const unsigned gen = ld_acquire(&b->gen);
+  __threadfence();
+  if (atomicAdd(&b->count, 1u) + 1 == n) {
+    atomicExch(&b->count, 0u);
+    st_release(&b->gen, gen + 1);
+  }
+  return gen;
+}
+// Waits until every block has arrived; traps after 2^32 cycles (over
+// 2 s) instead of hanging on a fault.
+__device__ __forceinline__ void grid_wait(GridBar* b, unsigned gen) {
+  const long long start = clock64();
+  while (ld_acquire(&b->gen) == gen)
+    if (clock64() - start > (1ll << 32)) __trap();
+}
+
+// Grid (ceil(D / kStepUnits), ceil(B / kStepRows)): block (x, y) takes
+// units x kStepUnits .. + 7 of rows y kStepRows .. + 3.  Thread: quad q
+// = tid % 8 (gate q / 2, units ub .. ub + 3 with ub = x kStepUnits +
+// (q % 2) 4), d-group dg = tid / 8 (d = dg, dg + 32, ...).  Threads
+// tid < 32 are the gates' of unit x kStepUnits + tid % 8, row tid / 8.
 template <typename In>
-__global__ void __launch_bounds__(kMaxThreads)
-slstm_scan_kernel(const In* __restrict__ px, const float* __restrict__ r,
+__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks)
+slstm_step_kernel(const In* __restrict__ px, const float* __restrict__ r,
                   const float* c0, const float* n0, const float* h0,
                   const float* m0, float* __restrict__ hs, float* c1,
                   float* n1, float* h1, float* m1, int B, int T, int D,
-                  int H, long long psb, long long pst) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int U = units_per_block(D);
-  const int cols = 4 * U;
-  const int Dh = D / H;
-  const int E = 4 * Dh;
-  float4* hbuf = reinterpret_cast<float4*>(smem);           // [2][D]
-  float4* hloc = hbuf + 2 * D;                              // [U]
-  float* pre_s = reinterpret_cast<float*>(hloc + U);        // [kRows][cols]
-  float* r_s = pre_s + kRows * cols;                        // [Dh][cols]
+                  int H, long long psb, long long pst, int slot) {
+  extern __shared__ __align__(16) float4 hsm[];     // [D]: 4 rows a unit
+  __shared__ float red[kStepThreads / 32][8][16];   // warp, quad, c 4 + b
+  __shared__ float pre_s[8][16];                    // quad, c 4 + b
 
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const uint32_t rank = cluster_rank();
-  const int u0 = (int)rank * U;
-  const int row0 = blockIdx.y * kRows;
+  const int Dh = D / H, E = 4 * Dh;
+  const int u0 = blockIdx.x * kStepUnits, row0 = blockIdx.y * kStepRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = tid & 7, dg = tid >> 3;
+  const int ub = u0 + (q & 1) * 4;
+  const int j0 = (q >> 1) * D + ub;                 // the quad's column 0
+  // four columns in one head, 16-byte aligned in r
+  const bool vec = ub + 3 < D && j0 % 4 == 0;
+  const bool is_gate = tid < kStepUnits * kStepRows;
+  const int gu = tid & 7, gr = tid >> 3;
+  const int u = u0 + gu, row = row0 + gr;
+  const bool gate_live = is_gate && u < D && row < B;
+  const long long sidx = (long long)row * D + u;
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  GridBar* bars = g_grid_bar[slot];
 
-  // this thread's gate column: gate g of unit u0 + ul, flat output j
-  const bool is_col = tid < cols;
-  const int cg = tid / U, cul = tid % U;
-  const bool col_live = is_col && u0 + cul < D;
-  const int j = cg * D + u0 + cul;
-  const int hoff = col_live ? (j / E) * Dh : 0;             // its head's h
-  const int e = j % E;
-  for (int d = 0; d < Dh && is_col; ++d)
-    r_s[d * cols + tid] =
-        col_live ? __ldg(r + ((long long)(j / E) * Dh + d) * E + e) : 0.0f;
-
-  // h_{-1} of the kRows rows, every unit
-  float* hb0 = reinterpret_cast<float*>(hbuf);
-  for (int k = tid; k < D * kRows; k += nthreads) {
-    const int u = k / kRows, row = row0 + k % kRows;
-    hb0[k] = (h0 != nullptr && row < B) ? h0[(long long)row * D + u] : 0.0f;
-  }
-
-  // this thread's unit for the gates: row b, unit u0 + gul
-  const bool is_gate = tid < kRows * U;
-  const int gb = tid / U, gul = tid % U;
-  const int grow = row0 + gb, gu = u0 + gul;
-  const bool gate_live = is_gate && grow < B && gu < D;
-  const long long sidx = (long long)grow * D + gu;
   float cs = 0.0f, ns = 0.0f, ms = 0.0f, hv = 0.0f;
   if (gate_live && c0 != nullptr) {
     cs = c0[sidx];
     ns = n0[sidx];
     ms = m0[sidx];
-    hv = h0[sidx];
   }
-
-  // pre_x of column j for the kRows rows, two steps ahead
-  const In* pxc[kRows];
-  bool row_in[kRows];
+  // the quad's r at its first kStepPre d (every d where Dh <= 192), in
+  // registers before the first h is read: its loads overlap the fill
+  const int hd = j0 / E;
+  const float* rp = r + (long long)hd * Dh * E + j0 % E;   // r[hd, 0, e0]
+  float4 rpre[kStepPre];
 #pragma unroll
-  for (int b = 0; b < kRows; ++b) {
-    row_in[b] = col_live && row0 + b < B;
-    pxc[b] = px + (row_in[b] ? (long long)(row0 + b) * psb + j : 0);
+  for (int k = 0; k < kStepPre; ++k) {
+    const int d = dg + 32 * k;
+    rpre[k] = vec && d < Dh ? __ldg(reinterpret_cast<const float4*>(
+                                  rp + (long long)d * E))
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  auto load = [&](float (&v)[kRows], int t) {
-#pragma unroll
-    for (int b = 0; b < kRows; ++b)
-      v[b] = (row_in[b] && t < T) ? to_float(pxc[b][(long long)t * pst])
-                                  : 0.0f;
-  };
-  float x0[kRows], x1[kRows];
-  load(x0, 0);
-  load(x1, 1);
-
-  // every block has started and holds r and h_{-1}
-  cluster_sync();
-
+  unsigned gen_read = 0;
   for (int t = 0; t < T; ++t) {
-    const int p = t & 1;
-    float x2[kRows];
-    load(x2, t + 2);
-    if (is_col) {
-      float acc[kRows];
+    // the gate thread's pre_x, loaded before the product
+    float xg[4];
 #pragma unroll
-      for (int b = 0; b < kRows; ++b) acc[b] = 0.0f;
-      const float4* hp = hbuf + p * D + hoff;
-      const float* rp = r_s + tid;
-#pragma unroll 8
-      for (int d = 0; d < Dh; ++d) {
-        const float rv = rp[d * cols];
-        const float4 h4 = hp[d];
-        acc[0] = fmaf(rv, h4.x, acc[0]);
-        acc[1] = fmaf(rv, h4.y, acc[1]);
-        acc[2] = fmaf(rv, h4.z, acc[2]);
-        acc[3] = fmaf(rv, h4.w, acc[3]);
+    for (int gg = 0; gg < 4; ++gg)
+      xg[gg] = gate_live ? to_float(px[row * psb + t * pst + gg * D + u])
+                         : 0.0f;
+    // h_{t-1} of the rows, every unit: h0 (or 0), then hs, which other
+    // blocks wrote in this launch (read from L2)
+    for (int k = tid; k < D; k += kStepThreads) {
+      float v[kStepRows];
+#pragma unroll
+      for (int b = 0; b < kStepRows; ++b) {
+        const int rb = row0 + b;
+        v[b] = rb >= B ? 0.0f
+               : t == 0 ? (h0 != nullptr ? h0[(long long)rb * D + k] : 0.0f)
+                        : __ldcg(hs + ((long long)rb * T + t - 1) * D + k);
       }
-#pragma unroll
-      for (int b = 0; b < kRows; ++b) pre_s[b * cols + tid] = x0[b] + acc[b];
+      hsm[k] = make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
+    if (t == 0 && tid == 0) gen_read = grid_arrive(&bars[0], nblocks);
 
+    // the quad's four columns for the four rows, over this d-group's d
+    float acc[4][kStepRows];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int b = 0; b < kStepRows; ++b) acc[c][b] = 0.0f;
+    if (vec) {
+      const float4* hp = hsm + hd * Dh;
+      auto madd = [&](const float4& rv, const float4& h4) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int b = 0; b < kStepRows; ++b)
+            acc[c][b] = fmaf(component(rv, c), component(h4, b), acc[c][b]);
+      };
+#pragma unroll
+      for (int k = 0; k < kStepPre; ++k)
+        if (dg + 32 * k < Dh) madd(rpre[k], hp[dg + 32 * k]);
+      for (int d = dg + 32 * kStepPre; d < Dh; d += 32)
+        madd(__ldg(reinterpret_cast<const float4*>(rp + (long long)d * E)),
+             hp[d]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (ub + c >= D) continue;
+        const int jc = j0 + c, hd = jc / E;
+        const float* rp = r + (long long)hd * Dh * E + jc % E;
+        for (int d = dg; d < Dh; d += 32) {
+          const float rv = __ldg(rp + (long long)d * E);
+          const float4 h4 = hsm[hd * Dh + d];
+          acc[c][0] = fmaf(rv, h4.x, acc[c][0]);
+          acc[c][1] = fmaf(rv, h4.y, acc[c][1]);
+          acc[c][2] = fmaf(rv, h4.z, acc[c][2]);
+          acc[c][3] = fmaf(rv, h4.w, acc[c][3]);
+        }
+      }
+    }
+    // the 32 d-groups: 4 in the warp (lanes q + 8 k), then the warps
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int b = 0; b < kStepRows; ++b) {
+        float v = acc[c][b];
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 8) red[warp][q][c * 4 + b] = v;
+      }
+    __syncthreads();
+    if (tid < 128) {
+      float v = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kStepThreads / 32; ++w)
+        v += red[w][tid >> 4][tid & 15];
+      pre_s[tid >> 4][tid & 15] = v;
+    }
+    __syncthreads();
     if (is_gate) {
-      const float* pr = pre_s + gb * cols + gul;
-      const float i_ = pr[0], f_ = pr[U], z_ = pr[2 * U], o_ = pr[3 * U];
-      const float fm = f_ + ms;
-      const float m_new = fmaxf(fm, i_);
-      const float ig = expf(i_ - m_new);
-      const float fg = expf(fm - m_new);
-      cs = fg * cs + ig * tanhf(z_);
-      ns = fg * ns + ig;
-      ms = m_new;
-      hv = (1.0f / (1.0f + expf(-o_))) * (cs / fmaxf(ns, 1e-6f));
-      if (gate_live) hs[((long long)grow * T + t) * D + gu] = hv;
-      reinterpret_cast<float*>(hloc)[gul * kRows + gb] = hv;
+      // gate gg of unit u0 + gu: quad gg 2 + gu / 4, column gu % 4
+      const int qc = gu >> 2, k = (gu & 3) * 4 + gr;
+      gate_step(pre_s[qc][k] + xg[0], pre_s[2 + qc][k] + xg[1],
+                pre_s[4 + qc][k] + xg[2], pre_s[6 + qc][k] + xg[3], cs, ns,
+                ms, hv);
+      if (gate_live) hs[((long long)row * T + t) * D + u] = hv;
     }
-    __syncthreads();
-
-    // h_t of this block's units into every block's next buffer
-    const uint32_t next = smem_u32(hbuf + (p ^ 1) * D + u0);
-    for (int k = tid; k < kCluster * U; k += nthreads) {
-      const int dst = k / U, ul = k % U;
-      if (u0 + ul < D)
-        st_cluster_v4(cluster_map(next + 16 * ul, (uint32_t)dst), hloc[ul]);
-    }
-    cluster_sync();
-
-#pragma unroll
-    for (int b = 0; b < kRows; ++b) {
-      x0[b] = x1[b];
-      x1[b] = x2[b];
+    if (t + 1 < T) {
+      // every block's h_t is in hs before any block reads it
+      __syncthreads();
+      if (tid == 0) grid_wait(&bars[1], grid_arrive(&bars[1], nblocks));
+      __syncthreads();
     }
   }
-
+  // every block has read h_{-1}: the state may be written over it
+  if (tid == 0) grid_wait(&bars[0], gen_read);
+  __syncthreads();
   if (gate_live) {
     c1[sidx] = cs;
     n1[sidx] = ns;
@@ -260,65 +771,100 @@ slstm_scan_kernel(const In* __restrict__ px, const float* __restrict__ r,
 }
 
 template <typename In>
-int launch(const void* px, const void* r, const void* c0, const void* n0,
-           const void* h0, const void* m0, void* hs, void* c1, void* n1,
-           void* h1, void* m1, int B, int T, int D, int H, long long psb,
-           long long pst, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, H);
-  auto* kernel = slstm_scan_kernel<In>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+int launch_step(const void* px, const void* r, const void* c0,
+                const void* n0, const void* h0, const void* m0, void* hs,
+                void* c1, void* n1, void* h1, void* m1, int B, int T, int D,
+                int H, long long psb, long long pst, cudaStream_t stream) {
+  if (!step_fits(B, D)) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned> next_slot{0};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows);
-  cfg.blockDim = dim3(block_threads(D));
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3((D + kStepUnits - 1) / kStepUnits,
+                     (B + kStepRows - 1) / kStepRows);
+  cfg.blockDim = dim3(kStepThreads);
+  cfg.dynamicSmemBytes = step_smem(D);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const In*)px, (const float*)r,
-                           (const float*)c0, (const float*)n0,
-                           (const float*)h0, (const float*)m0, (float*)hs,
-                           (float*)c1, (float*)n1, (float*)h1, (float*)m1, B,
-                           T, D, H, psb, pst);
+  const int slot = (int)(next_slot.fetch_add(1) % kBarSlots);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, slstm_step_kernel<In>, (const In*)px, (const float*)r,
+      (const float*)c0, (const float*)n0, (const float*)h0, (const float*)m0,
+      (float*)hs, (float*)c1, (float*)n1, (float*)h1, (float*)m1, B, T, D, H,
+      psb, pst, slot);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// the entry points
+// ---------------------------------------------------------------------
+// kernel codes of slstm_scan_kernel_hd
+enum { kStepCode = 0, kClusterCode = 1, kProbeCode = 2 };
+
+// the variant slstm_scan_hd takes: `step` below kStepMaxT steps (and
+// where `cluster` does not fit), `cluster` from there on; -1: neither
+// takes the shape.  The wrapper's slstm_variant is the same rule and
+// names its choice to slstm_scan_kernel_hd.
+int variant_for(int B, int T, int D, int H) {
+  const bool cl = cluster_fits(D, H);
+  if (step_fits(B, D) && (T < kStepMaxT || !cl)) return kStepCode;
+  return cl ? kClusterCode : -1;
+}
+
+typedef int (*Launch)(const void*, const void*, const void*, const void*,
+                      const void*, const void*, void*, void*, void*, void*,
+                      void*, int, int, int, int, long long, long long,
+                      cudaStream_t);
+
+template <typename In>
+Launch launcher(int kernel) {
+  switch (kernel) {
+    case kStepCode: return launch_step<In>;
+    case kClusterCode: return launch_cluster<In, false>;
+    case kProbeCode: return launch_cluster<In, true>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
-// The number of the kernel's clusters (bfloat16 pre_x) at width D with H
-// heads that the card holds at once, into *clusters; returns the CUDA
-// error.
+// The number of clusters of the `cluster` kernel (bfloat16 pre_x) at
+// width D with H heads that the card holds at once, into *clusters;
+// returns the CUDA error.
 extern "C" int slstm_scan_max_clusters(int D, int H, int* clusters) {
-  auto* kernel = slstm_scan_kernel<__nv_bfloat16>;
-  const size_t smem = smem_bytes(D, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (!cluster_fits(D, H)) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, 1);
-  cfg.blockDim = dim3(block_threads(D));
-  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, &cfg);
+  cudaError_t err = cluster_config<__nv_bfloat16, false>(D, H, cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3(kCluster, 1);
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, (void*)slstm_cluster_kernel<__nv_bfloat16, false>, &cfg);
+}
+
+// The function of slstm_scan_hd on the kernel `kernel`: 0 `step`, 1
+// `cluster`, 2 the exchange probe (the `cluster` step loop without the
+// product and the gates; not the function: hs is not written, the final
+// state is not the recurrence's).  Returns cudaErrorInvalidValue for a
+// kernel that does not take the shape.
+extern "C" int slstm_scan_kernel_hd(const void* px, const void* r,
+                                    const void* c0, const void* n0,
+                                    const void* h0, const void* m0,
+                                    void* hs, void* c1, void* n1, void* h1,
+                                    void* m1, int dtype, int kernel, int B,
+                                    int T, int D, int H, long long psb,
+                                    long long pst, void* stream) {
+  if (B == 0 || T == 0 || D == 0) return 0;
+  if (H <= 0 || D % H != 0) return (int)cudaErrorInvalidValue;
+  const Launch fn = dtype == 0   ? launcher<float>(kernel)
+                    : dtype == 1 ? launcher<__nv_bfloat16>(kernel)
+                                 : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, T, D, H, psb, pst,
+            (cudaStream_t)stream);
 }
 
 // px: (B, T, 4D) of the type `dtype` (0 float32, 1 bfloat16), unit
@@ -326,9 +872,10 @@ extern "C" int slstm_scan_max_clusters(int D, int H, int* clusters) {
 // D / H, 4 D / H) float32, contiguous.  c0, n0, h0, m0: (B, D) float32,
 // contiguous, all null for a zero state.  hs: (B, T, D) float32,
 // contiguous.  c1, n1, h1, m1: (B, D) float32, contiguous, the final
-// state; each may be its *0 tensor.  Returns the CUDA error of the launch
-// (cudaErrorInvalidValue for an unknown dtype, D not a multiple of H, a
-// block over kMaxThreads threads or over 227 KB of shared memory).
+// state; each may be its *0 tensor.  Takes the kernel of variant_for.
+// Returns the CUDA error of the launch (cudaErrorInvalidValue for an
+// unknown dtype, D not a multiple of H, or a shape neither variant
+// takes).
 extern "C" int slstm_scan_hd(const void* px, const void* r, const void* c0,
                              const void* n0, const void* h0, const void* m0,
                              void* hs, void* c1, void* n1, void* h1,
@@ -336,15 +883,9 @@ extern "C" int slstm_scan_hd(const void* px, const void* r, const void* c0,
                              int H, long long psb, long long pst,
                              void* stream) {
   if (B == 0 || T == 0 || D == 0) return 0;
-  if (H <= 0 || D % H != 0 || block_threads(D) > kMaxThreads ||
-      smem_bytes(D, H) > 232448 || (B + kRows - 1) / kRows > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, T, D,
-                         H, psb, pst, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1,
-                                 B, T, D, H, psb, pst, st);
-  return (int)cudaErrorInvalidValue;
+  if (H <= 0 || D % H != 0) return (int)cudaErrorInvalidValue;
+  const int kernel = variant_for(B, T, D, H);
+  if (kernel < 0) return (int)cudaErrorInvalidValue;
+  return slstm_scan_kernel_hd(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1,
+                              dtype, kernel, B, T, D, H, psb, pst, stream);
 }

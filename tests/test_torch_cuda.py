@@ -1401,62 +1401,130 @@ def _slstm_inputs(B, T, D, H, dtype, with_state, device, seed):
     return pre_x, r, state
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T", [1, 7, 256, 2048])
-@pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("with_state", [False, True])
-def test_slstm_scan_cuda_matches_plain_and_f64(cuda, dtype, T, B,
-                                               with_state):
-    """xlstm-125m's width (D 768, 4 heads of 192); the final state is the
-    last step's."""
-    pre_x, r, state = _slstm_inputs(B, T, 768, 4, dtype, with_state, cuda,
-                                    T + B)
-    n0 = slstm_kernel.slstm_scan_cuda.launches
-    hs, st = slstm_scan(pre_x, r, state)
-    assert slstm_kernel.slstm_scan_cuda.launches == n0 + 1
-    assert hs.dtype == torch.float32 and hs.shape == (B, T, 768)
+def _slstm_close(hs, st, pre_x, r, state, check_plain=True):
+    """hs within _SLSTM_TOL of max|h| of float64 (and of the plain loop),
+    the final state of float64's, and the final h the last step's."""
     want, want_st = _f64_slstm(pre_x, r, state)
-    plain, plain_st = slstm_scan_ref(pre_x, r, state)
     top = float(want.abs().max())
     assert top <= 1.0
     assert float((hs.double() - want).abs().max()) <= _SLSTM_TOL * top
-    assert float((hs - plain).abs().max()) <= _SLSTM_TOL * top
+    if check_plain:
+        plain, _ = slstm_scan_ref(pre_x, r, state)
+        assert float((hs - plain).abs().max()) <= _SLSTM_TOL * top
     assert torch.equal(st[2], hs[:, -1])
     for got, w64 in zip(st, want_st):
         assert float((got.double() - w64).abs().max()) <= \
             _SLSTM_TOL * max(1.0, float(w64.abs().max()))
 
 
-@pytest.mark.parametrize("B, D, H", [(3, 64, 4), (5, 72, 4), (2, 48, 2)])
-def test_slstm_scan_cuda_ragged_shapes(cuda, B, D, H):
-    """Rows that do not fill a cluster's group of 4, blocks with empty
-    units (D 72: 5 units a block, 80 places), two gates in one head (2
-    heads)."""
-    pre_x, r, state = _slstm_inputs(B, 300, D, H, torch.bfloat16, True,
-                                    cuda, D)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 2, 7, 256, 2048])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_slstm_scan_cuda_matches_plain_and_f64(cuda, dtype, T, B,
+                                               with_state):
+    """xlstm-125m's width (D 768, 4 heads of 192), each T on the variant
+    slstm_variant names for it (``step`` below STEP_MAX_T, ``cluster``
+    from there); the final state is the last step's."""
+    pre_x, r, state = _slstm_inputs(B, T, 768, 4, dtype, with_state, cuda,
+                                    T + B)
+    sk = slstm_kernel.slstm_scan_cuda
+    v = slstm_kernel.slstm_variant(B, T, 768, 4)
+    n0, v0 = sk.launches, sk.by_variant[v]
     hs, st = slstm_scan(pre_x, r, state)
-    want, _ = _f64_slstm(pre_x, r, state)
-    top = float(want.abs().max())
-    assert float((hs.double() - want).abs().max()) <= _SLSTM_TOL * top
-    assert torch.equal(st[2], hs[:, -1])
+    assert sk.launches == n0 + 1 and sk.by_variant[v] == v0 + 1
+    assert hs.dtype == torch.float32 and hs.shape == (B, T, 768)
+    _slstm_close(hs, st, pre_x, r, state)
 
 
-def test_slstm_scan_cuda_writes_the_state_in_place(cuda):
-    """``out`` = the state's own tensors, rows of a cache: the final state
-    lands there, the neighbouring rows stay as they were."""
-    B, T, D = 4, 33, 768
+@pytest.mark.parametrize("variant", slstm_kernel.VARIANTS)
+@pytest.mark.parametrize("T", [1, 2, 7, 64])
+def test_slstm_scan_each_variant_at_each_T(cuda, variant, T):
+    """Both kernels, forced, take every T: ``step`` loops its steps with
+    a grid barrier between them, ``cluster`` takes a decode step too."""
+    pre_x, r, state = _slstm_inputs(4, T, 768, 4, torch.bfloat16, True,
+                                    cuda, 40 + T)
+    hs, st = slstm_kernel.slstm_scan_kernel(
+        pre_x, r, state, slstm_kernel.VARIANTS.index(variant))
+    _slstm_close(hs, st, pre_x, r, state)
+
+
+@pytest.mark.parametrize("B, T, D", [(4, 1, 768), (4, 2, 768), (4, 3, 768),
+                                     (4, 64, 768), (2, 8, 1024),
+                                     (64, 1, 768)])
+def test_slstm_scan_hd_takes_the_wrappers_variant(cuda, B, T, D):
+    """The C entry slstm_scan_hd, which picks its kernel itself, gives the
+    bits of the variant the wrapper launches and counts for the shape,
+    and not the other's (the two sum the product in other orders): on
+    both sides of STEP_MAX_T, where only `step` fits (D 1024) and where
+    only `cluster` does (B 64)."""
     pre_x, r, state = _slstm_inputs(B, T, D, 4, torch.bfloat16, True, cuda,
-                                    9)
+                                    B + T + D)
+    v = slstm_kernel.slstm_variant(B, T, D, 4)
+    hs, st = slstm_kernel.slstm_scan_kernel(
+        pre_x, r, state, slstm_kernel.VARIANTS.index(v))
+    hs_c = torch.empty_like(hs)
+    st_c = tuple(torch.empty_like(s) for s in state)
+    err = slstm_kernel._entry("slstm_scan_hd")(
+        pre_x.data_ptr(), r.data_ptr(), *(s.data_ptr() for s in state),
+        hs_c.data_ptr(), *(s.data_ptr() for s in st_c), 1, B, T, D, 4,
+        pre_x.stride(0), pre_x.stride(1),
+        slstm_kernel._stream(torch.cuda.current_device()))
+    assert err == 0
+    assert torch.equal(hs_c, hs)
+    assert all(torch.equal(a, b) for a, b in zip(st_c, st))
+    other = "cluster" if v == "step" else "step"
+    if slstm_kernel.cluster_fits(D, 4) if other == "cluster" \
+            else slstm_kernel.step_fits(B, D):
+        hs_o, _ = slstm_kernel.slstm_scan_kernel(
+            pre_x, r, state, slstm_kernel.VARIANTS.index(other))
+        assert not torch.equal(hs_o, hs)
+
+
+@pytest.mark.parametrize("T", [1, 300])
+@pytest.mark.parametrize("B, D, H", [(3, 64, 4), (5, 72, 4), (2, 48, 2),
+                                     (3, 30, 2), (2, 1024, 4)])
+def test_slstm_scan_cuda_ragged_shapes(cuda, B, D, H, T):
+    """Rows that do not fill a row group, blocks with empty units (D 72:
+    5 units a `cluster` block, 80 places; heads of 18, not a multiple of
+    4), two gates in one head (2 heads), columns that are not 4 aligned
+    neighbours in one head (D 30: each kernel's scalar path), and D
+    1024, which only `step` takes (64 units a cluster block), at any
+    T."""
+    pre_x, r, state = _slstm_inputs(B, T, D, H, torch.bfloat16, True,
+                                    cuda, D + T)
+    want_v = "step" if T == 1 or D == 1024 else "cluster"
+    assert slstm_kernel.slstm_variant(B, T, D, H) == want_v
+    hs, st = slstm_scan(pre_x, r, state)
+    _slstm_close(hs, st, pre_x, r, state, check_plain=False)
+
+
+@pytest.mark.parametrize("B, T, D", [(4, 33, 768), (4, 1, 768),
+                                     (4, 2, 768), (8, 1, 768),
+                                     (4, 1, 1536)])
+def test_slstm_scan_cuda_writes_the_state_in_place(cuda, B, T, D):
+    """``out`` = the state's own tensors, rows of a cache: the final state
+    lands there, equal to the launch that wrote elsewhere, and the
+    neighbouring rows stay as they were.  On ``step`` (T 1, 2) every
+    block reads all of h_{-1} and writes its units' h over it: at B 8,
+    D 768 and at B 4, D 1536 its 192 blocks spread over the card, so a
+    block that wrote before another had read would show here."""
+    pre_x, r, state = _slstm_inputs(B, T, D, 4, torch.bfloat16, True, cuda,
+                                    9 + B + D)
     want_hs, want_st = slstm_scan(pre_x, r, state)
     cache = torch.zeros((4, 2, B, D), device=cuda)
     for k, s in enumerate(state):
         cache[k, 1] = s
     rows = tuple(cache[k, 1] for k in range(4))
-    hs, st = slstm_scan(pre_x, r, rows, out=rows)
-    assert all(a is b for a, b in zip(st, rows))
-    assert torch.equal(hs, want_hs)
-    assert all(torch.equal(a, b) for a, b in zip(rows, want_st))
-    assert float(cache[:, 0].abs().max()) == 0.0
+    for _ in range(3):
+        for k, s in enumerate(state):
+            rows[k].copy_(s)
+        hs, st = slstm_scan(pre_x, r, rows, out=rows)
+        assert all(a is b for a, b in zip(st, rows))
+        assert torch.equal(hs, want_hs)
+        assert all(torch.equal(a, b) for a, b in zip(rows, want_st))
+        assert float(cache[:, 0].abs().max()) == 0.0
+    _slstm_close(want_hs, want_st, pre_x, r, state, check_plain=False)
 
 
 def test_slstm_scan_cuda_rejects_bad_input_and_grad(cuda):
@@ -1476,6 +1544,10 @@ def test_slstm_scan_cuda_rejects_bad_input_and_grad(cuda):
         slstm_scan(pre_x, r, tuple(s.bfloat16() for s in state))
     with pytest.raises(ValueError, match="device of pre_x"):
         slstm_scan(pre_x, r, tuple(s.cpu() for s in state))
+    with pytest.raises(ValueError, match="takes D up to"):
+        wide, rw = _slstm_inputs(64, 8, 4096, 16, torch.bfloat16, False,
+                                 cuda, 2)[:2]
+        slstm_scan(wide, rw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         slstm_scan(pre_x, r.clone().requires_grad_())
     with torch.no_grad():

@@ -106,7 +106,9 @@ def _c_params(source: str, name: str):
      "BWD_ARGTYPES"),
     ("gemm_hd.cu", "gemm_hd", gemm_kernel, "ARGTYPES"),
     ("rglru_scan.cu", "rglru_scan_hd", rglru_kernel, "ARGTYPES"),
-    ("slstm_scan.cu", "slstm_scan_hd", slstm_kernel, "ARGTYPES")])
+    ("slstm_scan.cu", "slstm_scan_hd", slstm_kernel, "ARGTYPES"),
+    ("slstm_scan.cu", "slstm_scan_kernel_hd", slstm_kernel,
+     "KERNEL_ARGTYPES")])
 def test_argtypes_match_the_c_entry_point(source, name, module, attr):
     """A wrapper that passes another argument list than the C function
     declares would pass garbage on the card; this holds them equal."""

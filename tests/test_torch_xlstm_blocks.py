@@ -4,13 +4,14 @@ heads: sLSTM heads of 16 units, mLSTM inner width 128 in heads of 32;
 ``slstm_every`` 2), with the reference's own weights carried across by
 ``from_jax_params``.
 
-Tolerances, all float32:
+Tolerances:
 
-* the plain sLSTM recurrence and both blocks: within 1e-5 relative
-  (plus 1e-5 of the largest value): the same operations, the
+* the plain sLSTM recurrence and both blocks, in float32: within 1e-5
+  relative (plus 1e-5 of the largest value): the same operations, the
   recurrent product and the chunk's einsums summed in another order;
-* the kernel's column layout, emulated here: 1e-6 (the same dot
-  products, gathered by the kernel's index arithmetic).
+* each kernel variant's partition of the product, emulated here in
+  float64 against a float64 einsum: 1e-6 (the same dot products,
+  gathered by the kernel's index arithmetic and summed in its order).
 """
 import re
 from pathlib import Path
@@ -198,42 +199,169 @@ def test_dispatch_on_cpu_runs_the_plain_version(ref_params, cfgs):
 # ----------------------------------------------------------------------
 # the kernel's layout, emulated on the CPU
 # ----------------------------------------------------------------------
-def _kernel_rec(h, r, D):
-    """rec as the kernel gathers it: block k of the cluster owns units
-    [k U, k U + U), its column c = g U + ul is output j = g D + u of head
-    j // 4Dh, column j % 4Dh; the slice r_s[d, c] = r[head, d, e] and the
-    column's dot product reads h of that head."""
+def _cluster_rec(h, r, D):
+    """rec as the `cluster` kernel gathers it, one cluster a row.  Block k
+    of the cluster owns units [k U, k U + U); its warp w units uw .. uw +
+    3 (uw = k U + w 4), lane g 8 + dg the 4 columns j = g D + uw + c of
+    gate g (head j // 4Dh, column j % 4Dh) over the d of its chunks ch =
+    dg + 8 k with 4 ch < Dh, its registers rr[c 24 + 4 k + i] = r[head, 4
+    ch + i, e] (0 past Dh).  h_{t-1} lies in the block's buffer at
+    place(v) = (v // Dh) hsd + v % Dh, hsd = Dh rounded up to 4, the
+    padding 0; the lane reads column c's chunk at head hsd + 4 ch + i.
+    The transposing shuffle leaves lane dg with column dg >> 1 of its
+    gate summed over the 8 d-groups; the warp's packed send puts unit c
+    at place(uw) + c, which must be the unit's own place.  Every (column,
+    d) is read exactly once per row."""
     H, Dh, E = r.shape
+    B = h.shape[0]
     U = -(-D // slstm_kernel.CLUSTER)
-    rec = torch.empty((h.shape[0], 4 * D))
-    for k in range(slstm_kernel.CLUSTER):
-        for c in range(4 * U):
-            g, ul = divmod(c, U)
-            u = k * U + ul
-            if u >= D:
-                continue
-            j = g * D + u
-            head, e = divmod(j, E)
-            rec[:, j] = h[:, head * Dh:(head + 1) * Dh] @ r[head, :, e]
+    C, dgroups = slstm_kernel.COLS, slstm_kernel.DGROUPS
+    kd = slstm_kernel.MAX_DH // dgroups
+    hsd = -(-Dh // 4) * 4
+
+    def place(v):
+        return (v // Dh) * hsd + v % Dh
+    rec = torch.zeros((B, 4 * D), dtype=torch.float64)
+    seen = torch.zeros((4 * D, Dh), dtype=torch.int64)
+    for row in range(B):
+        buf = torch.zeros(H * hsd, dtype=torch.float64)
+        for v in range(D):
+            buf[place(v)] = float(h[row, v])
+        for k in range(slstm_kernel.CLUSTER):
+            for w in range(-(-U // C)):
+                uw = k * U + w * C
+                if w * C + C <= U and uw + C <= D \
+                        and uw // Dh == (uw + C - 1) // Dh:
+                    for c in range(C):
+                        assert place(uw) + c == place(uw + c)
+                # part[lane][c]: lane g 8 + dg, its C columns
+                part = torch.zeros((32, C), dtype=torch.float64)
+                for lane in range(32):
+                    g, dg = lane // 8, lane % 8
+                    for c in range(C):
+                        u = uw + c
+                        if w * C + c >= U or u >= D:
+                            continue
+                        j = g * D + u
+                        head, e = divmod(j, E)
+                        for kk in range(kd // 4):
+                            ch = dg + dgroups * kk
+                            if 4 * ch >= Dh:
+                                continue
+                            for i in range(4):
+                                d = 4 * ch + i
+                                if d >= Dh:
+                                    continue
+                                seen[j, d] += 1
+                                part[lane, c] += float(r[head, d, e]) * buf[
+                                    head * hsd + 4 * ch + i]
+                # the transposing shuffle: lane g 8 + dg ends with column
+                # dg >> 1 of gate g, the sum of its 8 d-groups
+                for lane in range(32):
+                    g, dg = lane // 8, lane % 8
+                    c = dg >> 1
+                    u = uw + c
+                    if w * C + c >= U or u >= D:
+                        continue
+                    rec[row, g * D + u] = float(
+                        part[g * 8:g * 8 + 8, c].sum())
+    assert bool((seen == B).all())
     return rec
 
 
-@pytest.mark.parametrize("D, H", [(64, 4), (72, 4), (48, 2)])
-def test_kernel_layout_gives_the_recurrent_product(D, H):
-    """D 72 leaves the last blocks' units partly empty (U = 5, 80 slots),
-    D 48 with 2 heads puts two gates in one head."""
+def _step_rec(h, r, D):
+    """rec as the `step` kernel gathers it.  Block (x, y) takes units x
+    8 .. x 8 + 7 of rows y 4 .. y 4 + 3, h of its rows at hsm[v][b].
+    Thread tid: quad q = tid % 8 of gate q // 2 and units ub .. ub + 3,
+    ub = x 8 + (q % 2) 4, d-group dg = tid // 8 of d = dg, dg + 32, ...;
+    four neighbouring columns j0 + c (j0 = g D + ub) in one head when
+    ub + 3 < D and j0 % 4 == 0 (one 16-byte load of r), else each column
+    by its own head.  The 32 d-groups' sums land in pre_s[q][c 4 + b],
+    and the gate thread of unit x 8 + gu, row y 4 + gr reads gate gg at
+    pre_s[gg 2 + gu // 4][(gu % 4) 4 + gr]."""
+    H, Dh, E = r.shape
+    B = h.shape[0]
+    nu, nr, nt = (slstm_kernel.STEP_UNITS, slstm_kernel.STEP_ROWS,
+                  slstm_kernel.STEP_THREADS)
+    rec = torch.full((B, 4 * D), float("nan"), dtype=torch.float64)
+    seen = torch.zeros((4 * D, Dh), dtype=torch.int64)
+    for y in range(-(-B // nr)):
+        hsm = torch.zeros((D, nr), dtype=torch.float64)
+        for b in range(nr):
+            if y * nr + b < B:
+                hsm[:, b] = h[y * nr + b].double()
+        for x in range(-(-D // nu)):
+            u0 = x * nu
+            pre_s = torch.zeros((8, 16), dtype=torch.float64)
+            for tid in range(nt):
+                q, dg = tid % 8, tid // 8
+                ub = u0 + (q % 2) * 4
+                j0 = (q // 2) * D + ub
+                vec = ub + 3 < D and j0 % 4 == 0
+                for c in range(4):
+                    if ub + c >= D:
+                        continue
+                    j = j0 + c
+                    hd = (j0 if vec else j) // E
+                    e = (j0 % E + c) if vec else j % E
+                    assert (hd, e) == divmod(j, E)
+                    for d in range(dg, Dh, 32):
+                        if y == 0:
+                            seen[j, d] += 1
+                        for b in range(nr):
+                            pre_s[q, c * 4 + b] += float(r[hd, d, e]) \
+                                * hsm[hd * Dh + d, b]
+            for gtid in range(nu * nr):
+                gu, gr = gtid % 8, gtid // 8
+                u, row = u0 + gu, y * nr + gr
+                if u >= D or row >= B:
+                    continue
+                for gg in range(4):
+                    rec[row, gg * D + u] = pre_s[gg * 2 + gu // 4,
+                                                 (gu % 4) * 4 + gr]
+    assert bool((seen == 1).all())
+    return rec
+
+
+@pytest.mark.parametrize("variant", slstm_kernel.VARIANTS)
+@pytest.mark.parametrize("D, H", [(64, 4), (72, 4), (48, 2), (30, 2)])
+def test_kernel_layout_gives_the_recurrent_product(variant, D, H):
+    """Each variant's partition of the product over blocks, warps, lanes
+    and d, emulated.  D 72 leaves the last blocks' units partly empty
+    (`cluster`: U = 5, 80 places; `step`: 9 blocks, the last with 0 of 8
+    units) and heads of 18 (not a multiple of 4); D 48 with 2 heads puts
+    two gates in one head; D 30 takes each kernel's path for columns
+    that are not 4 aligned neighbours in one head; 5 rows leave a row
+    group partly empty."""
     g = torch.Generator().manual_seed(D + H)
     r = torch.randn((H, D // H, 4 * D // H), generator=g)
-    h = torch.randn((3, D), generator=g)
-    want = torch.einsum("bhd,hde->bhe", h.reshape(3, H, -1), r).reshape(
-        3, 4 * D)
-    torch.testing.assert_close(_kernel_rec(h, r, D), want, rtol=1e-6,
-                               atol=1e-6)
+    h = torch.randn((5, D), generator=g)
+    want = torch.einsum("bhd,hde->bhe", h.double().reshape(5, H, -1),
+                        r.double()).reshape(5, 4 * D)
+    rec = _cluster_rec(h, r, D) if variant == "cluster" else \
+        _step_rec(h, r, D)
+    torch.testing.assert_close(rec, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B, T, D, H, want", [
+    (4, 1, 768, 4, "step"),
+    (4, slstm_kernel.STEP_MAX_T - 1, 768, 4, "step"),
+    (4, slstm_kernel.STEP_MAX_T, 768, 4, "cluster"),
+    (4, 2048, 768, 4, "cluster"),
+    (1, 40, 64, 4, "cluster"),
+    (4, 2048, 1024, 4, "step"),      # 64 units a block: only `step` fits
+    (8, 1, 1536, 4, None),           # 384 step blocks, 96 units a block
+    (64, 1, 768, 4, "cluster"),      # 1536 step blocks: not resident
+    (64, 1, 4096, 4, None)])         # neither
+def test_slstm_variant_by_shape(B, T, D, H, want):
+    """Decode steps take `step`, prefills from STEP_MAX_T tokens on
+    `cluster`; each where it fits."""
+    assert slstm_kernel.slstm_variant(B, T, D, H) == want
+    assert want is None or want in slstm_kernel.VARIANTS
 
 
 def test_kernel_constants_match_the_source():
-    """The wrapper's CLUSTER, ROWS, MAX_THREADS and smem_bytes are the
-    source's kCluster, kRows, kMaxThreads and smem_bytes."""
+    """The wrapper's constants and smem_bytes are the source's."""
     text = (Path(slstm_kernel.__file__).resolve().parents[2] / "csrc"
             / "slstm_scan.cu").read_text()
 
@@ -241,14 +369,24 @@ def test_kernel_constants_match_the_source():
         m = re.search(rf"constexpr int {name} = (\d+);", text)
         assert m, f"no constexpr int {name} in slstm_scan.cu"
         return int(m.group(1))
-    assert slstm_kernel.CLUSTER == const("kCluster")
-    assert slstm_kernel.ROWS == const("kRows")
-    assert slstm_kernel.MAX_THREADS == const("kMaxThreads")
-    assert "sizeof(float4) * (2 * (size_t)D + U) +" in text
-    assert "sizeof(float) * 4 * U * (kRows + Dh)" in text
-    # xlstm-125m: 48 units a block, a slice of r of 147,456 bytes
-    assert slstm_kernel.smem_bytes(768, 4) == 16 * (2 * 768 + 48) \
-        + 4 * 4 * 48 * (4 + 192) == 175872
+    k = slstm_kernel
+    assert (k.CLUSTER, k.UNITS, k.MAX_DH, k.DGROUPS, k.BUFS,
+            k.COLS) == tuple(const(n) for n in (
+                "kCluster", "kUnits", "kMaxDh", "kDGroups", "kBufs",
+                "kCols"))
+    assert (k.STEP_UNITS, k.STEP_ROWS, k.STEP_THREADS, k.STEP_MAX_T,
+            k.STEP_MAX_BLOCKS) == tuple(
+        const(n) for n in ("kStepUnits", "kStepRows", "kStepThreads",
+                           "kStepMaxT", "kStepMaxBlocks"))
+    assert k.VARIANTS.index("step") == 0 and k.PROBE == 2
+    assert "enum { kStepCode = 0, kClusterCode = 1, kProbeCode = 2" in text
+    assert "sizeof(float) * kBufs * (size_t)H * head_stride(D / H);" \
+        in text
+    assert "return sizeof(float4) * (size_t)D;" in text
+    # xlstm-125m: three buffers of 768 h values; 4 rows of 768 in `step`
+    assert k.smem_bytes(768, 4, "cluster") == 4 * 3 * 768
+    assert k.smem_bytes(768, 4, "step") == 16 * 768
+    assert k.smem_bytes(72, 4, "cluster") == 4 * 3 * 4 * 20
 
 
 # ----------------------------------------------------------------------
