@@ -27,7 +27,8 @@
    plain versions (bf16 at the serving path's prefill shape, small
    shapes with windows, softcaps, ragged and fully masked rows, odd
    head dims, Dh 192 / Dv 128 on the mma_sync variant, and float32),
-   timing it beside SDPA, and its backward
+   timing it beside SDPA (at yi-9b's prefill shape and at
+   llama-3.2-vision's, 32/8 heads), and its backward
    kernels, ``wgmma`` (``ffma`` in float32), against float64 dense
    autograd (small shapes, bf16, fp16 and float32, GQA groups of 8 and
    1, Dh 64 and 128) and the plain blockwise backward at the training
@@ -137,7 +138,24 @@
    (the ``cluster`` step loop without the product and the gates); then
    the model at full width and depth: every prefill launches
    ``cluster`` twice, every decode step ``step`` twice, and no other
-   kernel; the lone-prompt gate as for recurrentgemma.
+   kernel; the lone-prompt gate as for recurrentgemma.  Last, the two
+   families with a second input, each alone at full width and depth in
+   bf16, every admit with the same pool-shaped float32 extra inputs
+   from ``numpy.random.default_rng(0)``: llama-3.2-vision-11b (40
+   layers, 32/8 heads of 128, 8 dense cross-attentions over 1601 image
+   tokens of width 4096, ``image_embeds`` (4, 1601, 4096)) with the
+   yi-9b traffic: every prefill launches flash's wgmma 40 times, no
+   decode step launches it, no other kernel runs, and the re-admitted
+   prompt must repeat; the flash phase (3.) holds wgmma at its prefill
+   shape (q (4, 2048, 32, 128), k and v (4, 4096, 8, 128) strided
+   views) against the plain blockwise version, timed beside SDPA.
+   Then whisper-base (6 encoder and 6 decoder layers, d_model 512,
+   ``frames`` (4, 1500, 512)) with Whisper's own traffic: 4 slots x
+   448 positions (its decoder context), prompts of 224, 96 and 4
+   tokens, 16 decode steps each, the first prompt again: no kernel
+   launches at all (its prompts stay under FLASH_MIN_T, its encoder
+   and cross-attentions are dense, as in the reference), and the
+   re-admitted prompt must repeat.
 7. Prints one JSON line of kernel measurements, the card's name and
    power limit, and as the last line ``{"ok": true, "device": ...}``.
 
@@ -240,6 +258,18 @@ MOE_LAYER_TOL = 2e-2
 SERVE_SLOTS, SERVE_MAX_SEQ = 4, 4096
 PROMPTS = (2048, 1536, 1024)        # each >= FLASH_MIN_T: every prefill
 DECODE_STEPS = 16                   # reaches the flash kernel
+# served last, with the yi-9b traffic and image embeddings a slot: 40
+# self-attention layers (flash's wgmma at Dh 128, 32/8 heads) and 8
+# dense cross-attentions over 1601 image tokens
+VLM_ARCH = "llama-3.2-vision-11b"
+# served last, with Whisper's own traffic: its decoder context of 448
+# tokens (n_text_ctx, openai/whisper's ModelDimensions, arXiv:2212.04356),
+# prompts of 224 (a previous-text prompt at its limit), 96 and 4 (the
+# bare start-of-transcript sequence), 1500 frames (30 s) a slot; every
+# prefill stays under FLASH_MIN_T, and the encoder and cross-attentions
+# are dense, so no kernel launches
+WHISPER_ARCH = "whisper-base"
+WHISPER_MAX_SEQ, WHISPER_PROMPTS = 448, (224, 96, 4)
 # flash attention against its plain version: bf16/fp16 a few 16-bit
 # ulps from rounding p (normalized in the dense version, per kv tile
 # in the kernel and the blockwise version); float32 the reference's
@@ -816,6 +846,55 @@ def flash_phase(torch, ptxas):
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
           f"{r['plain_ms']:.4f} ms")
     del q3, k3, v3
+
+    # -- wgmma at llama-3.2-vision's prefill: 32 query heads over 8 kv
+    # heads of 128 (a GQA group of 4), the first admit's qpos, k and v
+    # strided views of a 4096-position cache; timed beside SDPA --------
+    vl = get_config(VLM_ARCH)
+    Hq4, Hkv4, D4 = vl.n_heads, vl.n_kv_heads, vl.head_dim
+    check(flash_variant(torch.bfloat16, D4, D4) == "wgmma",
+          f"{VLM_ARCH}'s Dh {D4} does not take the wgmma variant")
+    q4, k4, v4 = inputs(torch.bfloat16, B, T, S, Hq4, Hkv4, D4)
+    wg0, n0 = by_variant["wgmma"], flash_attention_cuda.launches
+    _, err_vl = compare(f"wgmma {VLM_ARCH} prefill {tuple(q4.shape)} x k,v "
+                        f"{tuple(k4.shape)} strides {k4.stride()} "
+                        f"window=BIG_WINDOW", torch.bfloat16, q4, k4, v4,
+                        qpos, blockwise_attention, tol=FLASH_MAIN_TOL,
+                        window=BIG_WINDOW)
+    check(by_variant["wgmma"] - wg0 == 1
+          and flash_attention_cuda.launches - n0 == 1,
+          f"{VLM_ARCH}'s prefill check launched "
+          f"{flash_attention_cuda.launches - n0} flash kernels, "
+          f"{by_variant['wgmma'] - wg0} of them wgmma, not 1")
+    q4t, k4t, v4t = (x.transpose(1, 2) for x in (q4, k4, v4))
+    sdpa4 = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4t, k4t, v4t, is_causal=True, enable_gqa=True)
+    kernel4 = lambda: flash_attention_cuda(          # noqa: E731
+        q4, k4, v4, qpos=qpos, window=BIG_WINDOW)
+    lib_err = float((sdpa4().transpose(1, 2).float() - kernel4().float())
+                    .abs().max())
+    print(f"flash vs SDPA (is_causal, enable_gqa) at {VLM_ARCH}'s prefill "
+          f"shape: max_abs_diff={lib_err:.3e}")
+    check(lib_err <= FLASH_TOL["bfloat16"] * 4, "SDPA computes another "
+          f"function than the kernel at {VLM_ARCH}'s prefill shape")
+    flops, nbytes = flash_work(torch, qpos, S, B, Hq4, Hkv4, D4, D4, 2)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    flash["vlm"] = r = dict(
+        max_abs_err=err_vl, ms=cuda_ms(torch, kernel4, 20),
+        plain_ms=cuda_ms(torch, lambda: blockwise_attention(
+            q4, k4, v4, qpos=qpos, window=BIG_WINDOW), 3),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=cuda_ms(torch, sdpa4, 20),
+        shape=[list(q4.shape), list(k4.shape)])
+    print(f"flash wgmma Dh {D4} at {VLM_ARCH}'s prefill {tuple(q4.shape)} x "
+          f"{tuple(k4.shape)} ({Hq4}/{Hkv4} heads): {flops:.4e} flops, "
+          f"{nbytes:.4e} bytes; kernel {r['ms']:.4f} ms "
+          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
+    del q4, k4, v4, q4t, k4t, v4t
     torch.cuda.empty_cache()
     return flash, flash_256
 
@@ -2009,21 +2088,23 @@ def pool_phase(torch, bundle, params):
              for k, n in variants["flash_attn_hd"].items()})
 
 
-def logits_finite(torch, eng) -> bool:
+def logits_finite(torch, eng, prompt_len: int = PROMPTS[1],
+                  extra_inputs=None) -> bool:
     """Whether the engine's model gives finite logits for one prefill of
-    the whole pool (every slot a prompt of PROMPTS[1] tokens) and one
-    decode step after it, through the bundle's public steps on a cache
-    of the engine's size: outside the timed run, so the engine that is
-    timed is the one a user calls."""
+    the whole pool (every slot a prompt of ``prompt_len`` tokens, with
+    the ``extra_inputs``) and one decode step after it, through the
+    bundle's public steps on a cache of the engine's size: outside the
+    timed run, so the engine that is timed is the one a user calls."""
     bundle = eng.bundle
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, eng.cfg.vocab,
-                                         (SERVE_SLOTS, PROMPTS[1])))
-    cache = bundle.init_cache(SERVE_SLOTS, SERVE_MAX_SEQ)
-    pre, cache = bundle.prefill(eng.params, {"tokens": toks.to(eng.device)},
-                                cache)
+                                         (SERVE_SLOTS, prompt_len)))
+    cache = bundle.init_cache(SERVE_SLOTS, eng.scfg.max_seq)
+    pre, cache = bundle.prefill(
+        eng.params, {"tokens": toks.to(eng.device), **(extra_inputs or {})},
+        cache)
     batch = {"token": pre.argmax(dim=-1),
-             "pos": torch.full((SERVE_SLOTS,), PROMPTS[1], dtype=torch.int32,
+             "pos": torch.full((SERVE_SLOTS,), prompt_len, dtype=torch.int32,
                                device=eng.device)}
     dec, cache = bundle.decode(eng.params, batch, cache)
     ok = bool(torch.isfinite(pre).all()) and bool(torch.isfinite(dec).all())
@@ -2034,10 +2115,10 @@ def logits_finite(torch, eng) -> bool:
     return ok
 
 
-def serve_prompts(vocab: int):
-    """The serving phases' prompts of PROMPTS tokens, from seed 0."""
+def serve_prompts(vocab: int, lengths=PROMPTS):
+    """The serving phases' prompts of ``lengths`` tokens, from seed 0."""
     rng = np.random.default_rng(0)
-    return [rng.integers(0, vocab, n) for n in PROMPTS]
+    return [rng.integers(0, vocab, n) for n in lengths]
 
 
 def tensor_bytes(tree) -> int:
@@ -2048,14 +2129,17 @@ def tensor_bytes(tree) -> int:
 
 def serve_path(torch, arch: str, variant: str, label: str,
                readmit_repeats: bool = True, per_step=None,
-               step_variants=None):
-    """``arch`` at full width and depth behind the slot Engine: admits,
-    decode steps, finishes, and the first prompt again, every prefill
-    launching the flash kernel's ``variant`` (where ``per_step`` has
-    flash).  ``per_step`` maps each kernel the family launches to its
-    launches per prefill and per decode step (default: flash once per
-    layer in a prefill, never in decode); every other kernel, flash
-    included, must launch no time.
+               step_variants=None, max_seq: int = SERVE_MAX_SEQ,
+               prompts=PROMPTS, extra_inputs=None):
+    """``arch`` at full width and depth behind the slot Engine of
+    ``SERVE_SLOTS`` x ``max_seq``: admits of ``prompts`` tokens, each
+    with the same pool-shaped ``extra_inputs`` (audio frames, image
+    embeddings), decode steps, finishes, and the first prompt again,
+    every prefill launching the flash kernel's ``variant`` (where
+    ``per_step`` has flash).  ``per_step`` maps each kernel the family
+    launches to its launches per prefill and per decode step (default:
+    flash once per layer in a prefill, never in decode); every other
+    kernel, flash included, must launch no time.
     ``step_variants`` maps a kernel of ``per_step`` to the variant every
     one of its prefill launches and every one of its decode launches
     must take.  With
@@ -2069,7 +2153,7 @@ def serve_path(torch, arch: str, variant: str, label: str,
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     eng = load_engine(arch, reduced=False, slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ, seed=0)
+                      max_seq=max_seq, seed=0)
     torch.cuda.synchronize()
     cfg = eng.cfg
     per_step = per_step or {"flash_attn_hd": (cfg.n_layers, 0)}
@@ -2087,20 +2171,33 @@ def serve_path(torch, arch: str, variant: str, label: str,
                f"sLSTM every {xl.slstm_every} layers, its ffn "
                f"{int(cfg.d_model * 4 * xl.ff_factor) // 2 * 2}, no "
                f"attention")
+    if cfg.encdec:
+        ffn += (f" (plain tanh-gelu MLP), encoder {cfg.encdec.n_enc_layers} "
+                f"layers over {cfg.encdec.n_frames} frames, dense; decoder "
+                f"self-attention without a window, cross-attention dense")
+    if cfg.vision:
+        vi = cfg.vision
+        ffn += (f", a dense cross-attention after block "
+                f"{vi.cross_every - 2} of every {vi.cross_every} "
+                f"({cfg.n_layers // vi.cross_every} in all, {cfg.n_heads} "
+                f"heads) over {vi.n_image_tokens} image tokens of width "
+                f"{vi.d_vision}")
     print(f"{label}: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.head_dim} {ffn} "
-          f"vocab {cfg.vocab}, windows {sorted(set(_window_array(cfg)))}, "
+          f"vocab {cfg.vocab}, windows "
+          f"{None if cfg.encdec else sorted(set(_window_array(cfg)))}, "
           f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, bfloat16: "
           f"weights {w_bytes / 1e9:.3f} GB (param_count() {n_params}), "
           f"cache {cache_bytes / 1e9:.3f} GB ({SERVE_SLOTS} slots x "
-          f"{SERVE_MAX_SEQ}), both from the tensors' bytes; allocated "
+          f"{max_seq}), both from the tensors' bytes; allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; set-up (random "
           f"weights from a seeded generator) "
           f"{time.perf_counter() - t0:.2f} s")
 
     wrappers = _wrappers()
     flash = wrappers["flash_attn_hd"]
-    prompts = serve_prompts(cfg.vocab)
+    lengths = prompts
+    prompts = serve_prompts(cfg.vocab, lengths)
     prefill_ms, per_prefill, decode_ms, decode_tokens = [], [], [], 0
 
     step_variants = step_variants or {}
@@ -2126,7 +2223,7 @@ def serve_path(torch, arch: str, variant: str, label: str,
         w0 = flash.by_variant.get(variant, 0)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        sid = eng.add_request(prompt)
+        sid = eng.add_request(prompt, extra_inputs)
         torch.cuda.synchronize()
         prefill_ms.append(1e3 * (time.perf_counter() - t))
         per_prefill.append({k: n - n0[k] for k, n in counts().items()})
@@ -2162,15 +2259,15 @@ def serve_path(torch, arch: str, variant: str, label: str,
         decode(DECODE_STEPS)
     streams = [eng.finish(sid) for sid in sids]
     sid = admit(prompts[0])
-    decode(len(PROMPTS) * DECODE_STEPS)
+    decode(len(lengths) * DECODE_STEPS)
     again = eng.finish(sid)
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t_run
     launches = read_launches()
     variants = read_variants()
-    n_gen = len(streams[0]) - PROMPTS[0]
+    n_gen = len(streams[0]) - lengths[0]
     print(f"{label}: prefill ms per admit {[round(x, 3) for x in prefill_ms]} "
-          f"(prompts {list(PROMPTS)} then {PROMPTS[0]} again; host clock, "
+          f"(prompts {list(lengths)} then {lengths[0]} again; host clock, "
           f"synchronized); decode ms per step: median "
           f"{float(np.median(decode_ms)):.3f}, min {min(decode_ms):.3f}, "
           f"max {max(decode_ms):.3f} over {len(decode_ms)} steps; "
@@ -2181,7 +2278,7 @@ def serve_path(torch, arch: str, variant: str, label: str,
           f"{launches}, by variant "
           f"{ {k: variants[k] for k in per_step if k in variants} }")
     check(per_prefill == [{k: p for k, (p, _) in per_step.items()}]
-          * (len(PROMPTS) + 1),
+          * (len(lengths) + 1),
           f"{label}: launches per prefill {per_prefill}, not "
           f"{ {k: p for k, (p, _) in per_step.items()} }")
     check(all(n == 0 for k, n in launches.items() if k not in per_step),
@@ -2193,7 +2290,8 @@ def serve_path(torch, arch: str, variant: str, label: str,
         for v in VARIANTS},
         f"{label}: flash launches by variant {variants['flash_attn_hd']}: "
         f"every one must be the {variant} kernel")
-    check(logits_finite(torch, eng), f"non-finite logits on the {label}")
+    check(logits_finite(torch, eng, lengths[1], extra_inputs),
+          f"non-finite logits on the {label}")
     same = again == streams[0]
     print(f"{label}: re-admitted prompt repeats its greedy continuation of "
           f"{n_gen} tokens: {same}")
@@ -2202,11 +2300,11 @@ def serve_path(torch, arch: str, variant: str, label: str,
     check(all(0 <= t < cfg.vocab for st in streams + [again] for t in st),
           f"{label}: a generated token is outside the vocabulary")
 
-    eng.add_request(prompts[2])
+    eng.add_request(prompts[2], extra_inputs)
     # six names: gemma2's flash kernel comes fifth or later
-    device_breakdown(torch, f"{label}: one prefill ({PROMPTS[1]} tokens, "
+    device_breakdown(torch, f"{label}: one prefill ({lengths[1]} tokens, "
                      f"the whole {SERVE_SLOTS}-slot pool)",
-                     lambda: eng.add_request(prompts[1]), top=6)
+                     lambda: eng.add_request(prompts[1], extra_inputs), top=6)
     device_breakdown(torch, f"{label}: one decode step ({SERVE_SLOTS} slots, "
                      f"2 live)", eng.step, host_top=8)
     print(f"{label}: max_memory_allocated "
@@ -2589,6 +2687,26 @@ def main() -> None:
                         serve_prompts(bundle.cfg.vocab)[0], DECODE_STEPS)
     del bundle, params
     torch.cuda.empty_cache()
+    # the vision decoder and the encoder-decoder last, so that every
+    # earlier phase runs as it did before; each alone on the card, every
+    # admit with the same pool-shaped extra inputs.  llama-vision: 40
+    # flash launches a prefill, all wgmma, none in decode; whisper: no
+    # kernel at all
+    from repro_torch.launch.serve import extra_inputs
+    vl_launches, vl_variants, bundle, params = serve_path(
+        torch, VLM_ARCH, "wgmma", "vision serving",
+        extra_inputs=extra_inputs(get_config(VLM_ARCH), SERVE_SLOTS,
+                                  np.random.default_rng(0)))
+    del bundle, params
+    torch.cuda.empty_cache()
+    wh_launches, wh_variants, bundle, params = serve_path(
+        torch, WHISPER_ARCH, "wgmma", "whisper serving",
+        per_step={"flash_attn_hd": (0, 0)}, max_seq=WHISPER_MAX_SEQ,
+        prompts=WHISPER_PROMPTS,
+        extra_inputs=extra_inputs(get_config(WHISPER_ARCH), SERVE_SLOTS,
+                                  np.random.default_rng(0)))
+    del bundle, params
+    torch.cuda.empty_cache()
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -2605,12 +2723,16 @@ def main() -> None:
                                  "qwen3 engine": q3_launches["flash_attn_hd"],
                                  "recurrentgemma engine":
                                      rg_launches["flash_attn_hd"],
-                                 "xlstm engine": xl_launches["flash_attn_hd"]}
+                                 "xlstm engine": xl_launches["flash_attn_hd"],
+                                 "vlm engine": vl_launches["flash_attn_hd"],
+                                 "whisper engine":
+                                     wh_launches["flash_attn_hd"]}
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         + rg_variants["flash_attn_hd"][k] + xl_variants["flash_attn_hd"][k]
+        + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
         for k, n in serve_variants["flash_attn_hd"].items()}
     # every Dh-256 launch: gemma2's and recurrentgemma's prefills
     flash_256["launches"] = (g2_variants["flash_attn_hd"]["wgmma"]

@@ -4,7 +4,10 @@
 
 runs on the card by default (``--device cpu`` runs on the host, at the
 reduced size unless ``--full``).  Weights are random, drawn from a
-``torch.Generator`` seeded with 0.
+``torch.Generator`` seeded with 0; whisper's audio frames and
+llama-vision's image embeddings are standard normals from
+``numpy.random.default_rng(0)``, one row a slot, passed to every
+request.
 """
 from __future__ import annotations
 
@@ -32,6 +35,23 @@ def load_engine(arch: str, *, reduced: bool = True, slots: int = 4,
                               temperature=temperature), seed=seed)
 
 
+def extra_inputs(cfg, slots: int, rng: np.random.Generator):
+    """The encoder-decoder's audio frames and the vision decoder's image
+    embeddings, pool-shaped float32 arrays of standard normals from
+    ``rng`` (the conv frontend and the vision tower are stubs, as in
+    the reference); empty for the other families."""
+    extra = {}
+    if cfg.encdec is not None:
+        extra["frames"] = np.asarray(
+            rng.standard_normal((slots, cfg.encdec.n_frames, cfg.d_model)),
+            np.float32)
+    if cfg.vision is not None:
+        extra["image_embeds"] = np.asarray(
+            rng.standard_normal((slots, cfg.vision.n_image_tokens,
+                                 cfg.vision.d_vision)), np.float32)
+    return extra
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -55,12 +75,13 @@ def main(argv=None):
                       device=args.device)
     rng = np.random.default_rng(0)
     cfg = eng.cfg
+    extra = extra_inputs(cfg, args.slots, rng)
     _sync(args.device)
     t0 = time.perf_counter()
     n_tok = 0
     for r in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, args.prompt_len)
-        out = eng.generate(prompt, args.tokens)
+        out = eng.generate(prompt, args.tokens, extra_inputs=extra or None)
         n_tok += args.tokens
         print(f"[serve] req {r}: prompt {args.prompt_len} -> "
               f"{out[args.prompt_len:][:16]} ...")

@@ -3,7 +3,9 @@ checkpointing + fault tolerance + straggler monitoring, the port of the
 reference's ``repro/launch/train.py``.
 
 Runs the dense decoder family (full or ``reduced``) on one card, or on
-the CPU with ``device="cpu"``:
+the CPU with ``device="cpu"``, where the vision decoder and the
+encoder-decoder also train, with the reference's extra inputs (image
+embeddings, audio frames: ``_extra_inputs``):
 
   * deterministic resumable pipeline: restore replays the exact stream;
   * atomic async checkpoints with keep-k, auto-restore of the newest
@@ -54,15 +56,20 @@ class TrainRun:
     losses: list
 
 
-def _extra_inputs(cfg, B, S, rng):
-    """The extra model inputs of the encoder-decoder and vision
-    families; neither is ported (``build`` raises for them first)."""
-    if cfg.encdec is not None or cfg.vision is not None:
-        raise NotImplementedError(
-            f"{cfg.name}'s extra inputs (audio frames, image embeddings) "
-            f"are not ported yet (ROADMAP: 'Still to port', the other "
-            f"model families)")
-    return {}
+def _extra_inputs(cfg, B, S, rng, device="cpu"):
+    """The extra model inputs of the encoder-decoder (audio frames) and
+    vision (image embeddings) families: bf16 standard normals from
+    ``rng`` on ``device``, as the reference's; empty for the others."""
+    d = {}
+    if cfg.encdec is not None:
+        d["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encdec.n_frames, cfg.d_model))).to(
+                device=device, dtype=torch.bfloat16)
+    if cfg.vision is not None:
+        d["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision.n_image_tokens, cfg.vision.d_vision))).to(
+                device=device, dtype=torch.bfloat16)
+    return d
 
 
 def setup(arch: str, *, reduced: bool = True, seq_len: int = 128,
@@ -110,7 +117,7 @@ def train(run: TrainRun, steps: int, *, start_step: int = 0,
     guard = StepGuard(restore_fn) if run.ckpt else None
     rng = np.random.default_rng(123)
     extras = _extra_inputs(cfg, run.pipeline.cfg.global_batch,
-                           run.pipeline.cfg.seq_len, rng)
+                           run.pipeline.cfg.seq_len, rng, dev)
     i = step0
     t_start = time.time()
     while i < steps:

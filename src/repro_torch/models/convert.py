@@ -20,6 +20,12 @@ recurrent biases stay float32: ``lam`` is read in float32
 mLSTM, 2 sLSTM and 12 norm layers at full size); its sLSTM recurrent
 weights ``r_in`` stay float32, because the recurrence reads them in
 float32 (``xlstm.py:201``), and so do the biases ``b_in`` and ``b_if``.
+The encoder-decoder's ``{"emb", "enc": {"attn", "mlp", "norms",
+"final_norm"}, "dec": {"attn", "cross", "mlp", "norms"}}`` (whisper: 6
+encoder and 6 decoder layers at full size) and the vision decoder's
+``{"emb", "main", "cross", "cross_norm"}`` (llama-3.2-vision: 40 main
+layers, 8 cross layers and their norms) unstack each group by its own
+leading dim too.
 
 Every matrix is stored in ``compute_dtype``.  The reference keeps
 float32 masters but casts each matrix to the compute dtype right
@@ -56,15 +62,19 @@ _HYBRID = {"emb", "rec", "attn", "mlp", "norms"}
 _REC_F32 = ("lam", "conv_b", "b_a", "b_i")
 _XLSTM = {"emb", "mlstm", "slstm", "norms"}
 _XLSTM_F32 = ("r_in", "b_in", "b_if")
+_ENCDEC = {"emb", "enc", "dec"}
+_VLM = {"emb", "main", "cross", "cross_norm"}
 
 
 def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
                     compute_dtype=torch.bfloat16) -> Params:
     """The port's params of a dense or moe decoder from the reference's
     ``{"emb": ..., "main": {"attn", "norms", "ffn"}}`` pytree of numpy
-    arrays, of recurrentgemma from its ``{"emb", "rec", "attn", "mlp",
-    "norms"}``, or of the xLSTM LM from its ``{"emb", "mlstm", "slstm",
-    "norms"}``."""
+    arrays, of the vision decoder from its ``{"emb", "main", "cross",
+    "cross_norm"}``, of the encoder-decoder from its ``{"emb", "enc",
+    "dec"}``, of recurrentgemma from its ``{"emb", "rec", "attn",
+    "mlp", "norms"}``, or of the xLSTM LM from its ``{"emb", "mlstm",
+    "slstm", "norms"}``."""
     dev = resolve_device(device)
     mat = lambda x: _t(x, compute_dtype, dev)          # noqa: E731
     f32 = lambda x: _t(x, torch.float32, dev)          # noqa: E731
@@ -76,24 +86,37 @@ def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
         return [{k: (f32 if k in f32_names else mat)(w[i])
                  for k, w in group.items()} for i in range(n)]
 
+    def norms(group):
+        return unstack(group, tuple(group))
+
+    if set(params_np) == _ENCDEC:
+        enc, dec = params_np["enc"], params_np["dec"]
+        return {"emb": emb_p,
+                "enc": {"attn": unstack(enc["attn"]),
+                        "mlp": unstack(enc["mlp"]),
+                        "norms": norms(enc["norms"]),
+                        "final_norm": f32(enc["final_norm"])},
+                "dec": {"attn": unstack(dec["attn"]),
+                        "cross": unstack(dec["cross"]),
+                        "mlp": unstack(dec["mlp"]),
+                        "norms": norms(dec["norms"])}}
     if set(params_np) == _XLSTM:
         return {"emb": emb_p,
                 "mlstm": unstack(params_np["mlstm"], _XLSTM_F32),
                 "slstm": unstack(params_np["slstm"], _XLSTM_F32),
-                "norms": unstack(params_np["norms"], tuple(
-                    params_np["norms"]))}
+                "norms": norms(params_np["norms"])}
     if set(params_np) == _HYBRID:
         return {"emb": emb_p,
                 "rec": unstack(params_np["rec"], _REC_F32),
                 "attn": unstack(params_np["attn"]),
                 "mlp": unstack(params_np["mlp"]),
-                "norms": unstack(params_np["norms"], tuple(
-                    params_np["norms"]))}
-    if set(params_np) != {"emb", "main"}:
+                "norms": norms(params_np["norms"])}
+    if set(params_np) not in ({"emb", "main"}, _VLM):
         raise NotImplementedError(
             f"from_jax_params carries the dense and moe decoders without "
-            f"leading dense layers or MTP, recurrentgemma and the xLSTM LM, "
-            f"got groups {sorted(params_np)}")
+            f"leading dense layers or MTP, the vision decoder, the "
+            f"encoder-decoder, recurrentgemma and the xLSTM LM, got groups "
+            f"{sorted(params_np)}")
     main = params_np["main"]
 
     def ffn(group, i):
@@ -108,6 +131,10 @@ def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
             "norms": {n: f32(w[i]) for n, w in main["norms"].items()},
             "ffn": ffn(main["ffn"], i),
         })
+    if set(params_np) == _VLM:
+        return {"emb": emb_p, "main": layers,
+                "cross": unstack(params_np["cross"]),
+                "cross_norm": norms(params_np["cross_norm"])}
     return {"emb": emb_p, "main": layers}
 
 

@@ -1,6 +1,6 @@
 """Transformer building blocks with cache support: the attention part
-of the reference's ``repro/models/layers.py``, with the full cache and
-the sliding-window ring cache.
+of the reference's ``repro/models/layers.py``, with the full cache,
+the sliding-window ring cache and cross-attention.
 
 Conventions:
   * params are plain dicts of tensors, one dict per layer (the
@@ -180,10 +180,49 @@ def attention(p: Params, x: torch.Tensor, *, cfg, window=None,
     return out, new_cache
 
 
-def cross_attention(p, x, kv_src, *, cfg):
-    raise NotImplementedError(
-        "cross_attention (whisper, llama-vision) is not ported yet "
-        "(ROADMAP: 'Still to port', the other model families: encdec, vlm)")
+def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor, *,
+                    cfg) -> torch.Tensor:
+    """Cross-attention: q from x (B, T, D), k and v projected from a
+    source (B, S_kv, D_src) in x's dtype with ``Hq`` heads (not
+    ``Hkv``), every key visible, then ``wo``.  whisper's encoder calls
+    it with the source x itself; whisper's decoder and llama-vision
+    project their source once at prefill, cache it and call
+    ``attend_source``."""
+    B = x.shape[0]
+    Hq, Dh = cfg.n_heads, cfg.head_dim
+    cdt = x.dtype
+    k = (kv_src @ p["wk"].to(cdt)).reshape(B, -1, Hq, Dh)
+    v = (kv_src @ p["wv"].to(cdt)).reshape(B, -1, Hq, Dh)
+    return attend_source(p, x, k, v, cfg=cfg)
+
+
+def attend_source(p: Params, x: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *, cfg) -> torch.Tensor:
+    """The rest of ``cross_attention`` once the source's k and v
+    (B, S_kv, Hq, Dh) are projected: q from x, every key visible,
+    then ``wo``."""
+    B, T, D = x.shape
+    Hq, Dh = cfg.n_heads, cfg.head_dim
+    cdt = x.dtype
+    q = (x @ p["wq"].to(cdt)).reshape(B, T, Hq, Dh)
+    mask = torch.ones((T, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = gqa_attention(q, k.to(cdt), v.to(cdt), mask)
+    return out.reshape(B, T, Hq * Dh) @ p["wo"].to(cdt)
+
+
+def cross_attn_params(gen, cfg, d_src: int, *, dtype=torch.float32,
+                      device="cuda") -> Params:
+    """One layer's cross-attention weights (the reference's
+    ``cross_attn_params`` for one of its ``L`` stacked layers): k and v
+    project the source's ``d_src`` to ``Hq`` heads."""
+    D, Hq, Dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    return {
+        "wq": _normal(gen, (D, Hq * Dh), 1 / math.sqrt(D), **kw),
+        "wk": _normal(gen, (d_src, Hq * Dh), 1 / math.sqrt(d_src), **kw),
+        "wv": _normal(gen, (d_src, Hq * Dh), 1 / math.sqrt(d_src), **kw),
+        "wo": _normal(gen, (Hq * Dh, D), 1 / math.sqrt(Hq * Dh), **kw),
+    }
 
 
 def init_full_cache(cfg, n_layers: int, B: int, T_max: int,

@@ -1,8 +1,11 @@
 """Model assembly: init / forward / prefill / decode, the decoder
 families of the reference's ``repro/models/lm.py``: dense (global,
-local or gemma2's alternating attention) and moe.  ``build`` also
-dispatches the hybrid family (recurrentgemma) and the ssm family's
-xLSTM to ``models/hybrid.py``.
+local or gemma2's alternating attention), moe and vlm
+(llama-3.2-vision: the dense stack in super-blocks, each with one
+cross-attention to image embeddings).  ``build`` also dispatches the
+hybrid family (recurrentgemma) and the ssm family's xLSTM to
+``models/hybrid.py``, and the audio family (whisper) to
+``models/encdec.py``.
 
 Structure notes:
   * layers are a Python list of per-layer parameter dicts, run in a
@@ -24,9 +27,15 @@ Structure notes:
     float32 for the reference's float32 masters, which every use
     casts to the compute dtype.
 
+The vlm family's cache is the reference's ``{"kv": {"k", "v"}, "pos",
+"img_k", "img_v"}``: K and V (n_sb, SB, B, T_max, Hkv, Dh), the image
+K/V (n_sb, B, n_image_tokens, Hq, Dh), all bf16.  Its prefill attends
+with the image K/V in the compute dtype and stores them rounded to
+bf16; decode reads the bf16 copies, as the reference's.
+
 ``build(cfg, compute_dtype, device)`` returns a ModelBundle of closures
-and raises ``NotImplementedError`` for the families not ported yet
-(encdec, vlm, mla).
+and raises ``NotImplementedError`` for the family not ported yet (mla,
+with its leading dense layers and MTP head).
 Every entry point runs on ``device``, which defaults to "cuda" and
 raises without a card.
 """
@@ -224,6 +233,119 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
 
 
 # ======================================================================
+# vlm: llama-3.2-vision (a cross-attention after the next-to-last block
+# of every super-block of ``cross_every`` blocks)
+# ======================================================================
+def _build_vlm(cfg, dt, dev) -> ModelBundle:
+    """The decoder stack in super-blocks of ``SB = cross_every`` blocks,
+    each followed, after its block ``SB - 2``, by a cross-attention to
+    the image embeddings projected once a super-block (``Hq`` heads,
+    every image token visible)."""
+    V = cfg.vision
+    SB = V.cross_every                     # super-block size
+    n_sb = cfg.n_layers // SB
+    windows = _window_array(cfg)
+    Hq, Dh = cfg.n_heads, cfg.head_dim
+
+    def init(seed=0, dtype=None) -> Params:
+        """Matrices in ``dtype`` (default the compute dtype); norm
+        scales float32."""
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=dev).manual_seed(int(seed))
+        pdt = dt if dtype is None else dtype
+        return {"emb": _embed_params(gen, cfg, pdt, dev),
+                "main": _dense_stack_params(gen, cfg, cfg.n_layers, pdt, dev),
+                "cross": [LY.cross_attn_params(gen, cfg, V.d_vision,
+                                               dtype=pdt, device=dev)
+                          for _ in range(n_sb)],
+                "cross_norm": [LY.norms_params(cfg.d_model, ["pre_cross"],
+                                               device=dev)
+                               for _ in range(n_sb)]}
+
+    def _img_kv(params, image_embeds):
+        """Each super-block's image K and V (B, S_img, Hq, Dh), projected
+        once from the image embeddings (a numpy array from the Engine,
+        or a tensor)."""
+        ie = torch.as_tensor(image_embeds, device=dev).to(dt)
+        B = ie.shape[0]
+        return [((ie @ cp["wk"].to(dt)).reshape(B, -1, Hq, Dh),
+                 (ie @ cp["wv"].to(dt)).reshape(B, -1, Hq, Dh))
+                for cp in params["cross"]]
+
+    def _super_block(params, sb, x, kc, vc, cache, pos):
+        """Super-block ``sb``; with a cache, its layers' rows written in
+        place."""
+        for i in range(SB):
+            j = sb * SB + i
+            csl = None if cache is None else {
+                "k": cache["kv"]["k"][sb, i], "v": cache["kv"]["v"][sb, i],
+                "pos": pos}
+            x, _, _ = _dense_block(cfg, params["main"][j], x, windows[j],
+                                   csl)
+            if i == SB - 2:
+                h = rms_norm(x, params["cross_norm"][sb]["pre_cross"])
+                x = x + LY.attend_source(params["cross"][sb], h, kc, vc,
+                                         cfg=cfg)
+        return x
+
+    def _run(params, x, kv, cache, pos):
+        """Every super-block in order; without a cache, each under
+        ``torch.utils.checkpoint`` while grad is enabled (the
+        reference's ``remat=True`` of its scanned super-block)."""
+        remat = cache is None and torch.is_grad_enabled()
+        for sb, (kc, vc) in enumerate(kv):
+            args = (params, sb, x, kc, vc, cache, pos)
+            if remat:
+                # no layer draws random numbers: no RNG state to replay
+                x = checkpoint(_super_block, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _super_block(*args)
+        return x
+
+    def forward(params, batch):
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        kv = _img_kv(params, batch["image_embeds"])
+        x = _run(params, x, kv, None, None)
+        return _head(params["emb"], x, cfg), {
+            "aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+    def init_cache(B, T_max, device=None):
+        """``device`` defaults to the model's ("meta" probes shapes)."""
+        on = dev if device is None else device
+        full = LY.init_full_cache(cfg, cfg.n_layers, B, T_max, device=on)
+        shape = (n_sb, B, V.n_image_tokens, Hq, Dh)
+        return {"kv": {n: a.reshape(n_sb, SB, *a.shape[1:])
+                       for n, a in full.items()},
+                "pos": torch.zeros((B,), dtype=torch.int32, device=on),
+                "img_k": torch.zeros(shape, dtype=torch.bfloat16, device=on),
+                "img_v": torch.zeros(shape, dtype=torch.bfloat16, device=on)}
+
+    def prefill(params, batch, cache):
+        """Attends with the image K/V in the compute dtype, then stores
+        them rounded to bf16, as the reference does."""
+        x = _embed(params["emb"], batch["tokens"], cfg, dt)
+        kv = _img_kv(params, batch["image_embeds"])
+        pos = cache["pos"]
+        x = _run(params, x, kv, cache, pos)
+        for sb, (kc, vc) in enumerate(kv):
+            cache["img_k"][sb].copy_(kc)
+            cache["img_v"][sb].copy_(vc)
+        cache["pos"] = pos + x.shape[1]
+        return _head(params["emb"], x[:, -1:, :], cfg), cache
+
+    def decode(params, batch, cache):
+        x = _embed(params["emb"], batch["token"], cfg, dt)
+        # decode positions come from the batch (ragged serving)
+        pos = batch["pos"]
+        x = _run(params, x, zip(cache["img_k"], cache["img_v"]), cache, pos)
+        cache["pos"] = pos + 1
+        return _head(params["emb"], x, cfg), cache
+
+    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev)
+
+
+# ======================================================================
 # dispatcher
 # ======================================================================
 _NOT_PORTED = ("is not ported yet (ROADMAP: 'Still to port', the other "
@@ -235,9 +357,15 @@ def build(cfg, compute_dtype=torch.bfloat16, device="cuda") -> ModelBundle:
     the dense decoder with global, local or alternating attention
     (yi-9b, deepseek-7b, mistral-large-123b, gemma2-9b), the moe
     decoder without MLA, leading dense layers or MTP
-    (qwen3-moe-30b-a3b), the RG-LRU hybrid (recurrentgemma-2b) and the
-    xLSTM LM (xlstm-125m)."""
+    (qwen3-moe-30b-a3b), the vision decoder (llama-3.2-vision-11b),
+    the encoder-decoder (whisper-base), the RG-LRU hybrid
+    (recurrentgemma-2b) and the xLSTM LM (xlstm-125m)."""
     dev = resolve_device(device)
+    if cfg.family == "vlm" and cfg.vision is not None:
+        return _build_vlm(cfg, compute_dtype, dev)
+    if cfg.family == "audio" and cfg.encdec is not None:
+        from .encdec import build_whisper
+        return build_whisper(cfg, compute_dtype, dev)
     if cfg.family == "hybrid" and cfg.rg is not None:
         from .hybrid import build_recurrentgemma
         return build_recurrentgemma(cfg, compute_dtype, dev)

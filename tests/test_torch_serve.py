@@ -271,9 +271,11 @@ def test_load_engine_and_device_default():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             build(get_config(ARCH).reduced())          # device="cuda"
-    for name in ("whisper-base", "deepseek-v3-671b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(get_config(name).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(get_config("deepseek-v3-671b").reduced(), device="cpu")
+    for name in ("whisper-base", "llama-3.2-vision-11b"):
+        assert build(get_config(name).reduced(), device="cpu").device == \
+            torch.device("cpu")
 
 
 LAYER_HELPERS = {
@@ -285,6 +287,8 @@ LAYER_HELPERS = {
         cfg.d_model, ["pre_attn", "pre_mlp"], **kw),
     "init_full_cache": lambda cfg, **kw: layers.init_full_cache(
         cfg, 1, 2, 8, **kw),
+    "cross_attn_params": lambda cfg, **kw: layers.cross_attn_params(
+        torch.Generator().manual_seed(0), cfg, 32, **kw),
 }
 
 

@@ -419,10 +419,28 @@ def test_setup_defaults_to_the_card():
 
 def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup("whisper-base", device="cpu")
+        setup("deepseek-v3-671b", device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b",
+                                  "yi-9b"])
+def test_extra_inputs_match_the_reference(arch):
+    """Audio frames and image embeddings: the reference's shapes, bf16
+    and values from the same rng; none for a decoder."""
+    from repro.configs import get_config as ref_get_config
+    from repro.launch.train import _extra_inputs as ref_extra_inputs
     from repro_torch.launch.train import _extra_inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _extra_inputs(get_config("whisper-base").reduced(), 2, 8, None)
+
+    want = ref_extra_inputs(ref_get_config(arch).reduced(), 2, 8,
+                            np.random.default_rng(123))
+    got = _extra_inputs(get_config(arch).reduced(), 2, 8,
+                        np.random.default_rng(123), "cpu")
+    assert set(got) == set(want)
+    for name, w in want.items():
+        assert got[name].dtype == torch.bfloat16
+        assert got[name].device == torch.device("cpu")
+        assert np.array_equal(got[name].float().numpy(),
+                              np.asarray(w.astype(jnp.float32)))
 
 
 # ----------------------------------------------------------------------
