@@ -28,7 +28,13 @@
    shapes with windows, softcaps, ragged and fully masked rows, odd
    head dims, Dh 192 / Dv 128 on the mma_sync variant, and float32),
    timing it beside SDPA (at yi-9b's prefill shape and at
-   llama-3.2-vision's, 32/8 heads), and its backward
+   llama-3.2-vision's, 32/8 heads), the mma_sync variant at
+   deepseek-v3's MLA prefill (q (4, 2048, 128, 192), k (4, 4096, 128,
+   192) and v (4, 4096, 128, 128) built from a latent as the naive form
+   builds them, scale 1/sqrt(192)) against the blockwise version within
+   1e-2, timed beside it, its 0.695 ms operations bound and one PyTorch
+   call (SDPA's memory-efficient backend, else flex_attention; the
+   output names it), and its backward
    kernels, ``wgmma`` (``ffma`` in float32), against float64 dense
    autograd (small shapes, bf16, fp16 and float32, GQA groups of 8 and
    1, Dh 64 and 128) and the plain blockwise backward at the training
@@ -155,9 +161,27 @@
    tokens, 16 decode steps each, the first prompt again: no kernel
    launches at all (its prompts stay under FLASH_MIN_T, its encoder
    and cross-attentions are dense, as in the reference), and the
-   re-admitted prompt must repeat.
-7. Prints one JSON line of kernel measurements, the card's name and
-   power limit, and as the last line ``{"ok": true, "device": ...}``.
+   re-admitted prompt must repeat.  Then deepseek-v3-671b at full
+   width (d_model 7168, 128 heads, MLA with q_lora 1536, kv_lora 512,
+   d_nope 128, d_rope 64, d_v 128, 256 experts top-8 of 2048 plus 1
+   shared under capacity factor 1.25, vocab 129280, dense d_ff 18432),
+   its depth cut from 61 to 5 layers (the published 3 dense layers, 2
+   moe layers) plus the MTP head's parameters, about 54.6 GB, with the
+   yi-9b traffic: every prefill is MLA's naive form and launches flash
+   ``mma_sync`` 5 times, decode (the absorbed form) launches no kernel;
+   the lone-prompt gate and the first moe layer's check (shared expert
+   included) as for qwen3; then one MLA layer at B 1 and T 1024 from a
+   cache holding 1024 rows, its naive form (the kernel) against its
+   absorbed form (dense einsums) within 2e-2 Frobenius-relative.  Last,
+   ``make_flash_kernel`` on the torch backend: one fp16 sequence of
+   4096 tokens as HDArrays, its query rows over 4 ranks, at 32/8 heads
+   of 128 (``wgmma``) and 128/128 heads of 192/128 (``mma_sync``), each
+   within 1e-2 of the blockwise version over the whole sequence, 4
+   launches of its variant each.
+7. Prints one JSON line of kernel measurements (flash's launches by
+   path, the deepseek-v3 engine and the HDArray flash kernel among
+   them), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or
 without the repository's ``src/repro_torch`` beside it.  float32
@@ -232,6 +256,23 @@ GEMMA2_ARCH, QWEN3_ARCH = "gemma2-9b", "qwen3-moe-30b-a3b"
 # served last: 18 RG-LRU layers (the scan kernel) and 8 attention layers
 # on the ring cache (flash's wgmma variant at Dh 256, window 2048)
 RG_ARCH = "recurrentgemma-2b"
+# served last, at full width with its depth cut to the published 3 dense
+# layers and 2 of its 58 moe layers (and the MTP head's parameters):
+# about 54.6 GB in bf16 (param_count's terms: embeddings 3.71 GB, a dense
+# layer 1.17, a moe layer 23.0, MTP 1.37); a third moe layer would need
+# 77.6.  Every prefill is MLA's naive form: flash mma_sync at Dh 192 /
+# Dv 128, 128 heads
+DSV3_ARCH, DSV3_LAYERS = "deepseek-v3-671b", 5
+# one MLA layer's naive form (the kernel) against its absorbed form
+# (dense einsums) in bf16, Frobenius-relative: tests/test_torch_mla.py's
+# MLA_FORMS_BF16_TOL (the two forms part by 4.5e-3 to 5.0e-3 on the
+# reduced layer)
+MLA_FORMS_BF16_TOL = 2e-2
+# make_flash_kernel on the torch backend: one sequence of HD_FLASH_T
+# tokens, its query rows partitioned over NPROC ranks, at llama-vision's
+# heads (wgmma) and at MLA's naive form's (mma_sync)
+HD_FLASH_T = 4096
+HD_FLASH_SHAPES = ((32, 8, 128, 128), (128, 128, 192, 128))
 # the RG-LRU scan kernel against float64 and its plain float32 loop,
 # relative to max|h|: with decays up to a = 0.998 (lam -6) the float32
 # recurrence carries about 1 / (1 - a) = 500 roundings of 2**-24 at
@@ -895,8 +936,111 @@ def flash_phase(torch, ptxas):
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
           f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
     del q4, k4, v4, q4t, k4t, v4t
+    flash["mma_sync_mla"] = mla_flash_check(torch, compare, qpos)
     torch.cuda.empty_cache()
     return flash, flash_256
+
+
+def mla_flash_check(torch, compare, qpos):
+    """mma_sync at deepseek-v3's MLA prefill: the first admit's q (B,
+    2048, 128, d_nope + d_rope), k and v over the whole 4096-position
+    cache built as ``mla_attention`` builds them (K of every head from
+    a bf16 latent through wk_b, the shared RoPE key broadcast over the
+    heads; V through wv_b), ``scale = 1/sqrt(192)``, against the plain
+    blockwise version, timed beside it and one PyTorch call (SDPA's
+    memory-efficient backend, which takes Dv != Dh, else compiled
+    flex_attention).  ``compare`` is flash_phase's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_variant)
+
+    cfg = get_config(DSV3_ARCH)
+    m, H = cfg.mla, cfg.n_heads
+    Dh, Dv = m.d_nope + m.d_rope, m.d_v
+    check(flash_variant(torch.bfloat16, Dh, Dv) == "mma_sync",
+          f"{DSV3_ARCH}'s Dh {Dh} / Dv {Dv} does not take mma_sync")
+    B, T, S = SERVE_SLOTS, PROMPTS[0], SERVE_MAX_SEQ
+    g = torch.Generator(device="cuda").manual_seed(26)
+
+    def randn(*shape, scale=1.0):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return x.mul_(scale).to(torch.bfloat16)
+
+    latent = randn(B, S, m.kv_lora)
+    k_rope = randn(B, S, m.d_rope)
+    wk_b = randn(m.kv_lora, H * m.d_nope, scale=m.kv_lora ** -0.5)
+    wv_b = randn(m.kv_lora, H * Dv, scale=m.kv_lora ** -0.5)
+    k = torch.cat([(latent @ wk_b).reshape(B, S, H, m.d_nope),
+                   k_rope[:, :, None, :].expand(B, S, H, m.d_rope)], -1)
+    v = (latent @ wv_b).reshape(B, S, H, Dv)
+    q = randn(B, T, H, Dh)
+    del latent, k_rope, wk_b, wv_b
+    scale = Dh ** -0.5
+    n0, v0 = (flash_attention_cuda.launches,
+              flash_attention_cuda.by_variant["mma_sync"])
+    _, err = compare(f"mma_sync {DSV3_ARCH} MLA prefill {tuple(q.shape)} x "
+                     f"k {tuple(k.shape)} v {tuple(v.shape)} scale 1/sqrt("
+                     f"{Dh})", torch.bfloat16, q, k, v, qpos,
+                     blockwise_attention, tol=FLASH_MAIN_TOL, window=None,
+                     scale=scale)
+    check(flash_attention_cuda.launches - n0 == 1
+          and flash_attention_cuda.by_variant["mma_sync"] - v0 == 1,
+          "the MLA-shape check launched another variant than mma_sync")
+    kernel = lambda: flash_attention_cuda(           # noqa: E731
+        q, k, v, qpos=qpos, window=None, scale=scale)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           scale=scale)
+
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale)
+        lib_name = "SDPA (memory-efficient backend, is_causal)"
+    except RuntimeError as e:
+        print(f"SDPA's memory-efficient backend refuses Dh {Dh} / Dv {Dv}: "
+              f"{str(e).splitlines()[0][:120]}")
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        mask = create_block_mask(lambda b, h, qi, ki: ki <= qi, None, None,
+                                 T, S, device="cuda")
+        qc, kc, vc = (x.contiguous() for x in (qt, kt, vt))
+        flex = torch.compile(flex_attention, dynamic=False)
+
+        def library():
+            return flex(qc, kc, vc, block_mask=mask, scale=scale)
+        lib_name = "compiled flex_attention (causal block mask)"
+    lib_err = float((library().transpose(1, 2).float() - kernel().float())
+                    .abs().max())
+    print(f"flash mma_sync vs {lib_name} at {DSV3_ARCH}'s MLA prefill "
+          f"shape: max_abs_diff={lib_err:.3e}")
+    check(lib_err <= FLASH_TOL["bfloat16"] * 4, f"{lib_name} computes "
+          f"another function than mma_sync at the MLA prefill shape")
+    flops, nbytes = flash_work(torch, qpos, S, B, H, H, Dh, Dv, 2)
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    r = dict(variant="mma_sync", max_abs_err=err,
+             ms=cuda_ms(torch, kernel, 10),
+             plain_ms=cuda_ms(torch, lambda: blockwise_attention(
+                 q, k, v, qpos=qpos, window=None, scale=scale), 2),
+             bound_ms=1e3 * max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             library_ms=cuda_ms(torch, library, 10), library=lib_name,
+             shape=[list(q.shape), list(k.shape), list(v.shape)])
+    print(f"flash mma_sync Dh {Dh} / Dv {Dv} at {DSV3_ARCH}'s MLA prefill "
+          f"{tuple(q.shape)} x k {tuple(k.shape)} v {tuple(v.shape)}: "
+          f"{flops:.4e} flops, {nbytes:.4e} bytes; kernel {r['ms']:.4f} ms "
+          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound), bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+          f"{r['plain_ms']:.4f} ms, {lib_name} {r['library_ms']:.4f} ms")
+    return r
 
 
 def flex_softcap(torch, k, v, qpos, window: int, softcap: float):
@@ -2130,8 +2274,9 @@ def tensor_bytes(tree) -> int:
 def serve_path(torch, arch: str, variant: str, label: str,
                readmit_repeats: bool = True, per_step=None,
                step_variants=None, max_seq: int = SERVE_MAX_SEQ,
-               prompts=PROMPTS, extra_inputs=None):
-    """``arch`` at full width and depth behind the slot Engine of
+               prompts=PROMPTS, extra_inputs=None, cfg=None):
+    """``arch`` at full width and depth (or ``cfg``, a cut of it, built
+    as ``load_engine`` builds a family) behind the slot Engine of
     ``SERVE_SLOTS`` x ``max_seq``: admits of ``prompts`` tokens, each
     with the same pool-shaped ``extra_inputs`` (audio frames, image
     embeddings), decode steps, finishes, and the first prompt again,
@@ -2152,8 +2297,15 @@ def serve_path(torch, arch: str, variant: str, label: str,
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    eng = load_engine(arch, reduced=False, slots=SERVE_SLOTS,
-                      max_seq=max_seq, seed=0)
+    if cfg is None:
+        eng = load_engine(arch, reduced=False, slots=SERVE_SLOTS,
+                          max_seq=max_seq, seed=0)
+    else:
+        from repro_torch.models import build
+        from repro_torch.serve import Engine, ServeConfig
+        bundle = build(cfg, torch.bfloat16)
+        eng = Engine(bundle, bundle.init(0), ServeConfig(
+            max_seq=max_seq, slots=SERVE_SLOTS), seed=0)
     torch.cuda.synchronize()
     cfg = eng.cfg
     per_step = per_step or {"flash_attn_hd": (cfg.n_layers, 0)}
@@ -2162,6 +2314,15 @@ def serve_path(torch, arch: str, variant: str, label: str,
     ffn = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
            f"{cfg.moe.d_expert_ff} (capacity factor "
            f"{cfg.moe.capacity_factor})" if cfg.moe else f"d_ff {cfg.d_ff}")
+    if cfg.moe and cfg.moe.n_shared:
+        ffn += (f" plus {cfg.moe.n_shared} shared of "
+                f"{cfg.moe.d_shared_ff or cfg.moe.d_expert_ff}")
+    if cfg.mla:
+        m = cfg.mla
+        ffn += (f", MLA (q_lora {m.q_lora}, kv_lora {m.kv_lora}, d_nope "
+                f"{m.d_nope}, d_rope {m.d_rope}, d_v {m.d_v}), the first "
+                f"{cfg.dense_layers} layers dense with d_ff {cfg.d_ff}, the "
+                f"MTP head's parameters")
     if cfg.rg:
         ffn += (f", lru_width {cfg.rg.lru_width}, conv width "
                 f"{cfg.rg.conv_width}, {cfg.rg.pattern} rec per attention")
@@ -2357,13 +2518,16 @@ def lone_prompt_repeats(torch, bundle, params, prompt, steps: int) -> None:
 
 
 def moe_layer_check(torch, bundle, params, prompt) -> None:
-    """Layer 0's MoE feed-forward at full width on the hidden state of
-    the first admit's prefill (the whole pool: the prompt in slot 0,
-    empty slots of token 0 beside it), in bf16, against a float32
+    """The first moe layer's feed-forward at full width on the hidden
+    state of the first admit's prefill (the whole pool: the prompt in
+    slot 0, empty slots of token 0 beside it; after the leading dense
+    layers where the model has them), in bf16, against a float32
     evaluation of the same routing (the same ids and weights, the same
-    capacity drops, every expert in float32, one expert at a time)."""
+    capacity drops, every expert in float32, one expert at a time, and
+    the shared experts where the layer has them)."""
     import repro_torch.models.layers as LY
     from repro_torch.models import lm
+    from repro_torch.models import mla as MLA
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import rms_norm
 
@@ -2374,8 +2538,15 @@ def moe_layer_check(torch, bundle, params, prompt) -> None:
     with torch.no_grad():
         x = lm._embed(params["emb"], torch.from_numpy(toks).cuda(), cfg,
                       torch.bfloat16)
-        a, _ = LY.attention(pl["attn"], rms_norm(x, pl["norms"]["pre_attn"]),
-                            cfg=cfg, window=lm.BIG_WINDOW)
+        if "dense" in params:
+            x, _, _ = lm._run_stack(cfg, params["dense"], x,
+                                    lm._window_array(cfg), None)
+        h = rms_norm(x, pl["norms"]["pre_attn"])
+        if cfg.mla is not None:
+            a, _ = MLA.mla_attention(pl["attn"], h, cfg,
+                                     rope_base=cfg.rope_base)
+        else:
+            a, _ = LY.attention(pl["attn"], h, cfg=cfg, window=lm.BIG_WINDOW)
         h = rms_norm(x + a, pl["norms"]["pre_mlp"])
         got, _ = MOE.moe_ffn(pl["ffn"], h, mo, aux=False)
         ms = cuda_ms(torch, lambda: MOE.moe_ffn(pl["ffn"], h, mo,
@@ -2397,13 +2568,143 @@ def moe_layer_check(torch, bundle, params, prompt) -> None:
             u = xe @ pl["ffn"]["w_up"][e].float()
             y = (torch.nn.functional.silu(g) * u) @ pl["ffn"]["w_down"][e].float()
             want.index_add_(0, t, wf[pairs, None] * y)
+        shared = "shared" in pl["ffn"]
+        if shared:
+            sp, xf = pl["ffn"]["shared"], hf.float()
+            want += (torch.nn.functional.silu(xf @ sp["w_gate"].float())
+                     * (xf @ sp["w_up"].float())) @ sp["w_down"].float()
         err = float((got.float().reshape(N, D) - want).norm() / want.norm())
-    print(f"{cfg.name}: layer 0's MoE on the first admit's hidden state "
-          f"({B} x {T} tokens, C = {C}, {kept} of {N * k} pairs kept): bf16 "
+    print(f"{cfg.name}: the first moe layer on the first admit's hidden "
+          f"state ({B} x {T} tokens, C = {C}, {kept} of {N * k} pairs kept"
+          f"{', the shared expert included' if shared else ''}): bf16 "
           f"against float32 on the same routing, relative Frobenius error "
           f"{err:.3e} (gate {MOE_LAYER_TOL:g}); {ms:.3f} ms a call")
     check(err <= MOE_LAYER_TOL, f"{cfg.name}: the bf16 MoE layer is "
           f"{err:.3e} from the float32 evaluation of its routing")
+
+
+def mla_layer_check(torch, bundle, params):
+    """One MLA layer of the served model (the first moe layer's
+    attention) at B 1 and T 1024 (FLASH_MIN_T) from a filled cache:
+    1024 rows written by a first chunk, then a second chunk of 1024 in
+    both forms on the same cache, the naive one (K and V expanded from
+    the latent, the shared RoPE key broadcast, the flash kernel's
+    mma_sync) and the absorbed one (dense einsums against the latent),
+    within MLA_FORMS_BF16_TOL (Frobenius-relative) of each other."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.models import mla as MLA
+    from repro_torch.models.layers import FLASH_MIN_T
+
+    cfg, T = bundle.cfg, FLASH_MIN_T
+    p = params["main"][0]["attn"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x0, x = (torch.randn((1, T, cfg.d_model), generator=g, device="cuda")
+             .bfloat16() for _ in range(2))
+    cache = {"ckv": MLA.init_mla_cache(cfg, 1, 1, SERVE_MAX_SEQ)["ckv"][0],
+             "pos": torch.zeros((1,), dtype=torch.int32, device="cuda")}
+    kw = dict(rope_base=cfg.rope_base)
+    by_variant = flash_attention_cuda.by_variant
+    with torch.no_grad():
+        _, cache = MLA.mla_attention(p, x0, cfg, cache=cache, **kw)
+        n0, v0 = flash_attention_cuda.launches, by_variant["mma_sync"]
+        naive, _ = MLA.mla_attention(p, x, cfg, cache=dict(cache), naive=True,
+                                     **kw)
+        launched = (flash_attention_cuda.launches - n0,
+                    by_variant["mma_sync"] - v0)
+        absorbed, _ = MLA.mla_attention(p, x, cfg, cache=dict(cache),
+                                        naive=False, **kw)
+        err = fro_rel(torch, naive, absorbed)
+        ms = {form: cuda_ms(torch, lambda: MLA.mla_attention(
+            p, x, cfg, cache=dict(cache), naive=form == "naive", **kw), 5)
+            for form in ("naive", "absorbed")}
+    finite = bool(torch.isfinite(naive).all() and torch.isfinite(absorbed)
+                  .all())
+    print(f"{cfg.name}: one MLA layer at B 1, T {T} from a cache holding "
+          f"{T} rows (of {SERVE_MAX_SEQ}): naive form (flash launches "
+          f"{launched[0]}, mma_sync {launched[1]}) against absorbed form, "
+          f"relative Frobenius {err:.3e} (gate {MLA_FORMS_BF16_TOL:g}); "
+          f"finite {finite}; naive {ms['naive']:.3f} ms, absorbed "
+          f"{ms['absorbed']:.3f} ms a call (CUDA events)")
+    check(launched == (1, 1), f"{cfg.name}: the naive MLA form launched "
+          f"{launched[0]} flash kernels, {launched[1]} mma_sync, not 1")
+    check(finite and err <= MLA_FORMS_BF16_TOL, f"{cfg.name}: the naive "
+          f"and absorbed MLA forms are {err:.3e} apart")
+    del naive, absorbed, cache
+    torch.cuda.empty_cache()
+    return dict(fro_rel=err, naive_ms=ms["naive"],
+                absorbed_ms=ms["absorbed"], shape=[1, T, cfg.d_model])
+
+
+def hd_flash_phase(torch):
+    """make_flash_kernel on the torch backend: one fp16 sequence of
+    HD_FLASH_T tokens as 2-D (T, heads*dim) HDArrays, the queries'
+    rows partitioned over NPROC ranks, K and V read whole (ALL_2D), O
+    defined on each rank's rows, one apply_kernel at each of
+    HD_FLASH_SHAPES; each within FLASH_MAIN_TOL of the plain blockwise
+    version over the whole sequence, every launch counted (NPROC, of
+    the variant flash_variant picks).  Returns (launches, launches by
+    variant) of the apply_kernel runs."""
+    from repro_torch.core import ALL_2D, ROW_ALL, HDArrayRuntime
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        VARIANTS, flash_attention_cuda, flash_variant)
+    from repro_torch.kernels.hd import make_flash_kernel
+
+    T = HD_FLASH_T
+    rng = np.random.default_rng(4)
+    launches, variants = 0, dict.fromkeys(VARIANTS, 0)
+    for Hq, Hkv, Dh, Dv in HD_FLASH_SHAPES:
+        q, k, v = (rng.standard_normal((T, w), np.float32).astype(np.float16)
+                   for w in (Hq * Dh, Hkv * Dh, Hkv * Dv))
+        rt = HDArrayRuntime(NPROC)
+        arrs = [rt.create(n, a.shape, np.float16)
+                for n, a in (("Q", q), ("K", k), ("V", v))]
+        arrs.append(rt.create("O", (T, Hq * Dv), np.float16))
+        part = rt.partition_row(q.shape)
+        rt.write(arrs[0], q, part)
+        rt.write_replicated(arrs[1], k)
+        rt.write_replicated(arrs[2], v)
+        rt.write(arrs[3], np.zeros((T, Hq * Dv), np.float16),
+                 rt.partition_row((T, Hq * Dv)))
+        kern = make_flash_kernel(heads=Hq, dim=Dh, kv_heads=Hkv, out_dim=Dv)
+        variant = flash_variant(torch.float16, Dh, Dv)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.apply_kernel("flash", part, kern, arrs,
+                        uses={"Q": ROW_ALL, "K": ALL_2D, "V": ALL_2D},
+                        defs={"O": ROW_ALL})
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        n, by = flash_attention_cuda.launches, dict(
+            flash_attention_cuda.by_variant)
+        launches += n
+        variants = {x: variants[x] + by[x] for x in VARIANTS}
+        got = torch.from_numpy(rt.read_coherent(arrs[3])).cuda()
+        qt, kt, vt = (torch.from_numpy(a).cuda() for a in (q, k, v))
+        want = blockwise_attention(
+            qt.view(1, T, Hq, Dh), kt.view(1, T, Hkv, Dh),
+            vt.view(1, T, Hkv, Dv),
+            qpos=torch.arange(T, dtype=torch.int32, device="cuda")[None],
+            window=None).view(T, Hq * Dv)
+        err = (got.float() - want.float()).abs()
+        bad = int((err > FLASH_MAIN_TOL * (1 + want.float().abs())).sum())
+        print(f"make_flash_kernel on the torch backend, {NPROC} ranks of "
+              f"{T // NPROC} query rows, fp16 {Hq}/{Hkv} heads of {Dh}/{Dv}: "
+              f"launches {n} ({by}), apply_kernel {wall:.3f} ms (host clock, "
+              f"synchronized, first run); against the blockwise version "
+              f"over the whole sequence max_abs_err={float(err.max()):.3e}, "
+              f"outside rtol=atol={FLASH_MAIN_TOL:g}: {bad}")
+        check(n == NPROC and by[variant] == NPROC, f"make_flash_kernel at "
+              f"{Dh}/{Dv} launched {by}, not {NPROC} {variant}")
+        check(bad == 0, f"make_flash_kernel at {Dh}/{Dv} differs from the "
+              f"plain version")
+        rt.close()
+        del rt, arrs, got, want, qt, kt, vt, err
+        torch.cuda.empty_cache()
+    return launches, variants
 
 
 def train_phase(torch):
@@ -2707,6 +3008,24 @@ def main() -> None:
                                   np.random.default_rng(0)))
     del bundle, params
     torch.cuda.empty_cache()
+    # deepseek-v3 last, so that every earlier phase runs as it did before:
+    # full width, its depth cut to the 3 dense and 2 moe layers; every
+    # prefill MLA's naive form, 5 flash mma_sync launches, none in decode.
+    # Under its capacity one slot's tokens can drop another's, so the
+    # lone-prompt gate takes the re-admit gate's place, as for qwen3
+    import dataclasses
+    ds_cfg = dataclasses.replace(get_config(DSV3_ARCH), n_layers=DSV3_LAYERS)
+    ds_launches, ds_variants, bundle, params = serve_path(
+        torch, DSV3_ARCH, "mma_sync", "deepseek-v3 serving",
+        readmit_repeats=False, cfg=ds_cfg)
+    prompt = serve_prompts(bundle.cfg.vocab)[0]
+    lone_prompt_repeats(torch, bundle, params, prompt, DECODE_STEPS)
+    moe_layer_check(torch, bundle, params, prompt)
+    mla_layer = mla_layer_check(torch, bundle, params)
+    del bundle, params
+    torch.cuda.empty_cache()
+    # flash attention as an HDArray device kernel, last
+    hd_launches, hd_variants = hd_flash_phase(torch)
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -2726,14 +3045,26 @@ def main() -> None:
                                  "xlstm engine": xl_launches["flash_attn_hd"],
                                  "vlm engine": vl_launches["flash_attn_hd"],
                                  "whisper engine":
-                                     wh_launches["flash_attn_hd"]}
+                                     wh_launches["flash_attn_hd"],
+                                 "deepseek-v3 engine":
+                                     ds_launches["flash_attn_hd"],
+                                 "hd flash kernel": hd_launches}
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         + rg_variants["flash_attn_hd"][k] + xl_variants["flash_attn_hd"][k]
         + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
+        + ds_variants["flash_attn_hd"][k] + hd_variants[k]
         for k, n in serve_variants["flash_attn_hd"].items()}
+    # every mma_sync launch: deepseek-v3's prefills and the HDArray
+    # kernel's Dh 192 / Dv 128 apply
+    mla = flash["mma_sync_mla"]
+    mla["launches_by_path"] = {
+        "deepseek-v3 engine": ds_variants["flash_attn_hd"]["mma_sync"],
+        "hd flash kernel": hd_variants["mma_sync"]}
+    mla["launches"] = sum(mla["launches_by_path"].values())
+    mla["mla_layer_naive_vs_absorbed"] = mla_layer
     # every Dh-256 launch: gemma2's and recurrentgemma's prefills
     flash_256["launches"] = (g2_variants["flash_attn_hd"]["wgmma"]
                              + rg_variants["flash_attn_hd"]["wgmma"])

@@ -128,16 +128,35 @@ def _check(q, k, v, qpos):
     return B, T, S, Hq, Hkv, Dh, Dv
 
 
-def _forward(q, k, v, qpos, window, softcap, scale, with_lse: bool):
-    """One launch of the forward kernel; returns (out, lse), lse None
-    unless ``with_lse``."""
+def attention_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (B, T, Hq, Dv) output of attention on q, k and v: ``out``
+    once checked (q's dtype and device, sharing no memory with an
+    operand), or a new tensor."""
+    shape = (*q.shape[:3], v.shape[3])
+    if out is None:
+        return torch.empty(shape, dtype=q.dtype, device=q.device)
+    if tuple(out.shape) != shape or out.dtype != q.dtype or \
+            out.device != q.device:
+        raise ValueError(f"out must be {shape} {q.dtype} on {q.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    if out.untyped_storage().data_ptr() in (
+            t.untyped_storage().data_ptr() for t in (q, k, v)):
+        raise ValueError("out must not share memory with q, k or v")
+    return out
+
+
+def _forward(q, k, v, qpos, window, softcap, scale, with_lse: bool,
+             out=None):
+    """One launch of the forward kernel into ``out`` (default a new
+    tensor); returns (out, lse), lse None unless ``with_lse``."""
     B, T, S, Hq, Hkv, Dh, Dv = _check(q, k, v, qpos)
     variant = flash_variant(q.dtype, Dh, Dv)
     if variant == "wgmma" and -(-T // WGMMA_ROWS) > 65535:
         raise ValueError(f"flash_attention_cuda's wgmma variant takes T up "
                          f"to {65535 * WGMMA_ROWS}, got {T}")
     align = 8 if q.dtype != torch.float32 else 1
-    out = torch.empty((B, T, Hq, Dv), dtype=q.dtype, device=q.device)
+    out = attention_out(q, k, v, out)
     lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if T == 0:
@@ -199,10 +218,13 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, qpos: torch.Tensor, window: Optional[int] = None,
                          softcap: float = 0.0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
     query positions, -1 for padding (kv position of slot s is s).
-    Returns a new (B,T,Hq,Dv) tensor of q's dtype.
+    Returns the (B,T,Hq,Dv) result of q's dtype: written into ``out``
+    (any strides with a unit-stride last dim, sharing no memory with q,
+    k or v; the kernel writes through its strides) or a new tensor.
 
     :func:`flash_variant` picks the kernel.  Launches are counted in
     ``flash_attention_cuda.launches`` and, by variant, in
@@ -217,11 +239,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:class:`FlashAttentionFunction`; the backward takes Dh = Dv in
     {64, 128} and raises ValueError here for other head dims)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if out is not None:
+            raise ValueError("flash_attention_cuda takes no out= with grad")
         bwd_variant(q.dtype, q.shape[-1], v.shape[-1])
         return FlashAttentionFunction.apply(q, k, v, qpos, window, softcap,
                                             scale)
     return _forward(q, k, v, qpos, window, softcap, scale,
-                    with_lse=False)[0]
+                    with_lse=False, out=out)[0]
 
 
 def bwd_scratch(variant: str, B: int, T: int, S: int, Hq: int, Hkv: int,

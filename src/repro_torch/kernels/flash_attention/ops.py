@@ -24,7 +24,7 @@ import numbers
 from typing import Optional
 
 from . import jnp_impl, ref
-from .kernel import flash_attention_cuda
+from .kernel import attention_out, flash_attention_cuda
 
 _DENSE_MAX = 2048 * 2048      # T*S elements below which dense is fine
 
@@ -35,10 +35,12 @@ def _is_static_int(x) -> bool:
 
 def flash_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
                     scale: Optional[float] = None, impl: str = "auto",
-                    block_q: int = 512, block_kv: int = 1024):
+                    block_q: int = 512, block_kv: int = 1024, out=None):
     """Causal/windowed GQA attention.  q (B,T,Hq,Dh); k (B,S,Hkv,Dh);
     v (B,S,Hkv,Dv); qpos (B,T) absolute query positions (kv position of
-    slot s is s).  Returns (B,T,Hq,Dv)."""
+    slot s is s).  Returns (B,T,Hq,Dv): ``out`` where given (the kernel
+    writes it through its strides; a plain version copies its result
+    in), else a new tensor."""
     T = q.shape[1]
     S = k.shape[1]
     if impl == "auto":
@@ -55,17 +57,19 @@ def flash_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
             raise ValueError("impl='cuda' needs CUDA tensors; the plain "
                              "versions are 'dense', 'blockwise', 'banded'")
         return flash_attention_cuda(q, k, v, qpos=qpos, window=window,
-                                    softcap=softcap, scale=scale)
+                                    softcap=softcap, scale=scale, out=out)
     if impl == "dense":
-        return ref.dense_attention(q, k, v, qpos=qpos, window=window,
-                                   softcap=softcap, scale=scale)
-    if impl == "blockwise":
-        return jnp_impl.blockwise_attention(
+        o = ref.dense_attention(q, k, v, qpos=qpos, window=window,
+                                softcap=softcap, scale=scale)
+    elif impl == "blockwise":
+        o = jnp_impl.blockwise_attention(
             q, k, v, qpos=qpos, window=window, softcap=softcap, scale=scale,
             block_q=block_q, block_kv=block_kv)
-    if impl == "banded":
-        return jnp_impl.banded_attention(
+    elif impl == "banded":
+        o = jnp_impl.banded_attention(
             q, k, v, qpos=qpos, window=int(window), softcap=softcap,
             scale=scale, block_q=block_q)
-    raise ValueError(f"unknown impl {impl!r}; one of 'auto', 'cuda', "
-                     f"'dense', 'blockwise', 'banded'")
+    else:
+        raise ValueError(f"unknown impl {impl!r}; one of 'auto', 'cuda', "
+                         f"'dense', 'blockwise', 'banded'")
+    return o if out is None else attention_out(q, k, v, out).copy_(o)

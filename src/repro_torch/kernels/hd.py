@@ -1,18 +1,20 @@
 """HDArray device-kernel factories for the real compute kernels.
 
-The kernel packages (``gemm_hd`` / ``stencil_hd``) expose *tensor ->
-tensor* ops; the runtime calls OpenCL-style per-device kernels,
-``kernel(region, bufs) -> {name: buffer}`` (the
-:func:`~repro_torch.executors.kernels.device_kernel` convention).  Each
-factory returns a device kernel that slices its work region out of the
-per-device buffers and runs the op (the CUDA kernel on a CUDA tensor,
-the plain version on a CPU one), which writes the region's result
-straight into the destination buffer through its row pitch: no
-temporary, no copy back.  On the torch backend the buffers are views
+The kernel packages (``gemm_hd`` / ``stencil_hd`` /
+``flash_attention``) expose *tensor -> tensor* ops; the runtime calls
+OpenCL-style per-device kernels, ``kernel(region, bufs) -> {name:
+buffer}`` (the :func:`~repro_torch.executors.kernels.device_kernel`
+convention).  Each factory returns a device kernel that slices its
+work region out of the per-device buffers and runs the op (the CUDA
+kernel on a CUDA tensor, the plain version on a CPU one), which writes
+the region's result straight into the destination buffer through its
+row pitch: no temporary, no copy back.  On the torch backend the buffers are views
 of the resident tensors, so the whole step stays on the card; on sim
 they are numpy mirrors, which the factories view as CPU tensors.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -60,3 +62,39 @@ def make_jacobi_kernel(src: str = "A", dst: str = "B"):
         return {dst: bufs[dst]}
 
     return jacobi_hd_kernel
+
+
+def make_flash_kernel(q: str = "Q", k: str = "K", v: str = "V",
+                      o: str = "O", *, heads: int, dim: int,
+                      kv_heads: Optional[int] = None,
+                      out_dim: Optional[int] = None, window=None,
+                      softcap: float = 0.0, scale: Optional[float] = None):
+    """Causal flash attention over a row band of queries.  The HDArrays
+    are 2-D ``(T, heads*dim)`` folded views of one sequence (``K``
+    ``(T, kv_heads*dim)``, ``V`` and ``O`` of ``out_dim`` a head, by
+    default ``dim``: ``dim != out_dim`` takes the kernel's mma_sync
+    variant); ``K``/``V`` are used with ALL_* (every device attends over
+    the full kv range) and the region's global row offset becomes the
+    absolute query positions, so causality holds across the row
+    partition.  The band's result goes straight into ``O``'s rows
+    through their pitch."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    kv_heads = kv_heads if kv_heads is not None else heads
+    out_dim = out_dim if out_dim is not None else dim
+
+    @device_kernel
+    def flash_hd_kernel(region, bufs):
+        r0, r1 = (int(x) for x in region.bounds[0])
+        qv = torch.as_tensor(bufs[q])[r0:r1, :].unflatten(
+            1, (heads, dim))[None]
+        kv = torch.as_tensor(bufs[k]).unflatten(1, (kv_heads, dim))[None]
+        vv = torch.as_tensor(bufs[v]).unflatten(1, (kv_heads, out_dim))[None]
+        qpos = torch.arange(r0, r1, dtype=torch.int32, device=qv.device)
+        flash_attention(qv, kv, vv, qpos=qpos[None], window=window,
+                        softcap=softcap, scale=scale,
+                        out=torch.as_tensor(bufs[o])[r0:r1, :].unflatten(
+                            1, (heads, out_dim))[None])
+        return {o: bufs[o]}
+
+    return flash_hd_kernel

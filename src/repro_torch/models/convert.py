@@ -5,12 +5,15 @@
 layers stacked with a leading ``L`` (``repro/models/lm.py:99-112``), and
 returns the port's parameters: one dict per layer.
 
-The ported families come across: the dense decoder (gemma2's
+Every family comes across: the dense decoder (gemma2's
 ``post_attn``/``post_mlp`` norms among its norms), the moe decoder,
 whose ``ffn`` group is the router (L, D, E), kept float32 because
 ``_route`` computes in float32 (``moe.py:63``), and the expert stacks
 ``w_gate``/``w_up`` (L, E, D, F) and ``w_down`` (L, E, F, D), with a
-``shared`` group where the config has shared experts, and the hybrid
+``shared`` group where the config has shared experts; deepseek-v3's
+``dense`` (its leading dense layers) and ``mtp`` groups unstack like
+``main``, ``mtp_proj`` comes across whole, and MLA's ``q_norm`` and
+``kv_norm`` stay float32 because ``rms_norm`` reads them so; the hybrid
 recurrentgemma, whose ``{"emb", "rec", "attn", "mlp", "norms"}``
 groups each unstack by their own leading dim (18 recurrent, 8
 attention and 26 mlp and norm layers at full size).  Its ``lam`` and
@@ -38,17 +41,19 @@ computes in.  Norm scales stay float32, because ``rms_norm`` reads
 them as float32 (``common.py:159``).
 
 ``opt_state_from_jax`` carries the reference's optimizer state
-(``repro.optim.adamw.OptState``) across the same way, so both packages
-can train on from one state.
+(``repro.optim.adamw.OptState``) across the same way, every group that
+``from_jax_params`` carries, so both packages can train on from one
+state.  Both walk one layout of the reference's tree (``_layout``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.optim.adamw import OptState, _q8
+from repro_torch.tree import tree_map
 
 from .lm import Params, resolve_device
 
@@ -63,79 +68,90 @@ _REC_F32 = ("lam", "conv_b", "b_a", "b_i")
 _XLSTM = {"emb", "mlstm", "slstm", "norms"}
 _XLSTM_F32 = ("r_in", "b_in", "b_if")
 _ENCDEC = {"emb", "enc", "dec"}
-_VLM = {"emb", "main", "cross", "cross_norm"}
+# the router (``moe.py:63``) and MLA's q_norm and kv_norm are read in
+# float32 by the decoder families
+_DECODER_F32 = ("router", "q_norm", "kv_norm")
+_WHOLE = ("emb", "mtp_proj")          # groups without a layer axis
+
+
+class _Leaf(NamedTuple):
+    """Where one leaf of the port's tree comes from: the reference's
+    leaf at ``path``, its layer ``i`` (None: the leaf whole), kept
+    float32 or stored in the matrix dtype."""
+    path: Tuple[str, ...]
+    i: Optional[int]
+    f32: bool
+
+
+def _layout(params_np: Dict[str, Any]):
+    """The port's parameter tree for the reference's ``params_np``, with
+    a :class:`_Leaf` at each leaf.  Every group is stacked with a
+    leading layer axis and becomes a list of per-layer dicts, nested
+    dicts walked (a moe layer's ``shared``); ``emb``, ``mtp_proj`` and
+    the encoder's ``final_norm`` come across whole; the
+    encoder-decoder's ``enc`` and ``dec`` hold stacked groups.  A leaf
+    stays float32 where a norm reads it (any name on its path holds
+    "norm") or its family reads it in float32."""
+    groups = set(params_np)
+    f32_names = (_REC_F32 if groups == _HYBRID else
+                 _XLSTM_F32 if groups == _XLSTM else _DECODER_F32)
+
+    def leaf(path, i):
+        return _Leaf(path, i, path[-1] in f32_names
+                     or any("norm" in k for k in path))
+
+    def at(tree, path, i=None):
+        """``tree``'s leaves whole (``i`` None) or their layer ``i``."""
+        if isinstance(tree, dict):
+            return {k: at(v, path + (k,), i) for k, v in tree.items()}
+        return leaf(path, i)
+
+    def stacked(tree, path):
+        first = tree
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        return [at(tree, path, i) for i in range(len(first))]
+
+    out = {}
+    for g, tree in params_np.items():
+        if g in _WHOLE:
+            out[g] = at(tree, (g,))
+        elif groups == _ENCDEC:
+            out[g] = {k: at(v, (g, k)) if k == "final_norm" else
+                      stacked(v, (g, k)) for k, v in tree.items()}
+        else:
+            out[g] = stacked(tree, (g,))
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _map_layout(fn, params_np):
+    return tree_map(fn, _layout(params_np),
+                    is_leaf=lambda x: isinstance(x, _Leaf))
 
 
 def from_jax_params(params_np: Dict[str, Any], cfg, *, device="cuda",
                     compute_dtype=torch.bfloat16) -> Params:
-    """The port's params of a dense or moe decoder from the reference's
-    ``{"emb": ..., "main": {"attn", "norms", "ffn"}}`` pytree of numpy
-    arrays, of the vision decoder from its ``{"emb", "main", "cross",
-    "cross_norm"}``, of the encoder-decoder from its ``{"emb", "enc",
-    "dec"}``, of recurrentgemma from its ``{"emb", "rec", "attn",
-    "mlp", "norms"}``, or of the xLSTM LM from its ``{"emb", "mlstm",
-    "slstm", "norms"}``."""
+    """The port's params from the reference's pytree of numpy arrays, for
+    every family: the dense and moe decoders' ``{"emb", "main"}`` with
+    deepseek-v3's ``"dense"``, ``"mtp"`` and ``"mtp_proj"``, the vision
+    decoder's ``{"emb", "main", "cross", "cross_norm"}``, the
+    encoder-decoder's ``{"emb", "enc", "dec"}``, recurrentgemma's
+    ``{"emb", "rec", "attn", "mlp", "norms"}`` and the xLSTM LM's
+    ``{"emb", "mlstm", "slstm", "norms"}`` (:func:`_layout`)."""
     dev = resolve_device(device)
-    mat = lambda x: _t(x, compute_dtype, dev)          # noqa: E731
-    f32 = lambda x: _t(x, torch.float32, dev)          # noqa: E731
-    emb = params_np["emb"]
-    emb_p = {"in_emb": mat(emb["in_emb"]), "out_emb": mat(emb["out_emb"]),
-             "final_norm": f32(emb["final_norm"])}
-    def unstack(group, f32_names=()):
-        n = len(next(iter(group.values())))
-        return [{k: (f32 if k in f32_names else mat)(w[i])
-                 for k, w in group.items()} for i in range(n)]
 
-    def norms(group):
-        return unstack(group, tuple(group))
+    def leaf(r: _Leaf):
+        x = _get(params_np, r.path)
+        return _t(x if r.i is None else x[r.i],
+                  torch.float32 if r.f32 else compute_dtype, dev)
 
-    if set(params_np) == _ENCDEC:
-        enc, dec = params_np["enc"], params_np["dec"]
-        return {"emb": emb_p,
-                "enc": {"attn": unstack(enc["attn"]),
-                        "mlp": unstack(enc["mlp"]),
-                        "norms": norms(enc["norms"]),
-                        "final_norm": f32(enc["final_norm"])},
-                "dec": {"attn": unstack(dec["attn"]),
-                        "cross": unstack(dec["cross"]),
-                        "mlp": unstack(dec["mlp"]),
-                        "norms": norms(dec["norms"])}}
-    if set(params_np) == _XLSTM:
-        return {"emb": emb_p,
-                "mlstm": unstack(params_np["mlstm"], _XLSTM_F32),
-                "slstm": unstack(params_np["slstm"], _XLSTM_F32),
-                "norms": norms(params_np["norms"])}
-    if set(params_np) == _HYBRID:
-        return {"emb": emb_p,
-                "rec": unstack(params_np["rec"], _REC_F32),
-                "attn": unstack(params_np["attn"]),
-                "mlp": unstack(params_np["mlp"]),
-                "norms": norms(params_np["norms"])}
-    if set(params_np) not in ({"emb", "main"}, _VLM):
-        raise NotImplementedError(
-            f"from_jax_params carries the dense and moe decoders without "
-            f"leading dense layers or MTP, the vision decoder, the "
-            f"encoder-decoder, recurrentgemma and the xLSTM LM, got groups "
-            f"{sorted(params_np)}")
-    main = params_np["main"]
-
-    def ffn(group, i):
-        return {n: ffn(w, i) if isinstance(w, dict) else
-                (f32 if n == "router" else mat)(w[i])
-                for n, w in group.items()}
-
-    layers = []
-    for i in range(cfg.n_layers):
-        layers.append({
-            "attn": {n: mat(w[i]) for n, w in main["attn"].items()},
-            "norms": {n: f32(w[i]) for n, w in main["norms"].items()},
-            "ffn": ffn(main["ffn"], i),
-        })
-    if set(params_np) == _VLM:
-        return {"emb": emb_p, "main": layers,
-                "cross": unstack(params_np["cross"]),
-                "cross_norm": norms(params_np["cross_norm"])}
-    return {"emb": emb_p, "main": layers}
+    return _map_layout(leaf, params_np)
 
 
 def _moment(m, like: np.ndarray, i, block: int, dev):
@@ -179,14 +195,9 @@ def opt_state_from_jax(opt_np, params_np: Dict[str, Any], cfg, *,
     dev = resolve_device(device)
 
     def carry(tree):
-        emb, main = tree["emb"], tree["main"]
-        pe, pm = params_np["emb"], params_np["main"]
-        mom = lambda m, like, i: _moment(m, np.asarray(like), i,  # noqa: E731
-                                         int8_block, dev)
-        return {"emb": {n: mom(emb[n], pe[n], None) for n in emb},
-                "main": [{g: {n: mom(main[g][n], pm[g][n], i)
-                              for n in main[g]} for g in main}
-                         for i in range(cfg.n_layers)]}
+        return _map_layout(lambda r: _moment(
+            _get(tree, r.path), np.asarray(_get(params_np, r.path)), r.i,
+            int8_block, dev), params_np)
 
     step = torch.tensor(int(np.asarray(opt_np.step)), dtype=torch.int32,
                         device=dev)

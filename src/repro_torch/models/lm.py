@@ -1,6 +1,7 @@
 """Model assembly: init / forward / prefill / decode, the decoder
 families of the reference's ``repro/models/lm.py``: dense (global,
-local or gemma2's alternating attention), moe and vlm
+local or gemma2's alternating attention), moe (deepseek-v3's MLA
+attention, leading dense layers and MTP head among them) and vlm
 (llama-3.2-vision: the dense stack in super-blocks, each with one
 cross-attention to image embeddings).  ``build`` also dispatches the
 hybrid family (recurrentgemma) and the ssm family's xLSTM to
@@ -14,9 +15,21 @@ Structure notes:
     reference: gemma2's even layers get its local window, its odd
     layers ``BIG_WINDOW`` (global);
   * a moe layer's feed-forward is ``models/moe.py``; the stack sums
-    each layer's load-balance aux loss, which ``forward`` returns;
-  * caches are dicts of ``(L, B, T_max, Hkv, Dh)`` tensors plus the
-    per-slot ``pos``, updated in place by prefill and decode;
+    each layer's load-balance aux loss, which ``forward`` returns.  A
+    moe config's ``dense_layers`` leading layers (deepseek-v3's 3) and
+    its MTP block have a plain ``d_ff`` feed-forward instead: each
+    stack says whether its layers are moe (``is_moe``), as the
+    reference's ``_scan_stack`` does;
+  * with ``cfg.mla`` every layer's attention is ``models/mla.py``;
+  * caches are dicts of ``(L, B, T_max, Hkv, Dh)`` tensors (MLA: the
+    latent ``ckv`` (L, B, T_max, kv_lora + d_rope)) plus the per-slot
+    ``pos``, one dict per group (``"dense"`` and ``"main"``), updated
+    in place by prefill and decode;
+  * the MTP head (``cfg.mtp``) joins each position's normed hidden
+    state with the embedding of the next token (``torch.roll``, which
+    wraps as ``jnp.roll``), projects the pair with ``mtp_proj``, runs
+    one dense block and the shared head: ``forward``'s
+    ``out["mtp_logits"]``, ``forward_fused``'s ``metrics["mtp"]``;
   * ``forward`` and ``forward_fused`` (the train paths) run each layer
     under ``torch.utils.checkpoint`` while grad is enabled, the
     reference's ``remat=True`` (its ``jax.checkpoint`` of the scanned
@@ -34,13 +47,12 @@ with the image K/V in the compute dtype and stores them rounded to
 bf16; decode reads the bf16 copies, as the reference's.
 
 ``build(cfg, compute_dtype, device)`` returns a ModelBundle of closures
-and raises ``NotImplementedError`` for the family not ported yet (mla,
-with its leading dense layers and MTP head).
-Every entry point runs on ``device``, which defaults to "cuda" and
-raises without a card.
+for every registered architecture.  Every entry point runs on
+``device``, which defaults to "cuda" and raises without a card.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -48,6 +60,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as LY
+from . import mla as MLA
 from . import moe as MOE
 from .common import (fused_cross_entropy, gated_mlp, resolve_device,
                      rms_norm, softcap)
@@ -109,10 +122,14 @@ def _window_array(cfg) -> List[int]:
 
 
 def _dense_stack_params(gen, cfg, n_layers, dtype, device) -> List[Params]:
+    """``n_layers`` layers: MLA or GQA attention, norms, and a moe
+    feed-forward where ``cfg.moe`` is set (the leading dense layers and
+    the MTP block pass a cfg without it)."""
     names = ["pre_attn", "pre_mlp"] + (["post_attn", "post_mlp"]
                                        if cfg.post_norms else [])
     kw = dict(dtype=dtype, device=device)
-    return [{"attn": LY.attn_params(gen, cfg, **kw),
+    attn = MLA.mla_params if cfg.mla is not None else LY.attn_params
+    return [{"attn": attn(gen, cfg, **kw),
              "norms": LY.norms_params(cfg.d_model, names, device=device),
              "ffn": (MOE.moe_params(gen, cfg.d_model, cfg.moe, **kw)
                      if cfg.moe is not None else
@@ -120,20 +137,25 @@ def _dense_stack_params(gen, cfg, n_layers, dtype, device) -> List[Params]:
             for _ in range(n_layers)]
 
 
-def _dense_block(cfg, pl, x, window, cache_sl):
-    """One decoder layer.  Returns (x, new_cache, aux): aux is the moe
-    layer's load-balance loss, None for a dense layer and on the cache
-    paths (prefill and decode drop it)."""
+def _dense_block(cfg, pl, x, window, cache_sl, is_moe=False):
+    """One decoder layer, its feed-forward moe with ``is_moe``.  Returns
+    (x, new_cache, aux): aux is the moe layer's load-balance loss, None
+    for a dense layer and on the cache paths (prefill and decode drop
+    it)."""
     aux = None
     h = rms_norm(x, pl["norms"]["pre_attn"])
-    a, new_c = LY.attention(pl["attn"], h, cfg=cfg, window=window,
-                            cache=cache_sl, attn_softcap=cfg.attn_softcap,
-                            rope_base=cfg.rope_base)
+    if cfg.mla is not None:
+        a, new_c = MLA.mla_attention(pl["attn"], h, cfg, cache=cache_sl,
+                                     rope_base=cfg.rope_base)
+    else:
+        a, new_c = LY.attention(pl["attn"], h, cfg=cfg, window=window,
+                                cache=cache_sl, attn_softcap=cfg.attn_softcap,
+                                rope_base=cfg.rope_base)
     if cfg.post_norms:
         a = rms_norm(a, pl["norms"]["post_attn"])
     x = x + a
     h = rms_norm(x, pl["norms"]["pre_mlp"])
-    if cfg.moe is not None:
+    if is_moe:
         f, aux = MOE.moe_ffn(pl["ffn"], h, cfg.moe, aux=cache_sl is None)
     else:
         f = gated_mlp(h, pl["ffn"]["w_gate"].to(x.dtype),
@@ -144,30 +166,33 @@ def _dense_block(cfg, pl, x, window, cache_sl):
     return x + f, new_c, aux
 
 
-def _remat_block(cfg, pl, x, window):
+def _remat_block(cfg, pl, x, window, is_moe):
     """One layer without a cache, for ``torch.utils.checkpoint``:
     (x, aux)."""
-    x, _, aux = _dense_block(cfg, pl, x, window, None)
+    x, _, aux = _dense_block(cfg, pl, x, window, None, is_moe)
     return x, aux
 
 
-def _run_stack(cfg, stack_p, x, windows, cache, remat: bool = False):
-    """The layer loop over one group.  cache: None or dict(k, v, pos)
-    with (L, ...) k and v; returns (x, aux, cache): aux summed over the
-    layers, the cache's pos advanced by T.  ``remat`` (no cache, grad
-    enabled): each layer under ``torch.utils.checkpoint``."""
+def _run_stack(cfg, stack_p, x, windows, cache, remat: bool = False,
+               is_moe: bool = False):
+    """The layer loop over one group.  cache: None or a dict of (L, ...)
+    leaves (k and v, or MLA's ckv) and pos; returns (x, aux, cache): aux
+    summed over the layers, the cache's pos advanced by T.  ``remat``
+    (no cache, grad enabled): each layer under
+    ``torch.utils.checkpoint``."""
     pos = None if cache is None else cache["pos"]
     remat = remat and cache is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (pl, w) in enumerate(zip(stack_p, windows)):
         if remat:
             # no layer draws random numbers: no RNG state to replay
-            x, a = checkpoint(_remat_block, cfg, pl, x, w,
+            x, a = checkpoint(_remat_block, cfg, pl, x, w, is_moe,
                               use_reentrant=False, preserve_rng_state=False)
         else:
             csl = None if cache is None else {
-                "k": cache["k"][i], "v": cache["v"][i], "pos": pos}
-            x, _, a = _dense_block(cfg, pl, x, w, csl)
+                **{n: c[i] for n, c in cache.items() if n != "pos"},
+                "pos": pos}
+            x, _, a = _dense_block(cfg, pl, x, w, csl, is_moe)
         if a is not None:
             aux = aux + a
     if cache is not None:
@@ -176,8 +201,14 @@ def _run_stack(cfg, stack_p, x, windows, cache, remat: bool = False):
 
 
 def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
-    """The dense or moe decoder: embedding, one stack, head."""
+    """The dense or moe decoder: embedding, a moe config's
+    ``dense_layers`` leading layers (MLA attention where the config has
+    it, a plain ``d_ff`` feed-forward), the main stack, head, and the
+    MTP head where ``cfg.mtp``."""
+    n_dense = cfg.dense_layers if cfg.moe is not None else 0
+    n_main = cfg.n_layers - n_dense
     windows = _window_array(cfg)
+    main_moe = cfg.moe is not None
 
     def init(seed=0, dtype=None) -> Params:
         """Matrices in ``dtype`` (default the compute dtype); norm
@@ -185,47 +216,91 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
         pdt = dt if dtype is None else dtype
-        return {"emb": _embed_params(gen, cfg, pdt, dev),
-                "main": _dense_stack_params(gen, cfg, cfg.n_layers, pdt,
-                                            dev)}
+        dcfg = dataclasses.replace(cfg, moe=None)
+        p = {"emb": _embed_params(gen, cfg, pdt, dev)}
+        if n_dense:
+            p["dense"] = _dense_stack_params(gen, dcfg, n_dense, pdt, dev)
+        p["main"] = _dense_stack_params(gen, cfg, n_main, pdt, dev)
+        if cfg.mtp:
+            p["mtp"] = _dense_stack_params(gen, dcfg, 1, pdt, dev)
+            p["mtp_proj"] = LY._normal(
+                gen, (2 * cfg.d_model, cfg.d_model),
+                1 / math.sqrt(2 * cfg.d_model), pdt, dev)
+        return p
+
+    def _run(params, x, cache, remat=False):
+        """The leading dense layers, then the main stack; with a cache,
+        each group's rows written and its pos advanced."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if n_dense:
+            x, a, _ = _run_stack(cfg, params["dense"], x, windows[:n_dense],
+                                 None if cache is None else cache["dense"],
+                                 remat)
+            aux = aux + a
+        x, a, _ = _run_stack(cfg, params["main"], x, windows[n_dense:],
+                             None if cache is None else cache["main"],
+                             remat, is_moe=main_moe)
+        return x, aux + a
+
+    def _mtp_hidden(params, x, tokens):
+        """The MTP block's output: position t's normed hidden state
+        beside the embedding of token t + 1 (wrapping), projected, one
+        dense block (no remat, as the reference's)."""
+        emb = params["emb"]
+        e2 = _embed(emb, torch.roll(tokens, -1, 1), cfg, dt)
+        h2 = torch.cat([rms_norm(x, emb["final_norm"]), e2], -1) \
+            @ params["mtp_proj"].to(dt)
+        h2, _, _ = _run_stack(cfg, params["mtp"], h2, windows[:1], None)
+        return h2
 
     def forward(params, batch):
-        x = _embed(params["emb"], batch["tokens"], cfg, dt)
-        x, aux, _ = _run_stack(cfg, params["main"], x, windows, None,
-                               remat=True)
-        return _head(params["emb"], x, cfg), {"aux_loss": aux}
+        tokens = batch["tokens"]
+        x = _embed(params["emb"], tokens, cfg, dt)
+        x, aux = _run(params, x, None, remat=True)
+        out = {"aux_loss": aux}
+        if cfg.mtp:
+            out["mtp_logits"] = _head(params["emb"],
+                                      _mtp_hidden(params, x, tokens), cfg)
+        return _head(params["emb"], x, cfg), out
 
     def forward_fused(params, batch):
         """Train path with the head+CE fused over sequence chunks."""
-        x = _embed(params["emb"], batch["tokens"], cfg, dt)
-        x, aux, _ = _run_stack(cfg, params["main"], x, windows, None,
-                               remat=True)
+        tokens, mask = batch["tokens"], batch.get("mask")
+        x = _embed(params["emb"], tokens, cfg, dt)
+        x, aux = _run(params, x, None, remat=True)
         emb = params["emb"]
         loss = fused_cross_entropy(x, emb["final_norm"], emb["out_emb"],
-                                   batch["labels"], batch.get("mask"),
-                                   cfg.final_softcap)
-        return loss, {"ce": loss, "aux": aux}
+                                   batch["labels"], mask, cfg.final_softcap)
+        metrics = {"ce": loss}
+        if cfg.mtp:
+            metrics["mtp"] = fused_cross_entropy(
+                _mtp_hidden(params, x, tokens), emb["final_norm"],
+                emb["out_emb"], torch.roll(batch["labels"], -1, 1), mask,
+                cfg.final_softcap)
+        metrics["aux"] = aux
+        return loss, metrics
 
     def init_cache(B, T_max, device=None):
         """``device`` defaults to the model's ("meta" probes shapes)."""
         on = dev if device is None else device
-        return {"main": {**LY.init_full_cache(cfg, cfg.n_layers, B, T_max,
-                                              device=on),
-                         "pos": torch.zeros((B,), dtype=torch.int32,
-                                            device=on)}}
+        mk = MLA.init_mla_cache if cfg.mla is not None else \
+            LY.init_full_cache
+        groups = ({"dense": n_dense} if n_dense else {}) | {"main": n_main}
+        return {g: {**mk(cfg, n, B, T_max, device=on),
+                    "pos": torch.zeros((B,), dtype=torch.int32, device=on)}
+                for g, n in groups.items()}
 
     def prefill(params, batch, cache):
         x = _embed(params["emb"], batch["tokens"], cfg, dt)
-        x, _, cache["main"] = _run_stack(cfg, params["main"], x, windows,
-                                         cache["main"])
+        x, _ = _run(params, x, cache)
         return _head(params["emb"], x[:, -1:, :], cfg), cache
 
     def decode(params, batch, cache):
         x = _embed(params["emb"], batch["token"], cfg, dt)
         # decode positions come from the batch (ragged serving)
-        cache["main"]["pos"] = batch["pos"]
-        x, _, cache["main"] = _run_stack(cfg, params["main"], x, windows,
-                                         cache["main"])
+        for g in cache.values():
+            g["pos"] = batch["pos"]
+        x, _ = _run(params, x, cache)
         return _head(params["emb"], x, cfg), cache
 
     return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
@@ -348,35 +423,27 @@ def _build_vlm(cfg, dt, dev) -> ModelBundle:
 # ======================================================================
 # dispatcher
 # ======================================================================
-_NOT_PORTED = ("is not ported yet (ROADMAP: 'Still to port', the other "
-               "model families)")
-
-
 def build(cfg, compute_dtype=torch.bfloat16, device="cuda") -> ModelBundle:
-    """The model of ``cfg`` in ``compute_dtype`` on ``device``.  Ported:
-    the dense decoder with global, local or alternating attention
-    (yi-9b, deepseek-7b, mistral-large-123b, gemma2-9b), the moe
-    decoder without MLA, leading dense layers or MTP
-    (qwen3-moe-30b-a3b), the vision decoder (llama-3.2-vision-11b),
-    the encoder-decoder (whisper-base), the RG-LRU hybrid
-    (recurrentgemma-2b) and the xLSTM LM (xlstm-125m)."""
+    """The model of ``cfg`` in ``compute_dtype`` on ``device``, for
+    every registered architecture: the dense decoder with global, local
+    or alternating attention (yi-9b, deepseek-7b, mistral-large-123b,
+    gemma2-9b), the moe decoder (qwen3-moe-30b-a3b; deepseek-v3-671b
+    with MLA, leading dense layers and the MTP head), the vision
+    decoder (llama-3.2-vision-11b), the encoder-decoder (whisper-base),
+    the RG-LRU hybrid (recurrentgemma-2b) and the xLSTM LM
+    (xlstm-125m).  Dispatched on ``cfg.family`` as the reference's."""
     dev = resolve_device(device)
-    if cfg.family == "vlm" and cfg.vision is not None:
+    if cfg.family in ("dense", "moe"):
+        return _build_decoder_lm(cfg, compute_dtype, dev)
+    if cfg.family == "vlm":
         return _build_vlm(cfg, compute_dtype, dev)
-    if cfg.family == "audio" and cfg.encdec is not None:
-        from .encdec import build_whisper
-        return build_whisper(cfg, compute_dtype, dev)
-    if cfg.family == "hybrid" and cfg.rg is not None:
+    if cfg.family == "hybrid":
         from .hybrid import build_recurrentgemma
         return build_recurrentgemma(cfg, compute_dtype, dev)
-    if cfg.family == "ssm" and cfg.xlstm is not None:
+    if cfg.family == "ssm":
         from .hybrid import build_xlstm_lm
         return build_xlstm_lm(cfg, compute_dtype, dev)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) {_NOT_PORTED}")
-    if cfg.mla is not None or cfg.dense_layers > 0 or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}'s MLA attention, leading dense layers and MTP head "
-            f"are not ported yet (ROADMAP: 'Still to port', the other model "
-            f"families: mla, with deepseek-v3)")
-    return _build_decoder_lm(cfg, compute_dtype, dev)
+    if cfg.family == "audio":
+        from .encdec import build_whisper
+        return build_whisper(cfg, compute_dtype, dev)
+    raise ValueError(cfg.family)

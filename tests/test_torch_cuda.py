@@ -14,14 +14,15 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.executors import halo_split
-from repro_torch.core import (Box, COL_ALL, HDArrayRuntime, IDENTITY_2D,
-                              ROW_ALL, stencil)
+from repro_torch.core import (ALL_2D, Box, COL_ALL, HDArrayRuntime,
+                              IDENTITY_2D, ROW_ALL, stencil)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import dense_attention
 from repro_torch.kernels.gemm_hd import kernel as gemm_kernel
 from repro_torch.kernels.gemm_hd.ops import gemm
-from repro_torch.kernels.hd import make_gemm_kernel, make_jacobi_kernel
+from repro_torch.kernels.hd import (make_flash_kernel, make_gemm_kernel,
+                                    make_jacobi_kernel)
 from repro_torch.kernels.rglru_scan import kernel as rglru_kernel
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
@@ -665,7 +666,8 @@ def _serve(eng, prompts, steps):
     return [eng.finish(s) for s in sids]
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-9b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-9b", "qwen3-moe-30b-a3b",
+                                  "deepseek-v3-671b"])
 def test_reduced_engine_on_card_matches_cpu(cuda, arch):
     """The same seeded reduced model, its weights drawn on the CPU and
     carried to the card: a 1024-token prompt takes the flash kernel
@@ -1589,3 +1591,88 @@ def test_xlstm_with_grad_on_card_raises(cuda):
     with torch.no_grad():
         logits, _ = bundle.forward(params, {"tokens": toks})
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("Dh, Dv", [(128, 128), (48, 32)])
+def test_flash_out_writes_through_its_strides(cuda, Dh, Dv):
+    """``out=`` a band of a wider buffer: the kernel writes the same bits
+    as into a fresh tensor, through the band's row pitch, and nothing
+    else; an ``out`` sharing memory with q raises."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((1, 100, 4, Dh), generator=g, device=cuda).bfloat16()
+    k = torch.randn((1, 120, 2, Dh), generator=g, device=cuda).bfloat16()
+    v = torch.randn((1, 120, 2, Dv), generator=g, device=cuda).bfloat16()
+    qpos = torch.arange(20, 120, dtype=torch.int32, device=cuda)[None]
+    want = flash_attention(q, k, v, qpos=qpos)
+    buf = torch.full((130, 4 * Dv + 24), 7.0, device=cuda).bfloat16()
+    band = buf[10:110, 8:8 + 4 * Dv].unflatten(1, (4, Dv))[None]
+    assert flash_attention(q, k, v, qpos=qpos, out=band) is band
+    assert torch.equal(band, want)
+    assert torch.all(buf[:10] == 7.0) and torch.all(buf[110:] == 7.0)
+    assert torch.all(buf[:, :8] == 7.0) and torch.all(buf[:, 8 + 4 * Dv:]
+                                                        == 7.0)
+    with pytest.raises(ValueError, match="share memory"):
+        flash_attention(q, k, v, qpos=qpos, out=q[..., :Dv])
+
+
+def test_mla_naive_form_takes_mma_sync_on_card(cuda):
+    """One MLA layer of reduced deepseek-v3 in bf16 at T 1030: the naive
+    form launches flash's mma_sync once (Dh 24 / Dv 16) and agrees with
+    the absorbed form within tests/test_torch_mla.py's bf16 bound."""
+    from repro_torch.models import mla
+
+    cfg = get_config("deepseek-v3-671b").reduced()
+    p = mla.mla_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 1030, cfg.d_model), generator=g,
+                    device=cuda).bfloat16()
+    fn = flash_kernel.flash_attention_cuda
+    n0, m0 = fn.launches, fn.by_variant["mma_sync"]
+    naive, _ = mla.mla_attention(p, x, cfg)
+    assert (fn.launches - n0, fn.by_variant["mma_sync"] - m0) == (1, 1)
+    absorbed, _ = mla.mla_attention(p, x, cfg, naive=False)
+    assert fn.launches - n0 == 1
+    err = torch.linalg.norm(naive.double() - absorbed.double()) \
+        / torch.linalg.norm(absorbed.double())
+    assert float(err) <= 2e-2
+
+
+@pytest.mark.parametrize("Hq, Hkv, Dh, Dv, variant", [
+    (8, 2, 64, 64, "wgmma"), (8, 8, 48, 32, "mma_sync")])
+def test_make_flash_kernel_on_the_torch_backend(cuda, Hq, Hkv, Dh, Dv,
+                                                variant):
+    """One fp16 sequence of 512 tokens, its query rows over 4 ranks:
+    one launch of the variant a rank, the result within 1e-2 of the
+    plain blockwise version over the whole sequence."""
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+
+    T = 512
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((T, w), np.float32).astype(np.float16)
+               for w in (Hq * Dh, Hkv * Dh, Hkv * Dv))
+    rt = HDArrayRuntime(4)
+    arrs = [rt.create(n, a.shape, np.float16)
+            for n, a in (("Q", q), ("K", k), ("V", v))]
+    arrs.append(rt.create("O", (T, Hq * Dv), np.float16))
+    part = rt.partition_row(q.shape)
+    rt.write(arrs[0], q, part)
+    rt.write_replicated(arrs[1], k)
+    rt.write_replicated(arrs[2], v)
+    rt.write(arrs[3], np.zeros((T, Hq * Dv), np.float16),
+             rt.partition_row((T, Hq * Dv)))
+    fn = flash_kernel.flash_attention_cuda
+    n0, v0 = fn.launches, fn.by_variant[variant]
+    rt.apply_kernel("flash", part, make_flash_kernel(
+        heads=Hq, dim=Dh, kv_heads=Hkv, out_dim=Dv), arrs,
+        uses={"Q": ROW_ALL, "K": ALL_2D, "V": ALL_2D}, defs={"O": ROW_ALL})
+    assert (fn.launches - n0, fn.by_variant[variant] - v0) == (4, 4)
+    got = torch.from_numpy(rt.read_coherent(arrs[3])).to(cuda).float()
+    qt, kt, vt = (torch.from_numpy(a).to(cuda) for a in (q, k, v))
+    want = blockwise_attention(
+        qt.view(1, T, Hq, Dh), kt.view(1, T, Hkv, Dh), vt.view(1, T, Hkv, Dv),
+        qpos=torch.arange(T, dtype=torch.int32, device=cuda)[None],
+        window=None).view(T, Hq * Dv).float()
+    assert torch.all((got - want).abs() <= 1e-2 * (1 + want.abs()))
+    rt.close()

@@ -152,22 +152,32 @@ def test_quickstart_sequence_matches_reference(n):
 
 
 def test_unported_paths_raise_naming_the_roadmap(tmp_path):
-    """The paths still to port raise naming ROADMAP.md; fault recovery
-    and rebalancing in ``run_pipeline`` are ported and run."""
+    """No path is left unported: fault recovery and rebalancing in
+    ``run_pipeline`` run, and every registered architecture builds on
+    the CPU and gives finite logits."""
+    import torch
+
     from repro_torch.ckpt import CheckpointManager
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ALL_ARCHS, get_config
     from repro_torch.ft import RecoveryPolicy, Rebalancer
+    from repro_torch.launch.serve import extra_inputs
     from repro_torch.models import build
 
     rt = port.HDArrayRuntime(2, backend="sim")
     pol = RecoveryPolicy(checkpoint=CheckpointManager(str(tmp_path)))
     for kw in ({"recovery": pol}, {"rebalance": Rebalancer()}):
         assert rt.run_pipeline([], **kw) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("deepseek-v3-671b").reduced(), device="cpu")
-    for name in ("whisper-base", "llama-3.2-vision-11b"):
-        assert build(get_config(name).reduced(), device="cpu").device.type \
-            == "cpu"
+    for name in ALL_ARCHS:
+        cfg = get_config(name).reduced()
+        bundle = build(cfg, torch.float32, device="cpu")
+        assert bundle.device.type == "cpu", name
+        batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
+                 **{n: torch.from_numpy(a) for n, a in extra_inputs(
+                     cfg, 1, np.random.default_rng(0)).items()}}
+        with torch.no_grad():
+            logits, _ = bundle.forward(bundle.init(0), batch)
+        assert tuple(logits.shape) == (1, 8, cfg.vocab), name
+        assert bool(torch.isfinite(logits).all()), name
 
 
 # ----------------------------------------------------------------------

@@ -153,7 +153,7 @@ def _models(cfg, seed=0):
     """The reference's float32 bundle and numpy params, and the port's
     float32 bundle with the same weights on the CPU."""
     rb = ref_build(cfg, jnp.float32)
-    pr, _ = rb.init(jax.random.PRNGKey(seed))
+    pr = jax.jit(lambda k: rb.init(k)[0])(jax.random.PRNGKey(seed))
     pr_np = jax.tree.map(np.asarray, pr)
     pb = build(cfg, torch.float32, "cpu")
     pp = from_jax_params(pr_np, cfg, device="cpu",
@@ -337,13 +337,39 @@ def test_eval_step_matches_loss():
     np.testing.assert_allclose(float(got), float(want), **LOSS_TOL)
 
 
-@pytest.mark.parametrize("moment_dtype", ["fp32", "bf16", "int8"])
-def test_opt_state_from_jax(moment_dtype):
-    """The reference's optimizer state after one step comes across: fp32
-    and bf16 moments bit for bit, int8 within one quantization step
-    (a layer's norm scales, 64 values, share one stacked block in the
-    reference and are re-quantized alone)."""
-    cfg = dataclasses.replace(get_config("yi-9b").reduced(), n_layers=2)
+def _layout_leaves(tree, path=(), i=None):
+    """{(path, layer): leaf} of a port tree: a list is a group's layers,
+    a dict a group or layer, anything else a leaf."""
+    if isinstance(tree, list):
+        return {k: t for j, layer in enumerate(tree)
+                for k, t in _layout_leaves(layer, path, j).items()}
+    if isinstance(tree, dict) and not set(tree) == {"q", "s"}:
+        return {k: t for n, sub in tree.items()
+                for k, t in _layout_leaves(sub, path + (n,), i).items()}
+    return {(path, i): tree}
+
+
+def _at(tree, path):
+    for n in path:
+        tree = tree[n]
+    return tree
+
+
+OPT_CASES = [pytest.param("yi-9b", m, id=m) for m in ("fp32", "bf16", "int8")]
+OPT_CASES += [pytest.param("deepseek-v3-671b", m, id=f"deepseek-v3-{m}")
+              for m in ("fp32", "bf16", "int8")]
+
+
+@pytest.mark.parametrize("arch, moment_dtype", OPT_CASES)
+def test_opt_state_from_jax(arch, moment_dtype):
+    """The reference's optimizer state after one step comes across, every
+    group (deepseek-v3's dense layers, moe layers with their shared
+    expert, MTP block and projection): fp32 and bf16 moments bit for
+    bit, int8 within one quantization step (a layer's norm scales, 64
+    values, share one stacked block in the reference and are
+    re-quantized alone)."""
+    # deepseek-v3: one dense layer, one moe layer, the MTP block
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=2)
     rb, pr, pr_np, pb, pp = _models(cfg)
     ocfg = ref_adamw.AdamWConfig(lr=1e-3, moment_dtype=moment_dtype)
     sr = ref_adamw.init_opt_state(ocfg, pr)
@@ -353,31 +379,32 @@ def test_opt_state_from_jax(moment_dtype):
     sp = opt_state_from_jax(sr_np, pr_np, cfg, device="cpu")
     assert int(sp.step) == 1
     load = lambda m, like: adamw._load(m, moment_dtype, like, 256)  # noqa
+    params = _layout_leaves(pp)
     for tr, tp in ((sr_np.mu, sp.mu), (sr_np.nu, sp.nu)):
-        for key, p in _port_leaves(pp, cfg).items():
-            got = tp["emb"][key[1]] if key[0] == "emb" else \
-                tp["main"][key[3]][key[1]][key[2]]
-            got = load(got, p).numpy()
-            if key[0] == "emb":
-                want = np.asarray(load(
-                    jax.tree.map(torch.from_numpy, tr["emb"][key[1]])
-                    if moment_dtype == "int8" else
-                    torch.tensor(np.asarray(tr["emb"][key[1]],
-                                            np.float32)), p))
+        moments = _layout_leaves(tp)
+        assert moments.keys() == params.keys()
+        for (path, i), p in params.items():
+            got = load(moments[path, i], p).numpy()
+            stacked = _at(tr, path)
+            like = np.asarray(_at(pr_np, path))
+            if moment_dtype == "int8":
+                flat = (np.asarray(stacked["q"], np.float32)
+                        * np.asarray(stacked["s"])).reshape(-1)
+                want = flat[:like.size].reshape(like.shape)
             else:
-                stacked = tr["main"][key[1]][key[2]]
-                like = np.asarray(pr_np["main"][key[1]][key[2]])
-                if moment_dtype == "int8":
-                    flat = (np.asarray(stacked["q"], np.float32)
-                            * np.asarray(stacked["s"])).reshape(-1)
-                    want = flat[:like.size].reshape(like.shape)[key[3]]
-                else:
-                    want = np.asarray(stacked, np.float32)[key[3]]
+                want = np.asarray(stacked, np.float32)
+            if i is not None:
+                want = want[i]
             if moment_dtype == "int8":
                 step = np.abs(want).max() / 127 + 1e-12
-                assert np.abs(got - want).max() <= 1.01 * step, key
+                assert np.abs(got - want).max() <= 1.01 * step, (path, i)
             else:
-                np.testing.assert_array_equal(got, want, err_msg=str(key))
+                np.testing.assert_array_equal(got, want,
+                                              err_msg=str((path, i)))
+    if arch != "yi-9b":
+        assert {path[0] for path, _ in params} == {
+            "dense", "emb", "main", "mtp", "mtp_proj"}
+        assert (("main", "ffn", "shared", "w_up"), 0) in params
 
 
 # ----------------------------------------------------------------------
@@ -418,8 +445,18 @@ def test_setup_defaults_to_the_card():
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup("deepseek-v3-671b", device="cpu")
+    """No family is left unported: every registered architecture sets up
+    for training on the CPU, deepseek-v3 with its MTP loss."""
+    from repro_torch.configs import ALL_ARCHS
+
+    for arch in ALL_ARCHS:
+        run = setup(arch, seq_len=8, global_batch=2, device="cpu")
+        assert run.cfg.name == arch
+    run = setup("deepseek-v3-671b", seq_len=8, global_batch=2, device="cpu")
+    b = run.pipeline.batch_at(0)
+    _, _, m = run.step_fn(run.params, run.opt_state,
+                          {n: torch.from_numpy(a) for n, a in b.items()})
+    assert {"ce", "mtp", "aux"} <= set(m) and torch.isfinite(m["loss"])
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b",
