@@ -26,13 +26,17 @@
 3. Frees those buffers, holds the flash-attention kernel against its
    plain versions (bf16 at the serving path's prefill shape, small
    shapes with windows, softcaps, ragged and fully masked rows, odd
-   head dims, Dh 192 / Dv 128 on the mma_sync variant, and float32),
-   timing it beside SDPA (at yi-9b's prefill shape and at
-   llama-3.2-vision's, 32/8 heads), the mma_sync variant at
-   deepseek-v3's MLA prefill (q (4, 2048, 128, 192), k (4, 4096, 128,
-   192) and v (4, 4096, 128, 128) built from a latent as the naive form
-   builds them, scale 1/sqrt(192)) against the blockwise version within
-   1e-2, timed beside it, its 0.695 ms operations bound and one PyTorch
+   head dims, Dh 192 / Dv 128 on the wgmma variant and Dh 96 / Dv 64
+   on mma_sync, and float32), timing it beside SDPA (at yi-9b's
+   prefill shape and at llama-3.2-vision's, 32/8 heads), the wgmma
+   variant at deepseek-v3's MLA prefill (q (4, 2048, 128, 128) and
+   q_rope (4, 2048, 128, 64), k (4, 4096, 128, 128) built from a latent
+   as the naive form builds it, the shared RoPE key k_rope (4, 4096, 1,
+   64) a strided view of the cache, v (4, 4096, 128, 128), scale
+   1/sqrt(192)) against the blockwise version within 1e-2 and bit for
+   bit against its launch on the concatenated operands, the RoPE
+   operands at small shapes against float64, timed beside the
+   concatenated launch, its 0.695 ms operations bound and one PyTorch
    call (SDPA's memory-efficient backend, else flex_attention; the
    output names it), and its backward
    kernels, ``wgmma`` (``ffma`` in float32), against float64 dense
@@ -168,14 +172,15 @@
    its depth cut from 61 to 5 layers (the published 3 dense layers, 2
    moe layers) plus the MTP head's parameters, about 54.6 GB, with the
    yi-9b traffic: every prefill is MLA's naive form and launches flash
-   ``mma_sync`` 5 times, decode (the absorbed form) launches no kernel;
+   ``wgmma`` 5 times, decode (the absorbed form) launches no kernel, no
+   path launches ``mma_sync``;
    the lone-prompt gate and the first moe layer's check (shared expert
    included) as for qwen3; then one MLA layer at B 1 and T 1024 from a
    cache holding 1024 rows, its naive form (the kernel) against its
    absorbed form (dense einsums) within 2e-2 Frobenius-relative.  Last,
    ``make_flash_kernel`` on the torch backend: one fp16 sequence of
    4096 tokens as HDArrays, its query rows over 4 ranks, at 32/8 heads
-   of 128 (``wgmma``) and 128/128 heads of 192/128 (``mma_sync``), each
+   of 128 and 128/128 heads of 192/128 (both ``wgmma``), each
    within 1e-2 of the blockwise version over the whole sequence, 4
    launches of its variant each.
 7. Prints one JSON line of kernel measurements (flash's launches by
@@ -260,8 +265,8 @@ RG_ARCH = "recurrentgemma-2b"
 # layers and 2 of its 58 moe layers (and the MTP head's parameters):
 # about 54.6 GB in bf16 (param_count's terms: embeddings 3.71 GB, a dense
 # layer 1.17, a moe layer 23.0, MTP 1.37); a third moe layer would need
-# 77.6.  Every prefill is MLA's naive form: flash mma_sync at Dh 192 /
-# Dv 128, 128 heads
+# 77.6.  Every prefill is MLA's naive form: flash wgmma at Dh 192 /
+# Dv 128, 128 heads, the RoPE parts as operands of their own
 DSV3_ARCH, DSV3_LAYERS = "deepseek-v3-671b", 5
 # one MLA layer's naive form (the kernel) against its absorbed form
 # (dense einsums) in bf16, Frobenius-relative: tests/test_torch_mla.py's
@@ -270,7 +275,7 @@ DSV3_ARCH, DSV3_LAYERS = "deepseek-v3-671b", 5
 MLA_FORMS_BF16_TOL = 2e-2
 # make_flash_kernel on the torch backend: one sequence of HD_FLASH_T
 # tokens, its query rows partitioned over NPROC ranks, at llama-vision's
-# heads (wgmma) and at MLA's naive form's (mma_sync)
+# heads and at MLA's naive form's (both wgmma)
 HD_FLASH_T = 4096
 HD_FLASH_SHAPES = ((32, 8, 128, 128), (128, 128, 192, 128))
 # the RG-LRU scan kernel against float64 and its plain float32 loop,
@@ -604,11 +609,12 @@ def kernel_phase(torch):
 
 
 def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
-               Dv: int, itemsize: int, window=None):
+               Dv: int, itemsize: int, window=None, shared_k: int = 0):
     """(flops, bytes) that causal attention needs for these query
-    positions (and window): 4 * Dh flops (q.k and p.v) per visible
+    positions (and window): 2 (Dh + Dv) flops (q.k and p.v) per visible
     (query, key) pair and head; q and o once, and the k and v rows some
-    query sees."""
+    query sees, the last ``shared_k`` of K's Dh columns (MLA's RoPE key)
+    once a row for every kv head."""
     hi = torch.clamp(qpos.long() + 1, 0, S)           # keys [lo, hi)
     lo = torch.zeros_like(hi) if window is None else \
         torch.clamp(qpos.long() + 1 - window, 0, S)
@@ -616,7 +622,8 @@ def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
     rows = int((hi.amax(dim=1) - lo.amin(dim=1)).clamp(min=0).sum())
     T = qpos.shape[1]
     flops = 2 * Hq * (Dh + Dv) * pairs
-    nbytes = itemsize * (B * T * Hq * (Dh + Dv) + rows * Hkv * (Dh + Dv))
+    kv_row = Hkv * (Dh - shared_k + Dv) + shared_k
+    nbytes = itemsize * (B * T * Hq * (Dh + Dv) + rows * kv_row)
     return flops, nbytes
 
 
@@ -627,7 +634,9 @@ def flash_phase(torch, ptxas):
     for the wgmma variant at gemma2's (Dh 256), beside flex_attention
     with the softcap (SDPA without it is not the same function), with
     the ptxas report of its Dh-256 kernels (``ptxas``: flash_attn_hd's
-    (kernel, report) pairs).  Returns the two measurements."""
+    (kernel, report) pairs); then MLA's shape (``mla_flash_check``)
+    beside the ptxas report of its Dh 192 / Dv 128 kernels.  Returns the
+    two measurements."""
     import re
 
     import torch.nn.functional as F
@@ -678,7 +687,8 @@ def flash_phase(torch, ptxas):
                           tol=FLASH_MAIN_TOL, window=BIG_WINDOW)
 
     # -- small shapes, each feature, against the dense oracle -----------
-    # (Dh 192 / Dv 128 holds the mma_sync variant, in bf16 and fp16)
+    # (Dh 192 / Dv 128 takes the wgmma variant, Dh 96 / Dv 64 holds
+    # mma_sync, in bf16 and fp16)
     by_variant = flash_attention_cuda.by_variant
     mma0 = by_variant["mma_sync"]
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
@@ -691,7 +701,8 @@ def flash_phase(torch, ptxas):
                 ("Dh=Dv=128 window=40 softcap=5",
                  (1, 257, 513, 8, 2, 128), dict(window=40, softcap=5.0)),
                 ("Dh=Dv=256", (1, 130, 200, 4, 1, 256), {}),
-                ("Dh=192 Dv=128", (2, 70, 90, 4, 2, 192, 128), {})):
+                ("Dh=192 Dv=128", (2, 70, 90, 4, 2, 192, 128), {}),
+                ("Dh=96 Dv=64", (2, 70, 90, 4, 2, 96, 64), {})):
             q, k, v = inputs(dtype, *shape)
             Bs, Ts, Ss = shape[:3]
             qp = torch.arange(Ss - Ts, Ss, dtype=torch.int32,
@@ -709,7 +720,7 @@ def flash_phase(torch, ptxas):
         check(float(masked) == 0.0, "fully masked flash rows are not 0")
     check(by_variant["mma_sync"] - mma0 == 2, f"the small shapes launched "
           f"mma_sync {by_variant['mma_sync'] - mma0} times, not twice "
-          f"(Dh 192 / Dv 128 in bf16 and fp16)")
+          f"(Dh 96 / Dv 64 in bf16 and fp16)")
 
     # -- time at the main shape -----------------------------------------
     q, k, v = inputs(torch.bfloat16, B, T, S, Hq, Hkv, Dh)
@@ -936,64 +947,138 @@ def flash_phase(torch, ptxas):
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
           f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms")
     del q4, k4, v4, q4t, k4t, v4t
-    flash["mma_sync_mla"] = mla_flash_check(torch, compare, qpos)
+    # the four Dh 192 / Dv 128 wgmma kernels (bf16 and fp16, with and
+    # without the softcap), each without a spill or C75xx warning (main
+    # has failed the run on either in the file)
+    reports = [(name, rep) for name, rep in ptxas
+               if re.search(r"fa_wgmma_kernel(<.*\b192\b.*\b128\b|"
+                            r"I.*Li192ELi128E)", name)]
+    check(len(reports) == 4, f"{len(reports)} Dh 192 / Dv 128 wgmma "
+          f"kernels in the build log, not 4")
+    for name, rep in reports:
+        print(f"flash wgmma Dh 192 / Dv 128 ptxas: {name}: {rep}")
+    flash["wgmma_mla"] = mla_flash_check(torch, compare, qpos, oracle)
+    flash["wgmma_mla"]["ptxas"] = dict(reports)
     torch.cuda.empty_cache()
     return flash, flash_256
 
 
-def mla_flash_check(torch, compare, qpos):
-    """mma_sync at deepseek-v3's MLA prefill: the first admit's q (B,
-    2048, 128, d_nope + d_rope), k and v over the whole 4096-position
-    cache built as ``mla_attention`` builds them (K of every head from
-    a bf16 latent through wk_b, the shared RoPE key broadcast over the
-    heads; V through wv_b), ``scale = 1/sqrt(192)``, against the plain
-    blockwise version, timed beside it and one PyTorch call (SDPA's
-    memory-efficient backend, which takes Dv != Dh, else compiled
-    flex_attention).  ``compare`` is flash_phase's."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
+def mla_inputs(torch, seed: int = 26):
+    """deepseek-v3's MLA prefill operands as the naive form hands them to
+    the kernel: the first admit's q (B, 2048, 128, d_nope) and q_rope (B,
+    2048, 128, d_rope), strided views of one projection; k (B, 4096, 128,
+    d_nope) and v (B, 4096, 128, d_v) from a bf16 latent through wk_b and
+    wv_b; the shared RoPE key k_rope (B, 4096, 1, d_rope), a strided view
+    of the cache's rows (the latent, then the RoPE key, 1152 bytes a
+    row).  Returns (q, k, v, q_rope, k_rope, scale = 1/sqrt(192))."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.jnp_impl import \
-        blockwise_attention
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_cuda, flash_variant)
 
     cfg = get_config(DSV3_ARCH)
     m, H = cfg.mla, cfg.n_heads
-    Dh, Dv = m.d_nope + m.d_rope, m.d_v
-    check(flash_variant(torch.bfloat16, Dh, Dv) == "mma_sync",
-          f"{DSV3_ARCH}'s Dh {Dh} / Dv {Dv} does not take mma_sync")
     B, T, S = SERVE_SLOTS, PROMPTS[0], SERVE_MAX_SEQ
-    g = torch.Generator(device="cuda").manual_seed(26)
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         x = torch.randn(shape, generator=g, device="cuda")
         return x.mul_(scale).to(torch.bfloat16)
 
-    latent = randn(B, S, m.kv_lora)
-    k_rope = randn(B, S, m.d_rope)
+    cache = randn(B, S, m.kv_lora + m.d_rope)
+    latent = cache[..., :m.kv_lora]
     wk_b = randn(m.kv_lora, H * m.d_nope, scale=m.kv_lora ** -0.5)
-    wv_b = randn(m.kv_lora, H * Dv, scale=m.kv_lora ** -0.5)
-    k = torch.cat([(latent @ wk_b).reshape(B, S, H, m.d_nope),
-                   k_rope[:, :, None, :].expand(B, S, H, m.d_rope)], -1)
-    v = (latent @ wv_b).reshape(B, S, H, Dv)
-    q = randn(B, T, H, Dh)
-    del latent, k_rope, wk_b, wv_b
-    scale = Dh ** -0.5
-    n0, v0 = (flash_attention_cuda.launches,
-              flash_attention_cuda.by_variant["mma_sync"])
-    _, err = compare(f"mma_sync {DSV3_ARCH} MLA prefill {tuple(q.shape)} x "
-                     f"k {tuple(k.shape)} v {tuple(v.shape)} scale 1/sqrt("
-                     f"{Dh})", torch.bfloat16, q, k, v, qpos,
-                     blockwise_attention, tol=FLASH_MAIN_TOL, window=None,
-                     scale=scale)
+    wv_b = randn(m.kv_lora, H * m.d_v, scale=m.kv_lora ** -0.5)
+    k = (latent @ wk_b).reshape(B, S, H, m.d_nope)
+    v = (latent @ wv_b).reshape(B, S, H, m.d_v)
+    proj = randn(B, T, H * (m.d_nope + m.d_rope))
+    q = proj[..., :H * m.d_nope].unflatten(-1, (H, m.d_nope))
+    q_rope = proj[..., H * m.d_nope:].unflatten(-1, (H, m.d_rope))
+    return (q, k, v, q_rope, cache[..., None, m.kv_lora:],
+            (m.d_nope + m.d_rope) ** -0.5)
+
+
+def mla_flash_check(torch, compare, qpos, oracle):
+    """wgmma at deepseek-v3's MLA prefill (``mla_inputs``), as the naive
+    form launches it (the RoPE parts as operands of their own) and on the
+    concatenated operands: the two must have the same bits, the first
+    within FLASH_MAIN_TOL of the plain blockwise version; then the split
+    operands at small shapes (GQA, T and S off the tiles, ragged qpos
+    with padding and fully masked rows) against float64 (``oracle``),
+    each the concatenated launch's bits.  Times both launches beside the
+    blockwise version and one PyTorch call on the concatenated operands
+    (SDPA's memory-efficient backend, which takes Dv != Dh, else
+    compiled flex_attention).  ``compare`` is flash_phase's."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_variant)
+    from repro_torch.kernels.flash_attention.ref import join_rope
+
+    q, k, v, q_rope, k_rope, scale = mla_inputs(torch)
+    B, T, H, Dn = q.shape
+    S, Dr, Dv = k.shape[1], q_rope.shape[-1], v.shape[-1]
+    Dh = Dn + Dr
+    variant = flash_variant(torch.bfloat16, Dh, Dv)
+    check(variant == "wgmma",
+          f"{DSV3_ARCH}'s Dh {Dh} / Dv {Dv} does not take wgmma")
+    rope = dict(q_rope=q_rope, k_rope=k_rope)
+    by_variant = flash_attention_cuda.by_variant
+    n0, v0 = flash_attention_cuda.launches, by_variant[variant]
+    split, err = compare(
+        f"{variant} {DSV3_ARCH} MLA prefill q {tuple(q.shape)} strides "
+        f"{q.stride()} + q_rope {tuple(q_rope.shape)}, k "
+        f"{tuple(k.shape)} + k_rope {tuple(k_rope.shape)} strides "
+        f"{k_rope.stride()}, v {tuple(v.shape)}, scale 1/sqrt({Dh})",
+        torch.bfloat16, q, k, v, qpos, blockwise_attention,
+        tol=FLASH_MAIN_TOL, window=None, scale=scale, **rope)
     check(flash_attention_cuda.launches - n0 == 1
-          and flash_attention_cuda.by_variant["mma_sync"] - v0 == 1,
-          "the MLA-shape check launched another variant than mma_sync")
+          and by_variant[variant] - v0 == 1,
+          f"the MLA-shape check launched another variant than {variant}")
+    q_cat, k_cat = join_rope(q, k, q_rope, k_rope)
     kernel = lambda: flash_attention_cuda(           # noqa: E731
-        q, k, v, qpos=qpos, window=None, scale=scale)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        q, k, v, qpos=qpos, window=None, scale=scale, **rope)
+    kernel_cat = lambda: flash_attention_cuda(       # noqa: E731
+        q_cat, k_cat, v, qpos=qpos, window=None, scale=scale)
+    same = torch.equal(split, kernel_cat())
+    print(f"flash {variant} at {DSV3_ARCH}'s MLA prefill: the RoPE parts as "
+          f"operands and concatenated give the same bits: {same}")
+    check(same, "the split RoPE launch differs from the concatenated one")
+    del split
+
+    # small shapes: 8 query heads over 2 kv heads, the RoPE key shared
+    g = torch.Generator(device="cuda").manual_seed(27)
+    for dtype in (torch.bfloat16, torch.float16):
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        qs = randn(2, 200, 8, Dh)[..., :Dn]               # strided q
+        kv = randn(2, 330, 2, 2, Dv)
+        ks, vs = randn(2, 330, 2, Dn), kv[:, :, 1]
+        qrs, krs = randn(2, 200, 8, Dr), randn(2, 330, 1, Dr)
+        qp = torch.arange(130, 330, dtype=torch.int32,
+                          device="cuda").repeat(2, 1)
+        qp[:, :7] = -1                                  # padding rows
+        qp[1, 50:60] = 400                              # window 4: none
+        qc, kc = join_rope(qs, ks, qrs, krs)
+        for name, kw in (("causal", {}), ("window=4", dict(window=4))):
+            out, _ = compare(
+                f"{variant} Dh={Dn}+{Dr} Dv={Dv} RoPE operands, 8/2 heads, "
+                f"strided q, ragged qpos with padding rows {name} "
+                f"(float64 dense)", dtype, qs, ks, vs, qp,
+                lambda q_, k_, v_, q_rope, k_rope, **kw_: oracle(
+                    *join_rope(q_, k_, q_rope, k_rope), v_, **kw_),
+                q_rope=qrs, k_rope=krs, **kw)
+            same = torch.equal(out, flash_attention_cuda(
+                qc, kc, vs, qpos=qp, **kw))
+            masked = out[:, :7].abs().sum() + (
+                out[1, 50:60].abs().sum() if kw else 0)
+            check(same and float(masked) == 0.0, f"the split RoPE launch "
+                  f"at {name} differs from the concatenated one "
+                  f"({same}) or its fully masked rows are not 0")
+    check(by_variant[variant] - v0 == 2 + 2 * 2 * 2,
+          f"the MLA checks launched another variant than {variant}")
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q_cat, k_cat, v))
     try:
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -1019,25 +1104,31 @@ def mla_flash_check(torch, compare, qpos):
         lib_name = "compiled flex_attention (causal block mask)"
     lib_err = float((library().transpose(1, 2).float() - kernel().float())
                     .abs().max())
-    print(f"flash mma_sync vs {lib_name} at {DSV3_ARCH}'s MLA prefill "
+    print(f"flash {variant} vs {lib_name} at {DSV3_ARCH}'s MLA prefill "
           f"shape: max_abs_diff={lib_err:.3e}")
     check(lib_err <= FLASH_TOL["bfloat16"] * 4, f"{lib_name} computes "
-          f"another function than mma_sync at the MLA prefill shape")
-    flops, nbytes = flash_work(torch, qpos, S, B, H, H, Dh, Dv, 2)
+          f"another function than {variant} at the MLA prefill shape")
+    flops, nbytes = flash_work(torch, qpos, S, B, H, H, Dh, Dv, 2,
+                               shared_k=Dr)
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    r = dict(variant="mma_sync", max_abs_err=err,
-             ms=cuda_ms(torch, kernel, 10),
+    r = dict(variant=variant, max_abs_err=err,
+             ms=cuda_ms(torch, kernel, 20),
+             concatenated_ms=cuda_ms(torch, kernel_cat, 20),
              plain_ms=cuda_ms(torch, lambda: blockwise_attention(
-                 q, k, v, qpos=qpos, window=None, scale=scale), 2),
+                 q, k, v, qpos=qpos, window=None, scale=scale, **rope), 2),
              bound_ms=1e3 * max(t_ops, t_bytes),
              bound_by="operations" if t_ops >= t_bytes else "bytes",
              library_ms=cuda_ms(torch, library, 10), library=lib_name,
-             shape=[list(q.shape), list(k.shape), list(v.shape)])
-    print(f"flash mma_sync Dh {Dh} / Dv {Dv} at {DSV3_ARCH}'s MLA prefill "
-          f"{tuple(q.shape)} x k {tuple(k.shape)} v {tuple(v.shape)}: "
-          f"{flops:.4e} flops, {nbytes:.4e} bytes; kernel {r['ms']:.4f} ms "
-          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
-          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound), bound "
+             same_bits_as_concatenated=True,
+             shape=[list(q.shape), list(q_rope.shape), list(k.shape),
+                    list(k_rope.shape), list(v.shape)])
+    print(f"flash {variant} Dh {Dh} / Dv {Dv} at {DSV3_ARCH}'s MLA prefill "
+          f"q {tuple(q.shape)} + q_rope {tuple(q_rope.shape)}, k "
+          f"{tuple(k.shape)} + k_rope {tuple(k_rope.shape)}, v "
+          f"{tuple(v.shape)}: {flops:.4e} flops, {nbytes:.4e} bytes; kernel "
+          f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound), on the "
+          f"concatenated operands {r['concatenated_ms']:.4f} ms, bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
           f"{r['plain_ms']:.4f} ms, {lib_name} {r['library_ms']:.4f} ms")
     return r
@@ -1419,7 +1510,7 @@ def scan_phase(torch):
         decode_ms=cuda_ms(torch, decode, 50),
         decode_max_abs_err=errs[("decode", "sequential")],
         shape=[B, T, W])
-    entry["decode_device_ms"], seen = scan_device_ms(torch, decode, 50)
+    entry["decode_device_ms"], seen, win = scan_device_ms(torch, decode, 50)
     dev = entry["decode_device_ms"]
     print(f"rglru_scan at {entry['shape']} bf16 from h0: chunked "
           f"{ms['chunked']:.4f} ms ({entry['gb_per_s']:.1f} GB/s; "
@@ -1429,42 +1520,48 @@ def scan_phase(torch):
           f"{(B, 1, W)} on sequential {entry['decode_ms']:.4f} ms a call "
           f"back to back (CUDA events), "
           f"{'not measured' if dev is None else f'{dev:.4f} ms'} of device "
-          f"time (torch.profiler, {seen} of 50 launches seen)")
+          f"time (torch.profiler, {seen} of 50 launches seen in window {win})")
     del cases, x, ga, gi, h0, x1, ga1, gi1, h01
     torch.cuda.empty_cache()
     return entry
 
 
 def scan_device_ms(torch, fn, reps: int, kernel: str = "rglru",
-                   not_kernel: str | None = None):
+                   not_kernel: str | None = None, windows: int = 3):
     """(mean device time of one launch of the kernel named with
-    ``kernel`` that ``fn`` launches, launches seen), from
-    torch.profiler's kernel intervals in
-    ``reps`` calls, with CPU and CUDA activities as ``device_breakdown``
-    profiles; fails where a kernel named with ``not_kernel`` ran in
-    them.  Late in a long process the profiler has kept only some
-    of a short window's kernels (33 and 36 of 50 in two runs, none in a
-    third with CUDA activity alone), so the mean is over those it kept,
-    and None if it kept none: a measurement, not a gate."""
+    ``kernel`` that ``fn`` launches, launches seen, windows profiled),
+    from torch.profiler's kernel intervals in ``reps`` calls, with CPU
+    and CUDA activities as ``device_breakdown`` profiles; fails where a
+    kernel named with ``not_kernel`` ran in any window.  Late in a long
+    process the profiler keeps only some of a short window's kernels
+    (33 to 36 of 50 in most windows) and now and then none of them (0
+    of 50 in one window of a run whose windows before and after kept
+    34), so the mean is over those it kept, and a window that kept none
+    is profiled again, up to ``windows`` times, each after a pause of
+    0.1 s; None if none kept any: a measurement, not a gate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for window in range(1, windows + 1):
+        fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(us) <= reps, f"the profiler saw {len(us)} {kernel} kernels in "
-          f"{reps} calls")
-    check(not_kernel is None or not any(not_kernel in n for n in names),
-          f"a {not_kernel} kernel ran where only {kernel} should")
-    return (sum(us) / len(us) / 1e3 if us else None), len(us)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        check(len(us) <= reps, f"the profiler saw {len(us)} {kernel} "
+              f"kernels in {reps} calls")
+        check(not_kernel is None or not any(not_kernel in n for n in names),
+              f"a {not_kernel} kernel ran where only {kernel} should")
+        if us:
+            break
+    return (sum(us) / len(us) / 1e3 if us else None), len(us), window
 
 
 def slstm_f64(torch, pre_x, r, state):
@@ -1629,20 +1726,22 @@ def slstm_phase(torch, ptxas):
     # the device's kernel names: a prefill runs `cluster` and a decode
     # call `step`, and neither the other.  The profiler drops up to 16 of
     # a window's first kernels (none of 3 prefills kept in one run, 7 of
-    # 20 in another, 34 of 50 decode calls), so each window is 50 calls.
-    entry["prefill_device_ms"], seen_p = scan_device_ms(
+    # 20 in another, 34 of 50 decode calls), so each window is 50 calls,
+    # and now and then all of them, so a window that kept none is
+    # profiled again.
+    entry["prefill_device_ms"], seen_p, win_p = scan_device_ms(
         torch, lambda: slstm_scan_cuda(pre_x, r, st), 50, "slstm_cluster",
         "slstm_step")
-    entry["decode_device_ms"], seen = scan_device_ms(
+    entry["decode_device_ms"], seen, win = scan_device_ms(
         torch, decode, 50, "slstm_step", "slstm_cluster")
     check(seen_p > 0 and seen > 0, f"the profiler saw {seen_p} cluster "
           f"kernels in 50 prefills and {seen} step kernels in 50 decode "
-          f"calls")
+          f"calls, in each of {win_p} and {win} windows")
     dev = entry["decode_device_ms"]
     print(f"slstm_scan cluster at {entry['shape']} bf16 from a state: "
           f"{ms:.4f} ms ({entry['ms_again']:.4f} again; "
           f"{entry['prefill_device_ms']:.4f} ms of device time, {seen_p} "
-          f"of 50 launches seen; "
+          f"of 50 launches seen in window {win_p}; "
           f"{entry['us_per_step']:.3f} us a step), the exchange probe "
           f"{probe:.4f} ms ({entry['probe_us_per_step']:.3f} us a step), "
           f"plain loop {entry['plain_ms']:.4f} ms, bound "
@@ -1650,7 +1749,7 @@ def slstm_phase(torch, ptxas):
           f"{entry['bytes_bound_ms']:.4f} ms); a decode step {(B, 1, D)} on "
           f"step {entry['decode_ms']:.4f} ms a call back to back (CUDA "
           f"events), {dev:.4f} ms of device time (torch.profiler, {seen} "
-          f"of 50 launches seen), plain loop "
+          f"of 50 launches seen in window {win}), plain loop "
           f"{entry['decode_plain_ms']:.4f} ms, bound "
           f"{entry['decode_bound_ms']:.5f} ms ({entry['decode_bound_by']}); "
           f"no PyTorch call computes the recurrence")
@@ -2588,9 +2687,10 @@ def mla_layer_check(torch, bundle, params):
     attention) at B 1 and T 1024 (FLASH_MIN_T) from a filled cache:
     1024 rows written by a first chunk, then a second chunk of 1024 in
     both forms on the same cache, the naive one (K and V expanded from
-    the latent, the shared RoPE key broadcast, the flash kernel's
-    mma_sync) and the absorbed one (dense einsums against the latent),
-    within MLA_FORMS_BF16_TOL (Frobenius-relative) of each other."""
+    the latent, the flash kernel's wgmma with the RoPE parts as operands
+    of their own, the shared key a strided view of the cache) and the
+    absorbed one (dense einsums against the latent), within
+    MLA_FORMS_BF16_TOL (Frobenius-relative) of each other."""
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
     from repro_torch.models import mla as MLA
@@ -2607,11 +2707,11 @@ def mla_layer_check(torch, bundle, params):
     by_variant = flash_attention_cuda.by_variant
     with torch.no_grad():
         _, cache = MLA.mla_attention(p, x0, cfg, cache=cache, **kw)
-        n0, v0 = flash_attention_cuda.launches, by_variant["mma_sync"]
+        n0, v0 = flash_attention_cuda.launches, by_variant["wgmma"]
         naive, _ = MLA.mla_attention(p, x, cfg, cache=dict(cache), naive=True,
                                      **kw)
         launched = (flash_attention_cuda.launches - n0,
-                    by_variant["mma_sync"] - v0)
+                    by_variant["wgmma"] - v0)
         absorbed, _ = MLA.mla_attention(p, x, cfg, cache=dict(cache),
                                         naive=False, **kw)
         err = fro_rel(torch, naive, absorbed)
@@ -2622,12 +2722,12 @@ def mla_layer_check(torch, bundle, params):
                   .all())
     print(f"{cfg.name}: one MLA layer at B 1, T {T} from a cache holding "
           f"{T} rows (of {SERVE_MAX_SEQ}): naive form (flash launches "
-          f"{launched[0]}, mma_sync {launched[1]}) against absorbed form, "
+          f"{launched[0]}, wgmma {launched[1]}) against absorbed form, "
           f"relative Frobenius {err:.3e} (gate {MLA_FORMS_BF16_TOL:g}); "
           f"finite {finite}; naive {ms['naive']:.3f} ms, absorbed "
           f"{ms['absorbed']:.3f} ms a call (CUDA events)")
     check(launched == (1, 1), f"{cfg.name}: the naive MLA form launched "
-          f"{launched[0]} flash kernels, {launched[1]} mma_sync, not 1")
+          f"{launched[0]} flash kernels, {launched[1]} wgmma, not 1")
     check(finite and err <= MLA_FORMS_BF16_TOL, f"{cfg.name}: the naive "
           f"and absorbed MLA forms are {err:.3e} apart")
     del naive, absorbed, cache
@@ -2644,7 +2744,7 @@ def hd_flash_phase(torch):
     HD_FLASH_SHAPES; each within FLASH_MAIN_TOL of the plain blockwise
     version over the whole sequence, every launch counted (NPROC, of
     the variant flash_variant picks).  Returns (launches, launches by
-    variant) of the apply_kernel runs."""
+    variant, launches by shape) of the apply_kernel runs."""
     from repro_torch.core import ALL_2D, ROW_ALL, HDArrayRuntime
     from repro_torch.kernels.flash_attention.jnp_impl import \
         blockwise_attention
@@ -2654,7 +2754,7 @@ def hd_flash_phase(torch):
 
     T = HD_FLASH_T
     rng = np.random.default_rng(4)
-    launches, variants = 0, dict.fromkeys(VARIANTS, 0)
+    launches, variants, by_shape = 0, dict.fromkeys(VARIANTS, 0), {}
     for Hq, Hkv, Dh, Dv in HD_FLASH_SHAPES:
         q, k, v = (rng.standard_normal((T, w), np.float32).astype(np.float16)
                    for w in (Hq * Dh, Hkv * Dh, Hkv * Dv))
@@ -2681,6 +2781,7 @@ def hd_flash_phase(torch):
         n, by = flash_attention_cuda.launches, dict(
             flash_attention_cuda.by_variant)
         launches += n
+        by_shape[Hq, Hkv, Dh, Dv] = n
         variants = {x: variants[x] + by[x] for x in VARIANTS}
         got = torch.from_numpy(rt.read_coherent(arrs[3])).cuda()
         qt, kt, vt = (torch.from_numpy(a).cuda() for a in (q, k, v))
@@ -2704,7 +2805,7 @@ def hd_flash_phase(torch):
         rt.close()
         del rt, arrs, got, want, qt, kt, vt, err
         torch.cuda.empty_cache()
-    return launches, variants
+    return launches, variants, by_shape
 
 
 def train_phase(torch):
@@ -3010,13 +3111,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     # deepseek-v3 last, so that every earlier phase runs as it did before:
     # full width, its depth cut to the 3 dense and 2 moe layers; every
-    # prefill MLA's naive form, 5 flash mma_sync launches, none in decode.
+    # prefill MLA's naive form, 5 flash wgmma launches at Dh 192 / Dv 128
+    # (the RoPE parts as operands of their own), none in decode.
     # Under its capacity one slot's tokens can drop another's, so the
     # lone-prompt gate takes the re-admit gate's place, as for qwen3
     import dataclasses
     ds_cfg = dataclasses.replace(get_config(DSV3_ARCH), n_layers=DSV3_LAYERS)
     ds_launches, ds_variants, bundle, params = serve_path(
-        torch, DSV3_ARCH, "mma_sync", "deepseek-v3 serving",
+        torch, DSV3_ARCH, "wgmma", "deepseek-v3 serving",
         readmit_repeats=False, cfg=ds_cfg)
     prompt = serve_prompts(bundle.cfg.vocab)[0]
     lone_prompt_repeats(torch, bundle, params, prompt, DECODE_STEPS)
@@ -3025,7 +3127,7 @@ def main() -> None:
     del bundle, params
     torch.cuda.empty_cache()
     # flash attention as an HDArray device kernel, last
-    hd_launches, hd_variants = hd_flash_phase(torch)
+    hd_launches, hd_variants, hd_by_shape = hd_flash_phase(torch)
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -3057,12 +3159,14 @@ def main() -> None:
         + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
         + ds_variants["flash_attn_hd"][k] + hd_variants[k]
         for k, n in serve_variants["flash_attn_hd"].items()}
-    # every mma_sync launch: deepseek-v3's prefills and the HDArray
-    # kernel's Dh 192 / Dv 128 apply
-    mla = flash["mma_sync_mla"]
+    # no served path launches mma_sync; every Dh 192 / Dv 128 launch is
+    # wgmma: deepseek-v3's prefills and the HDArray kernel's apply there
+    check(flash["launches_by_variant"]["mma_sync"] == 0,
+          f"a path launched flash mma_sync: {flash['launches_by_variant']}")
+    mla = flash["wgmma_mla"]
     mla["launches_by_path"] = {
-        "deepseek-v3 engine": ds_variants["flash_attn_hd"]["mma_sync"],
-        "hd flash kernel": hd_variants["mma_sync"]}
+        "deepseek-v3 engine": ds_variants["flash_attn_hd"]["wgmma"],
+        "hd flash kernel": hd_by_shape[HD_FLASH_SHAPES[1]]}
     mla["launches"] = sum(mla["launches_by_path"].values())
     mla["mla_layer_naive_vs_absorbed"] = mla_layer
     # every Dh-256 launch: gemma2's and recurrentgemma's prefills

@@ -21,15 +21,19 @@
 // head: 1.3751e11 flops, 0.139 ms at the 989 TFLOP/s dense bf16
 // tensor-core peak, against 0.045 ms for its bytes.  gemma2's prefill,
 // q (4, 2048, 16, 256) against (4, 4096, 8, 256), does the same
-// operations (0.060 ms of bytes).  Only wgmma reaches that peak on
-// Hopper.
+// operations (0.060 ms of bytes).  deepseek-v3's MLA prefill, q (4,
+// 2048, 128, 192) against k (4, 4096, 128, 192) and v (4, 4096, 128,
+// 128), does 2 (192 + 128) flops a pair and head: 6.8753e11, 0.695 ms
+// (0.361 ms of bytes, its shared RoPE key read once a row).  Only wgmma
+// reaches that peak on Hopper.
 //
 // Three variants, chosen by the caller (kernels/flash_attention/
 // kernel.py: flash_variant) and launched as asked or not at all:
 //
-// * wgmma (bf16 and fp16 with Dh = Dv in {64, 128, 256}, every serving
-//   prefill).  A block takes 128 query rows of one (b, query head)
-//   and has three warpgroups.  Warpgroup 2 is the producer: after
+// * wgmma (bf16 and fp16 with Dh = Dv in {64, 128, 256}, or Dh 192 /
+//   Dv 128, MLA's naive form; every serving prefill).  A block takes
+//   128 query rows of one (b, query head) and has three warpgroups.
+//   Warpgroup 2 is the producer: after
 //   setmaxnreg gives its registers to the others (24 / 240), one of its
 //   threads loads Q once and keeps two K/V stages of 64 keys in flight
 //   with TMA (4-d tensor maps over (Dh, heads, positions, batch) built
@@ -60,13 +64,24 @@
 //   (the query tile is the slow grid index, counted from the last), and
 //   the 8 heads of a GQA group are neighbours in the grid, so their K/V
 //   tiles come from L2.  The mbarrier, TMA and wgmma helpers are in
-//   hopper.cuh, shared with the backward.  Its time against the
+//   hopper.cuh, shared with the backward.  At Dh 192 / Dv 128 (MLA)
+//   q k^T runs 12 k16 steps over three 64-column panels and p v is
+//   m64n128k16 as at Dh 128, so a consumer holds Dh 128's registers;
+//   Q takes 48 KB and a K / V stage 24 / 16 KB.  MLA has Hq = Hkv
+//   (no group shares a K/V tile), so there a (b, head)'s query tiles
+//   are neighbours in the grid instead: about 8 heads' K/V (21 MB) are
+//   in flight and stay in L2.  Its third panel of Q and K, the RoPE
+//   columns, comes from tensor maps of its own, over the caller's
+//   q_rope and k_rope (one RoPE key a position, read as kv head 0 by
+//   every query head) or over q's and k's last 64 columns: the caller
+//   passes MLA's parts without concatenating them, and the bits are
+//   those of the concatenated launch.  Its time against the
 //   tensor-core bound, what still holds it back and what was tried
 //   against it are in PERF.md.
-// * mma_sync (the other bf16/fp16 head dims, Dh != Dv among them): one
-//   block of 4 warps per 64 query rows, mma.sync m16n8k16 fed by
-//   ldmatrix from a two-stage cp.async pipeline, head dims padded to
-//   64, 128 or 256.
+// * mma_sync (the other bf16/fp16 head dims, Dh != Dv but 192 / 128
+//   among them): one block of 4 warps per 64 query rows, mma.sync
+//   m16n8k16 fed by ldmatrix from a two-stage cp.async pipeline, head
+//   dims padded to 64, 128 or 256.
 // * ffma (float32): a plain FFMA loop (16 query rows, 32 keys per
 //   tile), not TF32, which would miss the reference's 2e-5 bound.
 #include <cuda.h>          // CUtensorMap; the driver is reached at run time
@@ -102,6 +117,12 @@ struct Params {
   float scale, softcap;
   int has_window;
   long long window;
+  // the RoPE parts of q and k as operands of their own (wgmma at 192 /
+  // 128 only): q_rope (B, T, Hq, 64), k_rope (B, S, 1, 64), one head
+  // shared by every query head; null when q and k hold every column
+  const void* q_rope;
+  const void* k_rope;
+  long long qr_sb, qr_st, qr_sh, kr_sb, kr_ss, kr_sh;
 };
 
 template <typename T> struct Ops;
@@ -582,8 +603,22 @@ constexpr int kRows = 64 * kConsumers;        // query rows per block
 // measured faster than 48 or 32 (PERF.md); a third K/V stage would pass
 // the 227 KB of shared memory there.
 constexpr int kKeys = 64;
+// Two K/V stages.  At Dh 192 / Dv 128 they take 128 KB of shared memory
+// and three would take 168 KB, but three measured no faster
+// (tools/flash_mla_stages.py, PERF.md).
 constexpr int kStages = 2;
-// At Dh 64 and 128 a third warpgroup, last in the block, is the
+// Each instantiation takes two head widths: DK, the depth of q k^T, and
+// DV, the width of p v; Dh = Dv gives DK = DV.  DK = 192 with DV = 128
+// is MLA's naive form (deepseek-v3), where Hq = Hkv: no GQA group shares
+// a K/V tile, so the grid makes one (b, head)'s query tiles neighbours
+// (kHeadMajor) and its K/V stays in L2 while they run, and the last 64
+// columns of Q and K, the RoPE part, come from tensor maps of their own
+// (kSplitRope), so the caller need not concatenate them.
+template <int DK, int DV>
+constexpr bool kHeadMajor = DK != DV;
+template <int DK, int DV>
+constexpr bool kSplitRope = DK != DV;
+// At Dv 64 and 128 a third warpgroup, last in the block, is the
 // producer, and setmaxnreg hands its registers to the consumers (24 /
 // 240).  At Dh 256 ptxas does not compile the consumers within
 // setmaxnreg's 240 (it spills and serialises the wgmmas, even at 32-key
@@ -591,27 +626,30 @@ constexpr int kStages = 2;
 // PERF.md), and a block of 9 warps is still allotted registers as 12
 // (168 a thread).  So there the block is the two consumer warpgroups
 // alone, up to 255 registers a thread, and their thread 0 issues the
-// copies between its own products.
-template <int D>
-constexpr bool kProducerWarpgroup = D != 256;
-template <int D>
-constexpr int kThreads = 128 * (kProducerWarpgroup<D> ? kConsumers + 1
-                                                  : kConsumers);
+// copies between its own products.  What a consumer holds depends on DV
+// (O's DV / 2 accumulators), so 192 / 128 has the producer warpgroup.
+template <int DV>
+constexpr bool kProducerWarpgroup = DV != 256;
+template <int DV>
+constexpr int kThreads = 128 * (kProducerWarpgroup<DV> ? kConsumers + 1
+                                                   : kConsumers);
 constexpr int kPanel = 64;      // head-dim elements in one 128-byte row
 
 // Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 8 rows of 128 bytes).  A tile of R rows and
 // D = 64 c head-dim elements is c panels of R rows x 128 bytes: TMA
 // writes one panel per copy, and wgmma reads it through descriptors.
-template <int D>
+// K stages are DK wide, V stages DV wide.
+template <int DK, int DV>
 struct Layout {
-  static constexpr int kQBytes = kRows * D * 2;
-  static constexpr int kKVBytes = kKeys * D * 2;
+  static constexpr int kQBytes = kRows * DK * 2;
+  static constexpr int kKBytes = kKeys * DK * 2;
+  static constexpr int kVBytes = kKeys * DV * 2;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQBytes;                    // + stage * kKVBytes
-  static constexpr int kV = kK + kStages * kKVBytes;    // + stage * kKVBytes
+  static constexpr int kK = kQBytes;                    // + stage * kKBytes
+  static constexpr int kV = kK + kStages * kKBytes;     // + stage * kVBytes
   // mbarriers: Q full, then K full, V full, K free, V free [kStages]
-  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kVBytes;
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
 };
 
@@ -630,15 +668,15 @@ __device__ __forceinline__ uint32_t bar_v_free(uint32_t bars, int s) {
 
 
 // Issues s = q k^T for this warpgroup's 64 rows and the kKeys keys of a
-// K stage (D / 16 steps of k16) and commits it as one wgmma group.  The
+// K stage (DK / 16 steps of k16) and commits it as one wgmma group.  The
 // descriptors are rebuilt from their base in every call, so the
 // compiler keeps two registers for them, not sixteen.
-template <typename T, int D>
+template <typename T, int DK>
 __device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
                                          uint64_t q_desc, uint64_t k_desc) {
   asm volatile("" : "+l"(q_desc), "+l"(k_desc));
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < DK / 16; ++kk)
     wgmma_ss<T>(sc, q_desc + (((kk / 4) * kRows * 128 + (kk % 4) * 32) >> 4),
                 k_desc + (((kk / 4) * kKeys * 128 + (kk % 4) * 32) >> 4),
                 kk > 0);
@@ -648,8 +686,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kKeys / 2],
 // Issues acc += p v for a V stage (read MN-major, that is transposed)
 // with p in registers, keys 16 kk .. 16 kk + 15 in pf[4 kk .. 4 kk + 3],
 // and commits it as one wgmma group.
-template <typename T, int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+template <typename T, int DV>
+__device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
                                          const uint32_t (&pf)[kKeys / 4],
                                          uint64_t v_desc) {
   asm volatile("" : "+l"(v_desc));
@@ -787,43 +825,54 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[kKeys / 4],
 
 // The block's copies into shared memory, each issued by one thread: Q
 // once, and tile j's K or V into stage j % kStages once every consumer
-// warp has freed that stage of tile j - kStages.
-template <int D>
+// warp has freed that stage of tile j - kStages.  With kSplitRope the
+// last panel of Q and K comes from the RoPE maps (qr, kr): K's from kv
+// head hr, 0 where every head shares one RoPE key.  The panels land
+// where the concatenated operands' would, so the products are the same.
+template <int DK, int DV>
 struct Loader {
-  const CUtensorMap *q, *k, *v;
+  using L = Layout<DK, DV>;
+  const CUtensorMap *q, *k, *v, *qr, *kr;
   uint32_t base, bars;
-  int tile_first, h, hk, t0, b;
+  int tile_first, h, hk, hr, t0, b;
 
+  static __device__ __forceinline__ bool rope_panel(int c) {
+    return kSplitRope<DK, DV> && c == DK / kPanel - 1;
+  }
   __device__ __forceinline__ void load_q() const {
-    mbar_expect_tx(bars, Layout<D>::kQBytes);
+    mbar_expect_tx(bars, L::kQBytes);
 #pragma unroll
-    for (int c = 0; c < D / kPanel; ++c)
-      tma_load_4d(base + Layout<D>::kQ + c * kRows * 128, q, bars,
-                  c * kPanel, h, t0, b);
+    for (int c = 0; c < DK / kPanel; ++c)
+      tma_load_4d(base + L::kQ + c * kRows * 128, rope_panel(c) ? qr : q,
+                  bars, rope_panel(c) ? 0 : c * kPanel, h, t0, b);
   }
   template <bool kIsV>
   __device__ __forceinline__ void load(int j) const {
-    using L = Layout<D>;
+    constexpr int kBytes = kIsV ? L::kVBytes : L::kKBytes;
     const int s = j % kStages;
     const uint32_t full = kIsV ? bar_v(bars, s) : bar_k(bars, s);
     mbar_wait(kIsV ? bar_v_free(bars, s) : bar_k_free(bars, s),
               ((j / kStages) & 1) ^ 1);
-    mbar_expect_tx(full, L::kKVBytes);
-    const uint32_t dst = base + (kIsV ? L::kV : L::kK) + s * L::kKVBytes;
+    mbar_expect_tx(full, kBytes);
+    const uint32_t dst = base + (kIsV ? L::kV : L::kK) + s * kBytes;
     const int kv0 = (tile_first + j) * kKeys;
 #pragma unroll
-    for (int c = 0; c < D / kPanel; ++c)
-      tma_load_4d(dst + c * kKeys * 128, kIsV ? v : k, full, c * kPanel,
-                  hk, kv0, b);
+    for (int c = 0; c < (kIsV ? DV : DK) / kPanel; ++c) {
+      const bool rope = !kIsV && rope_panel(c);
+      tma_load_4d(dst + c * kKeys * 128, kIsV ? v : (rope ? kr : k), full,
+                  rope ? 0 : c * kPanel, rope ? hr : hk, kv0, b);
+    }
   }
 };
 
-template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads<D>, 1)
+template <typename T, int DK, int DV, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads<DV>, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using L = Layout<D>;
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_qr,
+                const __grid_constant__ CUtensorMap tm_kr, const Params p) {
+  using L = Layout<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int qpos_s[kRows];
   __shared__ int lo_s, hi_s;
@@ -831,8 +880,19 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bars = base + L::kBar;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
-  const int t0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // longest first
+  // longest first: the query tile counted from the last.  kHeadMajor:
+  // a (b, head)'s tiles are neighbours, the tile the fast index; else
+  // the tile is the slow one and a GQA group's heads are neighbours
+  int bh, t0;
+  if constexpr (kHeadMajor<DK, DV>) {
+    const int q_tiles = (p.T + kRows - 1) / kRows;
+    bh = blockIdx.x / q_tiles;
+    t0 = (q_tiles - 1 - (int)(blockIdx.x % q_tiles)) * kRows;
+  } else {
+    bh = blockIdx.x;
+    t0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  }
+  const int b = bh / p.Hq, h = bh % p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
   if (tid == 0) {
     mbar_init(bars, 1);
@@ -849,12 +909,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   key_range<kRows>(p, b, t0, qpos_s, &lo_s, &hi_s, &key_begin, &key_end);
   const int tile_first = (int)(key_begin / kKeys);
   const int n_tiles = (int)((key_end + kKeys - 1) / kKeys) - tile_first;
-  const Loader<D> ld{&tm_q, &tm_k, &tm_v, base, bars, tile_first, h, hk,
-                     t0, b};
+  const Loader<DK, DV> ld{&tm_q, &tm_k, &tm_v, &tm_qr, &tm_kr, base, bars,
+                          tile_first, h, hk, p.k_rope ? 0 : hk, t0, b};
 
-  if (kProducerWarpgroup<D> && tid >= kConsumers * 128) {
+  if (kProducerWarpgroup<DV> && tid >= kConsumers * 128) {
     // ---- producer warpgroup: one thread issues every copy ----
-    if constexpr (kProducerWarpgroup<D>)
+    if constexpr (kProducerWarpgroup<DV>)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == kConsumers * 128 && n_tiles > 0) {
       ld.load_q();
@@ -865,13 +925,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    if constexpr (kProducerWarpgroup<D>)
+    if constexpr (kProducerWarpgroup<DV>)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     // without a producer warpgroup thread 0 issues the copies: Q and the
     // first kStages tiles now, tile i + kStages - 1's K as tile i starts
     // (its stage freed by tile i - 1's q k^T), and tile i - 1 +
     // kStages's V once tile i - 1's p v is done
-    const bool producer = !kProducerWarpgroup<D> && tid == 0;
+    const bool producer = !kProducerWarpgroup<DV> && tid == 0;
     if (producer && n_tiles > 0) {
       ld.load_q();
       for (int j = 0; j < kStages && j < n_tiles; ++j) {
@@ -907,11 +967,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t q_desc = sw128_desc(base + L::kQ + wgi * 64 * 128, 16);
     const uint64_t k_desc = sw128_desc(base + L::kK, 16);
     const uint64_t v_desc = sw128_desc(base + L::kV, kKeys * 128);
-    constexpr uint32_t kStageStep = L::kKVBytes >> 4;   // in descriptor units
+    // stage steps in descriptor units
+    constexpr uint32_t kKStep = L::kKBytes >> 4, kVStep = L::kVBytes >> 4;
 
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     if (n_tiles > 0) {
       float sc[kKeys / 2];
       uint32_t pf[kKeys / 4];
@@ -920,7 +981,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(bars, 0);
       mbar_wait(bar_k(bars, 0), 0);
       wgmma_fence();
-      issue_qk<T, D>(sc, q_desc, k_desc);
+      issue_qk<T, DK>(sc, q_desc, k_desc);
       wgmma_wait<0>();
       fence_regs(sc);
       release(bar_k_free(bars, 0));
@@ -936,8 +997,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(acc);
         fence_regs(pf);
         wgmma_fence();
-        issue_qk<T, D>(sc, q_desc, k_desc + s * kStageStep);
-        issue_pv<T, D>(acc, pf, v_desc + sp * kStageStep);
+        issue_qk<T, DK>(sc, q_desc, k_desc + s * kKStep);
+        issue_pv<T, DV>(acc, pf, v_desc + sp * kVStep);
         wgmma_wait<1>();               // q k_i^T is done
         fence_regs(sc);
         release(bar_k_free(bars, s));
@@ -949,7 +1010,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (producer && i - 1 + kStages < n_tiles)
           ld.template load<true>(i - 1 + kStages);
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DV / 8; ++n) {
           acc[4 * n] *= c0;
           acc[4 * n + 1] *= c0;
           acc[4 * n + 2] *= c1;
@@ -963,7 +1024,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(acc);
       fence_regs(pf);
       wgmma_fence();
-      issue_pv<T, D>(acc, pf, v_desc + s * kStageStep);
+      issue_pv<T, DV>(acc, pf, v_desc + s * kVStep);
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(pf);
@@ -980,7 +1041,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float inv0 = r.l0 > 0.f ? 1.f / r.l0 : 0.f;
     const float inv1 = r.l1 > 0.f ? 1.f / r.l1 : 0.f;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const int col = n * 8 + r.tig * 2;
       if (r0 < p.T)
         *reinterpret_cast<uint32_t*>(ob + r0 * p.o_st + col) =
@@ -994,32 +1055,59 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 }  // namespace wg
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   constexpr CUtensorMapDataType type =
       std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const long long q_tiles = (p.T + wg::kRows - 1) / wg::kRows;
-  if (q_tiles > 65535 || (long long)p.B * p.Hq > INT_MAX)
+  const long long bh = (long long)p.B * p.Hq;
+  if (wg::kHeadMajor<DK, DV> ? q_tiles * bh > INT_MAX
+                             : q_tiles > 65535 || bh > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
-  CUtensorMap mq, mk, mv;
-  int e = make_map(&mq, p.q, type, D, p.Hq, p.T, p.B, p.q_sh, p.q_st,
-                       p.q_sb, wg::kRows);
+  // With kSplitRope the q and k maps span the first DK - 64 columns and
+  // the RoPE maps the last 64: of q_rope and k_rope where the caller
+  // passes them, else of q and k themselves, 64 columns in
+  constexpr int kNope = wg::kSplitRope<DK, DV> ? DK - wg::kPanel : DK;
+  CUtensorMap mq, mk, mv, mqr, mkr;
+  int e = make_map(&mq, p.q, type, kNope, p.Hq, p.T, p.B, p.q_sh, p.q_st,
+                   p.q_sb, wg::kRows);
   if (e == 0)
-    e = make_map(&mk, p.k, type, D, p.Hkv, p.S, p.B, p.k_sh, p.k_ss,
-                     p.k_sb, wg::kKeys);
+    e = make_map(&mk, p.k, type, kNope, p.Hkv, p.S, p.B, p.k_sh, p.k_ss,
+                 p.k_sb, wg::kKeys);
   if (e == 0)
-    e = make_map(&mv, p.v, type, D, p.Hkv, p.S, p.B, p.v_sh, p.v_ss,
-                     p.v_sb, wg::kKeys);
+    e = make_map(&mv, p.v, type, DV, p.Hkv, p.S, p.B, p.v_sh, p.v_ss,
+                 p.v_sb, wg::kKeys);
+  if (e == 0 && wg::kSplitRope<DK, DV>) {
+    if (p.q_rope != nullptr) {
+      e = make_map(&mqr, p.q_rope, type, wg::kPanel, p.Hq, p.T, p.B,
+                   p.qr_sh, p.qr_st, p.qr_sb, wg::kRows);
+      if (e == 0)
+        e = make_map(&mkr, p.k_rope, type, wg::kPanel, 1, p.S, p.B,
+                     p.kr_sh, p.kr_ss, p.kr_sb, wg::kKeys);
+    } else {
+      e = make_map(&mqr, (const T*)p.q + kNope, type, wg::kPanel, p.Hq,
+                   p.T, p.B, p.q_sh, p.q_st, p.q_sb, wg::kRows);
+      if (e == 0)
+        e = make_map(&mkr, (const T*)p.k + kNope, type, wg::kPanel, p.Hkv,
+                     p.S, p.B, p.k_sh, p.k_ss, p.k_sb, wg::kKeys);
+    }
+  } else {
+    mqr = mq;
+    mkr = mk;
+  }
   if (e != 0) return e;
-  const int smem = wg::Layout<D>::kBytes + 1024;   // + the base's alignment
-  auto kern = p.softcap != 0.f ? wg::fa_wgmma_kernel<T, D, true>
-                               : wg::fa_wgmma_kernel<T, D, false>;
+  // + the base's alignment
+  const int smem = wg::Layout<DK, DV>::kBytes + 1024;
+  auto kern = p.softcap != 0.f ? wg::fa_wgmma_kernel<T, DK, DV, true>
+                               : wg::fa_wgmma_kernel<T, DK, DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.B * p.Hq, (unsigned)q_tiles);
-  kern<<<grid, wg::kThreads<D>, smem, stream>>>(mq, mk, mv, p);
+  const dim3 grid = wg::kHeadMajor<DK, DV>
+                        ? dim3((unsigned)(q_tiles * bh))
+                        : dim3((unsigned)bh, (unsigned)q_tiles);
+  kern<<<grid, wg::kThreads<DV>, smem, stream>>>(mq, mk, mv, mqr, mkr, p);
   return (int)cudaGetLastError();
 }
 
@@ -1062,26 +1150,35 @@ int launch(int variant, int dtype, const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // variant: 0 ffma (float32), 1 mma_sync (16-bit, head dims wgmma does
-// not take), 2 wgmma (16-bit, Dh = Dv in {64, 128, 256}), as the caller
-// chose it from the types and head dims; any other pairing returns
-// cudaErrorInvalidValue and launches nothing.
+// not take), 2 wgmma (16-bit, Dh = Dv in {64, 128, 256}, or Dh 192 /
+// Dv 128), as the caller chose it from the types and head dims; any
+// other pairing returns cudaErrorInvalidValue and launches nothing.
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and o alike).
-// strides: 14 element strides, (batch, position, head) of q, k, v and
-// o, then (batch, position) of qpos (int32); every last dim is
-// unit-stride.  has_window = 0 means causal only.  ffma and mma_sync
-// compile the head width as the smallest of 64, 128, 256 that holds
-// max(Dh, Dv); wgmma takes Dh = Dv = 64, 128 or 256.  The caller checks
-// Dh, Dv <= 256, multiples of 8, Hq % Hkv == 0, 16-byte aligned rows
-// for 16-bit types, and grid limits.
+// q_rope, k_rope: null, or (wgmma at 192 / 128 alone) the RoPE columns
+// of q and k as operands of their own: q (B, T, Hq, 128) and q_rope
+// (B, T, Hq, 64), k (B, S, Hkv, 128) and k_rope (B, S, 1, 64), whose
+// one head every query head reads; Dh is then q's width, 128, and Dr
+// 64, and the logits are (q.k + q_rope.k_rope) * scale.  Dr is 0
+// without them.
+// strides: 20 element strides, (batch, position, head) of q, k, v and
+// o, then (batch, position) of qpos (int32), then (batch, position,
+// head) of q_rope and k_rope (ignored when they are null); every last
+// dim is unit-stride.  has_window = 0 means causal only.  ffma and
+// mma_sync compile the head width as the smallest of 64, 128, 256 that
+// holds max(Dh, Dv).  The caller checks Dh, Dv <= 256, multiples of 8,
+// Hq % Hkv == 0, 16-byte aligned rows for 16-bit types, and grid
+// limits.
 // lse: null, or (B, Hq, T) float32 contiguous for the rows' log-sum-exp.
 // Returns cudaGetLastError() after the launch, or a negative code when
 // a TMA tensor map could not be built (-1: no cuTensorMapEncodeTiled in
 // the driver; -1000 - r: it returned CUresult r).
 extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
+                             const void* q_rope, const void* k_rope,
                              const int* qpos, void* o, void* lse,
                              int variant,
                              int dtype, int B, int T, int S, int Hq, int Hkv,
-                             int Dh, int Dv, const long long* strides,
+                             int Dh, int Dv, int Dr,
+                             const long long* strides,
                              float scale, float softcap, int has_window,
                              long long window, void* stream) {
   if (B <= 0 || T <= 0 || Hq <= 0) return 0;
@@ -1089,20 +1186,31 @@ extern "C" int flash_attn_hd(const void* q, const void* k, const void* v,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], strides[12], strides[13],
-           scale, softcap, has_window, window};
+           scale, softcap, has_window, window, q_rope, k_rope,
+           strides[14], strides[15], strides[16], strides[17], strides[18],
+           strides[19]};
   cudaStream_t s = (cudaStream_t)stream;
+  const bool split = q_rope != nullptr;
+  if (split != (k_rope != nullptr) || split != (Dr != 0) ||
+      (split && variant != 2))
+    return (int)cudaErrorInvalidValue;
   const bool wgmma_dims = Dh == Dv && (Dh == 64 || Dh == 128 || Dh == 256);
-  if ((variant == 2) != (dtype != 0 && wgmma_dims))
+  const bool wgmma_mla = Dv == 128 && (split ? Dh == 128 && Dr == 64
+                                             : Dh == 192);
+  if ((variant == 2) != (dtype != 0 && ((wgmma_dims && !split) || wgmma_mla)))
     return (int)cudaErrorInvalidValue;
   if (variant == 2) {
+    if (wgmma_mla)
+      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 192, 128>(p, s)
+                        : launch_wgmma<__half, 192, 128>(p, s);
     if (Dh == 64)
-      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 64>(p, s)
-                        : launch_wgmma<__half, 64>(p, s);
+      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 64, 64>(p, s)
+                        : launch_wgmma<__half, 64, 64>(p, s);
     if (Dh == 128)
-      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 128>(p, s)
-                        : launch_wgmma<__half, 128>(p, s);
-    return dtype == 1 ? launch_wgmma<__nv_bfloat16, 256>(p, s)
-                      : launch_wgmma<__half, 256>(p, s);
+      return dtype == 1 ? launch_wgmma<__nv_bfloat16, 128, 128>(p, s)
+                        : launch_wgmma<__half, 128, 128>(p, s);
+    return dtype == 1 ? launch_wgmma<__nv_bfloat16, 256, 256>(p, s)
+                      : launch_wgmma<__half, 256, 256>(p, s);
   }
   const int width = Dh > Dv ? Dh : Dv;
   if (width <= 64) return launch<64>(variant, dtype, p, s);

@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .ref import join_rope
+
 NEG_INF = -1e30
 
 
@@ -201,14 +203,18 @@ class _BlockwiseAttention(torch.autograd.Function):
 
 def blockwise_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
                         scale: Optional[float] = None,
-                        block_q: int = 512, block_kv: int = 1024):
+                        block_q: int = 512, block_kv: int = 1024,
+                        q_rope=None, k_rope=None):
     """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T).
     ``window``: None (causal) or an int (sliding window).  Returns
-    (B,T,Hq,Dv) in q.dtype.
+    (B,T,Hq,Dv) in q.dtype.  ``q_rope`` and ``k_rope``, given together,
+    are joined to q and k first (``ref.join_rope``).
 
     Differentiable via the flash-style backward (``_BlockwiseAttention``):
     it recomputes each (bq x bk) probability block from the saved
     per-row log-sum-exp instead of letting autograd store every block."""
+    if q_rope is not None or k_rope is not None:
+        q, k = join_rope(q, k, q_rope, k_rope)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     w = window if window is not None else 1 << 30
     return _BlockwiseAttention.apply(q, k, v, qpos, w, float(softcap),

@@ -13,11 +13,20 @@ log-sum-exp (the serving path).
 The source holds three variants; :func:`flash_variant` picks one from
 the dtype and head dims alone, and the wrapper launches it or raises:
 
-* ``"wgmma"``: bf16 and fp16 with ``Dh == Dv`` in {64, 128, 256}, every
-  serving prefill (warp-specialised, TMA-fed wgmma);
-* ``"mma_sync"``: the other bf16 and fp16 head dims (``Dh != Dv``, or
-  neither 64, 128 nor 256);
+* ``"wgmma"``: bf16 and fp16 with ``Dh == Dv`` in {64, 128, 256}, or
+  ``Dh`` 192 / ``Dv`` 128 (MLA's naive form), every serving prefill
+  (warp-specialised, TMA-fed wgmma);
+* ``"mma_sync"``: the other bf16 and fp16 head dims (the other
+  ``Dh != Dv`` pairs, or neither 64, 128 nor 256);
 * ``"ffma"``: float32 (IEEE FFMA, no TF32).
+
+MLA's RoPE columns may come as operands of their own, ``q_rope`` (B, T,
+Hq, Dr) and ``k_rope`` (B, S, 1, Dr), one RoPE key a position shared by
+every head: the logits are ``(q.k + q_rope.k_rope) * scale``, what the
+concatenated operands give.  The ``wgmma`` kernel at 192 / 128 reads
+them in place (``q`` and ``k`` 128 wide, ``Dr`` 64); for any other
+split the wrapper concatenates them and launches the variant the
+joined head dims take.
 
 The backward has two, both for ``Dh == Dv`` in {64, 128}:
 :func:`bwd_variant` picks ``"wgmma"`` (warp-specialised, TMA-fed wgmma,
@@ -34,10 +43,16 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.counts import count_launch
 
+from .ref import join_rope
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 VARIANTS = ("ffma", "mma_sync", "wgmma")     # the source's variant codes
 BWD_VARIANTS = ("ffma", "wgmma")
 WGMMA_HEAD_DIMS = (64, 128, 256)
+# (Dh, Dv) of the wgmma instantiation for MLA, and the (q and k, RoPE)
+# widths in which it takes the RoPE columns as operands of their own
+WGMMA_MLA_DIMS = (192, 128)
+WGMMA_ROPE_SPLIT = (128, 64)
 BWD_HEAD_DIMS = (64, 128)
 WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1
@@ -48,7 +63,7 @@ def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     types and head dims."""
     if dtype == torch.float32:
         return "ffma"
-    if Dh == Dv and Dh in WGMMA_HEAD_DIMS:
+    if (Dh == Dv and Dh in WGMMA_HEAD_DIMS) or (Dh, Dv) == WGMMA_MLA_DIMS:
         return "wgmma"
     return "mma_sync"
 
@@ -64,7 +79,7 @@ def bwd_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
 
 
 # flash_attn_hd's C parameters, in order
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
 # flash_attn_bwd_hd's C parameters, in order
@@ -128,6 +143,30 @@ def _check(q, k, v, qpos):
     return B, T, S, Hq, Hkv, Dh, Dv
 
 
+def check_rope(q, k, q_rope, k_rope) -> int:
+    """Validates the RoPE operands against q and k; returns Dr, 0 when
+    neither is given."""
+    if q_rope is None and k_rope is None:
+        return 0
+    if q_rope is None or k_rope is None:
+        raise ValueError("q_rope and k_rope come together")
+    if q_rope.dtype != q.dtype or k_rope.dtype != q.dtype:
+        raise TypeError(f"q_rope and k_rope must be {q.dtype}, got "
+                        f"{q_rope.dtype}, {k_rope.dtype}")
+    if q_rope.device != q.device or k_rope.device != q.device:
+        raise ValueError(f"q_rope and k_rope must be on {q.device}, got "
+                         f"{q_rope.device}, {k_rope.device}")
+    Dr = q_rope.shape[-1] if q_rope.dim() == 4 else -1
+    want_q, want_k = (*q.shape[:3], Dr), (k.shape[0], k.shape[1], 1, Dr)
+    if q_rope.dim() != 4 or tuple(q_rope.shape) != want_q or \
+            tuple(k_rope.shape) != want_k or Dr <= 0:
+        raise ValueError(f"q_rope {tuple(q_rope.shape)} and k_rope "
+                         f"{tuple(k_rope.shape)} must be (B, T, Hq, Dr) "
+                         f"and (B, S, 1, Dr) beside q {tuple(q.shape)} and "
+                         f"k {tuple(k.shape)}")
+    return Dr
+
+
 def attention_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   out: Optional[torch.Tensor]) -> torch.Tensor:
     """The (B, T, Hq, Dv) output of attention on q, k and v: ``out``
@@ -147,11 +186,19 @@ def attention_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q, k, v, qpos, window, softcap, scale, with_lse: bool,
-             out=None):
+             out=None, q_rope=None, k_rope=None):
     """One launch of the forward kernel into ``out`` (default a new
-    tensor); returns (out, lse), lse None unless ``with_lse``."""
+    tensor); returns (out, lse), lse None unless ``with_lse``.  The RoPE
+    operands go to the kernel as they are where it takes them (wgmma at
+    192 / 128, split at 128 / 64), else joined to q and k."""
+    Dr = check_rope(q, k, q_rope, k_rope)
+    if Dr and not (flash_variant(q.dtype, q.shape[-1] + Dr, v.shape[-1])
+                   == "wgmma" and (q.shape[-1], Dr) == WGMMA_ROPE_SPLIT):
+        q, k = join_rope(q, k, q_rope, k_rope)
+        q_rope = k_rope = None
+        Dr = 0
     B, T, S, Hq, Hkv, Dh, Dv = _check(q, k, v, qpos)
-    variant = flash_variant(q.dtype, Dh, Dv)
+    variant = flash_variant(q.dtype, Dh + Dr, Dv)
     if variant == "wgmma" and -(-T // WGMMA_ROWS) > 65535:
         raise ValueError(f"flash_attention_cuda's wgmma variant takes T up "
                          f"to {65535 * WGMMA_ROWS}, got {T}")
@@ -162,18 +209,22 @@ def _forward(q, k, v, qpos, window, softcap, scale, with_lse: bool,
     if T == 0:
         return out, lse
     qpos = qpos.to(torch.int32)
-    strides = (ctypes.c_longlong * 14)(
+    rope = ((*_strides(q_rope, "q_rope", align),
+             *_strides(k_rope, "k_rope", align)) if Dr else (0,) * 6)
+    strides = (ctypes.c_longlong * 20)(
         *_strides(q, "q", align), *_strides(k, "k", align),
         *_strides(v, "v", align), *_strides(out, "out", align),
-        *qpos.stride())
-    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+        *qpos.stride(), *rope)
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh + Dr)
     window = None if window is None else int(window)
     with torch.cuda.device(q.device):
         err = _entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_rope.data_ptr() if Dr else None,
+            k_rope.data_ptr() if Dr else None, qpos.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             VARIANTS.index(variant), _DTYPES[q.dtype], B,
-            T, S, Hq, Hkv, Dh, Dv,
+            T, S, Hq, Hkv, Dh, Dv, Dr,
             ctypes.addressof(strides),
             float(scale), float(softcap or 0.0), int(window is not None),
             window or 0, torch.cuda.current_stream().cuda_stream)
@@ -219,9 +270,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, qpos: torch.Tensor, window: Optional[int] = None,
                          softcap: float = 0.0,
                          scale: Optional[float] = None,
-                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         out: Optional[torch.Tensor] = None,
+                         q_rope: Optional[torch.Tensor] = None,
+                         k_rope: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
     query positions, -1 for padding (kv position of slot s is s).
+    ``q_rope`` (B,T,Hq,Dr) and ``k_rope`` (B,S,1,Dr), given together,
+    are more columns of q and of every kv head's k (the logits are
+    ``(q.k + q_rope.k_rope) * scale``, ``scale`` by default
+    ``1/sqrt(Dh + Dr)``): the ``wgmma`` kernel reads them in place at
+    Dh 128, Dr 64, Dv 128; any other split is concatenated first.
     Returns the (B,T,Hq,Dv) result of q's dtype: written into ``out``
     (any strides with a unit-stride last dim, sharing no memory with q,
     k or v; the kernel writes through its strides) or a new tensor.
@@ -238,14 +297,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     enabled and q, k or v requiring it, the result has a ``grad_fn``
     (:class:`FlashAttentionFunction`; the backward takes Dh = Dv in
     {64, 128} and raises ValueError here for other head dims)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, q_rope, k_rope)):
         if out is not None:
             raise ValueError("flash_attention_cuda takes no out= with grad")
+        if check_rope(q, k, q_rope, k_rope):
+            q, k = join_rope(q, k, q_rope, k_rope)
         bwd_variant(q.dtype, q.shape[-1], v.shape[-1])
         return FlashAttentionFunction.apply(q, k, v, qpos, window, softcap,
                                             scale)
     return _forward(q, k, v, qpos, window, softcap, scale,
-                    with_lse=False, out=out)[0]
+                    with_lse=False, out=out, q_rope=q_rope,
+                    k_rope=k_rope)[0]
 
 
 def bwd_scratch(variant: str, B: int, T: int, S: int, Hq: int, Hkv: int,

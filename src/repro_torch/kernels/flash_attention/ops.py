@@ -24,7 +24,7 @@ import numbers
 from typing import Optional
 
 from . import jnp_impl, ref
-from .kernel import attention_out, flash_attention_cuda
+from .kernel import attention_out, check_rope, flash_attention_cuda
 
 _DENSE_MAX = 2048 * 2048      # T*S elements below which dense is fine
 
@@ -35,12 +35,19 @@ def _is_static_int(x) -> bool:
 
 def flash_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
                     scale: Optional[float] = None, impl: str = "auto",
-                    block_q: int = 512, block_kv: int = 1024, out=None):
+                    block_q: int = 512, block_kv: int = 1024, out=None,
+                    q_rope=None, k_rope=None):
     """Causal/windowed GQA attention.  q (B,T,Hq,Dh); k (B,S,Hkv,Dh);
     v (B,S,Hkv,Dv); qpos (B,T) absolute query positions (kv position of
     slot s is s).  Returns (B,T,Hq,Dv): ``out`` where given (the kernel
     writes it through its strides; a plain version copies its result
-    in), else a new tensor."""
+    in), else a new tensor.
+
+    ``q_rope`` (B,T,Hq,Dr) and ``k_rope`` (B,S,1,Dr), given together,
+    are more columns of q and of every kv head's k, the RoPE key shared
+    by the heads (MLA): the logits are ``(q.k + q_rope.k_rope) * scale``.
+    The kernel takes them as they are; every plain version computes on
+    the concatenation (``ref.join_rope``), as the reference does."""
     T = q.shape[1]
     S = k.shape[1]
     if impl == "auto":
@@ -57,7 +64,10 @@ def flash_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
             raise ValueError("impl='cuda' needs CUDA tensors; the plain "
                              "versions are 'dense', 'blockwise', 'banded'")
         return flash_attention_cuda(q, k, v, qpos=qpos, window=window,
-                                    softcap=softcap, scale=scale, out=out)
+                                    softcap=softcap, scale=scale, out=out,
+                                    q_rope=q_rope, k_rope=k_rope)
+    if check_rope(q, k, q_rope, k_rope):
+        q, k = ref.join_rope(q, k, q_rope, k_rope)
     if impl == "dense":
         o = ref.dense_attention(q, k, v, qpos=qpos, window=window,
                                 softcap=softcap, scale=scale)

@@ -25,10 +25,24 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, window) -> torch.Tensor:
     return m
 
 
+def join_rope(q, k, q_rope, k_rope):
+    """q and k with their RoPE columns appended, as MLA's naive form
+    concatenates them: q_rope (B, T, Hq, Dr) after q's, and k_rope (B, S,
+    1, Dr), one RoPE key a position, after every kv head's of k."""
+    B, S, Hkv = k.shape[:3]
+    return (torch.cat([q, q_rope], -1),
+            torch.cat([k, k_rope.expand(B, S, Hkv, k_rope.shape[-1])], -1))
+
+
 def dense_attention(q, k, v, *, qpos, window=None, softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, q_rope=None,
+                    k_rope=None) -> torch.Tensor:
     """q (B,T,Hq,Dh); k (B,S,Hkv,Dh); v (B,S,Hkv,Dv); qpos (B,T) absolute
-    query positions (kv positions are arange(S)).  Returns (B,T,Hq,Dv)."""
+    query positions (kv positions are arange(S)).  Returns (B,T,Hq,Dv).
+    ``q_rope`` and ``k_rope``, given together, are joined to q and k
+    first (:func:`join_rope`)."""
+    if q_rope is not None or k_rope is not None:
+        q, k = join_rope(q, k, q_rope, k_rope)
     B, T, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv

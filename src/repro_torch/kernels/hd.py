@@ -72,12 +72,13 @@ def make_flash_kernel(q: str = "Q", k: str = "K", v: str = "V",
     """Causal flash attention over a row band of queries.  The HDArrays
     are 2-D ``(T, heads*dim)`` folded views of one sequence (``K``
     ``(T, kv_heads*dim)``, ``V`` and ``O`` of ``out_dim`` a head, by
-    default ``dim``: ``dim != out_dim`` takes the kernel's mma_sync
-    variant); ``K``/``V`` are used with ALL_* (every device attends over
-    the full kv range) and the region's global row offset becomes the
-    absolute query positions, so causality holds across the row
-    partition.  The band's result goes straight into ``O``'s rows
-    through their pitch."""
+    default ``dim``; the kernel's variant is ``flash_variant``'s: wgmma
+    at ``dim == out_dim`` in {64, 128, 256} and at 192 / 128, mma_sync
+    at any other ``dim != out_dim``); ``K``/``V`` are used with ALL_*
+    (every device attends over the full kv range) and the region's
+    global row offset becomes the absolute query positions, so
+    causality holds across the row partition.  The band's result goes
+    straight into ``O``'s rows through their pitch."""
     from repro_torch.kernels.flash_attention import flash_attention
 
     kv_heads = kv_heads if kv_heads is not None else heads

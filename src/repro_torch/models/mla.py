@@ -12,10 +12,13 @@ reference chooses them (``mla.py:106-143``):
 
   * the naive form at ``T >= FLASH_MIN_T`` (train and long prefill):
     K and V of every head expanded from the latent with ``wk_b`` and
-    ``wv_b``, the shared RoPE key broadcast over the heads, then flash
-    attention with ``Dh = d_nope + d_rope`` and ``Dv = d_v`` (192 and
-    128 at full width: on the card the flash kernel's ``mma_sync``
-    variant, on the CPU its plain dispatch);
+    ``wv_b``, then flash attention with ``Dh = d_nope + d_rope`` and
+    ``Dv = d_v`` (192 and 128 at full width), the RoPE parts of q and
+    of the shared key passed as ``q_rope`` and ``k_rope`` (one head)
+    instead of concatenated: on the card the flash kernel's ``wgmma``
+    variant reads them in place (a reduced width's split is
+    concatenated by the wrapper), on the CPU its plain dispatch
+    concatenates them as the reference does;
   * the absorbed form at ``T < FLASH_MIN_T`` and every decode step:
     ``wk_b`` folded into q, scores against the latent and the RoPE key,
     a float32 softmax under the ``-1e30`` mask, attention over the
@@ -118,13 +121,13 @@ def mla_attention(p: Params, x: torch.Tensor, cfg, *,
         naive = T >= FLASH_MIN_T
     if naive:
         # naive form: K and V of every head from the latent, then flash
-        # attention at Dh = d_nope + d_rope, Dv = d_v
+        # attention at Dh = d_nope + d_rope, Dv = d_v, the RoPE parts
+        # passed beside q and K (the shared RoPE key as one head), not
+        # concatenated to them
         k_nope = (ckv_all @ wk_b).reshape(B, S, H, m.d_nope)
         v_full = (ckv_all @ wv_b).reshape(B, S, H, m.d_v)
-        k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
-            B, S, H, m.d_rope)], -1)
-        q_full = torch.cat([q_nope, q_rope], -1)
-        o = flash_attention(q_full, k_full, v_full,
+        o = flash_attention(q_nope, k_nope, v_full, q_rope=q_rope,
+                            k_rope=kr_all[:, :, None, :],
                             qpos=positions.expand(B, T).to(torch.int32),
                             window=None, scale=scale)
     else:

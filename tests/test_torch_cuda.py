@@ -596,8 +596,108 @@ def test_flash_cuda_counts_launches_by_variant(cuda):
                          (torch.bfloat16, 192, 128), (torch.float16, 96, 96)):
         q, k, v, qpos = _flash_inputs(cuda, dtype, Dh=D, Dv=Dv)
         flash_attention(q, k, v, qpos=qpos)
-    assert fn.by_variant == {"ffma": 1, "mma_sync": 2, "wgmma": 3}
+    assert fn.by_variant == {"ffma": 1, "mma_sync": 1, "wgmma": 4}
     assert fn.launches == 6
+
+
+# MLA's naive form at full width: Dh 192 (128 + the 64 RoPE columns),
+# Dv 128, here over GQA groups too
+_MLA = dict(Hq=8, Hkv=2, Dh=192, Dv=128)
+
+
+def _mla_split(q, k, dev, seed=17):
+    """q's and k's last 64 columns as the RoPE operands: q 128 wide and
+    q_rope, strided views of q; one RoPE key a position, k_rope (B, S, 1,
+    64), a strided view of a cache-like (B, S, 576) buffer; and the
+    concatenated k that the split launch must equal."""
+    B, S = k.shape[:2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = torch.randn((B, S, 576), generator=g, device=dev).to(k.dtype)
+    k_rope = cache[..., None, 512:]
+    k_cat = torch.cat([k[..., :128], k_rope.expand(*k.shape[:3], 64)], -1)
+    return q[..., :128], q[..., 128:], k[..., :128], k_rope, k_cat
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", [
+    dict(T=128, S=128), dict(T=200, S=330), dict(T=257, S=513, window=40),
+    dict(T=96, S=80, qpos="ragged"),
+    dict(T=150, S=330, qpos="ragged", window=9, softcap=5.0),
+    dict(T=130, S=200, strided_q=True)])
+def test_flash_wgmma_mla_matches_f64(cuda, dtype, case):
+    """The wgmma kernel at Dh 192 / Dv 128 with T and S off its 128-row
+    and 64-key tiles, ragged qpos with padding rows, windows, a softcap,
+    k and v strided views of one interleaved cache and, in one case, q
+    a strided view of a wider buffer; against float64 dense attention.
+    The same call with the RoPE columns as operands of their own gives
+    the same bits."""
+    case = dict(case)
+    window, softcap = case.pop("window", None), case.pop("softcap", 0.0)
+    strided = case.pop("strided_q", False)
+    q, k, v, qpos = _flash_inputs(cuda, dtype, B=2, **_MLA, **case)
+    if strided:
+        wide = torch.randn((2, q.shape[1], 8, 320), device=cuda).to(dtype)
+        q = wide[..., 64:256]                     # strides (.., 2560, 320, 1)
+    fn = flash_kernel.flash_attention_cuda
+    n0 = fn.by_variant["wgmma"]
+    got = flash_attention(q, k, v, qpos=qpos, window=window, softcap=softcap)
+    assert fn.by_variant["wgmma"] == n0 + 1
+    want = _dense64(q.double(), k.double(), v.double(), qpos, window,
+                    softcap)
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.double(), want, rtol=tol, atol=tol)
+    qn, qr, kn, kr, k_cat = _mla_split(q, k, cuda)
+    split = flash_attention(qn, kn, v, qpos=qpos, window=window,
+                            softcap=softcap, q_rope=qr, k_rope=kr)
+    assert fn.by_variant["wgmma"] == n0 + 2
+    assert torch.equal(split, flash_attention(
+        q, k_cat, v, qpos=qpos, window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_wgmma_mla_fully_masked_rows_are_zero(cuda, dtype):
+    """Padding rows across two blocks and rows whose window holds no key
+    write exactly 0 at Dh 192 / Dv 128, split or concatenated."""
+    q, k, v, _ = _flash_inputs(cuda, dtype, T=300, S=200, **_MLA)
+    qpos = torch.arange(300, dtype=torch.int32, device=cuda).repeat(2, 1)
+    qpos[0, 5:140] = -1                      # padding, across two blocks
+    qpos[1, 130:140] = 400                   # window 4: keys 397..400 > S
+    qn, qr, kn, kr, k_cat = _mla_split(q, k, cuda)
+    for out in (flash_kernel.flash_attention_cuda(q, k, v, qpos=qpos,
+                                                  window=4),
+                flash_kernel.flash_attention_cuda(
+                    qn, kn, v, qpos=qpos, window=4, q_rope=qr, k_rope=kr)):
+        assert torch.equal(out[0, 5:140], torch.zeros_like(out[0, 5:140]))
+        assert torch.equal(out[1, 130:140], torch.zeros_like(out[1, 130:140]))
+        assert bool(out[0, :5].abs().sum() > 0)
+        assert bool(out[1, 140:].abs().sum() > 0)
+
+
+def test_flash_rope_operands_on_card_route_and_checks(cuda):
+    """The RoPE operands reach the kernel as they are only at 128 + 64 /
+    128 in 16-bit types; another split (96 + 32 / 64, mma_sync) and
+    float32 (ffma) are concatenated first and give the concatenated
+    launch's bits.  A misaligned k_rope raises instead of launching."""
+    fn = flash_kernel.flash_attention_cuda
+    for dtype, Dn, Dr, Dv, variant in (
+            (torch.bfloat16, 96, 32, 64, "mma_sync"),
+            (torch.float32, 128, 64, 128, "ffma")):
+        q, k, v, qpos = _flash_inputs(cuda, dtype, Dh=Dn + Dr, Dv=Dv)
+        k_rope = k[:, :, :1, Dn:]
+        k_cat = torch.cat([k[..., :Dn], k_rope.expand(*k.shape[:3], Dr)],
+                          -1)
+        n0 = fn.by_variant[variant]
+        got = fn(q[..., :Dn], k[..., :Dn], v, qpos=qpos, q_rope=q[..., Dn:],
+                 k_rope=k_rope)
+        assert fn.by_variant[variant] == n0 + 1
+        assert torch.equal(got, fn(q, k_cat, v, qpos=qpos))
+    q, k, v, qpos = _flash_inputs(cuda, torch.bfloat16, **_MLA)
+    buf = torch.zeros((2, 130, 1, 72), dtype=torch.bfloat16, device=cuda)
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(q[..., :128], k[..., :128], v, qpos=qpos, q_rope=q[..., 128:],
+           k_rope=buf[..., 4:68])
+    assert fn.launches == n0
 
 
 _RAGGED = (1, 127, 129, 1000)

@@ -35,7 +35,7 @@ BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
     (BF16, 128, 128, "wgmma"), (F16, 128, 128, "wgmma"),
     (BF16, 64, 64, "wgmma"), (F16, 64, 64, "wgmma"),
     (BF16, 256, 256, "wgmma"), (F16, 256, 256, "wgmma"),
-    (BF16, 192, 128, "mma_sync"), (F16, 192, 128, "mma_sync"),
+    (BF16, 192, 128, "wgmma"), (F16, 192, 128, "wgmma"),
     (BF16, 128, 64, "mma_sync"), (BF16, 256, 128, "mma_sync"),
     (F16, 72, 40, "mma_sync"), (BF16, 96, 96, "mma_sync"),
     (F16, 96, 96, "mma_sync"), (BF16, 8, 8, "mma_sync"),
@@ -73,6 +73,23 @@ def test_wgmma_entry_takes_the_head_dims_flash_variant_sends_it():
     assert m, "no wgmma_dims check in flash_attn_hd.cu"
     dims = tuple(int(d) for d in re.findall(r"Dh == (\d+)", m.group(1)))
     assert dims == flash_kernel.WGMMA_HEAD_DIMS
+
+
+def test_wgmma_entry_takes_mla_dims_and_rope_split():
+    """The C entry sends the same (Dh, Dv) as WGMMA_MLA_DIMS to the
+    192 / 128 instantiation, and takes the RoPE operands at the split
+    WGMMA_ROPE_SPLIT names (q and k 128 wide, Dr 64), where the wrapper
+    passes them: a pair the entry refused would fail every MLA prefill
+    on the card."""
+    text = (CSRC / "flash_attn_hd.cu").read_text()
+    m = re.search(r"const bool wgmma_mla = Dv == (\d+) && \(split \? "
+                  r"Dh == (\d+) && Dr == (\d+)\s*: Dh == (\d+)\);", text)
+    assert m, "no wgmma_mla check in flash_attn_hd.cu"
+    dv, dn, dr, dh = (int(x) for x in m.groups())
+    assert (dh, dv) == flash_kernel.WGMMA_MLA_DIMS
+    assert (dn, dr) == flash_kernel.WGMMA_ROPE_SPLIT and dn + dr == dh
+    assert f"launch_wgmma<__nv_bfloat16, {dh}, {dv}>" in text
+    assert flash_kernel.flash_variant(BF16, dh, dv) == "wgmma"
 
 
 @pytest.mark.parametrize("in_dtype, out_dtype, want", [

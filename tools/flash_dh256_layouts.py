@@ -79,7 +79,7 @@ def variant_source(text: str, warpgroup: bool, keys: int, stages: int) -> str:
                      f"exactly once")
         text = text.replace(old, new)
     if warpgroup:
-        sub("constexpr bool kProducerWarpgroup = D != 256;",
+        sub("constexpr bool kProducerWarpgroup = DV != 256;",
             "constexpr bool kProducerWarpgroup = true;")
     sub("constexpr int kKeys = 64;", f"constexpr int kKeys = {keys};")
     sub("constexpr int kStages = 2;", f"constexpr int kStages = {stages};")
