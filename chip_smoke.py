@@ -86,14 +86,30 @@
    on the card as the reference's system test runs it: setup
    ("deepseek-7b", reduced), 40 steps, checkpoints every 10, a fault
    at step 20: a recovery, finite losses, the mean of the last 5 below
-   that of the first 5.
+   that of the first 5.  Then the two Dh-256 families' backward
+   kernels and training: the flash backward at Dh 256 at gemma2's
+   training shape (q (1, 4096, 16, 256), k, v (1, 4096, 8, 256),
+   softcap 50, causal and with a window of 1000 that binds) and at
+   recurrentgemma's (10 over 1 head, window 2048) against the plain
+   blockwise backward, two launches bit-identical, timed beside its
+   bound and compiled flex_attention's backward, with the ptxas lines
+   of its Dh-256 kernels; the RG-LRU scan's backward at (1, 4096, 2560)
+   and (4, 2048, 2560) bf16, from a state and without, against float64
+   autograd and its plain reverse loop, two launches bit-identical,
+   timed beside its byte bound; then gemma2-9b at full width with 8 of
+   its 42 layers (4 local, 4 global) and recurrentgemma-2b at full
+   width and depth, each alone, with the yi-9b traffic for 4 steps
+   after the gradient gate against the plain versions (blockwise
+   attention, the plain scan): per microbatch flash 2 and its backward
+   1 per attention layer, the scan's `chunked` 2 and its backward 1 per
+   recurrent layer.
    Every kernel launch counter, the total and each variant's, is set to
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
    counting at each replay.  Every GEMM-path launch must be the
    ``pipelined`` variant, every yi-9b, qwen3 and gemma2 prefill launch
    the ``wgmma`` one (gemma2's at Dh 256), and every training backward
-   the ``wgmma`` one.
+   the ``wgmma`` one (gemma2's and recurrentgemma's at Dh 256).
 6. Serves the other two ported families last, each at full width and
    full depth in bfloat16 alone on the card, through load_engine and
    the Engine with the yi-9b traffic above (admits of 2048, 1536, 1024
@@ -344,7 +360,13 @@ BWD_SHAPES = (  # B, T, S, Hq, Hkv, D, window, softcap, qpos
     (1, 257, 300, 8, 8, 128, None, 8.0, "tail"),
     (2, 200, 200, 16, 2, 128, 40, 5.0, "tail"),
     (2, 96, 80, 4, 2, 128, 5, 0.0, "ragged"),
-    (1, 130, 130, 8, 1, 64, None, 0.0, "ragged"))
+    (1, 130, 130, 8, 1, 64, None, 0.0, "ragged"),
+    # Dh 256: gemma2's 16/8 heads with softcap 50 and window 40,
+    # recurrentgemma's 10/1 with a window, ragged rows with padding and
+    # fully masked rows
+    (2, 100, 130, 16, 8, 256, 40, 50.0, "tail"),
+    (1, 200, 200, 10, 1, 256, 64, 0.0, "tail"),
+    (2, 96, 80, 4, 2, 256, 5, 0.0, "ragged"))
 
 # (h) training: yi-9b at full width, depth cut to 8 of 48 layers (float32
 # masters, grads and two fp32 moments take 16 bytes a parameter: 1.91 B
@@ -359,6 +381,30 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 6
 TRAIN_GRAD_TOL = 5e-2
 # the training driver's fault path, as the reference's system test
 FAULT_ARCH, FAULT_STEPS, FAULT_EVERY, FAULT_AT = "deepseek-7b", 40, 10, 20
+# (h) the Dh-256 families trained with the yi-9b traffic (TRAIN_SEQ,
+# TRAIN_BATCH, TRAIN_MICRO), FAMILY_TRAIN_STEPS steps each, alone on the
+# card: gemma2-9b at full width, depth cut to 8 of 42 layers (4 local
+# and 4 global, alternating as published: 3.420 B parameters, 54.7 GB
+# at 16 bytes a parameter; all 42 would need 162.5 GB), recurrentgemma-2b
+# at full width and depth (26 layers, 18 RG-LRU and 8 local attention:
+# 3.314 B parameters, 53.0 GB)
+GEMMA2_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 8, 4
+# recurrentgemma-2b's gradient gate at full depth: two plain paths that
+# differ only in the blockwise attention's block sizes (512 x 1024 and
+# 256 x 256) part by 5.15e-2 at the worst leaf (3.9e-2 at the median),
+# and each bf16 path lies 8.55e-2 from the float32 model at its worst
+# leaf (NVIDIA H100 80GB HBM3, 700 W; tools/rg_grad_spread.py): at 26
+# layers TRAIN_GRAD_TOL's 5e-2 sits under the model's own bf16 spread
+# (gemma2's 8 layers part by 2.1e-2).  So the gate measures that spread
+# in the run (the plain path again with 256 x 256 blocks) and holds the
+# kernels' distance from the plain path to RG_TRAIN_GRAD_TOL and to
+# twice the spread; a wrong window, gate or softcap term parts by O(1)
+RG_TRAIN_GRAD_TOL = 1e-1
+# the scan's backward at the training microbatch and at the pool's
+# prefill shape, from a state and without
+SCAN_BWD_SHAPES = ((1, 4096, 2560), (4, 2048, 2560))
+# channels of that phase whose lam (-25) makes a = 1 in float32
+CLAMPED = 4
 
 
 def fail(msg: str) -> None:
@@ -1134,12 +1180,12 @@ def mla_flash_check(torch, compare, qpos, oracle):
     return r
 
 
-def flex_softcap(torch, k, v, qpos, window: int, softcap: float):
+def flex_call(torch, qpos, S: int, window: int, softcap: float):
     """One PyTorch call for causal GQA attention at ``qpos`` with a
-    ``window`` and a tanh ``softcap``: compiled flex_attention, whose
-    score_mod caps the scaled logits and whose block mask is the
-    window, on head-major copies of k and v.  Returns it as a function
-    of a head-major q (B, Hq, T, Dh), output (B, Hq, T, Dv)."""
+    ``window`` and, where ``softcap``, a tanh softcap: compiled
+    flex_attention, whose block mask is the window and whose score_mod
+    caps the scaled logits.  Returns it as a function of head-major q,
+    k and v ((B, H, T|S, D)); differentiable."""
     import torch._inductor.config as inductor_config
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -1155,12 +1201,21 @@ def flex_softcap(torch, k, v, qpos, window: int, softcap: float):
         return softcap * torch.tanh(s / softcap)
 
     B, T = qp.shape
-    mask = create_block_mask(mask_mod, B, None, T, k.shape[1],
-                             device=k.device)
-    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    kw = dict(block_mask=create_block_mask(mask_mod, B, None, T, S,
+                                           device=qpos.device),
+              enable_gqa=True)
+    if softcap:
+        kw["score_mod"] = score_mod
     fn = torch.compile(flex_attention, dynamic=False)
-    return lambda qt: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
-                         enable_gqa=True)
+    return lambda qt, kt, vt: fn(qt, kt, vt, **kw)
+
+
+def flex_softcap(torch, k, v, qpos, window: int, softcap: float):
+    """:func:`flex_call` with k and v bound as head-major copies: a
+    function of a head-major q (B, Hq, T, Dh), output (B, Hq, T, Dv)."""
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+    fn = flex_call(torch, qpos, k.shape[1], window, softcap)
+    return lambda qt: fn(qt, kt, vt)
 
 
 def dense64(torch, q, k, v, qpos, window=None, softcap=0.0):
@@ -1388,6 +1443,137 @@ def flash_bwd_phase(torch):
     return bwd
 
 
+def flash_bwd_256_phase(torch, ptxas):
+    """The flash backward at Dh 256 at the two training shapes, one
+    microbatch of 4096 tokens: gemma2's (16 query heads over 8, softcap
+    50, causal as its global layers, and with a window of 1000 that
+    binds) and recurrentgemma's (10 over 1, window 2048, which binds):
+    against the plain blockwise backward within BWD_MAIN_TOL, two
+    launches bit-identical, each timed beside its operations bound, the
+    plain backward and compiled flex_attention's backward (the softcap
+    as score_mod, the window as block mask).  Prints the ptxas lines of
+    every Dh-256 backward kernel (``ptxas``: flash_attn_bwd_hd's
+    (kernel, report) pairs).  Returns the gemma2 shape's entry, the
+    recurrentgemma shape's under "recurrentgemma_shape"."""
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.models.lm import BIG_WINDOW
+
+    reports = [(k, r) for k, r in ptxas
+               if re.search(r"(\(int\)|[<, ])256[,>]", k)]
+    for kernel, report in reports:
+        print(f"flash bwd Dh 256 ptxas: {kernel}: {report}")
+    check(len(reports) == 14, f"{len(reports)} Dh-256 backward kernels in "
+          f"the build log, want 14 (12 wgmma, 2 ffma)")
+    check(fk.bwd_variant(torch.bfloat16, 256, 256) == "wgmma",
+          "the Dh-256 backward does not take wgmma in bf16")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(28)
+    T = TRAIN_SEQ
+    qpos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    g2, rg = get_config(GEMMA2_ARCH), get_config(RG_ARCH)
+    out = {}
+    for label, cfg, windows, cap in (
+            (GEMMA2_ARCH, g2, (BIG_WINDOW, 1000), g2.attn_softcap),
+            (RG_ARCH, rg, (rg.window,), 0.0)):
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        check(D == 256, f"{label}'s head dim is {D}, not 256")
+        q, k, v, do = (torch.randn(sh, generator=g, device=dev).bfloat16()
+                       for sh in ((1, T, Hq, D), (1, T, Hkv, D),
+                                  (1, T, Hkv, D), (1, T, Hq, D)))
+        rels, err = [], 0.0
+        for w in windows:
+            o, lse = fk._forward(q, k, v, qpos, w, cap, None, with_lse=True)
+
+            def kernel(o=o, lse=lse, w=w):
+                return fk.flash_attention_bwd_cuda(do, q, k, v, o, lse,
+                                                   qpos=qpos, window=w,
+                                                   softcap=cap)
+            n0 = fk.flash_attention_bwd_cuda.by_variant["wgmma"]
+            got, again = kernel(), kernel()
+            plain = [x.clone().requires_grad_() for x in (q, k, v)]
+            out_p = blockwise_attention(*plain, qpos=qpos, window=w,
+                                        softcap=cap)
+            want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
+            torch.cuda.synchronize()
+            check(fk.flash_attention_bwd_cuda.by_variant["wgmma"] == n0 + 2,
+                  "the Dh-256 backward did not launch wgmma")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"two Dh-256 backward launches differ at {label}'s shape "
+                  f"window {w}")
+            r = [fro_rel(torch, x, y) for x, y in zip(got, want)]
+            e = max(float((x.float() - y.float()).abs().max())
+                    for x, y in zip(got, want))
+            print(f"flash bwd Dh 256 {label} q {tuple(q.shape)} k,v "
+                  f"{tuple(k.shape)} window {w} softcap {cap:g}: fro_rel "
+                  f"dq,dk,dv vs plain blockwise = "
+                  + ", ".join(f"{x:.3e}" for x in r)
+                  + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={e:.3e}, two "
+                  f"launches bit-identical")
+            check(max(r) <= BWD_MAIN_TOL, f"the Dh-256 backward at {label}'s "
+                  f"shape window {w}: {r} against the plain backward")
+            if w == windows[0]:      # the training path's window: timed
+                rels, err = r, e
+                timed = (kernel, plain, out_p, w)
+        kernel, plain, out_p, w = timed
+        # the library's one call: compiled flex_attention's backward
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        o_f = flex_call(torch, qpos, T, w, cap)(qt, kt, vt)
+        do_t = do.transpose(1, 2).contiguous()
+        lib = torch.autograd.grad(o_f, (qt, kt, vt), do_t, retain_graph=True)
+        got = kernel()
+        lib_err = max(fro_rel(torch, a.transpose(1, 2), b)
+                      for a, b in zip(lib, got))
+        print(f"flash bwd Dh 256 vs flex_attention's backward at {label}'s "
+              f"shape: fro_rel {lib_err:.3e}")
+        check(lib_err <= 2 * BWD_MAIN_TOL, "flex_attention's backward "
+              f"computes another function than the kernel at {label}'s")
+        hi = torch.clamp(qpos.long() + 1, 0, T)
+        lo = torch.clamp(qpos.long() + 1 - w, 0, T)
+        pairs = int((hi - lo).sum())
+        flops = pairs * Hq * 10 * D
+        nbytes = 2 * (4 * T * Hq * D + 4 * T * Hkv * D) + 4 * Hq * T
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        entry = dict(
+            name="flash_attn_bwd_hd", variant="wgmma", head_dim=D,
+            route="cuda", source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
+            replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
+            max_abs_err=err, fro_rel_dq_dk_dv=rels,
+            ms=cuda_ms(torch, kernel, 10),
+            plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                out_p, plain, do, retain_graph=True), 3),
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                o_f, (qt, kt, vt), do_t, retain_graph=True), 10),
+            wgmma_split_ms={k: round(x, 4)
+                            for k, x in bwd_split(torch, kernel).items()},
+            shape=[list(q.shape), list(k.shape)], window=w, softcap=cap,
+            visible_pairs=pairs)
+        print(f"flash bwd Dh 256 at {label}'s training shape: {flops:.4e} "
+              f"flops (10 D a pair and head), {nbytes:.4e} bytes; bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), wgmma "
+              f"{entry['ms']:.4f} ms ({flops / entry['ms'] / 1e9:.1f} TFLOP/s,"
+              f" {100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound), "
+              f"plain {entry['plain_ms']:.4f} ms, flex_attention backward "
+              f"{entry['library_ms']:.4f} ms; per launch (torch.profiler, ms) "
+              + ", ".join(f"{k} {x:.4f}"
+                          for k, x in entry["wgmma_split_ms"].items()))
+        out[label] = entry
+        del q, k, v, do, o, lse, got, again, plain, out_p, want, lib, o_f
+        del qt, kt, vt, do_t, timed, kernel
+        torch.cuda.empty_cache()
+    entry = out[GEMMA2_ARCH]
+    entry["recurrentgemma_shape"] = out[RG_ARCH]
+    entry["ptxas"] = dict(reports)
+    return entry
+
+
 def scan_f64(torch, x, ga, gi, lam, h0):
     """The RG-LRU recurrence of ``rglru_scan_ref`` in float64."""
     x, ga, gi, lam = (t.double() for t in (x, ga, gi, lam))
@@ -1522,6 +1708,115 @@ def scan_phase(torch):
           f"{'not measured' if dev is None else f'{dev:.4f} ms'} of device "
           f"time (torch.profiler, {seen} of 50 launches seen in window {win})")
     del cases, x, ga, gi, h0, x1, ga1, gi1, h01
+    torch.cuda.empty_cache()
+    return entry
+
+
+def scan_bwd_close(torch, got, want, top: float) -> float:
+    """The largest |got - want| over ``top``, checked against SCAN_TOL
+    of ``top`` plus, for a bf16 gradient, one bf16 ulp of the element
+    (2**-7 relative: the kernel writes dx, dgate_a and dgate_i in the
+    inputs' type, and two float32 values a hair apart can round to
+    neighbouring bf16 values)."""
+    err = (got.double() - want.double()).abs()
+    slack = want.double().abs() * 2.0 ** -7 if got.dtype == torch.bfloat16 \
+        else 0.0
+    check(bool((err <= SCAN_TOL * top + slack).all()), "the scan's backward "
+          f"off by {float(err.max())} of a largest {top}")
+    return float(err.max()) / top
+
+
+def scan_bwd_phase(torch):
+    """The RG-LRU scan's backward kernel against float64 autograd
+    through the scan and against the plain backward, at SCAN_BWD_SHAPES
+    in bf16 (lam spread over decays from a = 1, where the clamp binds,
+    to the init's a near 0), from a state and without: each gradient
+    within SCAN_TOL of its largest magnitude (bf16 ones also one bf16
+    ulp of their own); two launches bit-identical, dlam included;
+    then timed at the training microbatch's shape beside its byte bound
+    and the plain backward.  Returns its entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan.kernel import (
+        rglru_scan_bwd_cuda, rglru_scan_cuda)
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
+
+    W = get_config(RG_ARCH).rg.lru_width
+    g = torch.Generator(device="cuda").manual_seed(28)
+    lam = torch.rand((W,), generator=g, device="cuda") * 10 - 6
+    lam[:CLAMPED] = -25.0                      # a = 1: the clamp binds
+    errs, timed = {}, None
+    for B, T, W_ in SCAN_BWD_SHAPES:
+        check(W_ == W, f"SCAN_BWD_SHAPES' width {W_} is not {RG_ARCH}'s {W}")
+        for with_h0 in (True, False):
+            x, ga, gi = (torch.randn((B, T, W), generator=g, device="cuda")
+                         .bfloat16() for _ in range(3))
+            h0 = torch.randn((B, W), generator=g, device="cuda") \
+                if with_h0 else None
+            dh = torch.randn((B, T, W), generator=g, device="cuda")
+            h = rglru_scan_cuda(x, ga, gi, lam, h0)
+            n0 = rglru_scan_bwd_cuda.launches
+            got = rglru_scan_bwd_cuda(dh, x, ga, gi, lam, h0, h)
+            again = rglru_scan_bwd_cuda(dh, x, ga, gi, lam, h0, h)
+            torch.cuda.synchronize()
+            check(rglru_scan_bwd_cuda.launches == n0 + 2, "a call of the "
+                  "scan's backward did not add one launch")
+            check(all(a is b or torch.equal(a, b)
+                      for a, b in zip(got, again)),
+                  "two launches of the scan's backward differ")
+            plain = rglru_scan_bwd_ref(dh, x, ga, gi, lam, h0, h)
+            leaves = [t.double().requires_grad_()
+                      for t in (x, ga, gi, lam) + ((h0,) if with_h0 else ())]
+            out = scan_f64(torch, *leaves[:4],
+                           leaves[4] if with_h0 else None)
+            want = torch.autograd.grad(out, leaves, dh.double())
+            del out
+            row = []
+            for name, a, p, w in zip(("dx", "dgate_a", "dgate_i", "dlam",
+                                      "dh0"), got, plain, want):
+                top = float(w.abs().max())
+                # where a = 1 in float32 the clamp binds (mult 1e-6), in
+                # float64 it does not (mult 1.5e-5): those channels are
+                # held to the plain backward, which binds it too
+                e64 = scan_bwd_close(torch, a[..., CLAMPED:],
+                                     w[..., CLAMPED:], top)
+                ep = scan_bwd_close(torch, a, p, top)
+                errs[name] = max(errs.get(name, 0.0),
+                                 float((a.float() - p.float()).abs().max()))
+                row.append(f"{name} {e64:.2e}/{ep:.2e}")
+            print(f"rglru_scan bwd {(B, T, W)} bf16"
+                  f"{' from h0' if with_h0 else ''}: max|err| / max|grad| "
+                  f"against float64 / the plain backward: " + ", ".join(row)
+                  + f" (bound {SCAN_TOL:g}, bf16 gradients + one ulp);"
+                  f" two launches bit-identical")
+            if (B, T) == SCAN_BWD_SHAPES[0][:2] and not with_h0:
+                timed = (dh, x, ga, gi, h)
+            del x, ga, gi, h0, dh, h, got, again, plain, leaves, want
+            torch.cuda.empty_cache()
+    dh, x, ga, gi, h = timed
+    B, T, _ = x.shape
+    # x, gate_a, gate_i read in bf16, h and g in float32; dx, dgate_a and
+    # dgate_i written in bf16: 20 bytes an element
+    nbytes = B * T * W * 20
+
+    def kernel():
+        return rglru_scan_bwd_cuda(dh, x, ga, gi, lam, None, h)
+    entry = dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/models/rglru.py:73",
+        max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+        ms=cuda_ms(torch, kernel, 20),
+        plain_ms=cuda_ms(torch, lambda: rglru_scan_bwd_ref(
+            dh, x, ga, gi, lam, None, h), 2),
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+        library_ms=None, shape=[B, T, W])
+    entry["gb_per_s"] = nbytes / entry["ms"] / 1e6
+    print(f"rglru_scan bwd at {entry['shape']} bf16: {entry['ms']:.4f} ms "
+          f"({entry['gb_per_s']:.1f} GB/s, "
+          f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound), "
+          f"bound {entry['bound_ms']:.4f} ms (bytes: 20 B an element), "
+          f"plain backward {entry['plain_ms']:.4f} ms")
+    del timed, dh, x, ga, gi, h
     torch.cuda.empty_cache()
     return entry
 
@@ -1762,13 +2057,16 @@ def _wrappers():
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
+                                                      rglru_scan_cuda)
     from repro_torch.kernels.slstm_scan.kernel import slstm_scan_cuda
     from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
     return {"jacobi_hd": jacobi_cuda, "gemm_hd": gemm_cuda,
             "flash_attn_hd": flash_attention_cuda,
             "flash_attn_bwd_hd": flash_attention_bwd_cuda,
-            "rglru_scan": rglru_scan_cuda, "slstm_scan": slstm_scan_cuda}
+            "rglru_scan": rglru_scan_cuda,
+            "rglru_scan_bwd": rglru_scan_bwd_cuda,
+            "slstm_scan": slstm_scan_cuda}
 
 
 def reset_launches():
@@ -2808,97 +3106,156 @@ def hd_flash_phase(torch):
     return launches, variants, by_shape
 
 
-def train_phase(torch):
-    """(h) yi-9b at full width and 8 layers, trained on the card: the
-    gradient gate, then TRAIN_STEPS steps through make_train_step.
-    Returns its launches and launches by variant."""
+def named_leaves(tree, prefix: str = ""):
+    """(path, tensor) of every leaf of a parameter tree, in order."""
+    if isinstance(tree, dict):
+        for k, t in tree.items():
+            yield from named_leaves(t, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from named_leaves(t, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def train_phase(torch, arch: str, n_layers, steps: int,
+                tol: float = TRAIN_GRAD_TOL, spread: bool = False):
+    """(h) ``arch`` trained on the card at full width, its depth cut to
+    ``n_layers`` where given, with the traffic TRAIN_SEQ, TRAIN_BATCH,
+    TRAIN_MICRO: a gate on one microbatch's gradients, kernels against
+    the plain versions (blockwise attention, the plain scan loop) on the
+    same float32 masters, each leaf finite, non-zero and within ``tol``
+    (with ``spread``, also within twice the plain path's own spread:
+    its distance from the plain path run with 256 x 256 attention
+    blocks); then ``steps`` steps through
+    make_train_step.  Checks every launch: per microbatch flash's
+    forward 2 and its backward 1 per attention layer (the checkpointed
+    layer's recompute included), the scan's forward 2 (``chunked``) and
+    its backward 1 per recurrent layer.  Returns its launches, launches
+    by variant and step stats."""
     import dataclasses
     import functools
 
     import repro_torch.models.layers as LY
+    import repro_torch.models.rglru as RG
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import build
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
     from repro_torch.train.step import (TrainConfig, make_loss_fn,
                                         make_train_step, value_and_grad)
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    cfg = get_config(arch)
+    full = cfg.n_layers
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     L = cfg.n_layers
+    if cfg.family == "hybrid":
+        n_att = L // (cfg.rg.pattern + 1)
+        n_rec = L - n_att
+    else:
+        n_att, n_rec = L, 0
     t0 = time.perf_counter()
     bundle = build(cfg, torch.bfloat16, "cuda")
     params = bundle.init(0, dtype=torch.float32)
     n_params = sum(p.numel() for p in tree_leaves(params))
     torch.cuda.synchronize()
     print(f"(h) {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/"
-          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}, {L} of 48 layers: {n_params / 1e9:.3f} B float32 "
-          f"parameters ({4 * n_params / 1e9:.2f} GB), init "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
+          f"{L} of {full} layers ({n_att} attention, {n_rec} RG-LRU): "
+          f"{n_params / 1e9:.3f} B float32 parameters "
+          f"({4 * n_params / 1e9:.2f} GB; {16 * n_params / 1e9:.1f} GB with "
+          f"gradients and two moments), init {time.perf_counter() - t0:.1f} s")
     pipe = TokenPipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
 
     def batch_at(i):
         return {k: torch.from_numpy(v).to("cuda")
                 for k, v in pipe.batch_at(i).items()}
 
-    # -- the gate: one microbatch, kernels against the plain attention --
+    def per_microbatch(k: int):
+        return {"flash_attn_hd": 2 * n_att * k, "flash_attn_bwd_hd": n_att * k,
+                "rglru_scan": 2 * n_rec * k, "rglru_scan_bwd": n_rec * k}
+
+    # -- the gate: one microbatch, kernels against the plain versions --
     grad_fn = value_and_grad(make_loss_fn(bundle, TrainConfig()))
     mb = {k: v[0::TRAIN_MICRO] for k, v in batch_at(0).items()}
     reset_launches()
+    t0 = time.perf_counter()
     loss_k, _, g_k = grad_fn(params, mb)
     torch.cuda.synchronize()
-    got = read_launches()
-    check(got["flash_attn_hd"] == 2 * L and got["flash_attn_bwd_hd"] == L,
-          f"(h) one microbatch launched {got}")
-    real = LY.flash_attention
-    LY.flash_attention = functools.partial(ops.flash_attention,
-                                           impl="blockwise")
-    try:
-        loss_p, _, g_p = grad_fn(params, mb)
-    finally:
-        LY.flash_attention = real
+    t_kernel = time.perf_counter() - t0
+    got, variants = read_launches(), read_variants()
+    want = per_microbatch(1)
+    check({k: got[k] for k in want} == want
+          and variants["flash_attn_bwd_hd"]["wgmma"] == want[
+              "flash_attn_bwd_hd"]
+          and variants["rglru_scan"]["chunked"] == want["rglru_scan"],
+          f"(h) {cfg.name}: one microbatch launched {got} {variants}, want "
+          f"{want}")
+
+    def plain_grads(**blocks):
+        real_flash, real_scan = LY.flash_attention, RG.rglru_scan
+        LY.flash_attention = functools.partial(ops.flash_attention,
+                                               impl="blockwise", **blocks)
+        RG.rglru_scan = rglru_scan_ref
+        try:
+            return grad_fn(params, mb)
+        finally:
+            LY.flash_attention, RG.rglru_scan = real_flash, real_scan
+
+    def worst_leaf(ga, gb):
+        return max((fro_rel(torch, a, b), name) for (name, a), (_, b) in
+                   zip(named_leaves(ga), named_leaves(gb)))
+
+    t0 = time.perf_counter()
+    loss_p, _, g_p = plain_grads()
     torch.cuda.synchronize()
-    check(read_launches() == got, "(h) the plain attention launched a "
-          "flash kernel")
-    worst, worst_leaf = 0.0, None
-    names = [f"emb/{n}" for n in params["emb"]] + [
-        f"layer {i}/{n}" for i, layer in enumerate(params["main"])
-        for d in layer.values() for n in d]
-    leaves_k = (list(g_k["emb"].values())
-                + [t for layer in g_k["main"] for d in layer.values()
-                   for t in d.values()])
-    leaves_p = (list(g_p["emb"].values())
-                + [t for layer in g_p["main"] for d in layer.values()
-                   for t in d.values()])
-    for name, a, b in zip(names, leaves_k, leaves_p):
+    t_plain = time.perf_counter() - t0
+    check(read_launches() == got, f"(h) {cfg.name}: the plain versions "
+          f"launched a kernel")
+    n = 0
+    for name, a in named_leaves(g_k):
         check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
-              f"(h) gradient of {name} is not finite or is zero")
-        e = fro_rel(torch, a, b)
-        if e > worst:
-            worst, worst_leaf = e, name
-    print(f"(h) one microbatch (1 x {TRAIN_SEQ}): loss kernels "
-          f"{float(loss_k):.6f}, plain {float(loss_p):.6f}; {len(names)} "
-          f"leaves finite and non-zero; worst fro_rel of a leaf's gradient "
-          f"{worst:.3e} ({worst_leaf}), bound {TRAIN_GRAD_TOL:g}")
-    check(worst <= TRAIN_GRAD_TOL, f"(h) kernel gradients differ from the "
-          f"plain attention's: {worst} at {worst_leaf}")
-    del g_k, g_p, leaves_k, leaves_p
+              f"(h) {cfg.name}: the gradient of {name} is not finite or "
+              f"is zero")
+        n += 1
+    worst, leaf = worst_leaf(g_k, g_p)
+    print(f"(h) {cfg.name} one microbatch (1 x {TRAIN_SEQ}): loss kernels "
+          f"{float(loss_k):.6f}, plain {float(loss_p):.6f}; {n} leaves "
+          f"finite and non-zero; worst fro_rel of a leaf's gradient "
+          f"{worst:.3e} ({leaf}), bound {tol:g}; kernels "
+          f"{t_kernel:.2f} s, plain versions {t_plain:.2f} s (host clock)")
+    check(worst <= tol, f"(h) {cfg.name}: kernel gradients differ from the "
+          f"plain versions': {worst} at {leaf}")
+    del g_k
+    if spread:
+        _, _, g_s = plain_grads(block_q=256, block_kv=256)
+        floor, floor_leaf = worst_leaf(g_s, g_p)
+        print(f"(h) {cfg.name} the plain path's own spread (256 x 256 "
+              f"attention blocks against 512 x 1024): worst fro_rel "
+              f"{floor:.3e} ({floor_leaf}); the kernels' {worst:.3e} is "
+              f"{worst / floor:.2f} of it, bound 2")
+        check(worst <= 2 * floor, f"(h) {cfg.name}: kernel gradients part "
+              f"from the plain path by more than twice its own spread")
+        del g_s
+    del g_p
     torch.cuda.empty_cache()
 
-    # -- TRAIN_STEPS steps ------------------------------------------------
+    # -- the steps ---------------------------------------------------------
     ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=1000,
                              moment_dtype="fp32")     # as launch.train.setup
     step_fn = make_train_step(bundle, ocfg,
                               TrainConfig(microbatches=TRAIN_MICRO))
     state = adamw.init_opt_state(ocfg, params)
-    batches = [batch_at(i) for i in range(TRAIN_STEPS + 1)]
+    batches = [batch_at(i) for i in range(steps + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses, ms = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         params, state, m = step_fn(params, state, batches[i])
         torch.cuda.synchronize()
@@ -2907,34 +3264,30 @@ def train_phase(torch):
     launches, variants = read_launches(), read_variants()
     peak = torch.cuda.max_memory_allocated()
     steady = sum(ms[1:]) / len(ms[1:])
-    print(f"(h) {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
-          f"{TRAIN_MICRO} microbatches: losses "
+    print(f"(h) {cfg.name} {steps} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_MICRO} microbatches: losses "
           f"{[round(x, 4) for x in losses]}; ms per step "
           f"{[round(x, 3) for x in ms]} (host clock after synchronize), "
-          f"steps 2-{TRAIN_STEPS} mean {steady:.3f} ms, "
+          f"steps 2-{steps} mean {steady:.3f} ms, "
           f"{TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:.1f} tokens/s; "
           f"max_memory_allocated {peak / 1e9:.3f} GB; launches {launches}, "
-          f"flash by variant {variants['flash_attn_hd']}, backward "
-          f"{variants['flash_attn_bwd_hd']}")
-    check(all(np.isfinite(losses)), f"(h) a loss is not finite: {losses}")
-    want_fwd = 2 * L * TRAIN_MICRO * TRAIN_STEPS
-    want_bwd = L * TRAIN_MICRO * TRAIN_STEPS
-    check(launches["flash_attn_hd"] == want_fwd
-          and variants["flash_attn_hd"]["wgmma"] == want_fwd,
-          f"(h) flash forward launched {launches['flash_attn_hd']}, want "
-          f"{want_fwd} wgmma (forward and checkpoint recompute)")
-    check(launches["flash_attn_bwd_hd"] == want_bwd
-          and variants["flash_attn_bwd_hd"]["wgmma"] == want_bwd,
-          f"(h) flash backward launched {launches['flash_attn_bwd_hd']}, "
-          f"want {want_bwd} wgmma")
-    check(launches["jacobi_hd"] == launches["gemm_hd"] == 0,
-          "(h) training launched a Jacobi or GEMM kernel")
-    check(int(state.step) == TRAIN_STEPS, "(h) the optimizer step count")
-    device_breakdown(torch, f"(h) train step {TRAIN_STEPS + 1}",
-                     lambda: step_fn(params, state, batches[TRAIN_STEPS]),
-                     top=8)
+          f"by variant {variants}")
+    check(all(np.isfinite(losses)), f"(h) {cfg.name}: a loss is not finite: "
+          f"{losses}")
+    want = per_microbatch(TRAIN_MICRO * steps)
+    check({k: launches[k] for k in want} == want
+          and variants["flash_attn_hd"]["wgmma"] == want["flash_attn_hd"]
+          and variants["flash_attn_bwd_hd"]["wgmma"]
+          == want["flash_attn_bwd_hd"]
+          and variants["rglru_scan"]["chunked"] == want["rglru_scan"],
+          f"(h) {cfg.name}: launched {launches} {variants}, want {want}")
+    check(sum(launches.values()) == sum(want.values()),
+          f"(h) {cfg.name}: training launched another kernel: {launches}")
+    check(int(state.step) == steps, "(h) the optimizer step count")
+    device_breakdown(torch, f"(h) {cfg.name} train step {steps + 1}",
+                     lambda: step_fn(params, state, batches[steps]), top=8)
     stats = dict(ms=ms, losses=losses, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
-                 / steady * 1e3, peak_gb=peak / 1e9)
+                 / steady * 1e3, peak_gb=peak / 1e9, gate_worst=worst)
     del bundle, params, state, batches, step_fn
     torch.cuda.empty_cache()
     return launches, variants, stats
@@ -3038,8 +3391,21 @@ def main() -> None:
     del init, want
     torch.cuda.empty_cache()
     # training last, so that every earlier phase runs as it did before
-    train_launches, train_variants, _ = train_phase(torch)
+    train_launches, train_variants, _ = train_phase(
+        torch, TRAIN_ARCH, TRAIN_LAYERS, TRAIN_STEPS)
     fault_launches = train_fault_phase(torch)
+    # the Dh-256 families' training after it, so that every earlier phase
+    # runs as it did before: the two backward kernels at their training
+    # shapes, then gemma2-9b (8 layers) and recurrentgemma-2b (full
+    # depth), each alone on the card
+    torch.cuda.empty_cache()
+    flash_bwd_256 = flash_bwd_256_phase(torch, ptxas["flash_attn_bwd_hd"])
+    scan_bwd = scan_bwd_phase(torch)
+    g2t_launches, g2t_variants, _ = train_phase(
+        torch, GEMMA2_ARCH, GEMMA2_TRAIN_LAYERS, FAMILY_TRAIN_STEPS)
+    rgt_launches, rgt_variants, _ = train_phase(
+        torch, RG_ARCH, None, FAMILY_TRAIN_STEPS, tol=RG_TRAIN_GRAD_TOL,
+        spread=True)
     # the other families' serving last, so that every earlier phase runs
     # as it did before; each alone on the card (qwen3's weights are 61 GB)
     torch.cuda.empty_cache()
@@ -3140,6 +3506,10 @@ def main() -> None:
                                  "(h) train": train_launches["flash_attn_hd"],
                                  "(h) fault path":
                                      fault_launches["flash_attn_hd"],
+                                 "(h) gemma2 train":
+                                     g2t_launches["flash_attn_hd"],
+                                 "(h) recurrentgemma train":
+                                     rgt_launches["flash_attn_hd"],
                                  "gemma2 engine": g2_launches["flash_attn_hd"],
                                  "qwen3 engine": q3_launches["flash_attn_hd"],
                                  "recurrentgemma engine":
@@ -3154,6 +3524,7 @@ def main() -> None:
     flash["launches"] = sum(flash["launches_by_path"].values())
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
+        + g2t_variants["flash_attn_hd"][k] + rgt_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         + rg_variants["flash_attn_hd"][k] + xl_variants["flash_attn_hd"][k]
         + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
@@ -3169,25 +3540,54 @@ def main() -> None:
         "hd flash kernel": hd_by_shape[HD_FLASH_SHAPES[1]]}
     mla["launches"] = sum(mla["launches_by_path"].values())
     mla["mla_layer_naive_vs_absorbed"] = mla_layer
-    # every Dh-256 launch: gemma2's and recurrentgemma's prefills
-    flash_256["launches"] = (g2_variants["flash_attn_hd"]["wgmma"]
-                             + rg_variants["flash_attn_hd"]["wgmma"])
+    # every Dh-256 launch: gemma2's and recurrentgemma's prefills and
+    # their training
+    flash_256["launches_by_path"] = {
+        "gemma2 engine": g2_variants["flash_attn_hd"]["wgmma"],
+        "recurrentgemma engine": rg_variants["flash_attn_hd"]["wgmma"],
+        "(h) gemma2 train": g2t_variants["flash_attn_hd"]["wgmma"],
+        "(h) recurrentgemma train": rgt_variants["flash_attn_hd"]["wgmma"]}
+    flash_256["launches"] = sum(flash_256["launches_by_path"].values())
     flash["wgmma_dh256_gemma2"] = flash_256
     flash_bwd["launches_by_path"] = {
         "(h) train": train_launches["flash_attn_bwd_hd"],
-        "(h) fault path": fault_launches["flash_attn_bwd_hd"]}
+        "(h) fault path": fault_launches["flash_attn_bwd_hd"],
+        "(h) gemma2 train": g2t_launches["flash_attn_bwd_hd"],
+        "(h) recurrentgemma train": rgt_launches["flash_attn_bwd_hd"]}
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
-    flash_bwd["launches_by_variant"] = train_variants["flash_attn_bwd_hd"]
+    flash_bwd["launches_by_variant"] = {
+        k: n + g2t_variants["flash_attn_bwd_hd"][k]
+        + rgt_variants["flash_attn_bwd_hd"][k]
+        for k, n in train_variants["flash_attn_bwd_hd"].items()}
+    # the Dh-256 backward: the two training paths' launches (every
+    # backward there is Dh 256)
+    flash_bwd_256["launches_by_path"] = {
+        "(h) gemma2 train": g2t_launches["flash_attn_bwd_hd"],
+        "(h) recurrentgemma train": rgt_launches["flash_attn_bwd_hd"]}
+    flash_bwd_256["launches"] = sum(
+        flash_bwd_256["launches_by_path"].values())
     scan["launches_by_path"] = {"recurrentgemma engine":
-                                rg_launches["rglru_scan"]}
-    scan["launches"] = rg_launches["rglru_scan"]
-    scan["launches_by_variant"] = rg_variants["rglru_scan"]
+                                rg_launches["rglru_scan"],
+                                "(h) recurrentgemma train":
+                                rgt_launches["rglru_scan"]}
+    scan["launches"] = sum(scan["launches_by_path"].values())
+    scan["launches_by_variant"] = {
+        k: n + rgt_variants["rglru_scan"][k]
+        for k, n in rg_variants["rglru_scan"].items()}
     scan["ptxas"] = dict(ptxas["rglru_scan"])
+    scan_bwd["launches_by_path"] = {"(h) recurrentgemma train":
+                                    rgt_launches["rglru_scan_bwd"]}
+    scan_bwd["launches"] = rgt_launches["rglru_scan_bwd"]
+    # the scan's entry names its backward's launches too (the same source;
+    # its ptxas lines above hold both)
+    scan["backward_launches_by_path"] = scan_bwd["launches_by_path"]
+    scan_bwd["ptxas"] = {k: r for k, r in ptxas["rglru_scan"]
+                         if "bwd" in k or "dlam" in k}
     slstm["launches_by_path"] = {"xlstm engine": xl_launches["slstm_scan"]}
     slstm["launches"] = xl_launches["slstm_scan"]
     slstm["launches_by_variant"] = xl_variants["slstm_scan"]
-    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd, scan,
-                                  slstm]}))
+    print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd,
+                                  flash_bwd_256, scan, scan_bwd, slstm]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

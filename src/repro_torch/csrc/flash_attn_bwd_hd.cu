@@ -28,8 +28,8 @@
 // kernel.py: bwd_variant).  Neither uses atomics: every sum has one
 // fixed order, so each is bit-deterministic across launches.
 //
-// * wgmma (bf16 and fp16, D = 64 or 128: every training launch).  Five
-//   launches.  (a) A pre-pass, a block per (64-row query tile, query
+// * wgmma (bf16 and fp16, D = 64, 128 or 256: every training launch).
+//   Five launches.  (a) A pre-pass, a block per (64-row query tile, query
 //   head, batch): delta = sum dO * o per row and lse * log2(e) (1e30
 //   for a row that sees no key, so that its p underflows to 0), both
 //   float32, per tile; and, from the head-0 blocks, each row's visible
@@ -40,7 +40,7 @@
 //   run first, and the G heads of a GQA group neighbours in the grid,
 //   so their K and V come from L2: at the training shape 1024 blocks
 //   of 33,792 tile steps in all, the longest 64 of them, a quarter of
-//   one SM's even share.  Three warpgroups;
+//   one SM's even share.  At D 64 and 128 three warpgroups;
 //   the last is the producer (setmaxnreg 24 / 240): one thread loads K
 //   (and V) once with TMA, then streams (Q, dO) tiles of 64 rows
 //   through a 2-stage ring on mbarriers (rows past T arrive as zeros),
@@ -67,15 +67,26 @@
 //   store.  So (b)-(d) do 16 D flops per visible pair and query head
 //   (S three times, dP twice) against the bound's 10 D: the price of
 //   a deterministic sum without atomics within the register budget.
+//   At D 256 (gemma2, recurrentgemma) the same five launches change
+//   their geometry.  An accumulator is 128 registers a thread, and
+//   ptxas holds a block of 384 threads to 168 (the forward's Dh-256
+//   consumers spilled and serialised every wgmma under setmaxnreg), so
+//   a block is the two consumer warpgroups alone (up to 255 registers)
+//   and their thread 0 issues the copies between its own products.  K
+//   and V of 128 keys take 128 KB, so the streamed tiles are 32 rows
+//   (dK, dV: each 64-row pre-pass tile in two parts) or 32 keys (dQ):
+//   two stages of 64 KB, S^T and dP^T m64n32 (16 registers each), and
+//   dK, dV or dQ += m64n256k16 twice a part.  About 194 KB of shared
+//   memory a block.
 // * ffma (float32): FlashAttention-2's split into three launches, as
 //   plain FFMA loops, not TF32: (a) delta, one warp per (b, t, h) row;
-//   (b) dK, dV, a block per (64-key block, kv head, batch) that loops
+//   (b) dK, dV, a block per (64 keys, 32 at D 256; kv head, batch) that loops
 //   over the G query heads of its group and the query tiles whose qpos
 //   range can see the block; (c) dQ, a block per (16 query rows, query
 //   head, batch) over the key tiles its rows can see, longest first.
 // wgmma rounds p and dz to the operand type for its products, as
 // FlashAttention-2 does (the reference keeps them float32; the tests
-// state the tolerance).  Head dims: D = Dh = Dv in {64, 128}.
+// state the tolerance).  Head dims: D = Dh = Dv in {64, 128, 256}.
 // Times against the bound are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -223,11 +234,17 @@ __device__ __forceinline__ void key_range(const Params& p, int lo, int hi,
 }
 
 // ---- float32: FFMA ---------------------------------------------------------
-// (b): 64 keys a block, query tiles of 16.  Thread t owns key row t % 64
-// and the column half t / 64 of its dk and dv rows.
+// (b): BK keys a block (64, or 32 at D = 256, so that a thread's dk and
+// dv columns stay 2 x 64 registers), query tiles of 16.  Thread t owns
+// key row t % BK and the columns (t / BK) * COLS .. + COLS of its dk and
+// dv rows.
+template <int D>
+constexpr int kF32Keys = D == 256 ? 32 : 64;
+
 template <int D>
 __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
-  constexpr int BK = 64, BQ = 16, LDK = D + 1, LDP = BQ + 1, HALF = D / 2;
+  constexpr int BK = kF32Keys<D>, BQ = 16, LDK = D + 1, LDP = BQ + 1;
+  constexpr int COLS = D / (kThreads / BK);
   extern __shared__ float smf[];
   float* Ks = smf;                         // [BK][LDK]
   float* Vs = Ks + BK * LDK;               // [BK][LDK]
@@ -251,11 +268,11 @@ __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
     Ks[r * LDK + c] = in ? kb[(kv0 + r) * p.k_ss + c] : 0.f;
     Vs[r * LDK + c] = in ? vb[(kv0 + r) * p.v_ss + c] : 0.f;
   }
-  const int r = tid % BK, c0 = (tid / BK) * HALF;
+  const int r = tid % BK, c0 = (tid / BK) * COLS;
   const long long key = kv0 + r;
-  float dk[HALF], dv[HALF];
+  float dk[COLS], dv[COLS];
 #pragma unroll
-  for (int j = 0; j < HALF; ++j) dk[j] = dv[j] = 0.f;
+  for (int j = 0; j < COLS; ++j) dk[j] = dv[j] = 0.f;
 
   for (int t0 = 0; t0 < p.T; t0 += BQ) {
     int lo, hi;
@@ -280,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
         delta_s[tid] = in ? p.delta[lse_index(p, b, h, t)] : 0.f;
       }
       __syncthreads();
-      // p^T and dz^T at (r, q) for q = tid / 64 + 2 i
+      // p^T and dz^T at (r, q) for q = tid / BK + (kThreads / BK) i
       for (int qc = tid / BK; qc < BQ; qc += kThreads / BK) {
         float s = 0.f, dp = 0.f;
         for (int c = 0; c < D; ++c) {
@@ -298,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
       for (int qc = 0; qc < BQ; ++qc) {
         const float pe = Ps[r * LDP + qc], dz = dZs[r * LDP + qc];
 #pragma unroll
-        for (int j = 0; j < HALF; ++j) {
+        for (int j = 0; j < COLS; ++j) {
           dv[j] = fmaf(pe, dOs[qc * LDK + c0 + j], dv[j]);
           dk[j] = fmaf(dz, Qs[qc * LDK + c0 + j], dk[j]);
         }
@@ -308,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
   if (key < p.S) {
     const long long off = (((long long)b * p.S + key) * p.Hkv + hk) * D + c0;
 #pragma unroll
-    for (int j = 0; j < HALF; ++j) {
+    for (int j = 0; j < COLS; ++j) {
       ((float*)p.dk)[off + j] = dk[j];
       ((float*)p.dv)[off + j] = dv[j];
     }
@@ -402,16 +419,34 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
 // ---- the wgmma variant -----------------------------------------------------
 namespace wg {
 
-// the dQ kernel: two consumer warpgroups of 64 rows, the producer last
+// the dK, dV and dQ kernels: two consumer warpgroups of 64 keys (dK, dV)
+// or 64 query rows (dQ), and at D 64 and 128 a producer warpgroup last
 constexpr int kConsumers = 2;
-constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kTile = 64;        // query rows of a Q/dO tile, keys of a K/V one
-constexpr int kBlock = 64 * kConsumers;   // query rows of a dQ block
+constexpr int kTile = 64;        // rows of the pre-pass's query tiles
+constexpr int kBlock = 64 * kConsumers;   // keys (dK, dV) or rows (dQ) a block
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNoKey = 1e30f;  // lse * log2(e) of a row that sees no key
-constexpr int kStatBytes = 2 * kTile * 4;      // a tile's lse2 and delta
-constexpr int kRowBytes = kTile * 8;           // a tile's row bounds
+// At D 64 and 128 a third warpgroup is the producer and setmaxnreg gives
+// its registers to the consumers (24 / 240).  At D 256 a consumer's
+// accumulator alone takes 128 registers a thread, and ptxas compiles a
+// block of 384 threads within 168 (the forward's consumers spilled and
+// serialised every wgmma there, PERF.md), so the block is the two
+// consumer warpgroups alone, up to 255 registers a thread, and their
+// thread 0 issues the copies between its own products.
+template <int D>
+constexpr bool kProducerWarpgroup = D != 256;
+template <int D>
+constexpr int kThreadsAt = 128 * (kProducerWarpgroup<D> ? kConsumers + 1
+                                                        : kConsumers);
+// Rows of a streamed (Q, dO) tile in the dK and dV kernels, and keys of
+// a streamed (K, V) tile in the dQ kernel: 64, or 32 at D 256, where K
+// and V of a block (128 KB) beside two stages of 64 rows (128 KB) would
+// pass the 227 KB of shared memory a block may have; 32 also keeps the
+// scores S^T and dP^T (m64n32) at 16 registers each beside the 128 of
+// the accumulator.  A streamed tile at D 256 is half of a pre-pass tile.
+template <int D>
+constexpr int kSub = D == 256 ? 32 : kTile;
 
 // Row t sees exactly the keys in (lo, hi]: hi = min(qpos, S - 1), or -1
 // for a padding row or one past T; lo = qpos - window with a window,
@@ -491,41 +526,41 @@ __global__ void __launch_bounds__(256) prep_kernel(const Params p) {
 }
 
 // Issues d = A B^T over D, A the warpgroup's 64 rows of an operand of
-// ROWS rows at `a`, B the kTile rows at `bt`, both K-major, and commits
-// it as one wgmma group.  The descriptors are rebuilt from their base in
+// ROWS rows at `a`, B the N rows at `bt`, both K-major, and commits it
+// as one wgmma group.  The descriptors are rebuilt from their base in
 // every call, so the compiler keeps two registers for them, not sixteen.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void issue_abt(float (&d)[kTile / 2], uint64_t a,
+template <typename T, int D, int ROWS, int N>
+__device__ __forceinline__ void issue_abt(float (&d)[N / 2], uint64_t a,
                                           uint64_t bt) {
   asm volatile("" : "+l"(a), "+l"(bt));
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_ss<T>(d, a + (((kk / 4) * ROWS * 128 + (kk % 4) * 32) >> 4),
-                bt + (((kk / 4) * kTile * 128 + (kk % 4) * 32) >> 4), kk > 0);
+                bt + (((kk / 4) * N * 128 + (kk % 4) * 32) >> 4), kk > 0);
   wgmma_commit();
 }
 
-// Issues acc += F Z and commits it: F (64 x kTile) in registers, columns
-// 16 kk .. 16 kk + 15 in f[4 kk .. 4 kk + 3]; Z the kTile x D tile at
-// `z`, read MN-major (its panels kTile * 128 bytes apart).
-template <typename T, int D>
+// Issues acc += F Z and commits it: F (64 x K) in registers, columns
+// 16 kk .. 16 kk + 15 in f[4 kk .. 4 kk + 3]; Z the K x D tile at `z`,
+// read MN-major (its panels K * 128 bytes apart).
+template <typename T, int D, int K>
 __device__ __forceinline__ void issue_fz(float (&acc)[D / 2],
-                                         const uint32_t (&f)[kTile / 4],
+                                         const uint32_t (&f)[K / 4],
                                          uint64_t z) {
   asm volatile("" : "+l"(z));
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
+  for (int kk = 0; kk < K / 16; ++kk)
     wgmma_rs<T>(acc, &f[4 * kk], z + ((kk * 16 * 128) >> 4));
   wgmma_commit();
 }
 
-// the accumulator (64 x kTile, f32) rounded to T, packed as the A
+// the accumulator (64 x N, f32) rounded to T, packed as the A
 // fragments of issue_fz
-template <typename T>
-__device__ __forceinline__ void pack(uint32_t (&f)[kTile / 4],
-                                     const float (&d)[kTile / 2]) {
+template <typename T, int N>
+__device__ __forceinline__ void pack(uint32_t (&f)[N / 4],
+                                     const float (&d)[N / 2]) {
 #pragma unroll
-  for (int j = 0; j < kTile / 4; ++j) f[j] = Ops<T>::pack(d[2 * j], d[2 * j + 1]);
+  for (int j = 0; j < N / 4; ++j) f[j] = Ops<T>::pack(d[2 * j], d[2 * j + 1]);
 }
 
 // Turns the score accumulator s (q.k) into p and, with kGrad, dp
@@ -555,10 +590,16 @@ __device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2,
   }
 }
 
+// Dynamic shared memory from a 1024-byte aligned base: K and V of the
+// block's keys, then kStages stages of a streamed Q tile, of its dO
+// tile, of its rows' lse * log2(e) and delta, and of its row bounds
 template <int D>
 struct KVLayout {
+  static constexpr int kRows = kSub<D>;                 // rows a stage
   static constexpr int kKVBytes = kBlock * D * 2;       // K or V
-  static constexpr int kTileBytes = kTile * D * 2;      // a Q or dO stage
+  static constexpr int kTileBytes = kRows * D * 2;      // a Q or dO stage
+  static constexpr int kStatBytes = 2 * kRows * 4;      // lse2, then delta
+  static constexpr int kRowBytes = kRows * 8;           // (lo, hi) a row
   static constexpr int kK = 0;
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;               // + stage * kTileBytes
@@ -594,13 +635,17 @@ __device__ __forceinline__ void init_bars(uint32_t bars) {
 // beside S^T and dP^T would pass the 168 registers ptxas gives a block
 // of 384 threads, and it then serialises the wgmmas and spills; two
 // kernels, each with one accumulator, pay for it with S^T computed twice.
+// The block streams part j (kSub rows) of every 64-row query tile i
+// whose rows see one of its keys, in order, a stage each.
 template <typename T, int D, bool kSoftcap, bool kDK>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreadsAt<D>, 1)
 dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = KVLayout<D>;
+  constexpr int kR = L::kRows;
+  constexpr int kParts = kTile / kR;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
@@ -611,49 +656,86 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kv0 = blockIdx.y * kBlock;   // the first keys see the most rows
   const int kv_last = kv0 + kBlock - 1;
   const int4* tiles = tile_ranges(p, b);
+  const float* stats =
+      p.delta + (long long)(b * p.Hq + h) * p.n_tiles * 2 * kTile;
+  const int* rows = p.rows + (long long)b * p.n_tiles * kTile * 2;
   init_bars(bars);
 
-  if (tid >= kConsumers * 128) {
-    // ---- producer warpgroup: one thread issues every copy ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == kConsumers * 128) {
-      mbar_expect_tx(bars, (kDK ? 2 : 1) * L::kKVBytes);
+  auto load_kv = [&]() {
+    mbar_expect_tx(bars, (kDK ? 2 : 1) * L::kKVBytes);
 #pragma unroll
-      for (int c = 0; c < D / kTmaPanel; ++c) {
-        tma_load_4d(base + L::kK + c * kBlock * 128, &tm_k, bars,
+    for (int c = 0; c < D / kTmaPanel; ++c) {
+      tma_load_4d(base + L::kK + c * kBlock * 128, &tm_k, bars,
+                  c * kTmaPanel, hk, kv0, b);
+      if (kDK)
+        tma_load_4d(base + L::kV + c * kBlock * 128, &tm_v, bars,
                     c * kTmaPanel, hk, kv0, b);
-        if (kDK)
-          tma_load_4d(base + L::kV + c * kBlock * 128, &tm_v, bars,
-                      c * kTmaPanel, hk, kv0, b);
-      }
-      const float* stats =
-          p.delta + (long long)(b * p.Hq + h) * p.n_tiles * 2 * kTile;
-      const int* rows = p.rows + (long long)b * p.n_tiles * kTile * 2;
-      int n = 0;
-      for (int i = 0; i < p.n_tiles; ++i) {
-        if (!tile_sees(__ldg(tiles + i), kv0, kv_last)) continue;
+    }
+  };
+  // part j of query tile i into stage s
+  auto load_part = [&](int i, int j, int s) {
+    const uint32_t full = bar_full(bars, s);
+    mbar_expect_tx(full, 2 * L::kTileBytes + L::kStatBytes + L::kRowBytes);
+    const int row0 = i * kTile + j * kR;
+#pragma unroll
+    for (int c = 0; c < D / kTmaPanel; ++c) {
+      tma_load_4d(base + L::kQ + s * L::kTileBytes + c * kR * 128, &tm_q,
+                  full, c * kTmaPanel, h, row0, b);
+      tma_load_4d(base + L::kO + s * L::kTileBytes + c * kR * 128, &tm_do,
+                  full, c * kTmaPanel, h, row0, b);
+    }
+    // the part's lse2, then its delta: one copy when the part is the
+    // whole tile, else two
+    const float* st = stats + i * 2 * kTile + j * kR;
+    const uint32_t st_s = base + L::kStat + s * L::kStatBytes;
+    if constexpr (kParts == 1) {
+      bulk_load(st_s, st, L::kStatBytes, full);
+    } else {
+      bulk_load(st_s, st, kR * 4, full);
+      bulk_load(st_s + kR * 4, st + kTile, kR * 4, full);
+    }
+    bulk_load(base + L::kRow + s * L::kRowBytes, rows + row0 * 2, kR * 8,
+              full);
+  };
+  // steps (i, j) to the next part the block streams; i = n_tiles past
+  // the last
+  auto next = [&](int& i, int& j) {
+    if (++j < kParts) return;
+    j = 0;
+    do {
+      ++i;
+    } while (i < p.n_tiles && !tile_sees(__ldg(tiles + i), kv0, kv_last));
+  };
+
+  if (kProducerWarpgroup<D> && tid >= kConsumers * 128) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    if constexpr (kProducerWarpgroup<D>)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers * 128) {
+      load_kv();
+      int i = -1, j = kParts - 1;
+      next(i, j);
+      for (int n = 0; i < p.n_tiles; ++n, next(i, j)) {
         const int s = n % kStages;
         mbar_wait(bar_free(bars, s), ((n / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full(bars, s),
-                       2 * L::kTileBytes + kStatBytes + kRowBytes);
-#pragma unroll
-        for (int c = 0; c < D / kTmaPanel; ++c) {
-          tma_load_4d(base + L::kQ + s * L::kTileBytes + c * kTile * 128,
-                      &tm_q, bar_full(bars, s), c * kTmaPanel, h, i * kTile, b);
-          tma_load_4d(base + L::kO + s * L::kTileBytes + c * kTile * 128,
-                      &tm_do, bar_full(bars, s), c * kTmaPanel, h, i * kTile,
-                      b);
-        }
-        bulk_load(base + L::kStat + s * kStatBytes, stats + i * 2 * kTile,
-                  kStatBytes, bar_full(bars, s));
-        bulk_load(base + L::kRow + s * kRowBytes, rows + i * kTile * 2,
-                  kRowBytes, bar_full(bars, s));
-        ++n;
+        load_part(i, j, s);
       }
     }
   } else {
     // ---- consumer warpgroups: 64 keys each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (kProducerWarpgroup<D>)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    // without a producer warpgroup thread 0 issues the copies: K (and V)
+    // and the first kStages parts now, part n + kStages into stage s
+    // once every consumer warp has released part n there
+    const bool producer = !kProducerWarpgroup<D> && tid == 0;
+    int ci = -1, cj = kParts - 1;             // the producer's next part
+    if (producer) {
+      load_kv();
+      next(ci, cj);
+      for (int s = 0; s < kStages && ci < p.n_tiles; ++s, next(ci, cj))
+        load_part(ci, cj, s);
+    }
     const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
     const int tig = lane & 3;
     const int kw0 = kv0 + 64 * wgi, kw_last = kw0 + 63;
@@ -669,54 +751,64 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < p.n_tiles; ++i) {
       const int4 tr = __ldg(tiles + i);
       if (!tile_sees(tr, kv0, kv_last)) continue;
-      const int s = n % kStages;
-      mbar_wait(bar_full(bars, s), (n / kStages) & 1);
-      if (tile_sees(tr, kw0, kw_last)) {
-        const uint32_t q_s = base + L::kQ + s * L::kTileBytes;
-        const uint32_t o_s = base + L::kO + s * L::kTileBytes;
-        const float* lse2 =
-            reinterpret_cast<const float*>(sm + L::kStat + s * kStatBytes);
-        const int* rb = reinterpret_cast<const int*>(sm + L::kRow + s * kRowBytes);
-        const bool masked = !tile_full(tr, kw0, kw_last);
-        float st[kTile / 2], dpt[kTile / 2];   // S^T then P^T; dP^T then dS^T
-        wgmma_fence();
-        issue_abt<T, D, kBlock>(st, k_desc, sw128_desc(q_s, 16));
-        if (kDK) issue_abt<T, D, kBlock>(dpt, v_desc, sw128_desc(o_s, 16));
-        wgmma_wait<0>();
-        fence_regs(st);
-        if (kDK) fence_regs(dpt);
-        // element 4 nn + e: key key0 + 8 (e >> 1), query row
-        // 8 nn + 2 tig + (e & 1) of the tile
+      const bool mine = tile_sees(tr, kw0, kw_last);
+      const bool masked = !tile_full(tr, kw0, kw_last);
+      for (int j = 0; j < kParts; ++j, ++n) {
+        const int s = n % kStages;
+        mbar_wait(bar_full(bars, s), (n / kStages) & 1);
+        if (mine) {
+          const uint32_t q_s = base + L::kQ + s * L::kTileBytes;
+          const uint32_t o_s = base + L::kO + s * L::kTileBytes;
+          const float* lse2 = reinterpret_cast<const float*>(
+              sm + L::kStat + s * L::kStatBytes);
+          const int* rb =
+              reinterpret_cast<const int*>(sm + L::kRow + s * L::kRowBytes);
+          float st[kR / 2], dpt[kR / 2];   // S^T then P^T; dP^T then dS^T
+          wgmma_fence();
+          issue_abt<T, D, kBlock, kR>(st, k_desc, sw128_desc(q_s, 16));
+          if (kDK) issue_abt<T, D, kBlock, kR>(dpt, v_desc, sw128_desc(o_s, 16));
+          wgmma_wait<0>();
+          fence_regs(st);
+          if (kDK) fence_regs(dpt);
+          // element 4 nn + e: key key0 + 8 (e >> 1), query row
+          // 8 nn + 2 tig + (e & 1) of the part
 #pragma unroll
-        for (int nn = 0; nn < kTile / 8; ++nn) {
-          const int col = nn * 8 + tig * 2;
-          const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
-          const float2 dl = kDK ? *reinterpret_cast<const float2*>(lse2 + kTile + col)
-                                : make_float2(0.f, 0.f);
-          int4 bnd = make_int4(0, 0, 0, 0);
-          if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
+          for (int nn = 0; nn < kR / 8; ++nn) {
+            const int col = nn * 8 + tig * 2;
+            const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+            const float2 dl =
+                kDK ? *reinterpret_cast<const float2*>(lse2 + kR + col)
+                    : make_float2(0.f, 0.f);
+            int4 bnd = make_int4(0, 0, 0, 0);
+            if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            grad_elem<kSoftcap, kDK>(st[4 * nn + e], dpt[4 * nn + e],
-                                     (e & 1) ? l2.y : l2.x,
-                                     (e & 1) ? dl.y : dl.x, key0 + 8 * (e >> 1),
-                                     (e & 1) ? bnd.z : bnd.x,
-                                     (e & 1) ? bnd.w : bnd.y, masked, p,
-                                     scale_log2);
+            for (int e = 0; e < 4; ++e)
+              grad_elem<kSoftcap, kDK>(st[4 * nn + e], dpt[4 * nn + e],
+                                       (e & 1) ? l2.y : l2.x,
+                                       (e & 1) ? dl.y : dl.x,
+                                       key0 + 8 * (e >> 1),
+                                       (e & 1) ? bnd.z : bnd.x,
+                                       (e & 1) ? bnd.w : bnd.y, masked, p,
+                                       scale_log2);
+          }
+          // dK += dS^T Q, or dV += P^T dO
+          uint32_t f[kR / 4];
+          pack<T, kR>(f, kDK ? dpt : st);
+          fence_regs(acc);
+          fence_regs(f);
+          wgmma_fence();
+          issue_fz<T, D, kR>(acc, f, sw128_desc(kDK ? q_s : o_s, kR * 128));
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(f);
         }
-        // dK += dS^T Q, or dV += P^T dO
-        uint32_t f[kTile / 4];
-        pack<T>(f, kDK ? dpt : st);
-        fence_regs(acc);
-        fence_regs(f);
-        wgmma_fence();
-        issue_fz<T, D>(acc, f, sw128_desc(kDK ? q_s : o_s, kTile * 128));
-        wgmma_wait<0>();
-        fence_regs(acc);
-        fence_regs(f);
+        release(bar_free(bars, s));
+        if (producer && ci < p.n_tiles) {
+          mbar_wait(bar_free(bars, s), (n / kStages) & 1);
+          load_part(ci, cj, s);
+          next(ci, cj);
+        }
       }
-      release(bar_free(bars, s));
-      ++n;
     }
 
     // rows key0 and key0 + 8: this head's float32 partial, or with one
@@ -743,10 +835,13 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// Dynamic shared memory of the dQ kernel: Q and dO of the block's rows,
+// then kStages stages of a streamed K tile and of its V tile
 template <int D>
 struct QLayout {
+  static constexpr int kKeys = kSub<D>;                 // keys a stage
   static constexpr int kQBytes = kBlock * D * 2;        // Q or dO
-  static constexpr int kTileBytes = kTile * D * 2;      // a K or V stage
+  static constexpr int kTileBytes = kKeys * D * 2;      // a K or V stage
   static constexpr int kQ = 0;
   static constexpr int kO = kQBytes;
   static constexpr int kK = 2 * kQBytes;                // + stage * kTileBytes
@@ -758,12 +853,13 @@ struct QLayout {
 
 // (d) dQ: a block per (kBlock query rows, query head, batch)
 template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreadsAt<D>, 1)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using L = QLayout<D>;
+  constexpr int kK = L::kKeys;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + L::kBar;
@@ -773,39 +869,56 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int i0 = (gridDim.y - 1 - blockIdx.y) * kConsumers;   // longest first
   const int4* tiles = tile_ranges(p, b);
   init_bars(bars);
-  // the keys any row of the block sees, in kTile-key stages
+  // the keys any row of the block sees, in kK-key stages
   const int4 ta = __ldg(tiles + i0), tb = __ldg(tiles + i0 + 1);
   const int key_lo = min(ta.x, tb.x), key_hi = max(ta.y, tb.y);
-  const int tile_first = key_hi >= key_lo ? key_lo / kTile : 0;
-  const int n_stages = key_hi >= key_lo ? key_hi / kTile + 1 - tile_first : 0;
+  const int tile_first = key_hi >= key_lo ? key_lo / kK : 0;
+  const int n_stages = key_hi >= key_lo ? key_hi / kK + 1 - tile_first : 0;
 
-  if (tid >= kConsumers * 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == kConsumers * 128 && n_stages > 0) {
-      mbar_expect_tx(bars, 2 * L::kQBytes);
+  auto load_q = [&]() {
+    mbar_expect_tx(bars, 2 * L::kQBytes);
 #pragma unroll
-      for (int c = 0; c < D / kTmaPanel; ++c) {
-        tma_load_4d(base + L::kQ + c * kBlock * 128, &tm_q, bars,
-                    c * kTmaPanel, h, i0 * kTile, b);
-        tma_load_4d(base + L::kO + c * kBlock * 128, &tm_do, bars,
-                    c * kTmaPanel, h, i0 * kTile, b);
-      }
+    for (int c = 0; c < D / kTmaPanel; ++c) {
+      tma_load_4d(base + L::kQ + c * kBlock * 128, &tm_q, bars,
+                  c * kTmaPanel, h, i0 * kTile, b);
+      tma_load_4d(base + L::kO + c * kBlock * 128, &tm_do, bars,
+                  c * kTmaPanel, h, i0 * kTile, b);
+    }
+  };
+  // K and V stage n into stage s
+  auto load_kv = [&](int n, int s) {
+    const int kv0 = (tile_first + n) * kK;
+    mbar_expect_tx(bar_full(bars, s), 2 * L::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < D / kTmaPanel; ++c) {
+      tma_load_4d(base + L::kK + s * L::kTileBytes + c * kK * 128, &tm_k,
+                  bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
+      tma_load_4d(base + L::kV + s * L::kTileBytes + c * kK * 128, &tm_v,
+                  bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
+    }
+  };
+
+  if (kProducerWarpgroup<D> && tid >= kConsumers * 128) {
+    if constexpr (kProducerWarpgroup<D>)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers * 128 && n_stages > 0) {
+      load_q();
       for (int n = 0; n < n_stages; ++n) {
         const int s = n % kStages;
-        const int kv0 = (tile_first + n) * kTile;
         mbar_wait(bar_free(bars, s), ((n / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full(bars, s), 2 * L::kTileBytes);
-#pragma unroll
-        for (int c = 0; c < D / kTmaPanel; ++c) {
-          tma_load_4d(base + L::kK + s * L::kTileBytes + c * kTile * 128,
-                      &tm_k, bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
-          tma_load_4d(base + L::kV + s * L::kTileBytes + c * kTile * 128,
-                      &tm_v, bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
-        }
+        load_kv(n, s);
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (kProducerWarpgroup<D>)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    // without a producer warpgroup thread 0 issues the copies, as in the
+    // dK and dV kernels
+    const bool producer = !kProducerWarpgroup<D> && tid == 0;
+    if (producer && n_stages > 0) {
+      load_q();
+      for (int n = 0; n < kStages && n < n_stages; ++n) load_kv(n, n);
+    }
     const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
     const int tig = lane & 3;
     const int i = i0 + wgi;                         // this warpgroup's tile
@@ -827,39 +940,43 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (n_stages > 0) mbar_wait(bars, 0);
     for (int n = 0; n < n_stages; ++n) {
       const int s = n % kStages;
-      const int kv0 = (tile_first + n) * kTile;
+      const int kv0 = (tile_first + n) * kK;
       mbar_wait(bar_full(bars, s), (n / kStages) & 1);
-      if (tile_sees(tr, kv0, kv0 + kTile - 1)) {
+      if (tile_sees(tr, kv0, kv0 + kK - 1)) {
         const uint32_t k_s = base + L::kK + s * L::kTileBytes;
         const uint32_t v_s = base + L::kV + s * L::kTileBytes;
-        float sc[kTile / 2], dp[kTile / 2];     // S then P; dP then dS
+        float sc[kK / 2], dp[kK / 2];     // S then P; dP then dS
         wgmma_fence();
-        issue_abt<T, D, kBlock>(sc, q_desc, sw128_desc(k_s, 16));
-        issue_abt<T, D, kBlock>(dp, o_desc, sw128_desc(v_s, 16));
+        issue_abt<T, D, kBlock, kK>(sc, q_desc, sw128_desc(k_s, 16));
+        issue_abt<T, D, kBlock, kK>(dp, o_desc, sw128_desc(v_s, 16));
         wgmma_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
         // element 4 n + e: row r0 + 8 (e >> 1), key kv0 + 8 n + 2 tig + (e & 1)
-        const bool masked = !tile_full(tr, kv0, kv0 + kTile - 1);
+        const bool masked = !tile_full(tr, kv0, kv0 + kK - 1);
 #pragma unroll
-        for (int j = 0; j < kTile / 2; ++j) {
+        for (int j = 0; j < kK / 2; ++j) {
           const bool up = (j & 3) >= 2;
           grad_elem<kSoftcap, true>(sc[j], dp[j], up ? lse1 : lse0, up ? dl1 : dl0,
                               kv0 + (j / 4) * 8 + tig * 2 + (j & 1),
                               up ? b1.x : b0.x, up ? b1.y : b0.y, masked, p,
                               scale_log2);
         }
-        uint32_t sf[kTile / 4];
-        pack<T>(sf, dp);
+        uint32_t sf[kK / 4];
+        pack<T, kK>(sf, dp);
         fence_regs(dq);
         fence_regs(sf);
         wgmma_fence();
-        issue_fz<T, D>(dq, sf, sw128_desc(k_s, kTile * 128));   // dQ += dS K
+        issue_fz<T, D, kK>(dq, sf, sw128_desc(k_s, kK * 128));   // dQ += dS K
         wgmma_wait<0>();
         fence_regs(dq);
         fence_regs(sf);
       }
       release(bar_free(bars, s));
+      if (producer && n + kStages < n_stages) {
+        mbar_wait(bar_free(bars, s), (n / kStages) & 1);
+        load_kv(n + kStages, s);
+      }
     }
     T* out = (T*)p.dq + h * D;
 #pragma unroll
@@ -920,8 +1037,9 @@ int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t s) {
 
 template <int D>
 int launch_f32(const Params& p, cudaStream_t s) {
-  int e = launch(dkdv_f32_kernel<D>, dim3((p.S + 63) / 64, p.Hkv, p.B),
-                 ((2 * 64 + 2 * 16) * (D + 1) + 2 * 64 * 17) * 4, p, s);
+  constexpr int BK = kF32Keys<D>;
+  int e = launch(dkdv_f32_kernel<D>, dim3((p.S + BK - 1) / BK, p.Hkv, p.B),
+                 ((2 * BK + 2 * 16) * (D + 1) + 2 * BK * 17) * 4, p, s);
   if (e != 0) return e;
   return launch(dq_f32_kernel<D>, dim3((p.T + 15) / 16, p.Hq, p.B),
                 ((2 * 16 + 2 * 32) * (D + 1) + 16 * 33) * 4, p, s);
@@ -934,15 +1052,17 @@ int launch_delta(const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// one launch of a wgmma kernel with `smem` bytes of dynamic shared memory
+// one launch of a wgmma kernel of `threads` threads with `smem` bytes of
+// dynamic shared memory
 template <typename K>
-int launch_tma(K kern, dim3 grid, int smem, const CUtensorMap& m0,
+int launch_tma(K kern, dim3 grid, int threads, int smem,
+               const CUtensorMap& m0,
                const CUtensorMap& m1, const CUtensorMap& m2,
                const CUtensorMap& m3, const Params& p, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, wg::kThreads, smem, s>>>(m0, m1, m2, m3, p);
+  kern<<<grid, threads, smem, s>>>(m0, m1, m2, m3, p);
   return (int)cudaGetLastError();
 }
 
@@ -955,8 +1075,10 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
   if (key_blocks > 65535 || p.n_tiles / 2 > 65535 ||
       (long long)p.B * p.Hq > INT_MAX || sum_blocks > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
-  // q and dO in tiles of 64 rows (dK, dV) and blocks of 128 (dQ); k and
-  // v in blocks of 128 keys (dK, dV) and tiles of 64 (dQ)
+  // q and dO in streamed tiles of kSub rows (dK, dV) and blocks of 128
+  // (dQ); k and v in blocks of 128 keys (dK, dV) and streamed tiles of
+  // kSub (dQ)
+  constexpr int sub = wg::kSub<D>, threads = wg::kThreadsAt<D>;
   CUtensorMap q_t, o_t, k_b, v_b, q_b, o_b, k_t, v_t;
   const struct {
     CUtensorMap* map;
@@ -965,14 +1087,14 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
     long long sh, st, sb;
     int rows;
   } maps[8] = {
-      {&q_t, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kTile},
-      {&o_t, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kTile},
+      {&q_t, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, sub},
+      {&o_t, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, sub},
       {&k_b, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, wg::kBlock},
       {&v_b, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, wg::kBlock},
       {&q_b, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kBlock},
       {&o_b, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kBlock},
-      {&k_t, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, wg::kTile},
-      {&v_t, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, wg::kTile}};
+      {&k_t, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, sub},
+      {&v_t, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, sub}};
   for (const auto& m : maps) {
     const int e = make_map(m.map, m.ptr, type, D, m.heads, m.n, p.B, m.sh,
                            m.st, m.sb, m.rows);
@@ -984,13 +1106,13 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
   const int kv_smem = wg::KVLayout<D>::kBytes + 1024;   // + the alignment
   if (e == 0)
     e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, false>, kv_grid,
-                   kv_smem, q_t, o_t, k_b, v_b, p, s);
+                   threads, kv_smem, q_t, o_t, k_b, v_b, p, s);
   if (e == 0)
     e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, true>, kv_grid,
-                   kv_smem, q_t, o_t, k_b, v_b, p, s);
+                   threads, kv_smem, q_t, o_t, k_b, v_b, p, s);
   if (e == 0)
     e = launch_tma(wg::dq_wgmma_kernel<T, D, kSoftcap>,
-                   dim3(p.B * p.Hq, p.n_tiles / 2),
+                   dim3(p.B * p.Hq, p.n_tiles / 2), threads,
                    wg::QLayout<D>::kBytes + 1024, q_b, o_b, k_t, v_t, p, s);
   if (e != 0 || p.part == nullptr) return e;
   wg::gqa_sum_kernel<T><<<(unsigned)sum_blocks, 256, 0, s>>>(p);
@@ -1006,8 +1128,8 @@ int launch_16(const Params& p, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 float32 (the ffma variant), 1 bfloat16 or 2 float16 (wgmma),
-// for q, k, v, o, dout, dq, dk and dv alike.  D = Dh = Dv must be 64 or
-// 128; any other D or dtype, or missing scratch, returns
+// for q, k, v, o, dout, dq, dk and dv alike.  D = Dh = Dv must be 64,
+// 128 or 256; any other D or dtype, or missing scratch, returns
 // cudaErrorInvalidValue and launches nothing.  strides: 17 element
 // strides, (batch, position, head) of q, k, v, o and dout, then (batch,
 // position) of qpos (int32); every last dim is unit-stride.  lse (B, Hq,
@@ -1034,7 +1156,8 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
                                  float scale, float softcap, int has_window,
                                  long long window, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0) return 0;
-  if ((D != 64 && D != 128) || dtype < 0 || dtype > 2 || Hkv <= 0 ||
+  if ((D != 64 && D != 128 && D != 256) || dtype < 0 || dtype > 2 ||
+      Hkv <= 0 ||
       Hq % Hkv != 0 ||
       (dtype != 0 && (rows == nullptr || (Hq > Hkv && part == nullptr))))
     return (int)cudaErrorInvalidValue;
@@ -1049,11 +1172,15 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     const int e = launch_delta<float>(p, s);
     if (e != 0) return e;
-    return D == 64 ? launch_f32<64>(p, s) : launch_f32<128>(p, s);
+    return D == 64    ? launch_f32<64>(p, s)
+           : D == 128 ? launch_f32<128>(p, s)
+                      : launch_f32<256>(p, s);
   }
   if (dtype == 1)
-    return D == 64 ? launch_16<__nv_bfloat16, 64>(p, s)
-                   : launch_16<__nv_bfloat16, 128>(p, s);
-  return D == 64 ? launch_16<__half, 64>(p, s)
-                 : launch_16<__half, 128>(p, s);
+    return D == 64    ? launch_16<__nv_bfloat16, 64>(p, s)
+           : D == 128 ? launch_16<__nv_bfloat16, 128>(p, s)
+                      : launch_16<__nv_bfloat16, 256>(p, s);
+  return D == 64    ? launch_16<__half, 64>(p, s)
+         : D == 128 ? launch_16<__half, 128>(p, s)
+                    : launch_16<__half, 256>(p, s);
 }

@@ -134,7 +134,8 @@ __device__ __forceinline__ float ex2(float x) {
 #define WG_D8(i)                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D16 WG_D8(0), WG_D8(8)
+#define WG_D32 WG_D16, WG_D8(16), WG_D8(24)
 #define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
 #define WG_D128                                                           \
   WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96),          \
@@ -148,6 +149,13 @@ __device__ __forceinline__ float ex2(float x) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "              \
   "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "          \
   "%25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+// D (64 x 32, f32) (+)= A (64 x 16, shared, K-major) B^T (32 x 16,
+// shared, K-major)
+#define WGMMA_SS_N32(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "              \
+  "%13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
 // D (64 x N, f32) += A (64 x 16, registers) B (16 x N, shared, MN-major)
 #define WGMMA_RS_N128(TY)                                                 \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
@@ -189,6 +197,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                  "r"(scale_d));
   else
     asm volatile(WGMMA_SS_N64("bf16") : WG_D32 : "l"(da), "l"(db),
+                 "r"(scale_d));
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_SS_N32("f16") : WG_D16 : "l"(da), "l"(db),
+                 "r"(scale_d));
+  else
+    asm volatile(WGMMA_SS_N32("bf16") : WG_D16 : "l"(da), "l"(db),
                  "r"(scale_d));
 }
 template <typename T>

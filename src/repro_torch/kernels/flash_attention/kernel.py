@@ -28,9 +28,10 @@ them in place (``q`` and ``k`` 128 wide, ``Dr`` 64); for any other
 split the wrapper concatenates them and launches the variant the
 joined head dims take.
 
-The backward has two, both for ``Dh == Dv`` in {64, 128}:
+The backward has two, both for ``Dh == Dv`` in {64, 128, 256}:
 :func:`bwd_variant` picks ``"wgmma"`` (warp-specialised, TMA-fed wgmma,
 every training launch) for bf16 and fp16 and ``"ffma"`` for float32.
+MLA's ``Dh`` 192 / ``Dv`` 128 has no backward kernel yet.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 # widths in which it takes the RoPE columns as operands of their own
 WGMMA_MLA_DIMS = (192, 128)
 WGMMA_ROPE_SPLIT = (128, 64)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1
 
@@ -74,7 +75,7 @@ def bwd_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     if Dh != Dv or Dh not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward kernel takes Dh = Dv in "
                          f"{BWD_HEAD_DIMS}, got Dh={Dh}, Dv={Dv} (ROADMAP "
-                         f"lists the other head dims as open)")
+                         f"Queue 2 item 1 lists Dh 192 / Dv 128 as open)")
     return "ffma" if dtype == torch.float32 else "wgmma"
 
 
@@ -296,7 +297,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16 bytes).  Dh and Dv are multiples of 8 up to 256.  With grad
     enabled and q, k or v requiring it, the result has a ``grad_fn``
     (:class:`FlashAttentionFunction`; the backward takes Dh = Dv in
-    {64, 128} and raises ValueError here for other head dims)."""
+    {64, 128, 256} and raises ValueError here for other head dims)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (q, k, v, q_rope, k_rope)):
@@ -349,7 +350,7 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     One call launches the kernels of ``csrc/flash_attn_bwd_hd.cu`` for
     :func:`bwd_variant`'s choice and counts one launch in
     ``flash_attention_bwd_cuda.launches`` (and its variant in
-    ``by_variant``).  Takes Dh = Dv in {64, 128}; operands with any
+    ``by_variant``).  Takes Dh = Dv in {64, 128, 256}; operands with any
     strides whose last dim is unit-stride (16-byte rows for 16-bit
     types).  A launch that fails raises; nothing falls back to another
     variant or to the plain version."""

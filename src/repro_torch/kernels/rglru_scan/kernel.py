@@ -12,6 +12,12 @@ shape, and the wrapper launches it or raises:
   sub-chunks of ``CHUNK_STEPS``, the gates computed in parallel and the
   sub-chunks' aggregates composed, clusters of ``CHUNK_CLUSTER``
   blocks passing the carry from window to window; every prefill.
+
+With grad enabled and an input that requires it, :func:`rglru_scan_cuda`
+runs as :class:`RglruScanFunction`: its forward launches the variant
+and saves h, and its backward is :func:`rglru_scan_bwd_cuda`, the
+``chunked`` layout run in reverse time (``rglru_scan_bwd_hd``, the
+gradient JAX takes through ``_rglru_scan``).
 """
 from __future__ import annotations
 
@@ -36,6 +42,9 @@ CHUNKED_MIN_T = 16
 # rglru_scan_hd's C parameters, in order
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.c_void_p]
+# rglru_scan_bwd_hd's C parameters, in order
+BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+    ctypes.c_void_p, ctypes.c_void_p]
 
 
 def scan_variant(B: int, T: int, W: int) -> str:
@@ -44,9 +53,9 @@ def scan_variant(B: int, T: int, W: int) -> str:
     return "chunked" if T >= CHUNKED_MIN_T else "sequential"
 
 
-def _entry():
-    fn = build.load("rglru_scan").rglru_scan_hd
-    fn.argtypes = ARGTYPES
+def _entry(name: str = "rglru_scan_hd", argtypes=ARGTYPES):
+    fn = getattr(build.load("rglru_scan"), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,39 +98,22 @@ def _check(x_in, gate_a, gate_i, lam, h0):
     return B, T, W
 
 
-def rglru_scan_cuda(x_in: torch.Tensor, gate_a: torch.Tensor,
-                    gate_i: torch.Tensor, lam: torch.Tensor,
-                    h0: Optional[torch.Tensor] = None,
-                    variant: Optional[str] = None) -> torch.Tensor:
-    """h (B, T, W) float32 of the RG-LRU recurrence over axis 1 (the
-    function of :func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan_ref`)
-    in one launch.  x_in, gate_a and gate_i are (B, T, W), float32 or
-    bfloat16, with any batch and time strides and a unit-stride last
-    dim; lam (W,) float32; h0 (B, W) float32 or None.  ``variant``
-    names one of ``VARIANTS``; by default :func:`scan_variant` picks
-    it.  Launches are counted in ``rglru_scan_cuda.launches`` and
-    ``rglru_scan_cuda.by_variant`` as executions
-    (:mod:`repro_torch.kernels.counts`).  The kernel has no backward:
-    with grad enabled and an input that requires it, this raises."""
-    B, T, W = _check(x_in, gate_a, gate_i, lam, h0)
-    if variant is None:
-        variant = scan_variant(B, T, W)
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got "
-                         f"{variant!r}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x_in, gate_a, gate_i, lam, h0)):
-        raise NotImplementedError(
-            "rglru_scan_cuda has no backward yet (ROADMAP: Queue 1 item 4, "
-            "training recurrentgemma)")
-    out = torch.empty((B, T, W), dtype=torch.float32, device=x_in.device)
-    if out.numel() == 0:
-        return out
-    strides = (ctypes.c_longlong * 7)(
+def _strides(x_in, gate_a, gate_i, h0):
+    """The C entries' strides: batch and time of x_in, gate_a and
+    gate_i, then h0's batch stride."""
+    return (ctypes.c_longlong * 7)(
         x_in.stride(0), x_in.stride(1), gate_a.stride(0), gate_a.stride(1),
         gate_i.stride(0), gate_i.stride(1),
         0 if h0 is None else h0.stride(0))
+
+
+def _forward(x_in, gate_a, gate_i, lam, h0, variant) -> torch.Tensor:
+    """One launch of ``variant``; returns h (B, T, W) float32."""
+    B, T, W = x_in.shape
+    out = torch.empty((B, T, W), dtype=torch.float32, device=x_in.device)
+    if out.numel() == 0:
+        return out
+    strides = _strides(x_in, gate_a, gate_i, h0)
     with torch.cuda.device(x_in.device):
         err = _entry()(
             x_in.data_ptr(), gate_a.data_ptr(), gate_i.data_ptr(),
@@ -137,5 +129,104 @@ def rglru_scan_cuda(x_in: torch.Tensor, gate_a: torch.Tensor,
     return out
 
 
+class RglruScanFunction(torch.autograd.Function):
+    """The scan kernel as one differentiable op: the forward launches
+    ``variant`` and saves h, the backward launches
+    :func:`rglru_scan_bwd_cuda` from it."""
+
+    @staticmethod
+    def forward(ctx, x_in, gate_a, gate_i, lam, h0, variant):
+        h = _forward(x_in, gate_a, gate_i, lam, h0, variant)
+        ctx.save_for_backward(x_in, gate_a, gate_i, lam, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        x_in, gate_a, gate_i, lam, h0, h = ctx.saved_tensors
+        dx, dga, dgi, dlam, dh0 = rglru_scan_bwd_cuda(
+            g, x_in, gate_a, gate_i, lam, h0, h)
+        return dx, dga, dgi, dlam, dh0, None
+
+
+def rglru_scan_cuda(x_in: torch.Tensor, gate_a: torch.Tensor,
+                    gate_i: torch.Tensor, lam: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None,
+                    variant: Optional[str] = None) -> torch.Tensor:
+    """h (B, T, W) float32 of the RG-LRU recurrence over axis 1 (the
+    function of :func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan_ref`)
+    in one launch.  x_in, gate_a and gate_i are (B, T, W), float32 or
+    bfloat16, with any batch and time strides and a unit-stride last
+    dim; lam (W,) float32; h0 (B, W) float32 or None.  ``variant``
+    names one of ``VARIANTS``; by default :func:`scan_variant` picks
+    it.  Launches are counted in ``rglru_scan_cuda.launches`` and
+    ``rglru_scan_cuda.by_variant`` as executions
+    (:mod:`repro_torch.kernels.counts`).  With grad enabled and an
+    input that requires it, the result has a ``grad_fn``
+    (:class:`RglruScanFunction`, whose backward launches
+    :func:`rglru_scan_bwd_cuda`)."""
+    B, T, W = _check(x_in, gate_a, gate_i, lam, h0)
+    if variant is None:
+        variant = scan_variant(B, T, W)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x_in, gate_a, gate_i, lam, h0)):
+        return RglruScanFunction.apply(x_in, gate_a, gate_i, lam, h0,
+                                       variant)
+    return _forward(x_in, gate_a, gate_i, lam, h0, variant)
+
+
+def rglru_scan_bwd_cuda(g: torch.Tensor, x_in: torch.Tensor,
+                        gate_a: torch.Tensor, gate_i: torch.Tensor,
+                        lam: torch.Tensor, h0: Optional[torch.Tensor],
+                        h: torch.Tensor):
+    """The gradients (dx, dgate_a, dgate_i, dlam, dh0) of the scan from
+    g = dL/dh (B, T, W), where h is :func:`rglru_scan_cuda`'s output on
+    these inputs: dx, dgate_a and dgate_i (B, T, W) in the inputs'
+    dtype, dlam (W,) float32, dh0 (B, W) float32 or None without h0;
+    the function of
+    :func:`~repro_torch.kernels.rglru_scan.ref.rglru_scan_bwd_ref`.
+    One call is two launches of ``csrc/rglru_scan.cu``'s backward (the
+    reverse scan, then the sum of dlam's per-block partials, no
+    atomics), counted once in ``rglru_scan_bwd_cuda.launches``.  A
+    launch that fails raises; nothing falls back to the plain
+    version."""
+    B, T, W = _check(x_in, gate_a, gate_i, lam, h0)
+    for name, t in (("g", g), ("h", h)):
+        if tuple(t.shape) != (B, T, W) or t.dtype != torch.float32 or \
+                t.device != x_in.device:
+            raise ValueError(f"{name} must be a ({B}, {T}, {W}) float32 "
+                             f"tensor on {x_in.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    g, h = g.contiguous(), h.contiguous()
+    kw = dict(dtype=x_in.dtype, device=x_in.device)
+    dx, dga, dgi = (torch.empty((B, T, W), **kw) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=x_in.device)
+    if B * T * W == 0:                 # no step: dlam and dh0 are 0
+        return (dx, dga, dgi, torch.zeros((W,), **f32),
+                None if h0 is None else torch.zeros((B, W), **f32))
+    dlam = torch.empty((W,), **f32)
+    dh0 = None if h0 is None else torch.empty((B, W), **f32)
+    part = torch.empty((B, CHUNK_CLUSTER, W), **f32)
+    strides = _strides(x_in, gate_a, gate_i, h0)
+    with torch.cuda.device(x_in.device):
+        err = _entry("rglru_scan_bwd_hd", BWD_ARGTYPES)(
+            g.data_ptr(), x_in.data_ptr(), gate_a.data_ptr(),
+            gate_i.data_ptr(), lam.data_ptr(),
+            None if h0 is None else h0.data_ptr(), h.data_ptr(),
+            dx.data_ptr(), dga.data_ptr(), dgi.data_ptr(), part.data_ptr(),
+            dlam.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+            _DTYPES[x_in.dtype], B, T, W, ctypes.addressof(strides),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rglru_scan_bwd_hd launch failed with CUDA "
+                           f"error {err}")
+    count_launch(rglru_scan_bwd_cuda)
+    return dx, dga, dgi, dlam, dh0
+
+
 rglru_scan_cuda.launches = 0
 rglru_scan_cuda.by_variant = dict.fromkeys(VARIANTS, 0)
+rglru_scan_bwd_cuda.launches = 0

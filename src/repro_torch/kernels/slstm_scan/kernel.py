@@ -205,7 +205,7 @@ def slstm_scan_cuda(pre_x: torch.Tensor, r: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (pre_x, r, *(state or ()))):
         raise NotImplementedError(
-            "slstm_scan_cuda has no backward yet (ROADMAP: Queue 1 item 4, "
+            "slstm_scan_cuda has no backward yet (ROADMAP: Queue 2 item 3, "
             "training xlstm)")
     if B * D == 0 or T == 0:
         dev = pre_x.device

@@ -104,12 +104,6 @@ def build_recurrentgemma(cfg, dt, dev) -> ModelBundle:
         """All layers in order; with a cache, its rows updated in place.
         Without one, each layer runs under ``torch.utils.checkpoint``
         while grad is enabled."""
-        if x.is_cuda and torch.is_grad_enabled() and any(
-                t.requires_grad for t in tree_leaves(params)):
-            raise NotImplementedError(
-                f"{cfg.name} has no backward on the card yet: the RG-LRU "
-                f"scan kernel and flash attention at Dh {cfg.head_dim} have "
-                f"none (ROADMAP: Queue 1 item 4, Queue 2 item 1)")
         remat = cache is None and torch.is_grad_enabled()
         r = a = 0
         for j in range(cfg.n_layers):
@@ -221,7 +215,7 @@ def build_xlstm_lm(cfg, dt, dev) -> ModelBundle:
                 t.requires_grad for t in tree_leaves(params)):
             raise NotImplementedError(
                 f"{cfg.name} has no backward on the card yet: the sLSTM "
-                f"recurrence kernel has none (ROADMAP: Queue 1 item 4)")
+                f"recurrence kernel has none (ROADMAP: Queue 2 item 3)")
         remat = cache is None and torch.is_grad_enabled()
         mi = si = 0
         for j in range(cfg.n_layers):

@@ -24,7 +24,8 @@ from repro_torch.kernels.gemm_hd.ops import gemm
 from repro_torch.kernels.hd import (make_flash_kernel, make_gemm_kernel,
                                     make_jacobi_kernel)
 from repro_torch.kernels.rglru_scan import kernel as rglru_kernel
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd_ref,
+                                            rglru_scan_ref)
 from repro_torch.kernels.slstm_scan import kernel as slstm_kernel
 from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.kernels.stencil_hd import kernel as jacobi_kernel
@@ -974,6 +975,11 @@ BWD_SHAPES = [  # B, T, S, Hq, Hkv, D, window, softcap, qpos
     (2, 200, 200, 16, 2, 128, 40, 5.0, "tail"),
     (2, 96, 80, 4, 2, 128, 5, 0.0, "ragged"),
     (1, 130, 130, 8, 1, 64, None, 0.0, "ragged"),
+    # Dh 256: gemma2's heads with softcap 50 and a window, recurrentgemma's
+    # MQA with a window, ragged rows with padding and unseeing rows
+    (2, 100, 130, 16, 8, 256, 40, 50.0, "tail"),
+    (1, 200, 200, 10, 1, 256, 64, 0.0, "tail"),
+    (2, 96, 80, 4, 2, 256, 5, 0.0, "ragged"),
 ]
 
 
@@ -1065,6 +1071,8 @@ BWD_EDGES = [  # B, T, S, Hq, Hkv, D, window, softcap, qpos
     (2, 190, 333, 8, 8, 128, 7, 0.0, "tail"),
     (1, 300, 300, 16, 2, 128, 50, 0.0, "ragged"),
     (2, 64, 200, 8, 1, 128, None, 3.0, "tail"),
+    (1, 33, 97, 4, 1, 256, None, 0.0, "tail"),
+    (2, 161, 161, 4, 2, 256, 70, 50.0, "ragged"),
 ]
 
 
@@ -1112,6 +1120,28 @@ def test_flash_bwd_wgmma_is_deterministic(cuda):
         do, q, k, v, out, lse, qpos=qpos) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Hq, Hkv, window, softcap", [(16, 8, 1000, 50.0),
+                                                     (10, 1, 500, 0.0)])
+def test_flash_bwd_wgmma_dh256_is_deterministic_and_matches_f64(
+        cuda, Hq, Hkv, window, softcap):
+    """Dh 256 at gemma2's and recurrentgemma's heads over 1536 tokens,
+    with a window that binds: two launches agree bit for bit (no
+    atomics; the GQA sum in head order) and the gradients are within
+    the 2e-2 bound of float64."""
+    q, k, v, do, qpos = _bwd_inputs(cuda, torch.bfloat16, 1, 1536, 1536, Hq,
+                                    Hkv, 256, "tail", seed=Hq)
+    kw = dict(window=window, softcap=softcap)
+    out, lse = flash_kernel._forward(q, k, v, qpos, window, softcap, None,
+                                     with_lse=True)
+    runs = [flash_kernel.flash_attention_bwd_cuda(
+        do, q, k, v, out, lse, qpos=qpos, **kw) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    _, want = _dense_grads(q, k, v, do, qpos, **kw)
+    torch.cuda.synchronize()
+    _check_grads(runs[0], want, torch.bfloat16)
 
 
 def test_flash_bwd_wgmma_mid_shape_matches_f64(cuda):
@@ -1262,9 +1292,83 @@ def test_rglru_scan_cuda_rejects_bad_input_and_grad(cuda):
                                              dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="one CUDA device"):
         rglru_scan(x, x, x, lam.cpu())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rglru_scan(x, x, x, lam.clone().requires_grad_())
     assert rglru_kernel.rglru_scan_cuda.launches == n0
+    # with grad: one forward launch, and the backward kernel's gradients
+    # within the scan's bound of the plain backward's
+    leaves = [t.clone().requires_grad_() for t in (x, x, x, lam)]
+    b0 = rglru_kernel.rglru_scan_bwd_cuda.launches
+    h = rglru_scan(*leaves)
+    assert h.grad_fn is not None
+    g = torch.randn(h.shape, device=cuda)
+    got = torch.autograd.grad(h, leaves, g)
+    assert rglru_kernel.rglru_scan_cuda.launches == n0 + 1
+    assert rglru_kernel.rglru_scan_bwd_cuda.launches == b0 + 1
+    want = rglru_scan_bwd_ref(g, x, x, x, lam, None, h.detach())
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        assert _scan_bwd_close(a, w, float(w.abs().max()))
+
+
+# the scan's backward against float64 autograd through the plain forward
+# and against the plain backward, relative to each gradient's largest
+# magnitude: the forward's own bound (the same float32 recurrence, run
+# in reverse, carries the same roundings); a bf16 gradient may also sit
+# one bf16 ulp of its own (2**-7 relative) off, since two float32 values
+# a hair apart can round to neighbouring bf16 values
+_SCAN_BWD_TOL = 2e-4
+
+
+def _scan_bwd_close(got, want, top):
+    err = (got.double() - want.double()).abs()
+    slack = want.double().abs() * 2.0 ** -7 \
+        if got.dtype == torch.bfloat16 else 0.0
+    return bool((err <= _SCAN_BWD_TOL * top + slack).all())
+
+
+def _scan_grads_f64(x, ga, gi, lam, h0, g):
+    leaves = [t.double().requires_grad_()
+              for t in (x, ga, gi, lam) + ((h0,) if h0 is not None else ())]
+    out = _f64_scan(*leaves[:4], leaves[4] if h0 is not None else None)
+    return torch.autograd.grad(out, leaves, g.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B, T, W", [(1, 1, 64), (2, 9, 100), (3, 257, 2560),
+                                     (1, 4096, 2560)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_bwd_cuda_matches_plain_and_f64(cuda, dtype, B, T, W,
+                                                   with_h0):
+    """The backward kernel through autograd, from the forward's h: each
+    gradient within 2e-4 of float64 autograd and of the plain backward
+    (bf16 ones also within one bf16 ulp of their own), and
+    two launches bit-identical, dlam included.  lam spreads decays up
+    to a near 1 (lam -6) and, in its first two channels, reaches a = 1
+    in float32 (lam -25), where 1 - a^2 is 0 and the clamp binds, in
+    the kernel and in the plain backward alike; in float64 a is not 1
+    there and mult is 15 times larger, so those two channels are held
+    to the plain backward alone."""
+    g = torch.Generator(device=cuda).manual_seed(T + W + B)
+    x, ga, gi = (torch.randn((B, T, W), generator=g, device=cuda).to(dtype)
+                 for _ in range(3))
+    lam = torch.rand((W,), generator=g, device=cuda) * 10 - 6
+    lam[:2] = -25.0
+    h0 = torch.randn((B, W), generator=g, device=cuda) if with_h0 else None
+    dh = torch.randn((B, T, W), generator=g, device=cuda)
+    leaves = [t.clone().requires_grad_()
+              for t in (x, ga, gi, lam) + ((h0,) if with_h0 else ())]
+    h = rglru_scan(*leaves[:4], leaves[4] if with_h0 else None)
+    got = torch.autograd.grad(h, leaves, dh)
+    again = rglru_kernel.rglru_scan_bwd_cuda(dh, x, ga, gi, lam, h0,
+                                            h.detach())
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    plain = rglru_scan_bwd_ref(dh, x, ga, gi, lam, h0, h.detach())
+    want = _scan_grads_f64(x, ga, gi, lam, h0, dh)
+    for i, (a, p, w) in enumerate(zip(got, plain, want)):
+        assert a.dtype == (dtype if i < 3 else torch.float32)
+        top = float(w.abs().max())
+        assert _scan_bwd_close(a[..., 2:], w[..., 2:], top), i
+        assert _scan_bwd_close(a, p, top), i
 
 
 # T on each side of the variant threshold and of the chunked kernel's
@@ -1432,16 +1536,64 @@ def test_reduced_recurrentgemma_engine_on_card_matches_cpu(cuda):
 
 
 def test_recurrentgemma_with_grad_on_card_raises(cuda):
-    bundle = build(get_config("recurrentgemma-2b").reduced(),
-                   torch.bfloat16, "cuda")
+    """No longer raises: the reduced model (heads of 256) trains on the
+    card.  Its loss and every gradient through the kernels (the scan's forward and
+    backward, flash at T >= FLASH_MIN_T) within 1e-4 of the plain path's
+    (the plain scan and blockwise attention on the same card) in
+    float32, and each kernel launched: the scan twice a recurrent layer
+    (the forward and the checkpoint's recompute) and its backward once,
+    flash and its backward once a layer."""
+    import functools
+
+    import repro_torch.models.layers as LY
+    import repro_torch.models.rglru as RG
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models.layers import FLASH_MIN_T
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        value_and_grad)
+    from repro_torch.tree import tree_leaves
+
+    import dataclasses
+
+    # heads of 256, as the full model's (the flash backward's head dims)
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              d_head=256)
+    bundle = build(cfg, torch.float32, "cuda")
     params = bundle.init(0, dtype=torch.float32)
-    params["rec"][0]["w_a"].requires_grad_(True)
-    toks = torch.randint(0, 256, (1, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bundle.forward(params, {"tokens": toks})
-    with torch.no_grad():
-        logits, _ = bundle.forward(params, {"tokens": toks})
-    assert bool(torch.isfinite(logits).all())
+    for layer in params["rec"]:            # decays that carry the state
+        layer["lam"] = torch.linspace(-6, 4, cfg.rg.lru_width, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, FLASH_MIN_T + 1), device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grad_fn = value_and_grad(make_loss_fn(bundle, TrainConfig()))
+    scan, flash = rglru_kernel, flash_kernel
+    n_rec, n_att = len(params["rec"]), len(params["attn"])
+    before = (scan.rglru_scan_cuda.launches, scan.rglru_scan_bwd_cuda.launches,
+              flash.flash_attention_cuda.launches,
+              flash.flash_attention_bwd_cuda.launches)
+    loss, _, grads = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    after = (scan.rglru_scan_cuda.launches, scan.rglru_scan_bwd_cuda.launches,
+             flash.flash_attention_cuda.launches,
+             flash.flash_attention_bwd_cuda.launches)
+    assert [b - a for a, b in zip(before, after)] == [
+        2 * n_rec, n_rec, 2 * n_att, n_att]
+    real_scan, real_flash = RG.rglru_scan, LY.flash_attention
+    RG.rglru_scan = rglru_scan_ref
+    LY.flash_attention = functools.partial(flash_ops.flash_attention,
+                                           impl="blockwise")
+    try:
+        loss_p, _, plain = grad_fn(params, batch)
+    finally:
+        RG.rglru_scan, LY.flash_attention = real_scan, real_flash
+    assert [b - a for a, b in zip(after, (
+        scan.rglru_scan_cuda.launches, scan.rglru_scan_bwd_cuda.launches,
+        flash.flash_attention_cuda.launches,
+        flash.flash_attention_bwd_cuda.launches))] == [0, 0, 0, 0]
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=1e-6)
+    for a, b in zip(tree_leaves(grads), tree_leaves(plain)):
+        assert torch.isfinite(a).all()
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * max(top, 1e-30)
 
 
 # ----------------------------------------------------------------------

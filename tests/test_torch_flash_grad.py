@@ -29,6 +29,9 @@ CASES = [
     (2, 96, 96, 4, 1, 32, 32, 24, 0.0, False),     # MQA + window
     (1, 64, 64, 4, 4, 32, 32, None, 30.0, False),  # softcap
     (2, 33, 77, 4, 2, 16, 48, None, 0.0, True),    # ragged, Dv != Dh
+    # and the heads of 256 the card's backward takes at gemma2's
+    # shape: GQA, a window under T, softcap 50
+    (2, 70, 90, 4, 2, 256, 256, 24, 50.0, True),
 ]
 
 
@@ -125,7 +128,8 @@ def test_auto_dispatch_on_cpu_is_differentiable_past_the_dense_limit():
 
 @pytest.mark.parametrize("dtype, Dh, Dv, want", [
     (torch.bfloat16, 128, 128, "wgmma"), (torch.float16, 64, 64, "wgmma"),
-    (torch.float32, 128, 128, "ffma"), (torch.float32, 64, 64, "ffma")])
+    (torch.float32, 128, 128, "ffma"), (torch.float32, 64, 64, "ffma"),
+    (torch.bfloat16, 256, 256, "wgmma"), (torch.float32, 256, 256, "ffma")])
 def test_backward_variant_by_dtype(dtype, Dh, Dv, want):
     assert kernel.bwd_variant(dtype, Dh, Dv) == want
 
@@ -137,7 +141,13 @@ def test_backward_variant_by_dtype(dtype, Dh, Dv, want):
     ("wgmma", 1, 129, 300, 8, 1, 64, ((1, 8, 4, 2, 64), (528,),
                                        (2, 1, 300, 8, 64))),
     ("ffma", 2, 100, 130, 8, 1, 64, ((2, 8, 100), None, None)),
-    ("ffma", 1, 7, 9, 2, 2, 128, ((1, 2, 7), None, None))])
+    ("ffma", 1, 7, 9, 2, 2, 128, ((1, 2, 7), None, None)),
+    # the Dh-256 training shapes: gemma2 (16 over 8 heads) and
+    # recurrentgemma (10 over 1), one microbatch of 4096 tokens
+    ("wgmma", 1, 4096, 4096, 16, 8, 256,
+     ((1, 16, 64, 2, 64), (8448,), (2, 1, 4096, 16, 256))),
+    ("wgmma", 1, 4096, 4096, 10, 1, 256,
+     ((1, 10, 64, 2, 64), (8448,), (2, 1, 4096, 10, 256)))])
 def test_backward_scratch_by_variant(variant, B, T, S, Hq, Hkv, D, shapes):
     """The scratch each variant's C entry reads: wgmma's per-tile lse
     and delta over 2 * ceil(T / 128) tiles of 64 rows, its row bounds
@@ -153,8 +163,7 @@ def test_backward_scratch_by_variant(variant, B, T, S, Hq, Hkv, D, shapes):
         assert got[2].numel() * 4 == 2 * B * S * Hq * D * 4
 
 
-@pytest.mark.parametrize("Dh, Dv", [(32, 32), (256, 256), (192, 128),
-                                    (128, 64)])
+@pytest.mark.parametrize("Dh, Dv", [(32, 32), (192, 128), (128, 64)])
 def test_backward_refuses_other_head_dims(Dh, Dv):
     with pytest.raises(ValueError, match="Dh = Dv in"):
         kernel.bwd_variant(torch.bfloat16, Dh, Dv)

@@ -169,19 +169,30 @@ def _batch(cfg, seq, batch, seed=0):
 
 def _port_leaves(pp, cfg):
     """The port's leaves keyed like the reference's stacked tree: a
-    layer leaf as (group, sub, name, layer)."""
+    layer leaf as (group, sub, name, layer), or (group, name, layer)
+    where the group's layers hold leaves directly (the hybrid's per-kind
+    lists: rec, attn, mlp, norms)."""
     out = {("emb", n): t for n, t in pp["emb"].items()}
-    for i, layer in enumerate(pp["main"]):
-        for sub, d in layer.items():
-            for n, t in d.items():
-                out[("main", sub, n, i)] = t
+    for group, layers in pp.items():
+        if group == "emb":
+            continue
+        for i, layer in enumerate(layers):
+            for sub, d in layer.items():
+                if isinstance(d, dict):
+                    for n, t in d.items():
+                        out[(group, sub, n, i)] = t
+                else:
+                    out[(group, sub, i)] = d
     return out
 
 
 def _ref_leaf(tree, key):
     if key[0] == "emb":
         return np.asarray(tree["emb"][key[1]])
-    return np.asarray(tree["main"][key[1]][key[2]])[key[3]]
+    node = tree
+    for k in key[:-1]:
+        node = node[k]
+    return np.asarray(node)[key[-1]]
 
 
 def _assert_grads_close(got, want_tree, cfg):
@@ -195,17 +206,26 @@ def _assert_grads_close(got, want_tree, cfg):
         assert float(np.abs(g - w).max()) <= GRAD_MAX_TOL * scale, key
 
 
-@pytest.mark.parametrize("arch, seq, batch, layers, vocab", [
-    ("yi-9b", 16, 2, 2, None),
-    ("deepseek-7b", 24, 2, 2, 65536),      # the fused head + CE path
-    ("yi-9b", 1024, 1, 1, None),            # T >= FLASH_MIN_T: flash_attention
+@pytest.mark.parametrize("arch, seq, batch, layers, vocab, d_head", [
+    ("yi-9b", 16, 2, 2, None, None),
+    ("deepseek-7b", 24, 2, 2, 65536, None),      # the fused head + CE path
+    ("yi-9b", 1024, 1, 1, None, None),   # T >= FLASH_MIN_T: flash_attention
+    # alternating windows (16 binds at T 1024), softcaps 50 and 30,
+    # post-norms; then the heads of 256 the card's backward takes
+    ("gemma2-9b", 16, 2, 2, None, None),
+    ("gemma2-9b", 1024, 1, 2, None, None),
+    ("gemma2-9b", 40, 2, 2, None, 256),
+    # the hybrid: two RG-LRU blocks and a local attention layer
+    ("recurrentgemma-2b", 16, 2, 3, None, None),
+    ("recurrentgemma-2b", 1024, 1, 3, None, None),
 ])
 def test_model_loss_and_every_grad_match_reference(arch, seq, batch, layers,
-                                                   vocab):
+                                                   vocab, d_head):
     cfg = get_config(arch).reduced()
-    if layers or vocab:
+    if layers or vocab or d_head:
         cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
-                                  vocab=vocab or cfg.vocab)
+                                  vocab=vocab or cfg.vocab,
+                                  d_head=d_head or cfg.d_head)
     rb, pr, _, pb, pp = _models(cfg)
     bj, bt = _batch(cfg, seq, batch)
     tcfg_r, tcfg_p = ref_step.TrainConfig(), port_step.TrainConfig()

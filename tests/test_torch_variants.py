@@ -92,6 +92,23 @@ def test_wgmma_entry_takes_mla_dims_and_rope_split():
     assert flash_kernel.flash_variant(BF16, dh, dv) == "wgmma"
 
 
+def test_backward_entry_takes_the_head_dims_bwd_variant_accepts():
+    """The backward's C entry takes the same D = Dh = Dv as
+    BWD_HEAD_DIMS, each with a launch of both variants: a head dim the
+    wrapper accepted that the entry refused would fail every training
+    step on the card."""
+    text = (CSRC / "flash_attn_bwd_hd.cu").read_text()
+    m = re.search(r"if \(\(((?:D != \d+(?: && )?)+)\)", text)
+    assert m, "no head-dim check in flash_attn_bwd_hd.cu"
+    dims = tuple(int(d) for d in re.findall(r"D != (\d+)", m.group(1)))
+    assert dims == flash_kernel.BWD_HEAD_DIMS
+    for d in dims:
+        assert f"launch_f32<{d}>" in text
+        assert f"launch_16<__nv_bfloat16, {d}>" in text
+        assert f"launch_16<__half, {d}>" in text
+        assert flash_kernel.bwd_variant(BF16, d, d) == "wgmma"
+
+
 @pytest.mark.parametrize("in_dtype, out_dtype, want", [
     (F32, F32, "pipelined"), (BF16, BF16, "tiled"), (BF16, F32, "tiled"),
     (F32, BF16, "tiled")])
@@ -123,6 +140,7 @@ def _c_params(source: str, name: str):
      "BWD_ARGTYPES"),
     ("gemm_hd.cu", "gemm_hd", gemm_kernel, "ARGTYPES"),
     ("rglru_scan.cu", "rglru_scan_hd", rglru_kernel, "ARGTYPES"),
+    ("rglru_scan.cu", "rglru_scan_bwd_hd", rglru_kernel, "BWD_ARGTYPES"),
     ("slstm_scan.cu", "slstm_scan_hd", slstm_kernel, "ARGTYPES"),
     ("slstm_scan.cu", "slstm_scan_kernel_hd", slstm_kernel,
      "KERNEL_ARGTYPES")])
