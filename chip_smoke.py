@@ -1239,11 +1239,12 @@ def dense64(torch, q, k, v, qpos, window=None, softcap=0.0):
 
 
 def bwd_blocks(torch, qpos, S: int, Hq: int, rows: int = 64,
-               keys: int = 128):
+               keys: int = 128, window=None):
     """The wgmma dK and dV kernels' work at these query positions, as
     their producers walk it: (blocks, tile steps in all, the longest
-    block's steps).  A block is (keys keys, query head, batch); a step
-    is one 64-row query tile some row of which sees one of its keys."""
+    block's steps).  A block is (keys keys, query head, batch): 128 at
+    Dh 64 and 128, 64 in Dh 256's one dK/dV pass; a step is one 64-row
+    query tile some row of which sees one of its keys."""
     B, T = qpos.shape
     n = -(-T // rows)
     pad = torch.full((B, n * rows), -1, dtype=torch.long, device=qpos.device)
@@ -1251,9 +1252,13 @@ def bwd_blocks(torch, qpos, S: int, Hq: int, rows: int = 64,
     tiles = pad.view(B, n, rows)
     valid = tiles >= 0
     hi = torch.where(valid, torch.clamp(tiles, max=S - 1), -1).amax(-1)
+    first = torch.clamp(tiles - window + 1, min=0) if window else \
+        torch.zeros_like(tiles)
+    lo = torch.where(valid, first, S).amin(-1)
     k0 = torch.arange(0, S, keys, device=qpos.device)
-    # causal (no window): a tile sees the block when its last row does
-    steps = (hi[:, None, :] >= k0[None, :, None]).sum(-1)   # (B, blocks)
+    # a tile sees the block when its rows' keys, [lo, hi], meet it
+    steps = ((hi[:, None, :] >= k0[None, :, None])
+             & (lo[:, None, :] <= k0[None, :, None] + keys - 1)).sum(-1)
     return (B * Hq * len(k0), int(steps.sum()) * Hq, int(steps.max()))
 
 
@@ -1272,7 +1277,7 @@ def bwd_split(torch, fn, reps: int = 5):
             fn()
         torch.cuda.synchronize()
     names = {"prep_kernel": "pre-pass", "dq_wgmma_kernel": "dQ",
-             "gqa_sum_kernel": "GQA sum"}
+             "dkdv_roles_kernel": "dK/dV", "gqa_sum_kernel": "GQA sum"}
     split = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1451,10 +1456,12 @@ def flash_bwd_256_phase(torch, ptxas):
     against the plain blockwise backward within BWD_MAIN_TOL, two
     launches bit-identical, each timed beside its operations bound, the
     plain backward and compiled flex_attention's backward (the softcap
-    as score_mod, the window as block mask).  Prints the ptxas lines of
-    every Dh-256 backward kernel (``ptxas``: flash_attn_bwd_hd's
-    (kernel, report) pairs).  Returns the gemma2 shape's entry, the
-    recurrentgemma shape's under "recurrentgemma_shape"."""
+    as score_mod, the window as block mask), its time split by launch
+    (the one dK/dV pass, dQ, the pre-pass and the GQA sum) and its
+    grid.  Prints the ptxas lines of every Dh-256 backward kernel
+    (``ptxas``: flash_attn_bwd_hd's (kernel, report) pairs).  Returns
+    the gemma2 shape's entry, the recurrentgemma shape's under
+    "recurrentgemma_shape"."""
     import re
 
     from repro_torch.configs import get_config
@@ -1467,8 +1474,9 @@ def flash_bwd_256_phase(torch, ptxas):
                if re.search(r"(\(int\)|[<, ])256[,>]", k)]
     for kernel, report in reports:
         print(f"flash bwd Dh 256 ptxas: {kernel}: {report}")
-    check(len(reports) == 14, f"{len(reports)} Dh-256 backward kernels in "
-          f"the build log, want 14 (12 wgmma, 2 ffma)")
+    check(len(reports) == 10, f"{len(reports)} Dh-256 backward kernels in "
+          f"the build log, want 10 (8 wgmma: the dK/dV pass and dQ for two "
+          f"types with and without a softcap; 2 ffma)")
     check(fk.bwd_variant(torch.bfloat16, 256, 256) == "wgmma",
           "the Dh-256 backward does not take wgmma in bf16")
     dev = "cuda"
@@ -1555,6 +1563,11 @@ def flash_bwd_256_phase(torch, ptxas):
                             for k, x in bwd_split(torch, kernel).items()},
             shape=[list(q.shape), list(k.shape)], window=w, softcap=cap,
             visible_pairs=pairs)
+        blocks, steps, longest = bwd_blocks(torch, qpos, T, Hq, keys=64,
+                                            window=w)
+        entry["grid"] = dict(dkdv_blocks=blocks, dkdv_tile_steps=steps,
+                             dkdv_longest=longest,
+                             dq_blocks=Hq * -(-T // 128))
         print(f"flash bwd Dh 256 at {label}'s training shape: {flops:.4e} "
               f"flops (10 D a pair and head), {nbytes:.4e} bytes; bound "
               f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), wgmma "
@@ -1563,7 +1576,14 @@ def flash_bwd_256_phase(torch, ptxas):
               f"plain {entry['plain_ms']:.4f} ms, flex_attention backward "
               f"{entry['library_ms']:.4f} ms; per launch (torch.profiler, ms) "
               + ", ".join(f"{k} {x:.4f}"
-                          for k, x in entry["wgmma_split_ms"].items()))
+                          for k, x in entry["wgmma_split_ms"].items())
+              + f"; grid: one dK/dV pass of {blocks} blocks of 64 keys "
+              f"({steps} tile steps, the longest {longest}), dQ "
+              f"{entry['grid']['dq_blocks']} blocks of 128 rows")
+        check(set(entry["wgmma_split_ms"]) <= {"pre-pass", "dK/dV", "dQ",
+                                                "GQA sum"},
+              f"the Dh-256 backward ran {sorted(entry['wgmma_split_ms'])}, "
+              f"not one dK/dV pass")
         out[label] = entry
         del q, k, v, do, o, lse, got, again, plain, out_p, want, lib, o_f
         del qt, kt, vt, do_t, timed, kernel
@@ -1734,10 +1754,12 @@ def scan_bwd_phase(torch):
     within SCAN_TOL of its largest magnitude (bf16 ones also one bf16
     ulp of their own); two launches bit-identical, dlam included;
     then timed at the training microbatch's shape beside its byte bound
-    and the plain backward.  Returns its entry."""
+    and the plain backward, with its grid and the clusters the card
+    holds at once.  Returns its entry."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.rglru_scan.kernel import (
-        rglru_scan_bwd_cuda, rglru_scan_cuda)
+        BWD_CLUSTER, BWD_STRIP, rglru_scan_bwd_cuda, rglru_scan_cuda)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
 
     W = get_config(RG_ARCH).rg.lru_width
@@ -1811,11 +1833,21 @@ def scan_bwd_phase(torch):
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
         library_ms=None, shape=[B, T, W])
     entry["gb_per_s"] = nbytes / entry["ms"] / 1e6
+    clusters = ctypes.c_int(0)
+    check(build.load("rglru_scan").rglru_scan_bwd_max_clusters(
+        ctypes.byref(clusters)) == 0, "cudaOccupancyMaxActiveClusters "
+        "failed for the scan's backward")
+    blocks = B * BWD_CLUSTER * -(-W // BWD_STRIP)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entry["grid"] = dict(blocks=blocks, blocks_per_sm=blocks / sms,
+                         cluster=BWD_CLUSTER, max_clusters=clusters.value)
     print(f"rglru_scan bwd at {entry['shape']} bf16: {entry['ms']:.4f} ms "
           f"({entry['gb_per_s']:.1f} GB/s, "
           f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound), "
           f"bound {entry['bound_ms']:.4f} ms (bytes: 20 B an element), "
-          f"plain backward {entry['plain_ms']:.4f} ms")
+          f"plain backward {entry['plain_ms']:.4f} ms; grid {blocks} blocks "
+          f"of {BWD_STRIP} channels ({blocks / sms:.2f} an SM), clusters of "
+          f"{BWD_CLUSTER}, the card holds {clusters.value} at once")
     del timed, dh, x, ga, gi, h
     torch.cuda.empty_cache()
     return entry

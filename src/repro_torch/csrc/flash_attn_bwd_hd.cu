@@ -29,8 +29,8 @@
 // fixed order, so each is bit-deterministic across launches.
 //
 // * wgmma (bf16 and fp16, D = 64, 128 or 256: every training launch).
-//   Five launches.  (a) A pre-pass, a block per (64-row query tile, query
-//   head, batch): delta = sum dO * o per row and lse * log2(e) (1e30
+//   At D 64 and 128 five launches.  (a) A pre-pass, a block per
+//   (64-row query tile, query head, batch): delta = sum dO * o per row and lse * log2(e) (1e30
 //   for a row that sees no key, so that its p underflows to 0), both
 //   float32, per tile; and, from the head-0 blocks, each row's visible
 //   keys as (lo, hi], each tile's hull of them and the keys all its
@@ -67,17 +67,26 @@
 //   store.  So (b)-(d) do 16 D flops per visible pair and query head
 //   (S three times, dP twice) against the bound's 10 D: the price of
 //   a deterministic sum without atomics within the register budget.
-//   At D 256 (gemma2, recurrentgemma) the same five launches change
-//   their geometry.  An accumulator is 128 registers a thread, and
-//   ptxas holds a block of 384 threads to 168 (the forward's Dh-256
-//   consumers spilled and serialised every wgmma under setmaxnreg), so
-//   a block is the two consumer warpgroups alone (up to 255 registers)
-//   and their thread 0 issues the copies between its own products.  K
-//   and V of 128 keys take 128 KB, so the streamed tiles are 32 rows
-//   (dK, dV: each 64-row pre-pass tile in two parts) or 32 keys (dQ):
-//   two stages of 64 KB, S^T and dP^T m64n32 (16 registers each), and
-//   dK, dV or dQ += m64n256k16 twice a part.  About 194 KB of shared
-//   memory a block.
+//   At D 256 (gemma2, recurrentgemma) an accumulator is 128 registers
+//   a thread, one a warpgroup, and ptxas holds a block of 384 threads
+//   (or 288) to 168 (the forward's Dh-256 consumers spilled and
+//   serialised every wgmma under setmaxnreg), so a block is two
+//   warpgroups (256 threads, up to 255 registers each), one thread of
+//   which issues the copies; four launches, (a) and (e) as above and
+//   between them: (b) dK and dV in one pass, a block per (64 keys,
+//   query head, batch), 1024 blocks at gemma2's training shape, its two
+//   warpgroups split by role on the same 64 keys: warpgroup 0 S^T =
+//   K Q^T, P^T, dV += P^T dO; warpgroup 1 dP^T = V dO^T, then dS^T from
+//   P^T (times the softcap's factor, float32, handed over in 16 KB of
+//   shared memory: thread t of both warpgroups holds the same elements)
+//   and dK += dS^T Q.  Streamed parts are whole 64-row query tiles (S^T
+//   and dP^T m64n64); K and V take 64 KB, two stages of Q and dO 128
+//   KB.  (c) dQ as at D 128 but with the two consumer warpgroups
+//   alone, their thread 0 issuing the copies, and (K, V) streamed in
+//   three 32-key stages (S and dP m64n32).  Both take the softcap's tanh
+//   on the MUFU, as the forward.  So the
+//   backward does 14 D flops a visible pair and query head (8 + 6)
+//   against the bound's 10 D.
 // * ffma (float32): FlashAttention-2's split into three launches, as
 //   plain FFMA loops, not TF32: (a) delta, one warp per (b, t, h) row;
 //   (b) dK, dV, a block per (64 keys, 32 at D 256; kv head, batch) that loops
@@ -419,34 +428,36 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
 // ---- the wgmma variant -----------------------------------------------------
 namespace wg {
 
-// the dK, dV and dQ kernels: two consumer warpgroups of 64 keys (dK, dV)
-// or 64 query rows (dQ), and at D 64 and 128 a producer warpgroup last
+// D 64 and 128: the dK, dV and dQ kernels have two consumer warpgroups
+// of 64 keys (dK, dV) or 64 query rows (dQ) and a producer warpgroup
+// last, to which setmaxnreg leaves 24 registers (the consumers 240)
 constexpr int kConsumers = 2;
 constexpr int kTile = 64;        // rows of the pre-pass's query tiles
 constexpr int kBlock = 64 * kConsumers;   // keys (dK, dV) or rows (dQ) a block
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNoKey = 1e30f;  // lse * log2(e) of a row that sees no key
-// At D 64 and 128 a third warpgroup is the producer and setmaxnreg gives
-// its registers to the consumers (24 / 240).  At D 256 a consumer's
-// accumulator alone takes 128 registers a thread, and ptxas compiles a
-// block of 384 threads within 168 (the forward's consumers spilled and
-// serialised every wgmma there, PERF.md), so the block is the two
-// consumer warpgroups alone, up to 255 registers a thread, and their
-// thread 0 issues the copies between its own products.
+constexpr int kThreads3 = 128 * (kConsumers + 1);
+// The dQ kernel keeps this shape at D 256 too, where
+// an accumulator is 128 registers a thread and ptxas holds a block of
+// 384 threads (or 288) to 168: there the block is the two consumer
+// warpgroups alone (up to 255 registers), their thread 0 issues the
+// copies between its own products, and K and V stream in 32-key stages
+// beside Q and dO of 128 rows (128 KB), S and dP m64n32, three stages
+// of them.  (A dQ split
+// by role like the dK/dV pass, and one that issued the next stage's
+// scores behind this stage's product, were slower: PERF.md.)
 template <int D>
 constexpr bool kProducerWarpgroup = D != 256;
 template <int D>
 constexpr int kThreadsAt = 128 * (kProducerWarpgroup<D> ? kConsumers + 1
                                                         : kConsumers);
-// Rows of a streamed (Q, dO) tile in the dK and dV kernels, and keys of
-// a streamed (K, V) tile in the dQ kernel: 64, or 32 at D 256, where K
-// and V of a block (128 KB) beside two stages of 64 rows (128 KB) would
-// pass the 227 KB of shared memory a block may have; 32 also keeps the
-// scores S^T and dP^T (m64n32) at 16 registers each beside the 128 of
-// the accumulator.  A streamed tile at D 256 is half of a pre-pass tile.
 template <int D>
-constexpr int kSub = D == 256 ? 32 : kTile;
+constexpr int kSub = D == 256 ? 32 : kTile;     // keys a dQ stage
+// dQ's K/V stages: a third fits beside Q and dO at D 256 (224 KB), so a
+// stage is refilled three stages ahead of its use
+template <int D>
+constexpr int kQStages = D == 256 ? 3 : kStages;
 
 // Row t sees exactly the keys in (lo, hi]: hi = min(qpos, S - 1), or -1
 // for a padding row or one past T; lo = qpos - window with a window,
@@ -566,15 +577,19 @@ __device__ __forceinline__ void pack(uint32_t (&f)[N / 4],
 // Turns the score accumulator s (q.k) into p and, with kGrad, dp
 // (dO.v) into dz * scale, in place, for one thread's element.  lse2 and
 // delta are the element's row's, lo and hi its row bounds (used when
-// `masked`).
-template <bool kSoftcap, bool kGrad>
+// `masked`).  With kFastTanh (D 256) the softcap's tanh is the
+// forward's, tanh_2log2e of s * tin (tin = 2 log2(e) scale / softcap),
+// else the library's tanhf.
+template <bool kSoftcap, bool kGrad, bool kFastTanh = false>
 __device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2,
                                           float delta, int key, int lo,
                                           int hi, bool masked,
-                                          const Params& p, float scale_log2) {
+                                          const Params& p, float scale_log2,
+                                          float tin = 0.f) {
   float z, fac = 1.f;
   if (kSoftcap) {
-    const float th = tanhf(s * p.scale / p.softcap);
+    const float th = kFastTanh ? tanh_2log2e(s * tin)
+                               : tanhf(s * p.scale / p.softcap);
     z = th * p.softcap * kLog2e;
     fac = 1.f - th * th;
   } else {
@@ -595,7 +610,7 @@ __device__ __forceinline__ void grad_elem(float& s, float& dp, float lse2,
 // tile, of its rows' lse * log2(e) and delta, and of its row bounds
 template <int D>
 struct KVLayout {
-  static constexpr int kRows = kSub<D>;                 // rows a stage
+  static constexpr int kRows = kTile;                   // rows a stage
   static constexpr int kKVBytes = kBlock * D * 2;       // K or V
   static constexpr int kTileBytes = kRows * D * 2;      // a Q or dO stage
   static constexpr int kStatBytes = 2 * kRows * 4;      // lse2, then delta
@@ -611,38 +626,43 @@ struct KVLayout {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
 };
 
+// the mbarriers of a ring of S stages: one for the block's resident
+// tiles, then full [S], free [S]
 __device__ __forceinline__ uint32_t bar_full(uint32_t bars, int s) {
   return bars + 8 * (1 + s);
 }
+template <int S = kStages>
 __device__ __forceinline__ uint32_t bar_free(uint32_t bars, int s) {
-  return bars + 8 * (1 + kStages + s);
+  return bars + 8 * (1 + S + s);
 }
 
+template <int S = kStages>
 __device__ __forceinline__ void init_bars(uint32_t bars) {
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(bar_full(bars, s), 1);
-      mbar_init(bar_free(bars, s), 4 * kConsumers);   // one per consumer warp
+      mbar_init(bar_free<S>(bars, s), 4 * kConsumers);   // one per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
-// (b) dV and (c) dK: a block per (kBlock keys, query head, batch).  One
-// kernel holding both dK and dV (64 + 64 registers a thread at D = 128)
-// beside S^T and dP^T would pass the 168 registers ptxas gives a block
-// of 384 threads, and it then serialises the wgmmas and spills; two
-// kernels, each with one accumulator, pay for it with S^T computed twice.
-// The block streams part j (kSub rows) of every 64-row query tile i
-// whose rows see one of its keys, in order, a stage each.
+// (b) dV and (c) dK at D 64 and 128: a block per (kBlock keys, query
+// head, batch).  One kernel holding both dK and dV (64 + 64 registers a
+// thread at D = 128) beside S^T and dP^T would pass the 168 registers
+// ptxas gives a block of 384 threads, and it then serialises the wgmmas
+// and spills; two kernels, each with one accumulator, pay for it with
+// S^T computed twice.  The block streams every 64-row query tile whose
+// rows see one of its keys, in order, a stage each.
 template <typename T, int D, bool kSoftcap, bool kDK>
-__global__ void __launch_bounds__(kThreadsAt<D>, 1)
+__global__ void __launch_bounds__(kThreads3, 1)
 dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  static_assert(D == 64 || D == 128, "D 256 has dkdv_roles_kernel");
   using L = KVLayout<D>;
   constexpr int kR = L::kRows;
   constexpr int kParts = kTile / kR;
@@ -707,10 +727,9 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     } while (i < p.n_tiles && !tile_sees(__ldg(tiles + i), kv0, kv_last));
   };
 
-  if (kProducerWarpgroup<D> && tid >= kConsumers * 128) {
+  if (tid >= kConsumers * 128) {
     // ---- producer warpgroup: one thread issues every copy ----
-    if constexpr (kProducerWarpgroup<D>)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == kConsumers * 128) {
       load_kv();
       int i = -1, j = kParts - 1;
@@ -723,19 +742,7 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---- consumer warpgroups: 64 keys each ----
-    if constexpr (kProducerWarpgroup<D>)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    // without a producer warpgroup thread 0 issues the copies: K (and V)
-    // and the first kStages parts now, part n + kStages into stage s
-    // once every consumer warp has released part n there
-    const bool producer = !kProducerWarpgroup<D> && tid == 0;
-    int ci = -1, cj = kParts - 1;             // the producer's next part
-    if (producer) {
-      load_kv();
-      next(ci, cj);
-      for (int s = 0; s < kStages && ci < p.n_tiles; ++s, next(ci, cj))
-        load_part(ci, cj, s);
-    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
     const int tig = lane & 3;
     const int kw0 = kv0 + 64 * wgi, kw_last = kw0 + 63;
@@ -803,11 +810,6 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           fence_regs(f);
         }
         release(bar_free(bars, s));
-        if (producer && ci < p.n_tiles) {
-          mbar_wait(bar_free(bars, s), (n / kStages) & 1);
-          load_part(ci, cj, s);
-          next(ci, cj);
-        }
       }
     }
 
@@ -840,15 +842,16 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 struct QLayout {
   static constexpr int kKeys = kSub<D>;                 // keys a stage
+  static constexpr int kS = kQStages<D>;                // stages
   static constexpr int kQBytes = kBlock * D * 2;        // Q or dO
   static constexpr int kTileBytes = kKeys * D * 2;      // a K or V stage
   static constexpr int kQ = 0;
   static constexpr int kO = kQBytes;
   static constexpr int kK = 2 * kQBytes;                // + stage * kTileBytes
-  static constexpr int kV = kK + kStages * kTileBytes;
-  // mbarriers: Q and dO full, then full [kStages], free [kStages]
-  static constexpr int kBar = kV + kStages * kTileBytes;
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr int kV = kK + kS * kTileBytes;
+  // mbarriers: Q and dO full, then full [kS], free [kS]
+  static constexpr int kBar = kV + kS * kTileBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS);
 };
 
 // (d) dQ: a block per (kBlock query rows, query head, batch)
@@ -868,7 +871,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int hk = h / (p.Hq / p.Hkv);
   const int i0 = (gridDim.y - 1 - blockIdx.y) * kConsumers;   // longest first
   const int4* tiles = tile_ranges(p, b);
-  init_bars(bars);
+  init_bars<L::kS>(bars);
   // the keys any row of the block sees, in kK-key stages
   const int4 ta = __ldg(tiles + i0), tb = __ldg(tiles + i0 + 1);
   const int key_lo = min(ta.x, tb.x), key_hi = max(ta.y, tb.y);
@@ -904,8 +907,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == kConsumers * 128 && n_stages > 0) {
       load_q();
       for (int n = 0; n < n_stages; ++n) {
-        const int s = n % kStages;
-        mbar_wait(bar_free(bars, s), ((n / kStages) & 1) ^ 1);
+        const int s = n % L::kS;
+        mbar_wait(bar_free<L::kS>(bars, s), ((n / L::kS) & 1) ^ 1);
         load_kv(n, s);
       }
     }
@@ -917,7 +920,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const bool producer = !kProducerWarpgroup<D> && tid == 0;
     if (producer && n_stages > 0) {
       load_q();
-      for (int n = 0; n < kStages && n < n_stages; ++n) load_kv(n, n);
+      for (int n = 0; n < L::kS && n < n_stages; ++n) load_kv(n, n);
     }
     const int wgi = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
     const int tig = lane & 3;
@@ -934,14 +937,15 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t q_desc = sw128_desc(base + L::kQ + wgi * 64 * 128, 16);
     const uint64_t o_desc = sw128_desc(base + L::kO + wgi * 64 * 128, 16);
     const float scale_log2 = p.scale * kLog2e;
+    const float tin = kSoftcap ? 2.f * kLog2e * p.scale / p.softcap : 0.f;
     float dq[D / 2];
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
     if (n_stages > 0) mbar_wait(bars, 0);
     for (int n = 0; n < n_stages; ++n) {
-      const int s = n % kStages;
+      const int s = n % L::kS;
       const int kv0 = (tile_first + n) * kK;
-      mbar_wait(bar_full(bars, s), (n / kStages) & 1);
+      mbar_wait(bar_full(bars, s), (n / L::kS) & 1);
       if (tile_sees(tr, kv0, kv0 + kK - 1)) {
         const uint32_t k_s = base + L::kK + s * L::kTileBytes;
         const uint32_t v_s = base + L::kV + s * L::kTileBytes;
@@ -957,10 +961,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int j = 0; j < kK / 2; ++j) {
           const bool up = (j & 3) >= 2;
-          grad_elem<kSoftcap, true>(sc[j], dp[j], up ? lse1 : lse0, up ? dl1 : dl0,
-                              kv0 + (j / 4) * 8 + tig * 2 + (j & 1),
-                              up ? b1.x : b0.x, up ? b1.y : b0.y, masked, p,
-                              scale_log2);
+          grad_elem<kSoftcap, true, D == 256>(
+              sc[j], dp[j], up ? lse1 : lse0, up ? dl1 : dl0,
+              kv0 + (j / 4) * 8 + tig * 2 + (j & 1), up ? b1.x : b0.x,
+              up ? b1.y : b0.y, masked, p, scale_log2, tin);
         }
         uint32_t sf[kK / 4];
         pack<T, kK>(sf, dp);
@@ -972,10 +976,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(dq);
         fence_regs(sf);
       }
-      release(bar_free(bars, s));
-      if (producer && n + kStages < n_stages) {
-        mbar_wait(bar_free(bars, s), (n / kStages) & 1);
-        load_kv(n + kStages, s);
+      release(bar_free<L::kS>(bars, s));
+      if (producer && n + L::kS < n_stages) {
+        mbar_wait(bar_free<L::kS>(bars, s), (n / L::kS) & 1);
+        load_kv(n + L::kS, s);
       }
     }
     T* out = (T*)p.dq + h * D;
@@ -989,6 +993,270 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int j = 4 * nn + 2 * half;
         *reinterpret_cast<uint32_t*>(row + nn * 8 + tig * 2) =
             Ops<T>::pack(dq[j], dq[j + 1]);
+      }
+    }
+  }
+}
+
+// ---- D 256: dK and dV in one pass, two warpgroups split by role ----
+// A consumer's accumulator of 64 x 256 float32 takes 128 registers a
+// thread, so a block holds one a warpgroup.  Rather than two launches
+// each recomputing S^T beside one accumulator (dV, then dK, the first
+// design at D 256), the two warpgroups of one block take the two halves of the
+// work on the same 64 keys: the S^T side turns its scores into P^T and
+// hands P^T (times the softcap's factor) to the dP^T side through
+// shared memory, where thread t of the other warpgroup holds the same
+// elements in the same accumulator layout.  The block is the two
+// warpgroups alone, 256 threads and up to 255 registers each: with a
+// producer warp of its own (288 threads) ptxas gave 168, as it does a
+// block of 384, and the pass spilled 928 bytes (PERF.md).  So thread
+// 0 of the dP^T side, the side that releases a stage last, issues the
+// copies, each right after that release, two parts ahead, where it
+// waits on no other warp.  Each warpgroup waits for each of its
+// products before its next step, so that no product is in flight across
+// the loop's back edge (else ptxas serialises the wgmmas, C7515); the
+// two warpgroups' products and elementwise math overlap each other.
+constexpr int kRoleThreads = 2 * 128;
+constexpr int kRoleRows = 64;    // keys of a block, rows of a part
+// named barriers (0 is __syncthreads) of the block's 256 threads
+constexpr int kPFull = 1, kPFree = 2;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// One element of P (or P^T) from its score s, in place, as grad_elem;
+// returns it times the softcap's factor (dz over dz before the cap),
+// what the dP side multiplies by (dP - delta).  The logit in log2 units
+// is s * in, or with the softcap tanh_2log2e(s * in) * out (in = 2
+// log2(e) scale / softcap, out = softcap log2(e)), as the forward's.
+template <bool kSoftcap>
+__device__ __forceinline__ float prob_elem(float& s, float lse2, int key,
+                                           int lo, int hi, bool masked,
+                                           float in, float out) {
+  float z, fac = 1.f;
+  if (kSoftcap) {
+    const float th = tanh_2log2e(s * in);
+    z = th * out;
+    fac = 1.f - th * th;
+  } else {
+    z = s * in;
+  }
+  float pe = ex2(z - lse2);
+  if (masked && !(key > lo && key <= hi)) pe = 0.f;
+  s = pe;
+  return kSoftcap ? pe * fac : pe;
+}
+
+// Dynamic shared memory of dkdv_roles_kernel from a 1024-byte aligned
+// base: K and V of the block's 64 keys, kStages stages of a 64-row Q
+// tile and of its dO tile, the P^T exchange (float32), then per stage
+// the rows' lse2 and delta and their row bounds, and the mbarriers
+struct RoleKVLayout {
+  static constexpr int kTileBytes = kRoleRows * 256 * 2;   // 32 KB
+  static constexpr int kStatBytes = 2 * kRoleRows * 4;
+  static constexpr int kRowBytes = kRoleRows * 8;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileBytes;
+  static constexpr int kQ = 2 * kTileBytes;              // + stage * kTileBytes
+  static constexpr int kO = kQ + kStages * kTileBytes;
+  static constexpr int kX = kO + kStages * kTileBytes;   // 64 x 64 float32
+  static constexpr int kStat = kX + kRoleRows * kRoleRows * 4;
+  static constexpr int kRow = kStat + kStages * kStatBytes;
+  // mbarriers: K and V full, then full [kStages], free [kStages]
+  static constexpr int kBar = kRow + kStages * kRowBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+// (b) dK and dV at D 256 in one pass: a block per (64 keys, query head,
+// batch), key blocks in order (under a causal mask the longest first),
+// a GQA group's heads neighbours in the grid.  Warpgroup 0: S^T = K Q^T
+// (m64n64k16, both K-major), P^T in place, P^T times the softcap factor
+// to the exchange, dV += P^T dO (A from registers, dO read MN-major).
+// Warpgroup 1: dP^T = V dO^T, then, once P^T is in, dS^T = P^T (dP^T -
+// delta) (softcap factor) scale and dK += dS^T Q.  8 D flops a visible
+// pair and query head.  The block streams every 64-row query tile whose
+// rows see one of its keys, a stage each.
+template <typename T, int D, bool kSoftcap>
+__global__ void __launch_bounds__(kRoleThreads, 1)
+dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  static_assert(D == 256, "the role split is the D 256 design");
+  using L = RoleKVLayout;
+  constexpr int kR = kRoleRows;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t bars = base + L::kBar;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int kv0 = blockIdx.y * kR, kv_last = kv0 + kR - 1;
+  const int4* tiles = tile_ranges(p, b);
+  const float* stats =
+      p.delta + (long long)(b * p.Hq + h) * p.n_tiles * 2 * kTile;
+  const int* rows = p.rows + (long long)b * p.n_tiles * kTile * 2;
+  init_bars(bars);
+  // the next query tile after i whose rows see one of the block's keys;
+  // n_tiles past the last
+  auto next = [&](int i) {
+    do {
+      ++i;
+    } while (i < p.n_tiles && !tile_sees(__ldg(tiles + i), kv0, kv_last));
+    return i;
+  };
+
+  // tile i into stage s: its Q and dO, its rows' lse2 and delta and
+  // their bounds
+  auto load_part = [&](int i, int s) {
+    const uint32_t full = bar_full(bars, s);
+    mbar_expect_tx(full, 2 * L::kTileBytes + L::kStatBytes + L::kRowBytes);
+#pragma unroll
+    for (int c = 0; c < D / kTmaPanel; ++c) {
+      tma_load_4d(base + L::kQ + s * L::kTileBytes + c * kR * 128, &tm_q,
+                  full, c * kTmaPanel, h, i * kTile, b);
+      tma_load_4d(base + L::kO + s * L::kTileBytes + c * kR * 128, &tm_do,
+                  full, c * kTmaPanel, h, i * kTile, b);
+    }
+    bulk_load(base + L::kStat + s * L::kStatBytes, stats + i * 2 * kTile,
+              L::kStatBytes, full);
+    bulk_load(base + L::kRow + s * L::kRowBytes, rows + i * kTile * 2,
+              L::kRowBytes, full);
+  };
+  // the copier: K, V and the first kStages parts now, the rest in the
+  // loop below
+  const bool copier = tid == 128;
+  int i = next(-1);
+  int ahead = p.n_tiles;                  // the copier's next part's tile
+  if (copier) {
+    mbar_expect_tx(bars, 2 * L::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < D / kTmaPanel; ++c) {
+      tma_load_4d(base + L::kK + c * kR * 128, &tm_k, bars, c * kTmaPanel,
+                  hk, kv0, b);
+      tma_load_4d(base + L::kV + c * kR * 128, &tm_v, bars, c * kTmaPanel,
+                  hk, kv0, b);
+    }
+    ahead = i;
+    for (int n = 0; n < kStages && ahead < p.n_tiles; ++n, ahead = next(ahead))
+      load_part(ahead, n);
+  }
+
+  // ---- consumers: warpgroup 0 the S^T side (dV), 1 the dP^T side (dK)
+  const int wgi = tid / 128, t = tid % 128, warp = t / 32, lane = tid % 32;
+  const int tig = lane & 3;
+  const int key0 = kv0 + warp * 16 + (lane >> 2);    // and key0 + 8
+  unsigned char* xbuf = sm + L::kX;
+  const uint64_t a_desc = sw128_desc(base + (wgi ? L::kV : L::kK), 16);
+  // the S^T side reads Q for its scores and dO for its product, the dP^T
+  // side the other way round
+  const int score_b = wgi ? L::kO : L::kQ, acc_b = wgi ? L::kQ : L::kO;
+  const float lg_in = kSoftcap ? 2.f * kLog2e * p.scale / p.softcap
+                               : p.scale * kLog2e;
+  const float lg_out = p.softcap * kLog2e;
+  float acc[D / 2];                       // dV or dK rows key0, key0 + 8
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  float sc[kR / 2];                       // S^T then P^T, or dP^T then dS^T
+  uint32_t f[kR / 4];
+  mbar_wait(bars, 0);
+  for (int n = 0; i < p.n_tiles; ++n) {
+    const int s = n % kStages;
+    const int in = next(i);               // the part after this one
+    // the scores; no product is in flight across the loop's back edge,
+    // where ptxas may move the accumulators' registers (else it
+    // serialises the wgmmas, C7515)
+    mbar_wait(bar_full(bars, s), (n / kStages) & 1);
+    wgmma_fence();
+    issue_abt<T, D, kR, kR>(sc, a_desc,
+                            sw128_desc(base + score_b + s * L::kTileBytes, 16));
+    wgmma_wait<0>();
+    fence_regs(sc);
+    const float* st = reinterpret_cast<const float*>(
+        sm + L::kStat + s * L::kStatBytes);
+    if (wgi == 0) {
+      // element 4 nn + e: key key0 + 8 (e >> 1), query row nn * 8 + 2
+      // tig + (e & 1) of the part
+      const int* rb =
+          reinterpret_cast<const int*>(sm + L::kRow + s * L::kRowBytes);
+      const bool masked = !tile_full(__ldg(tiles + i), kv0, kv_last);
+      if (n > 0) named_sync(kPFree);      // the dP^T side has read n - 1
+#pragma unroll
+      for (int nn = 0; nn < kR / 8; ++nn) {
+        const int col = nn * 8 + tig * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+        int4 bnd = make_int4(0, 0, 0, 0);
+        if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
+        float pf[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pf[e] = prob_elem<kSoftcap>(
+              sc[4 * nn + e], (e & 1) ? l2.y : l2.x, key0 + 8 * (e >> 1),
+              (e & 1) ? bnd.z : bnd.x, (e & 1) ? bnd.w : bnd.y, masked,
+              lg_in, lg_out);
+        reinterpret_cast<float4*>(xbuf)[nn * 128 + t] =
+            make_float4(pf[0], pf[1], pf[2], pf[3]);
+      }
+      named_arrive(kPFull);
+    } else {
+      named_sync(kPFull);
+#pragma unroll
+      for (int nn = 0; nn < kR / 8; ++nn) {
+        const float4 x = reinterpret_cast<const float4*>(xbuf)[nn * 128 + t];
+        const float2 dl = *reinterpret_cast<const float2*>(
+            st + kR + nn * 8 + tig * 2);
+        const float pf[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * nn + e] =
+              pf[e] * (sc[4 * nn + e] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+      }
+      if (in < p.n_tiles) named_arrive(kPFree);
+    }
+    // dV += P^T dO, or dK += dS^T Q
+    pack<T, kR>(f, sc);
+    fence_regs(f);
+    fence_regs(acc);
+    wgmma_fence();
+    issue_fz<T, D, kR>(acc, f,
+                       sw128_desc(base + acc_b + s * L::kTileBytes, kR * 128));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(f);
+    release(bar_free(bars, s));
+    // part n + 2 into this stage once both sides are done with it: the
+    // S^T side runs ahead, so it already is
+    if (copier && ahead < p.n_tiles) {
+      mbar_wait(bar_free(bars, s), (n / kStages) & 1);
+      load_part(ahead, s);
+      ahead = next(ahead);
+    }
+    i = in;
+  }
+
+  // rows key0 and key0 + 8: this head's float32 partial, or with one
+  // query head per kv head the result; part[0] is dK, part[1] dV
+  const long long other = wgi ? 0 : (long long)p.B * p.S * p.Hq * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key0 + 8 * half;
+    if (key >= p.S) continue;
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn) {
+      const int col = nn * 8 + tig * 2, j = 4 * nn + 2 * half;
+      if (p.part != nullptr) {
+        const long long at = (((long long)b * p.S + key) * p.Hq + h) * D + col;
+        *reinterpret_cast<float2*>(p.part + other + at) =
+            make_float2(acc[j], acc[j + 1]);
+      } else {
+        const long long at = (((long long)b * p.S + key) * p.Hkv + hk) * D + col;
+        *reinterpret_cast<uint32_t*>((T*)(wgi ? p.dk : p.dv) + at) =
+            Ops<T>::pack(acc[j], acc[j + 1]);
       }
     }
   }
@@ -1069,16 +1337,19 @@ int launch_tma(K kern, dim3 grid, int threads, int smem,
 template <typename T, int D, bool kSoftcap>
 int launch_wgmma(const Params& p, cudaStream_t s) {
   constexpr CUtensorMapDataType type = tma_type<T>();
-  const long long key_blocks = (p.S + wg::kBlock - 1) / wg::kBlock;
+  // keys of a dK/dV block: 128 at D 64 and 128, 64 in D 256's one pass;
+  // the dQ kernel's blocks of 128 rows stream kSub keys a stage
+  constexpr int blk = D == 256 ? wg::kRoleRows : wg::kBlock;
+  constexpr int sub = wg::kSub<D>;
+  const long long key_blocks = (p.S + blk - 1) / blk;
   const long long sum_blocks =
       (2LL * p.B * p.S * p.Hkv * p.D / 4 + 255) / 256;
   if (key_blocks > 65535 || p.n_tiles / 2 > 65535 ||
       (long long)p.B * p.Hq > INT_MAX || sum_blocks > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
-  // q and dO in streamed tiles of kSub rows (dK, dV) and blocks of 128
-  // (dQ); k and v in blocks of 128 keys (dK, dV) and streamed tiles of
-  // kSub (dQ)
-  constexpr int sub = wg::kSub<D>, threads = wg::kThreadsAt<D>;
+  // q and dO in streamed tiles of 64 rows (dK, dV) and blocks of 128
+  // (dQ); k and v in blocks of blk keys (dK, dV) and streamed tiles of
+  // sub (dQ)
   CUtensorMap q_t, o_t, k_b, v_b, q_b, o_b, k_t, v_t;
   const struct {
     CUtensorMap* map;
@@ -1087,10 +1358,10 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
     long long sh, st, sb;
     int rows;
   } maps[8] = {
-      {&q_t, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, sub},
-      {&o_t, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, sub},
-      {&k_b, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, wg::kBlock},
-      {&v_b, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, wg::kBlock},
+      {&q_t, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kTile},
+      {&o_t, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kTile},
+      {&k_b, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, blk},
+      {&v_b, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, blk},
       {&q_b, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kBlock},
       {&o_b, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kBlock},
       {&k_t, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, sub},
@@ -1103,16 +1374,23 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
   wg::prep_kernel<T><<<dim3(p.n_tiles, p.Hq, p.B), 256, 0, s>>>(p);
   int e = (int)cudaGetLastError();
   const dim3 kv_grid(p.B * p.Hq, (unsigned)key_blocks);
-  const int kv_smem = wg::KVLayout<D>::kBytes + 1024;   // + the alignment
-  if (e == 0)
-    e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, false>, kv_grid,
-                   threads, kv_smem, q_t, o_t, k_b, v_b, p, s);
-  if (e == 0)
-    e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, true>, kv_grid,
-                   threads, kv_smem, q_t, o_t, k_b, v_b, p, s);
+  if constexpr (D == 256) {
+    if (e == 0)
+      e = launch_tma(wg::dkdv_roles_kernel<T, D, kSoftcap>, kv_grid,
+                     wg::kRoleThreads, wg::RoleKVLayout::kBytes + 1024, q_t,
+                     o_t, k_b, v_b, p, s);
+  } else {
+    const int kv_smem = wg::KVLayout<D>::kBytes + 1024;   // + the alignment
+    if (e == 0)
+      e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, false>, kv_grid,
+                     wg::kThreads3, kv_smem, q_t, o_t, k_b, v_b, p, s);
+    if (e == 0)
+      e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, true>, kv_grid,
+                     wg::kThreads3, kv_smem, q_t, o_t, k_b, v_b, p, s);
+  }
   if (e == 0)
     e = launch_tma(wg::dq_wgmma_kernel<T, D, kSoftcap>,
-                   dim3(p.B * p.Hq, p.n_tiles / 2), threads,
+                   dim3(p.B * p.Hq, p.n_tiles / 2), wg::kThreadsAt<D>,
                    wg::QLayout<D>::kBytes + 1024, q_b, o_b, k_t, v_t, p, s);
   if (e != 0 || p.part == nullptr) return e;
   wg::gqa_sum_kernel<T><<<(unsigned)sum_blocks, 256, 0, s>>>(p);

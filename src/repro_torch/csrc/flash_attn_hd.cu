@@ -716,17 +716,6 @@ __device__ __forceinline__ void row_bounds(int qp, const Params& p, int& lo,
   lo = (int)(l < -1 ? -1 : (l > hi ? hi : l));
 }
 
-// tanh(y) from x = 2 y log2(e), as 1 - 2 / (2^x + 1): one ex2 and one
-// rcp, both approximate (MUFU), within about 5e-7 of tanh(y) (2^x = inf
-// gives 1, 0 gives -1), where the library's tanhf takes some twenty
-// instructions.  Times a softcap of 50 that is about 2.5e-5 of a
-// logit, far under the 2^-9 to which p is rounded.
-__device__ __forceinline__ float tanh_2log2e(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(ex2(x) + 1.f));
-  return fmaf(-2.f, r, 1.f);
-}
-
 // How a tile's scores q.k become logits in log2 units: times `in`, or
 // with the softcap tanh(q.k * `in`) * `out` (`in` = 2 log2(e) scale /
 // softcap, `out` = softcap log2(e)).

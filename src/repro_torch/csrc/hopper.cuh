@@ -4,8 +4,9 @@
 // driver's cuTensorMapEncodeTiled), wgmma shared-memory descriptors for
 // the 128-byte swizzle, and the wgmma products m64n64k16 (both operands
 // in shared memory) and m64n{64,128,256}k16 (A in registers, B read
-// MN-major).  Every function is inline; each source that includes the
-// header compiles its own copy.  sm_90a only.
+// MN-major), and the softcap's tanh on the MUFU.  Every function is
+// inline; each source that includes the header compiles its own copy.
+// sm_90a only.
 #pragma once
 
 #include <cuda.h>          // CUtensorMap; the driver is reached at run time
@@ -129,6 +130,17 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh(y) from x = 2 y log2(e), as 1 - 2 / (2^x + 1): one ex2 and one
+// rcp, both approximate (MUFU), within about 5e-7 of tanh(y) (2^x = inf
+// gives 1, 0 gives -1), where the library's tanhf takes some twenty
+// instructions.  Times a softcap of 50 that is about 2.5e-5 of a
+// logit, far under the 2^-9 to which p is rounded.
+__device__ __forceinline__ float tanh_2log2e(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(ex2(x) + 1.f));
+  return fmaf(-2.f, r, 1.f);
 }
 
 #define WG_D8(i)                                                          \

@@ -31,7 +31,11 @@ joined head dims take.
 The backward has two, both for ``Dh == Dv`` in {64, 128, 256}:
 :func:`bwd_variant` picks ``"wgmma"`` (warp-specialised, TMA-fed wgmma,
 every training launch) for bf16 and fp16 and ``"ffma"`` for float32.
-MLA's ``Dh`` 192 / ``Dv`` 128 has no backward kernel yet.
+At Dh 64 and 128 ``wgmma`` is five launches (a pre-pass, dV, dK, dQ,
+the GQA sum); at Dh 256 four, dK and dV in one pass whose two
+warpgroups split by role on the same 64 keys (S^T and P^T on one side,
+dP^T and dS^T on the other, P^T handed over in shared memory).  MLA's
+``Dh`` 192 / ``Dv`` 128 has no backward kernel yet.
 """
 from __future__ import annotations
 
@@ -348,7 +352,9 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     (B,S,Hkv,D).
 
     One call launches the kernels of ``csrc/flash_attn_bwd_hd.cu`` for
-    :func:`bwd_variant`'s choice and counts one launch in
+    :func:`bwd_variant`'s choice (``wgmma``: five at Dh 64 and 128, four
+    at Dh 256, whose dK and dV come from one pass) and counts one launch
+    in
     ``flash_attention_bwd_cuda.launches`` (and its variant in
     ``by_variant``).  Takes Dh = Dv in {64, 128, 256}; operands with any
     strides whose last dim is unit-stride (16-byte rows for 16-bit

@@ -16,8 +16,9 @@ shape, and the wrapper launches it or raises:
 With grad enabled and an input that requires it, :func:`rglru_scan_cuda`
 runs as :class:`RglruScanFunction`: its forward launches the variant
 and saves h, and its backward is :func:`rglru_scan_bwd_cuda`, the
-``chunked`` layout run in reverse time (``rglru_scan_bwd_hd``, the
-gradient JAX takes through ``_rglru_scan``).
+``chunked`` windows run in reverse time (``rglru_scan_bwd_hd``, the
+gradient JAX takes through ``_rglru_scan``), one channel a lane,
+``BWD_STRIP`` channels a block, clusters of ``BWD_CLUSTER`` blocks.
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("sequential", "chunked")         # the source's variant codes
 # the chunked kernel's kSteps, kWindow and kCluster
 CHUNK_STEPS, CHUNK_WINDOW, CHUNK_CLUSTER = 8, 32, 4
+# the backward kernel's kBwdWc (channels a block) and kBwdCluster: 640
+# blocks at a training microbatch of (1, 4096, 2560)
+BWD_STRIP, BWD_CLUSTER = 32, 8
 # the shortest T that takes the chunked variant: at B 4, W 2560 (bf16,
 # from a state) the chunked kernel takes 0.0076 ms of device time from
 # T = 1 to 16 and the sequential one 0.0032 ms at T = 1, 0.0074 at 12,
@@ -209,7 +213,7 @@ def rglru_scan_bwd_cuda(g: torch.Tensor, x_in: torch.Tensor,
                 None if h0 is None else torch.zeros((B, W), **f32))
     dlam = torch.empty((W,), **f32)
     dh0 = None if h0 is None else torch.empty((B, W), **f32)
-    part = torch.empty((B, CHUNK_CLUSTER, W), **f32)
+    part = torch.empty((B, BWD_CLUSTER, W), **f32)
     strides = _strides(x_in, gate_a, gate_i, h0)
     with torch.cuda.device(x_in.device):
         err = _entry("rglru_scan_bwd_hd", BWD_ARGTYPES)(

@@ -1073,6 +1073,14 @@ BWD_EDGES = [  # B, T, S, Hq, Hkv, D, window, softcap, qpos
     (2, 64, 200, 8, 1, 128, None, 3.0, "tail"),
     (1, 33, 97, 4, 1, 256, None, 0.0, "tail"),
     (2, 161, 161, 4, 2, 256, 70, 50.0, "ragged"),
+    # Dh 256's 64-key blocks and 64-row parts: T and S off 64 on both
+    # sides, recurrentgemma's MQA (10 over 1), a window of 7 (under a
+    # part), rows past S and before 0 (fully masked), gemma2's softcap
+    (1, 63, 65, 10, 1, 256, None, 0.0, "tail"),
+    (2, 65, 63, 4, 2, 256, 7, 0.0, "ragged"),
+    (1, 127, 200, 16, 8, 256, None, 50.0, "tail"),
+    (1, 200, 127, 10, 1, 256, 7, 0.0, "tail"),
+    (2, 200, 200, 8, 1, 256, 7, 50.0, "ragged"),
 ]
 
 
@@ -1142,6 +1150,24 @@ def test_flash_bwd_wgmma_dh256_is_deterministic_and_matches_f64(
     _, want = _dense_grads(q, k, v, do, qpos, **kw)
     torch.cuda.synchronize()
     _check_grads(runs[0], want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("Hq, Hkv, window, softcap", [(16, 8, None, 50.0),
+                                                     (10, 1, 2048, 0.0)])
+def test_flash_bwd_dh256_training_shapes_are_deterministic(cuda, Hq, Hkv,
+                                                           window, softcap):
+    """At gemma2's and recurrentgemma's training microbatch (4096
+    tokens) two launches of the Dh-256 backward agree bit for bit: no
+    atomics, the dK/dV pass's per-head partials summed in head order."""
+    q, k, v, do, qpos = _bwd_inputs(cuda, torch.bfloat16, 1, 4096, 4096, Hq,
+                                    Hkv, 256, "tail", seed=Hkv)
+    kw = dict(window=window, softcap=softcap)
+    out, lse = flash_kernel._forward(q, k, v, qpos, window, softcap, None,
+                                     with_lse=True)
+    runs = [flash_kernel.flash_attention_bwd_cuda(
+        do, q, k, v, out, lse, qpos=qpos, **kw) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 def test_flash_bwd_wgmma_mid_shape_matches_f64(cuda):
@@ -1334,7 +1360,8 @@ def _scan_grads_f64(x, ga, gi, lam, h0, g):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B, T, W", [(1, 1, 64), (2, 9, 100), (3, 257, 2560),
-                                     (1, 4096, 2560)])
+                                     (1, 4096, 2560), (1, 2061, 2560),
+                                     (4, 1000, 2560)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_scan_bwd_cuda_matches_plain_and_f64(cuda, dtype, B, T, W,
                                                    with_h0):
@@ -1369,6 +1396,32 @@ def test_rglru_scan_bwd_cuda_matches_plain_and_f64(cuda, dtype, B, T, W,
         top = float(w.abs().max())
         assert _scan_bwd_close(a[..., 2:], w[..., 2:], top), i
         assert _scan_bwd_close(a, p, top), i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_bwd_cuda_copy_paths_agree(cuda, dtype, with_h0):
+    """Inputs whose rows start off 16 bytes (views one element into a
+    wider buffer) take the backward's per-thread copies, contiguous ones
+    its 16-byte block copies; the arithmetic and its order are the
+    same, so the gradients agree bit for bit.  T spans several rounds
+    of the cluster with a ragged last window."""
+    B, W = 2, 2560
+    T = 3 * rglru_kernel.CHUNK_WINDOW * rglru_kernel.BWD_CLUSTER + 11
+    g = torch.Generator(device=cuda).manual_seed(29)
+    wide = [torch.randn((B, T, W + 1), generator=g, device=cuda).to(dtype)
+            for _ in range(3)]
+    views = [t[..., 1:] for t in wide]
+    lam = torch.rand((W,), generator=g, device=cuda) * 10 - 6
+    h0 = torch.randn((B, W), generator=g, device=cuda) if with_h0 else None
+    dh = torch.randn((B, T, W), generator=g, device=cuda)
+    h = rglru_kernel.rglru_scan_cuda(*views, lam, h0)
+    got = rglru_kernel.rglru_scan_bwd_cuda(dh, *views, lam, h0, h)
+    want = rglru_kernel.rglru_scan_bwd_cuda(
+        dh, *(v.contiguous() for v in views), lam, h0, h)
+    for a, w in zip(got, want):
+        assert (a is None) == (w is None)
+        assert a is None or torch.equal(a, w)
 
 
 # T on each side of the variant threshold and of the chunked kernel's

@@ -184,3 +184,190 @@ def test_cpu_tensors_launch_no_backward_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(*leaves, qpos=torch.from_numpy(qpos),
                             impl="cuda")
+
+
+# ----------------------------------------------------------------------
+# the Dh-256 kernels' blocking, emulated in float32
+# ----------------------------------------------------------------------
+_ROWS = 64          # keys of a dK/dV block, rows of a part and a tile
+_DQ_KEYS = 32       # keys of a dQ stage
+_NO_KEY = 1e30      # lse * log2(e) of a row that sees no key
+_LOG2E = 1.4426950408889634
+
+
+def _row_bounds(qpos, S, window):
+    """Each row's visible keys as (lo, hi], as the pre-pass writes them:
+    hi = min(qpos, S - 1) or -1, lo = qpos - window (or -1) clamped to
+    [-1, hi]."""
+    qp = qpos.long()
+    hi = torch.where(qp < 0, -1, torch.clamp(qp, max=S - 1))
+    lo = qp - window if window is not None else torch.full_like(qp, -1)
+    lo = torch.where(qp < 0, -1, lo)
+    return torch.minimum(torch.clamp(lo, min=-1), hi), hi
+
+
+def _tile_ranges(lo, hi):
+    """Per 64-row tile (x, y, z, w): every key a row sees lies in [x, y];
+    every row sees every key in [z, w]."""
+    B, n = lo.shape[0], lo.shape[1] // _ROWS
+    lo, hi = lo.view(B, n, _ROWS), hi.view(B, n, _ROWS)
+    any_ = lo < hi
+    big = torch.iinfo(torch.int64).max
+    x = torch.where(any_, lo + 1, big).amin(-1)
+    y = torch.where(any_, hi, -1).amax(-1)
+    return x, y, (lo + 1).amax(-1), hi.amin(-1)
+
+
+def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale):
+    """dq, dk, dv of the Dh-256 kernels' arithmetic in float32, and the
+    (visited, full) tile counts of the dK/dV pass: 64-key blocks per
+    query head stream every 64-row query tile whose row hull sees one of
+    their keys, masking only tiles that are not full; the S^T side hands
+    P^T (times the softcap's factor) to the dP^T side, which forms dS^T;
+    dK and dV are per-query-head partials summed in head order.  dQ
+    blocks of 128 rows walk the 32-key stages of their two tiles' hull,
+    each tile (a warpgroup's 64 rows) skipping the stages it does not
+    see."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    n = 2 * -(-T // 128)
+    qp = torch.full((B, n * _ROWS), -1, dtype=torch.int64)
+    qp[:, :T] = qpos.long()
+    lo, hi = _row_bounds(qp, S, window)
+    tx, ty, tz, tw = _tile_ranges(lo, hi)
+    pad = n * _ROWS - T
+    Q, dO = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+             for x in (q, do))
+    delta = torch.nn.functional.pad((do * o).sum(-1), (0, 0, 0, pad))
+    lse2 = torch.where(lse > -0.5e30, lse * _LOG2E, _NO_KEY)
+    lse2 = torch.nn.functional.pad(lse2, (0, pad), value=_NO_KEY)
+    nk = -(-S // _ROWS)
+    K, V = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, nk * _ROWS - S))
+            for x in (k, v))
+    kpos = torch.arange(nk * _ROWS)
+
+    def probs(s, rows, keys, b, h, masked):
+        """P and P * the softcap's factor for scores s (rows x keys)."""
+        z, fac = s * scale, torch.ones_like(s)
+        if softcap:
+            th = torch.tanh(z / softcap)
+            z, fac = th * softcap, 1 - th * th
+        p = torch.exp2(z * _LOG2E - lse2[b, h, rows][:, None])
+        if masked:
+            seen = (kpos[keys] > lo[b, rows, None]) & \
+                   (kpos[keys] <= hi[b, rows, None])
+            p = torch.where(seen, p, 0.0)
+        return p, p * fac
+
+    part = torch.zeros((2, B, nk * _ROWS, Hq, D))
+    visited = full = 0
+    for b in range(B):
+        for h in range(Hq):
+            hk = h // G
+            for kb in range(nk):
+                k0, k1 = kb * _ROWS, kb * _ROWS + _ROWS - 1
+                keys = slice(k0, k1 + 1)
+                dv = torch.zeros((_ROWS, D))
+                dk = torch.zeros((_ROWS, D))
+                for i in range(n):
+                    if not (ty[b, i] >= k0 and tx[b, i] <= k1):
+                        continue                  # the hull misses the block
+                    masked = not (tz[b, i] <= k0 and k1 <= tw[b, i])
+                    visited += 1
+                    full += not masked
+                    rows = slice(i * _ROWS, (i + 1) * _ROWS)
+                    # the S^T side: P^T, handed over with its factor
+                    s = Q[b, rows, h] @ K[b, keys, hk].T
+                    p, pf = probs(s, rows, keys, b, h, masked)
+                    hand = pf.T.clone()
+                    dv += p.T @ dO[b, rows, h]
+                    # the dP^T side
+                    dpt = V[b, keys, hk] @ dO[b, rows, h].T
+                    dst = hand * (dpt - delta[b, rows, h][None]) * scale
+                    dk += dst @ Q[b, rows, h]
+                part[0, b, keys, h] = dk
+                part[1, b, keys, h] = dv
+    dk = part[0, :, :, 0::G].clone()
+    dv = part[1, :, :, 0::G].clone()
+    for gi in range(1, G):                        # head order
+        dk += part[0, :, :, gi::G]
+        dv += part[1, :, :, gi::G]
+    dq = torch.zeros((B, n * _ROWS, Hq, D))
+    for b in range(B):
+        for h in range(Hq):
+            hk = h // G
+            for i0 in range(0, n, 2):             # a block of 128 rows
+                lo_key = min(int(tx[b, i0]), int(tx[b, i0 + 1]))
+                hi_key = max(int(ty[b, i0]), int(ty[b, i0 + 1]))
+                if hi_key < lo_key:
+                    continue                      # no row sees a key
+                for st in range(lo_key // _DQ_KEYS, hi_key // _DQ_KEYS + 1):
+                    k0, k1 = st * _DQ_KEYS, st * _DQ_KEYS + _DQ_KEYS - 1
+                    keys = slice(k0, k1 + 1)
+                    for i in (i0, i0 + 1):        # a warpgroup's 64 rows
+                        if not (ty[b, i] >= k0 and tx[b, i] <= k1):
+                            continue
+                        masked = not (tz[b, i] <= k0 and k1 <= tw[b, i])
+                        rows = slice(i * _ROWS, (i + 1) * _ROWS)
+                        s = Q[b, rows, h] @ K[b, keys, hk].T
+                        _, pf = probs(s, rows, keys, b, h, masked)
+                        dp = dO[b, rows, h] @ V[b, keys, hk].T
+                        ds = pf * (dp - delta[b, rows, h][:, None]) * scale
+                        dq[b, rows, h] += ds @ K[b, keys, hk]
+    return ((dq[:, :T], dk[:, :S], dv[:, :S]), (visited, full))
+
+
+def _dense_forward(q, k, v, qpos, window, softcap, scale):
+    """o and lse (B, Hq, T) in float32, -1e30 for a row that sees no
+    key."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kk, vv = (x.repeat_interleave(Hq // Hkv, 2) for x in (k, v))
+    z = torch.einsum("bthd,bshd->bhts", q, kk) * scale
+    if softcap:
+        z = torch.tanh(z / softcap) * softcap
+    qp = qpos.long()[:, None, :, None]
+    kp = torch.arange(S)
+    seen = (kp <= qp) & (qp >= 0)
+    if window is not None:
+        seen &= kp > qp - window
+    z = torch.where(seen, z, -torch.inf)
+    lse = torch.logsumexp(z, -1)
+    p = torch.where(seen, torch.exp(z - lse[..., None]), 0.0)
+    lse = torch.where(seen.any(-1), lse, -1e30)
+    return torch.einsum("bhts,bshd->bthd", p, vv), lse
+
+
+# B, T, S, Hq, Hkv, window, softcap, ragged: gemma2's GQA with its
+# softcap and a window under a tile, recurrentgemma's MQA causal over
+# several blocks (full tiles), and a window over a tile
+ROLE_CASES = [
+    (2, 70, 90, 4, 2, 24, 50.0, True),
+    (1, 200, 230, 5, 1, None, 0.0, False),
+    (1, 150, 150, 2, 2, 130, 50.0, False),
+]
+
+
+@pytest.mark.parametrize("case", ROLE_CASES)
+def test_dh256_role_split_matches_reference_custom_vjp(case):
+    B, T, S, Hq, Hkv, window, softcap, ragged = case
+    q, k, v, qpos = _mk(B, T, S, Hq, Hkv, 256, 256, ragged, seed=T)
+    if ragged:
+        qpos[:, :5] = -1                         # padding rows: no key
+    want = _ref_grads(q, k, v, qpos, window, softcap, 32)
+    scale = 1.0 / 16.0
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    qp = torch.from_numpy(qpos)
+    o, lse = _dense_forward(qt, kt, vt, qp, window, softcap, scale)
+    do = 2 * o                                   # d sum(out^2) / d out
+    got, (visited, full) = _roles_bwd(qt, kt, vt, o, do, qp, lse, window,
+                                      softcap, scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+    n_tiles, n_blocks = 2 * -(-T // 128), -(-S // _ROWS)
+    # under a causal mask from position 0 the first tiles skip the
+    # later blocks; full tiles exist where a tile's rows all see a block
+    assert 0 < visited <= B * Hq * n_tiles * n_blocks
+    assert ragged or visited < B * Hq * n_tiles * n_blocks
+    assert (full > 0) == (window != 24)

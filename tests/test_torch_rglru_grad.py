@@ -25,6 +25,9 @@ Tolerances, each gradient against its own largest magnitude:
   arithmetic, composed in another order, and 1 - a**2 rounded once for
   1 - exp(2 log_a), as the kernel computes it).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -132,7 +135,8 @@ def test_plain_backward_takes_the_forward_h_or_computes_it():
 # ----------------------------------------------------------------------
 # the kernel's reversed decomposition
 # ----------------------------------------------------------------------
-def _chunked_bwd(g, x_in, gate_a, gate_i, lam, h0, steps, window):
+def _chunked_bwd(g, x_in, gate_a, gate_i, lam, h0, steps, window,
+                 cluster=1):
     """The backward kernel's arithmetic in float32: windows of
     ``window`` steps walked from the last, each cut into sub-chunks of
     ``steps``; every sub-chunk's aggregate of e -> a (g + e) from its
@@ -142,7 +146,13 @@ def _chunked_bwd(g, x_in, gate_a, gate_i, lam, h0, steps, window):
     (dh = g + e, then e = a dh); the window's whole aggregate gives the
     carry of the window before it, 0 the last one's.  mult takes
     1 - a**2 rounded once and the clamp binds where it is under 1e-12,
-    as in the kernel; steps past T are the identity (a 1, g 0)."""
+    as in the kernel; steps past T are the identity (a 1, g 0).
+    dlam is summed in the kernel's order: block rank r of a cluster of
+    ``cluster`` takes the reversed windows r, r + cluster, ..., each
+    thread adds its steps last first, the block's warps are summed in
+    order into its partial, and the partials in (batch, rank) order.
+    Channels are independent, so a strip of them only decides which
+    blocks exist."""
     lam = lam.float()
     sp = torch.nn.functional.softplus(lam)
     sig_a = torch.sigmoid(gate_a.float())
@@ -185,27 +195,59 @@ def _chunked_bwd(g, x_in, gate_a, gate_i, lam, h0, steps, window):
     dm = dh * sig_i * x
     dlog_a = dh * h_prev * a - torch.where(u2 >= 1e-12, dm * a * a / mult,
                                            torch.zeros_like(dm))
+    term = torch.nn.functional.pad(dlog_a * sig_a, (0, 0, 0, pad))
+    term = term.view(B, nwin, S, steps, W)
+    dl = torch.zeros((B, cluster, S, W))          # a thread's terms
+    for r in range(nwin):
+        for u in range(steps - 1, -1, -1):
+            dl[:, r % cluster] += term[:, nwin - 1 - r, :, u]
+    part = dl[:, :, 0].clone()                    # the warps in order
+    for j in range(1, S):
+        part += dl[:, :, j]
+    total = part.reshape(B * cluster, W)
+    dlam = total[0].clone()
+    for i in range(1, B * cluster):
+        dlam += total[i]
     return (dh * mult * sig_i,
             dlog_a * (-C * sp) * sig_a * (1 - sig_a),
             dh * mult * x * sig_i * (1 - sig_i),
-            (dlog_a * sig_a).sum((0, 1)) * (-C * torch.sigmoid(lam)),
+            dlam * (-C * torch.sigmoid(lam)),
             None if h0 is None else dh0)
 
 
 _STEPS, _WINDOW = scan_kernel.CHUNK_STEPS, scan_kernel.CHUNK_WINDOW
+_STRIP, _CLUSTER = scan_kernel.BWD_STRIP, scan_kernel.BWD_CLUSTER
 
 
 @pytest.mark.parametrize("T", [1, _STEPS - 1, _STEPS + 1, _WINDOW,
-                               _WINDOW + 1, 5 * _WINDOW + 13])
+                               _WINDOW + 1, 5 * _WINDOW + 13,
+                               (2 * _CLUSTER + 3) * _WINDOW + 5])
 @pytest.mark.parametrize("h0", [False, True])
 def test_chunked_backward_decomposition_matches_plain_loop(T, h0):
-    x, ga, gi, lam, h, g = map(_t, _inputs(2, T, 24, T + 50, h0))
+    """The emulation at the kernel's window, cluster and strip (a
+    ragged second strip of channels), over several rounds of the
+    cluster at the longest T, against the plain reverse loop."""
+    x, ga, gi, lam, h, g = map(_t, _inputs(2, T, _STRIP + 8, T + 50, h0))
     want = rglru_scan_bwd_ref(g, x, ga, gi, lam, h)
-    got = _chunked_bwd(g, x, ga, gi, lam, h, _STEPS, _WINDOW)
+    got = _chunked_bwd(g, x, ga, gi, lam, h, _STEPS, _WINDOW, _CLUSTER)
     assert (got[4] is None) == (h is None)
     for name, a, w in zip(NAMES, got, want):
         if w is not None:
             _close(a, w.numpy(), EMU_TOL, name)
+
+
+def test_backward_constants_match_the_source():
+    """BWD_STRIP and BWD_CLUSTER (the emulation and the wrapper's dlam
+    scratch read them) are the backward kernel's kBwdWc and
+    kBwdCluster."""
+    text = (Path(scan_kernel.__file__).resolve().parents[2] / "csrc"
+            / "rglru_scan.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert m, f"no constexpr int {name} in rglru_scan.cu"
+        return int(m.group(1))
+    assert (_STRIP, _CLUSTER) == (const("kBwdWc"), const("kBwdCluster"))
 
 
 # ----------------------------------------------------------------------
