@@ -102,7 +102,14 @@
    after the gradient gate against the plain versions (blockwise
    attention, the plain scan): per microbatch flash 2 and its backward
    1 per attention layer, the scan's `chunked` 2 and its backward 1 per
-   recurrent layer.
+   recurrent layer.  Then the flash backward at Dh 192 / Dv 128 at
+   deepseek-v3's training microbatch (q, k (1, 4096, 128, 192), the
+   RoPE columns joined as MLA's naive form joins them under grad, v
+   (1, 4096, 128, 128), causal) against the plain backward and float64
+   (heads 0-7), two launches bit-identical, timed beside its bound and
+   SDPA's backward; the sLSTM recurrence's backward at (1, 4096, 768)
+   and (4, 2048, 768) against float64 and its plain reverse loop, timed
+   in us a step.  deepseek-v3 and xlstm-125m train last of all (7.).
    Every kernel launch counter, the total and each variant's, is set to
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
@@ -199,7 +206,14 @@
    of 128 and 128/128 heads of 192/128 (both ``wgmma``), each
    within 1e-2 of the blockwise version over the whole sequence, 4
    launches of its variant each.
-7. Prints one JSON line of kernel measurements (flash's launches by
+7. Trains, last, deepseek-v3 at full width, depth cut to its 2 leading
+   dense layers and the MTP head (3.71 B parameters), then xlstm-125m
+   at full width and depth, each alone for 4 steps after its gate (in
+   float32 compute for xlstm): per microbatch flash 2 a layer and 1 for
+   the MTP block and its backward 1 each; the sLSTM's `cluster` 2 and
+   its backward 1 per sLSTM layer.  The allocator maps expandable
+   segments from there on.
+8. Prints one JSON line of kernel measurements (flash's launches by
    path, the deepseek-v3 engine and the HDArray flash kernel among
    them), the card's name and power limit, and as the last line
    ``{"ok": true, "device": ...}``.
@@ -313,6 +327,15 @@ XLSTM_ARCH = "xlstm-125m"
 # bounds both, while a gate read from its head's own outputs parts by
 # over 1e-2 in one step
 SLSTM_TOL = 1e-3
+# the sLSTM backward against float64 and its plain reverse loop, relative
+# to each gradient's largest: SLSTM_TOL, but at (1, 4096, 768) from a
+# state SLSTM_BWD_STATE_TOL.  There the float32 loop itself parts from
+# float64 by 2.33e-3 (dh0) to 2.89e-3 (d pre_x), the kernel by 1.79e-3
+# to 2.96e-3 (dn0) and from the loop by up to 1.28e-3 (dc0; d pre_x
+# 2.45e-3 with its bf16 rounding), the same in every run (NVIDIA H100
+# 80GB HBM3, 700 W): no float32 loop meets 1e-3 there; in the other
+# three cases the loop stays within 4.3e-4 and the kernel within 5e-4
+SLSTM_BWD_STATE_TOL = 4e-3
 # one bf16 MoE layer against a float32 evaluation of the same routing:
 # the bf16 expert products round their operands and outputs (2**-9
 # relative each), a few 1e-3 in the Frobenius norm; 2e-2 bounds it
@@ -366,7 +389,12 @@ BWD_SHAPES = (  # B, T, S, Hq, Hkv, D, window, softcap, qpos
     # fully masked rows
     (2, 100, 130, 16, 8, 256, 40, 50.0, "tail"),
     (1, 200, 200, 10, 1, 256, 64, 0.0, "tail"),
-    (2, 96, 80, 4, 2, 256, 5, 0.0, "ragged"))
+    (2, 96, 80, 4, 2, 256, 5, 0.0, "ragged"),
+    # MLA's Dh 192 / Dv 128 (D as the pair; bf16 and fp16 only, float32
+    # has no kernel there): deepseek-v3's heads over as many, a tail and
+    # ragged rows with padding and fully masked rows
+    (2, 100, 130, 4, 4, (192, 128), None, 0.0, "tail"),
+    (2, 96, 80, 4, 4, (192, 128), None, 0.0, "ragged"))
 
 # (h) training: yi-9b at full width, depth cut to 8 of 48 layers (float32
 # masters, grads and two fp32 moments take 16 bytes a parameter: 1.91 B
@@ -400,6 +428,27 @@ GEMMA2_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 8, 4
 # kernels' distance from the plain path to RG_TRAIN_GRAD_TOL and to
 # twice the spread; a wrong window, gate or softcap term parts by O(1)
 RG_TRAIN_GRAD_TOL = 1e-1
+# (h) deepseek-v3 trained at full width with its depth cut to 2 layers,
+# both leading dense ones (MLA and the 18432-wide FFN), and the MTP head:
+# untied embeddings 2 x 0.927 B, three MLA + dense-FFN blocks (two in the
+# stack, one in the MTP head) 3 x 0.5835 B, mtp_proj 0.103 B: 3.71 B
+# parameters, 59.3 GB at 16 bytes a parameter.  One routed layer alone
+# is 11.27 B parameters (180 GB), so training takes no moe layer; a third
+# dense layer would bring the state to 68.6 GB.  Per microbatch flash
+# launches 2 a checkpointed layer + 1 for the MTP block, its backward 3
+DSV3_TRAIN_LAYERS = 2
+# (h) xlstm-125m's gradient gate computes in float32 (its steps in bf16):
+# in bf16 the model's own gradients are not reproducible at init.  In the
+# reference too: scaling r_in by 1 + 2**-20 moves its bf16 gradients by
+# 0.37 at the worst leaf, its float32 ones by 2.4e-5 (d_model 128,
+# tests/test_torch_xlstm_spread.py).  On the card two plain paths that
+# differ only in the sLSTM loop's precision part by O(1) in bf16, by
+# 1e-2 in float32; the backward of each mLSTM chunk multiplies that
+# change at q, k and the gates (its normaliser max(|den|, exp(-m)) and
+# stabiliser), not at v (tools/xlstm_grad_spread.py; PERF.md §6).  So
+# the sLSTM kernels are held in bf16 layer by layer on a training
+# microbatch's own inputs (slstm_train_check), the model in float32
+XLSTM_GATE_DTYPE = "float32"
 # the scan's backward at the training microbatch and at the pool's
 # prefill shape, from a state and without
 SCAN_BWD_SHAPES = ((1, 4096, 2560), (4, 2048, 2560))
@@ -426,10 +475,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
-    call, from CUDA events."""
-    fn()
+    call (none without ``warm``), from CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1262,33 +1312,65 @@ def bwd_blocks(torch, qpos, S: int, Hq: int, rows: int = 64,
     return (B * Hq * len(k0), int(steps.sum()) * Hq, int(steps.max()))
 
 
-def bwd_split(torch, fn, reps: int = 5):
-    """Device ms per launch of each kernel of the wgmma backward, from
-    torch.profiler over ``reps`` calls of ``fn``."""
-    import re
-
+def profiled_events(torch, fn, reps: int, kept, windows: int = 3,
+                    cpu: bool = False):
+    """(the CUDA events of ``reps`` calls of ``fn`` under torch.profiler,
+    windows profiled), after one call outside it; with ``cpu``, CPU
+    activity profiled too, as ``device_breakdown`` profiles.  Late in a
+    long process the profiler keeps only some of a short window's kernels
+    (33 to 36 of 50 in most windows) and now and then none of them (0 of
+    50 in one window of a run whose windows before and after kept 34), so
+    a window whose events ``kept`` rejects is profiled again, up to
+    ``windows`` times, each after a pause of 0.1 s; the last window's
+    events if none was kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for window in range(1, windows + 1):
+        fn()
         torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            time.sleep(0.1)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if kept(events):
+            break
+    return events, window
+
+
+def bwd_split(torch, fn, reps: int = 5, want=()):
+    """Device ms per launch of each kernel of the wgmma backward, from
+    torch.profiler over ``reps`` calls of ``fn``: a window that kept none
+    of them, or not every label of ``want``, is profiled again
+    (``profiled_events``)."""
+    import re
+
     names = {"prep_kernel": "pre-pass", "dq_wgmma_kernel": "dQ",
              "dkdv_roles_kernel": "dK/dV", "gqa_sum_kernel": "GQA sum"}
-    split = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        m = re.search(r"dkv_wgmma_kernel<[^>]*, (true|false)>", e.name)
-        label = ("dK" if m.group(1) == "true" else "dV") if m else next(
-            (v for k, v in names.items() if k in e.name), None)
-        if label is None:
-            continue
-        us, count = split.get(label, (0.0, 0))
-        split[label] = (us + e.time_range.end - e.time_range.start, count + 1)
+
+    def split_of(events):
+        split = {}
+        for e in events:
+            m = re.search(r"dkv_wgmma_kernel<[^>]*, (true|false)>", e.name)
+            label = ("dK" if m.group(1) == "true" else "dV") if m else next(
+                (v for k, v in names.items() if k in e.name), None)
+            if label is None:
+                continue
+            us, count = split.get(label, (0.0, 0))
+            split[label] = (us + e.time_range.end - e.time_range.start,
+                            count + 1)
+        return split
+
+    events, _ = profiled_events(
+        torch, fn, reps,
+        lambda ev: bool(split_of(ev)) and set(want) <= set(split_of(ev)))
+    split = split_of(events)
+    if not set(want) <= set(split):
+        split = {}
     return {k: us / 1e3 / count for k, (us, count) in split.items()}
 
 
@@ -1308,9 +1390,10 @@ def flash_bwd_phase(torch):
     g = torch.Generator(device=dev).manual_seed(4)
 
     def inputs(dtype, B, T, S, Hq, Hkv, D, kind):
+        Dh, Dv = D if isinstance(D, tuple) else (D, D)
         q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
-                       for sh in ((B, T, Hq, D), (B, S, Hkv, D),
-                                  (B, S, Hkv, D), (B, T, Hq, D)))
+                       for sh in ((B, T, Hq, Dh), (B, S, Hkv, Dh),
+                                  (B, S, Hkv, Dv), (B, T, Hq, Dv)))
         if kind == "tail":
             qpos = torch.arange(S - T, S, dtype=torch.int32,
                                 device=dev).repeat(B, 1)
@@ -1331,7 +1414,14 @@ def flash_bwd_phase(torch):
 
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for B, T, S, Hq, Hkv, D, window, softcap, kind in BWD_SHAPES:
-            variant = fk.bwd_variant(dtype, D, D)
+            Dh, Dv = D if isinstance(D, tuple) else (D, D)
+            if dtype == torch.float32 and Dh != Dv:
+                try:
+                    fk.bwd_variant(dtype, Dh, Dv)
+                except ValueError:
+                    continue             # no float32 kernel at 192 / 128
+                fail(f"bwd_variant takes float32 at Dh {Dh} / Dv {Dv}")
+            variant = fk.bwd_variant(dtype, Dh, Dv)
             q, k, v, do, qpos = inputs(dtype, B, T, S, Hq, Hkv, D, kind)
             kw = dict(window=window, softcap=softcap)
             leaves = [x.double().requires_grad_() for x in (q, k, v)]
@@ -1591,6 +1681,292 @@ def flash_bwd_256_phase(torch, ptxas):
     entry = out[GEMMA2_ARCH]
     entry["recurrentgemma_shape"] = out[RG_ARCH]
     entry["ptxas"] = dict(reports)
+    return entry
+
+
+def flash_bwd_mla_phase(torch, ptxas):
+    """The flash backward at Dh 192 / Dv 128 at deepseek-v3's training
+    microbatch, as MLA's naive form hands it with grad: q and k (1, 4096,
+    128, 192), the RoPE columns joined (the key's shared by every head),
+    v and dO (1, 4096, 128, 128), causal, scale 1/sqrt(192).  Against the
+    plain blockwise backward within BWD_MAIN_TOL and against float64
+    dense autograd on heads 0-7 (each head's gradients depend on its own
+    operands alone) within BWD_FRO_TOL; two launches bit-identical;
+    timed (and split by launch) beside its operations bound, the plain
+    backward and SDPA's backward on the same operands (memory-efficient
+    backend, is_causal).  Prints the ptxas lines of its kernels
+    (``ptxas``: flash_attn_bwd_hd's (kernel, report) pairs).  Returns its
+    entry."""
+    import re
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.ref import join_rope
+
+    reports = [(k, r) for k, r in ptxas
+               if re.search(r"(\(int\)|[<, ])192, (\(int\))?128[,>]", k)]
+    for kernel, report in reports:
+        print(f"flash bwd Dh 192 / Dv 128 ptxas: {kernel}: {report}")
+    check(len(reports) == 8, f"{len(reports)} Dh 192 / Dv 128 backward "
+          f"kernels in the build log, want 8 (the dK/dV pass and dQ for two "
+          f"types with and without a softcap)")
+    check(fk.bwd_variant(torch.bfloat16, 192, 128) == "wgmma",
+          "the Dh 192 / Dv 128 backward does not take wgmma in bf16")
+    cfg = get_config(DSV3_ARCH)
+    H, m = cfg.n_heads, cfg.mla
+    Dn, Dr, Dv = m.d_nope, m.d_rope, m.d_v
+    Dh = Dn + Dr
+    T = TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+    # the naive form's operands: the RoPE key one a position, expanded
+    # and joined to every head's k
+    q, k = join_rope(randn(1, T, H, Dn), randn(1, T, H, Dn),
+                     randn(1, T, H, Dr), randn(1, T, 1, Dr))
+    v, do = randn(1, T, H, Dv), randn(1, T, H, Dv)
+    qpos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    scale = 1.0 / Dh ** 0.5
+    out, lse = fk._forward(q, k, v, qpos, None, 0.0, scale, with_lse=True)
+
+    def kernel():
+        return fk.flash_attention_bwd_cuda(do, q, k, v, out, lse, qpos=qpos,
+                                           scale=scale)
+    n0 = fk.flash_attention_bwd_cuda.by_variant["wgmma"]
+    got, again = kernel(), kernel()
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    out_p = blockwise_attention(*plain, qpos=qpos, window=None, scale=scale)
+    want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
+    torch.cuda.synchronize()
+    check(fk.flash_attention_bwd_cuda.by_variant["wgmma"] == n0 + 2,
+          "the Dh 192 / Dv 128 backward did not launch wgmma")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "two Dh 192 / Dv 128 backward launches differ at deepseek-v3's "
+          "training shape")
+    check([tuple(x.shape) for x in got] == [q.shape, k.shape, v.shape],
+          "the Dh 192 / Dv 128 backward's gradients have other shapes")
+    rels = [fro_rel(torch, x, y) for x, y in zip(got, want)]
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(got, want))
+    # float64 on heads 0-7 (17 GB of scores at all 128)
+    hs = slice(0, 8)
+    leaves = [x[:, :, hs].double().requires_grad_() for x in (q, k, v)]
+    dense64(torch, *leaves, qpos).backward(do[:, :, hs].double())
+    rels64 = [fro_rel(torch, x[:, :, hs], w.grad)
+              for x, w in zip(got, leaves)]
+    del leaves
+    print(f"flash bwd Dh {Dh} / Dv {Dv} {DSV3_ARCH} q, k {tuple(q.shape)} "
+          f"(RoPE joined), v {tuple(v.shape)} causal: fro_rel dq,dk,dv vs "
+          f"plain blockwise = " + ", ".join(f"{x:.3e}" for x in rels)
+          + f" (bound {BWD_MAIN_TOL:g}), vs float64 on heads 0-7 = "
+          + ", ".join(f"{x:.3e}" for x in rels64)
+          + f" (bound {BWD_FRO_TOL:g}), max_abs_err={err:.3e}, two launches "
+          f"bit-identical")
+    check(max(rels) <= BWD_MAIN_TOL, f"the Dh 192 / Dv 128 backward: {rels} "
+          f"against the plain backward")
+    check(max(rels64) <= BWD_FRO_TOL, f"the Dh 192 / Dv 128 backward: "
+          f"{rels64} against float64")
+    # the library's one call: SDPA's backward, memory-efficient backend
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    do_t = do.transpose(1, 2)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             scale=scale)
+
+    def library():
+        return torch.autograd.grad(o_s, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+    lib = library()
+    lib_err = max(fro_rel(torch, a.transpose(1, 2), b)
+                  for a, b in zip(lib, got))
+    print(f"flash bwd Dh {Dh} / Dv {Dv} vs SDPA's backward (memory-efficient"
+          f" backend, is_causal): fro_rel {lib_err:.3e}")
+    check(lib_err <= 2 * BWD_MAIN_TOL, "SDPA's backward computes another "
+          "function than the kernel at deepseek-v3's training shape")
+    pairs = T * (T + 1) // 2
+    flops = pairs * H * 2 * (3 * Dh + 2 * Dv)
+    nbytes = 2 * (3 * T * H * Dh + 4 * T * H * Dv) + 4 * H * T
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    entry = dict(
+        name="flash_attn_bwd_hd", variant="wgmma", head_dim=[Dh, Dv],
+        route="cuda", source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
+        replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
+        max_abs_err=err, fro_rel_dq_dk_dv=rels,
+        fro_rel_f64_heads_0_7=rels64,
+        ms=cuda_ms(torch, kernel, 10),
+        plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            out_p, plain, do, retain_graph=True), 2),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=cuda_ms(torch, library, 10),
+        library="SDPA backward (memory-efficient backend, is_causal)",
+        wgmma_split_ms={k: round(x, 4) for k, x in bwd_split(
+            torch, kernel, want=("pre-pass", "dK/dV", "dQ")).items()},
+        shape=[list(q.shape), list(k.shape), list(v.shape)],
+        visible_pairs=pairs, ptxas=dict(reports))
+    blocks, steps, longest = bwd_blocks(torch, qpos, T, H, keys=64)
+    entry["grid"] = dict(dkdv_blocks=blocks, dkdv_tile_steps=steps,
+                         dkdv_longest=longest, dq_blocks=H * -(-T // 128))
+    print(f"flash bwd Dh {Dh} / Dv {Dv} at {DSV3_ARCH}'s training shape: "
+          f"{flops:.4e} flops (2 (3 Dh + 2 Dv) a pair and head), "
+          f"{nbytes:.4e} bytes; bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), wgmma {entry['ms']:.4f} ms "
+          f"({flops / entry['ms'] / 1e9:.1f} TFLOP/s, "
+          f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of the bound), plain "
+          f"{entry['plain_ms']:.4f} ms, SDPA backward "
+          f"{entry['library_ms']:.4f} ms; per launch (torch.profiler, ms) "
+          + ", ".join(f"{k} {x:.4f}"
+                      for k, x in entry["wgmma_split_ms"].items())
+          + f"; grid: one dK/dV pass of {blocks} blocks of 64 keys ({steps} "
+          f"tile steps, the longest {longest}), dQ "
+          f"{entry['grid']['dq_blocks']} blocks of 128 rows")
+    check(set(entry["wgmma_split_ms"]) <= {"pre-pass", "dK/dV", "dQ"},
+          f"the Dh 192 / Dv 128 backward ran "
+          f"{sorted(entry['wgmma_split_ms'])}, not one dK/dV pass and no "
+          f"GQA sum")
+    del q, k, v, do, out, lse, got, again, plain, out_p, want, lib, o_s
+    del qt, kt, vt, do_t
+    torch.cuda.empty_cache()
+    return entry
+
+
+def slstm_bwd_phase(torch):
+    """The sLSTM recurrence's backward kernel at xlstm-125m's training
+    microbatch (1, 4096, 768) and at the pool's prefill shape (4, 2048,
+    768), bf16 pre_x, from a state and without, through autograd
+    (SlstmScanFunction) with the final state's gradients given: each
+    gradient (d pre_x, dr, and the state's dc, dn, dh, dm) within
+    SLSTM_TOL of its largest magnitude (SLSTM_BWD_STATE_TOL at the
+    training shape from a state; d pre_x, bf16, one bf16 ulp of its own
+    more) against float64 autograd through the recurrence and
+    against the plain reverse loop; a forward and a backward launch a
+    call; two backward launches bit-identical.  Then the backward alone
+    timed at the training shape (CUDA events) beside its bound and the
+    plain loop, in us a step.  Returns its entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.slstm_scan.kernel import (
+        VARIANTS, slstm_scan_bwd_cuda, slstm_scan_cuda, slstm_scan_kernel)
+    from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_ref,
+                                                    slstm_scan_ref)
+
+    cfg = get_config(XLSTM_ARCH)
+    D, H = cfg.d_model, cfg.n_heads
+    Dh = D // H
+    g = torch.Generator(device="cuda").manual_seed(31)
+    r = torch.randn((H, Dh, 4 * Dh), generator=g, device="cuda") \
+        * (0.5 / Dh ** 0.5)
+    errs, timed = {}, None
+    for B, T in ((1, TRAIN_SEQ), (SERVE_SLOTS, PROMPTS[0])):
+        for with_state in (True, False):
+            pre_x = torch.randn((B, T, 4 * D), generator=g,
+                                device="cuda").bfloat16()
+            st = None
+            if with_state:
+                n = torch.rand((B, D), generator=g, device="cuda") * 4 + 0.1
+                st = (n * (torch.rand((B, D), generator=g, device="cuda")
+                           * 2 - 1), n,
+                      torch.rand((B, D), generator=g, device="cuda") * 2 - 1,
+                      torch.randn((B, D), generator=g, device="cuda") * 3)
+            dhs = torch.randn((B, T, D), generator=g, device="cuda")
+            dfin = [torch.randn((B, D), generator=g, device="cuda")
+                    for _ in range(4)]
+
+            def grads(scan, f64=False):
+                """The gradients of a loss on hs and the final state,
+                every input a leaf (in float64 with ``f64``)."""
+                leaves = [(x.double() if f64 else x).detach().clone()
+                          .requires_grad_() for x in (pre_x, r) + (st or ())]
+                hs, fin = scan(leaves[0], leaves[1],
+                               tuple(leaves[2:]) if st else None)
+                loss = (hs * dhs.to(hs.dtype)).sum() + sum(
+                    (a * b.to(a.dtype)).sum() for a, b in zip(fin, dfin))
+                return torch.autograd.grad(loss, leaves)
+            n0, b0 = slstm_scan_cuda.launches, slstm_scan_bwd_cuda.launches
+            got = grads(slstm_scan_cuda)
+            again = grads(slstm_scan_cuda)
+            torch.cuda.synchronize()
+            check((slstm_scan_cuda.launches - n0,
+                   slstm_scan_bwd_cuda.launches - b0) == (2, 2),
+                  "a call of the sLSTM kernel with grad did not add one "
+                  "forward and one backward launch")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "two launches of the sLSTM backward differ")
+            want = grads(slstm_scan_ref, f64=True)
+            dpre, dr, dst = slstm_scan_bwd_ref(dhs, pre_x, r, st, dfin)
+            plain = [dpre, dr] + (list(dst) if st else [])
+            names = ["dpre_x", "dr"] + (["dc0", "dn0", "dh0", "dm0"]
+                                        if st else [])
+            tol = SLSTM_BWD_STATE_TOL if st and B == 1 else SLSTM_TOL
+            row, bad = [], []
+            for name, a, p, w in zip(names, got, plain, want):
+                top = float(w.abs().max())
+                slack = w.abs() * 2.0 ** -7 if a.dtype == torch.bfloat16 \
+                    else 0.0
+                e64 = (a.double() - w).abs()
+                ep = (a.double() - p.double()).abs()
+                # the float32 loop's own distance from float64
+                ep64 = float((p.double() - w).abs().max()) / top
+                if not (bool((e64 <= tol * top + slack).all())
+                        and bool((ep <= tol * top + slack).all())):
+                    bad.append(name)
+                errs[name] = max(errs.get(name, 0.0), float(ep.max()))
+                row.append(f"{name} {float(e64.max()) / top:.2e}/"
+                           f"{float(ep.max()) / top:.2e}/{ep64:.2e}")
+            print(f"slstm_scan bwd {(B, T, D)} bf16"
+                  f"{' from a state' if st else ''}: max|err| / max|grad| "
+                  f"of the kernel against float64 / against the plain "
+                  f"reverse loop / the plain loop's against float64: "
+                  + ", ".join(row) + f" (bound {tol:g}, bf16 d pre_x + one "
+                  f"ulp); two launches bit-identical")
+            check(not bad, f"the sLSTM backward's {bad} at {(B, T, D)} "
+                  f"exceed the bound")
+            if B == 1 and not with_state:
+                timed = (pre_x, dhs)
+            del pre_x, st, dhs, dfin, got, again, want, plain
+            torch.cuda.empty_cache()
+    pre_x, dhs = timed
+    B, T, _ = pre_x.shape
+    f32 = dict(dtype=torch.float32, device="cuda")
+    saved = (torch.empty((B, T, 4 * D), **f32),
+             *(torch.empty((B, T, D), **f32) for _ in range(3)))
+    slstm_scan_kernel(pre_x, r, None, VARIANTS.index("cluster"), saved)
+
+    def kernel():
+        return slstm_scan_bwd_cuda(dhs, r, saved)
+    # dh's product: 2 D 4Dh operations a step and row; the bytes: dhs, pre
+    # and c, n, m read once, dpre written once, r read once
+    ops = 2 * B * T * D * 4 * Dh
+    nbytes = 4 * B * T * (D + 4 * D + 3 * D + 4 * D) + 4 * r.numel()
+    t_ops, t_bytes = ops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    entry = dict(
+        name="slstm_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/slstm_scan.cu",
+        replaces="src/repro/models/xlstm.py:217",
+        max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+        ms=cuda_ms(torch, kernel, 10),
+        # one call, not warmed up: the correctness checks above ran it
+        plain_ms=cuda_ms(torch, lambda: slstm_scan_bwd_ref(dhs, pre_x, r),
+                         1, warm=False),
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bytes_bound_ms=1e3 * t_bytes, library_ms=None, shape=[B, T, D])
+    entry["us_per_step"] = 1e3 * entry["ms"] / T
+    print(f"slstm_scan bwd at {entry['shape']} (bf16 pre_x): "
+          f"{entry['ms']:.4f} ms ({entry['us_per_step']:.3f} us a step), "
+          f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {ops:.4e} "
+          f"operations over the float32 rate; bytes "
+          f"{entry['bytes_bound_ms']:.4f} ms), plain reverse loop "
+          f"{entry['plain_ms']:.4f} ms (the forward again included); no "
+          f"PyTorch call computes the recurrence's gradient")
+    del timed, pre_x, dhs, saved
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -1858,36 +2234,23 @@ def scan_device_ms(torch, fn, reps: int, kernel: str = "rglru",
     """(mean device time of one launch of the kernel named with
     ``kernel`` that ``fn`` launches, launches seen, windows profiled),
     from torch.profiler's kernel intervals in ``reps`` calls, with CPU
-    and CUDA activities as ``device_breakdown`` profiles; fails where a
-    kernel named with ``not_kernel`` ran in any window.  Late in a long
-    process the profiler keeps only some of a short window's kernels
-    (33 to 36 of 50 in most windows) and now and then none of them (0
-    of 50 in one window of a run whose windows before and after kept
-    34), so the mean is over those it kept, and a window that kept none
-    is profiled again, up to ``windows`` times, each after a pause of
-    0.1 s; None if none kept any: a measurement, not a gate."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for window in range(1, windows + 1):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.1)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and kernel in e.name]
+    and CUDA activities; fails where a kernel named with ``not_kernel``
+    ran in any window.  The mean is over the launches the profiler kept,
+    a window that kept none profiled again (``profiled_events``); None if
+    none kept any: a measurement, not a gate."""
+    def kept(events):
+        us = [e for e in events if kernel in e.name]
         check(len(us) <= reps, f"the profiler saw {len(us)} {kernel} "
               f"kernels in {reps} calls")
-        check(not_kernel is None or not any(not_kernel in n for n in names),
+        check(not_kernel is None or not any(not_kernel in e.name
+                                            for e in events),
               f"a {not_kernel} kernel ran where only {kernel} should")
-        if us:
-            break
+        return bool(us)
+
+    events, window = profiled_events(torch, fn, reps, kept, windows,
+                                     cpu=True)
+    us = [e.time_range.end - e.time_range.start for e in events
+          if kernel in e.name]
     return (sum(us) / len(us) / 1e3 if us else None), len(us), window
 
 
@@ -2091,14 +2454,16 @@ def _wrappers():
     from repro_torch.kernels.gemm_hd.kernel import gemm_cuda
     from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_bwd_cuda,
                                                       rglru_scan_cuda)
-    from repro_torch.kernels.slstm_scan.kernel import slstm_scan_cuda
+    from repro_torch.kernels.slstm_scan.kernel import (slstm_scan_bwd_cuda,
+                                                       slstm_scan_cuda)
     from repro_torch.kernels.stencil_hd.kernel import jacobi_cuda
     return {"jacobi_hd": jacobi_cuda, "gemm_hd": gemm_cuda,
             "flash_attn_hd": flash_attention_cuda,
             "flash_attn_bwd_hd": flash_attention_bwd_cuda,
             "rglru_scan": rglru_scan_cuda,
             "rglru_scan_bwd": rglru_scan_bwd_cuda,
-            "slstm_scan": slstm_scan_cuda}
+            "slstm_scan": slstm_scan_cuda,
+            "slstm_scan_bwd": slstm_scan_bwd_cuda}
 
 
 def reset_launches():
@@ -3150,54 +3515,131 @@ def named_leaves(tree, prefix: str = ""):
         yield prefix, tree
 
 
-def train_phase(torch, arch: str, n_layers, steps: int,
-                tol: float = TRAIN_GRAD_TOL, spread: bool = False):
-    """(h) ``arch`` trained on the card at full width, its depth cut to
-    ``n_layers`` where given, with the traffic TRAIN_SEQ, TRAIN_BATCH,
-    TRAIN_MICRO: a gate on one microbatch's gradients, kernels against
-    the plain versions (blockwise attention, the plain scan loop) on the
-    same float32 masters, each leaf finite, non-zero and within ``tol``
-    (with ``spread``, also within twice the plain path's own spread:
-    its distance from the plain path run with 256 x 256 attention
-    blocks); then ``steps`` steps through
-    make_train_step.  Checks every launch: per microbatch flash's
-    forward 2 and its backward 1 per attention layer (the checkpointed
-    layer's recompute included), the scan's forward 2 (``chunked``) and
-    its backward 1 per recurrent layer.  Returns its launches, launches
-    by variant and step stats."""
+def train_cut(arch: str, **cut):
+    """``arch``'s configuration with the fields in ``cut`` replaced: the
+    cut the card trains (n_layers, dense_layers)."""
     import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **cut)
+
+
+def slstm_train_check(torch, bundle, params, mb) -> None:
+    """The sLSTM kernels inside one bf16 training microbatch through
+    ``bundle``, against the plain loops on that microbatch's own inputs,
+    layer by layer: the kernel's hs within SLSTM_TOL of its largest of
+    ``slstm_scan_ref``'s from the same pre_x and r; the backward's d pre_x
+    (bf16, one bf16 ulp of its own more) and dr (the gradient of the
+    layer's r_in) within SLSTM_TOL of their largest of
+    ``slstm_scan_bwd_ref``'s from the same pre_x, r and dL/dhs."""
+    import repro_torch.models.xlstm as XL
+    from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_ref,
+                                                    slstm_scan_ref)
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        value_and_grad)
+
+    real, taps = XL.slstm_scan, []
+
+    def scan(pre_x, r, state=None, out=None):
+        hs, fin = real(pre_x, r, state, out=out)
+        tap = {"pre_x": pre_x.detach(), "r": r.detach(), "hs": hs.detach()}
+        # the checkpoint's recompute builds a graph no gradient reaches
+        hs.register_hook(lambda g: tap.__setitem__("dhs", g))
+        pre_x.register_hook(lambda g: tap.__setitem__("dpre_x", g))
+        taps.append(tap)
+        return hs, fin
+
+    XL.slstm_scan = scan
+    try:
+        _, _, grads = value_and_grad(make_loss_fn(bundle, TrainConfig()))(
+            params, mb)
+    finally:
+        XL.slstm_scan = real
+    taps = [t for t in taps if "dhs" in t]
+    check(len(taps) == len(grads["slstm"]), f"(h) {bundle.cfg.name}: "
+          f"{len(taps)} sLSTM layers reached by the backward")
+    rows = []
+    for i, (t, g) in enumerate(zip(taps, grads["slstm"])):
+        hs, _ = slstm_scan_ref(t["pre_x"], t["r"])
+        dpre, dr, _ = slstm_scan_bwd_ref(t["dhs"].float(), t["pre_x"],
+                                         t["r"])
+        e_hs = float((t["hs"] - hs).abs().max() / hs.abs().max())
+        e_pre = (t["dpre_x"].double() - dpre.double()).abs()
+        slack = dpre.double().abs() * 2.0 ** -7
+        top = float(dpre.abs().max())
+        e_dr = float((g["r_in"] - dr).abs().max() / dr.abs().max())
+        rows.append(f"layer {i}: hs {e_hs:.2e}, d pre_x "
+                    f"{float(e_pre.max()) / top:.2e}, dr {e_dr:.2e}")
+        check(e_hs <= SLSTM_TOL and e_dr <= SLSTM_TOL
+              and bool((e_pre <= SLSTM_TOL * top + slack).all()),
+              f"(h) {bundle.cfg.name}: the sLSTM kernels in a bf16 training "
+              f"microbatch part from the plain loops: {rows[-1]}")
+    print(f"(h) {bundle.cfg.name} the sLSTM kernels in one bf16 microbatch "
+          f"(1 x {TRAIN_SEQ}) against the plain loops on its own inputs, "
+          f"max|err| / max: " + "; ".join(rows)
+          + f" (bound {SLSTM_TOL:g}, bf16 d pre_x + one ulp)")
+
+
+def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
+                spread: bool = False, gate_dtype=None):
+    """(h) ``cfg`` (a ``train_cut``) trained on the card at full width,
+    with the traffic TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO: a gate on one
+    microbatch's gradients, kernels against the plain versions
+    (blockwise attention, the plain scan and sLSTM loops) on the same
+    float32 masters, each leaf finite, non-zero and within ``tol`` (with
+    ``spread``, also within twice the plain path's own spread: its
+    distance from the plain path run with 256 x 256 attention blocks;
+    with ``gate_dtype``, a torch dtype's name, the gate's model computes
+    in that type, not bf16); with sLSTM layers, ``slstm_train_check``
+    on a bf16 microbatch; then ``steps`` steps
+    through make_train_step.
+    Checks every launch: per microbatch flash's forward 2 and its
+    backward 1 per attention layer (the checkpointed layer's recompute
+    included) and 1 and 1 for an MTP block (no checkpoint), the scan's
+    forward 2 (``chunked``) and its backward 1 per recurrent layer, the
+    sLSTM's forward 2 (``cluster``) and its backward 1 per sLSTM layer.
+    Returns its launches, launches by variant and step stats."""
     import functools
 
     import repro_torch.models.layers as LY
+    import repro_torch.models.mla as MLA
     import repro_torch.models.rglru as RG
+    import repro_torch.models.xlstm as XL
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
     from repro_torch.models import build
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
     from repro_torch.train.step import (TrainConfig, make_loss_fn,
                                         make_train_step, value_and_grad)
 
-    cfg = get_config(arch)
-    full = cfg.n_layers
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    full = get_config(cfg.name).n_layers
     L = cfg.n_layers
+    n_rec = n_s = 0
     if cfg.family == "hybrid":
         n_att = L // (cfg.rg.pattern + 1)
         n_rec = L - n_att
+    elif cfg.family == "ssm":
+        n_att, n_s = 0, L // cfg.xlstm.slstm_every
     else:
-        n_att, n_rec = L, 0
+        n_att = L
+    n_mtp = int(bool(cfg.mtp))
     t0 = time.perf_counter()
     bundle = build(cfg, torch.bfloat16, "cuda")
     params = bundle.init(0, dtype=torch.float32)
     n_params = sum(p.numel() for p in tree_leaves(params))
     torch.cuda.synchronize()
+    kinds = ", ".join(f"{n} {k}" for n, k in (
+        (n_att, "attention"), (n_rec, "RG-LRU"), (n_s, "sLSTM"),
+        (L - n_s if cfg.family == "ssm" else 0, "mLSTM"),
+        (n_mtp, "MTP block")) if n)
     print(f"(h) {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
-          f"{L} of {full} layers ({n_att} attention, {n_rec} RG-LRU): "
+          f"{L} of {full} layers ({kinds}): "
           f"{n_params / 1e9:.3f} B float32 parameters "
           f"({4 * n_params / 1e9:.2f} GB; {16 * n_params / 1e9:.1f} GB with "
           f"gradients and two moments), init {time.perf_counter() - t0:.1f} s")
@@ -3208,13 +3650,18 @@ def train_phase(torch, arch: str, n_layers, steps: int,
                 for k, v in pipe.batch_at(i).items()}
 
     def per_microbatch(k: int):
-        return {"flash_attn_hd": 2 * n_att * k, "flash_attn_bwd_hd": n_att * k,
-                "rglru_scan": 2 * n_rec * k, "rglru_scan_bwd": n_rec * k}
+        return {"flash_attn_hd": (2 * n_att + n_mtp) * k,
+                "flash_attn_bwd_hd": (n_att + n_mtp) * k,
+                "rglru_scan": 2 * n_rec * k, "rglru_scan_bwd": n_rec * k,
+                "slstm_scan": 2 * n_s * k, "slstm_scan_bwd": n_s * k}
 
     # -- the gate: one microbatch, kernels against the plain versions --
-    grad_fn = value_and_grad(make_loss_fn(bundle, TrainConfig()))
+    gate_bundle = bundle if gate_dtype is None else build(
+        cfg, getattr(torch, gate_dtype), "cuda")
+    grad_fn = value_and_grad(make_loss_fn(gate_bundle, TrainConfig()))
     mb = {k: v[0::TRAIN_MICRO] for k, v in batch_at(0).items()}
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss_k, _, g_k = grad_fn(params, mb)
     torch.cuda.synchronize()
@@ -3222,21 +3669,26 @@ def train_phase(torch, arch: str, n_layers, steps: int,
     got, variants = read_launches(), read_variants()
     want = per_microbatch(1)
     check({k: got[k] for k in want} == want
+          and sum(got.values()) == sum(want.values())
           and variants["flash_attn_bwd_hd"]["wgmma"] == want[
               "flash_attn_bwd_hd"]
-          and variants["rglru_scan"]["chunked"] == want["rglru_scan"],
+          and variants["rglru_scan"]["chunked"] == want["rglru_scan"]
+          and variants["slstm_scan"]["cluster"] == want["slstm_scan"],
           f"(h) {cfg.name}: one microbatch launched {got} {variants}, want "
           f"{want}")
+    gate_peak = torch.cuda.max_memory_allocated()
 
     def plain_grads(**blocks):
-        real_flash, real_scan = LY.flash_attention, RG.rglru_scan
-        LY.flash_attention = functools.partial(ops.flash_attention,
-                                               impl="blockwise", **blocks)
-        RG.rglru_scan = rglru_scan_ref
+        saved = (LY.flash_attention, MLA.flash_attention, RG.rglru_scan,
+                 XL.slstm_scan)
+        LY.flash_attention = MLA.flash_attention = functools.partial(
+            ops.flash_attention, impl="blockwise", **blocks)
+        RG.rglru_scan, XL.slstm_scan = rglru_scan_ref, slstm_scan_ref
         try:
             return grad_fn(params, mb)
         finally:
-            LY.flash_attention, RG.rglru_scan = real_flash, real_scan
+            (LY.flash_attention, MLA.flash_attention, RG.rglru_scan,
+             XL.slstm_scan) = saved
 
     def worst_leaf(ga, gb):
         return max((fro_rel(torch, a, b), name) for (name, a), (_, b) in
@@ -3255,11 +3707,15 @@ def train_phase(torch, arch: str, n_layers, steps: int,
               f"is zero")
         n += 1
     worst, leaf = worst_leaf(g_k, g_p)
-    print(f"(h) {cfg.name} one microbatch (1 x {TRAIN_SEQ}): loss kernels "
+    print(f"(h) {cfg.name} one microbatch (1 x {TRAIN_SEQ}, "
+          f"{gate_dtype or 'bfloat16'} compute): loss kernels "
           f"{float(loss_k):.6f}, plain {float(loss_p):.6f}; {n} leaves "
           f"finite and non-zero; worst fro_rel of a leaf's gradient "
           f"{worst:.3e} ({leaf}), bound {tol:g}; kernels "
-          f"{t_kernel:.2f} s, plain versions {t_plain:.2f} s (host clock)")
+          f"{t_kernel:.2f} s, plain versions {t_plain:.2f} s (host clock); "
+          f"max_memory_allocated {gate_peak / 1e9:.3f} GB after the "
+          f"kernels' microbatch, {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB after the plain one")
     check(worst <= tol, f"(h) {cfg.name}: kernel gradients differ from the "
           f"plain versions': {worst} at {leaf}")
     del g_k
@@ -3275,6 +3731,9 @@ def train_phase(torch, arch: str, n_layers, steps: int,
         del g_s
     del g_p
     torch.cuda.empty_cache()
+    if n_s:
+        slstm_train_check(torch, bundle, params, mb)
+        torch.cuda.empty_cache()
 
     # -- the steps ---------------------------------------------------------
     ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=1000,
@@ -3311,7 +3770,8 @@ def train_phase(torch, arch: str, n_layers, steps: int,
           and variants["flash_attn_hd"]["wgmma"] == want["flash_attn_hd"]
           and variants["flash_attn_bwd_hd"]["wgmma"]
           == want["flash_attn_bwd_hd"]
-          and variants["rglru_scan"]["chunked"] == want["rglru_scan"],
+          and variants["rglru_scan"]["chunked"] == want["rglru_scan"]
+          and variants["slstm_scan"]["cluster"] == want["slstm_scan"],
           f"(h) {cfg.name}: launched {launches} {variants}, want {want}")
     check(sum(launches.values()) == sum(want.values()),
           f"(h) {cfg.name}: training launched another kernel: {launches}")
@@ -3320,7 +3780,7 @@ def train_phase(torch, arch: str, n_layers, steps: int,
                      lambda: step_fn(params, state, batches[steps]), top=8)
     stats = dict(ms=ms, losses=losses, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
                  / steady * 1e3, peak_gb=peak / 1e9, gate_worst=worst)
-    del bundle, params, state, batches, step_fn
+    del bundle, gate_bundle, params, state, batches, step_fn
     torch.cuda.empty_cache()
     return launches, variants, stats
 
@@ -3373,6 +3833,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"[{time.perf_counter() - started:.1f} s] done: {what}",
+              flush=True)
+
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3394,6 +3860,7 @@ def main() -> None:
         check(not faults, f"ptxas spills or serialises wgmmas in {name}: "
               + "; ".join(faults))
 
+    mark("the kernel build")
     jac, gemm = kernel_phase(torch)
     init, want = jacobi_data(torch)
     jac_launches, jac_ms = jacobi_path(torch, init, want)
@@ -3408,8 +3875,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"before the serving phase: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB allocated")
+    mark("the main path")
     flash, flash_256 = flash_phase(torch, ptxas["flash_attn_hd"])
     flash_bwd = flash_bwd_phase(torch)
+    mark("the flash phases")
     serve_launches, serve_variants, bundle, params = serve_path(
         torch, SERVE_ARCH, "wgmma", "serving path")
     # the resilience phases come last, so that every earlier phase runs
@@ -3422,9 +3891,10 @@ def main() -> None:
     jac_launches["(f)"] = rebalance_phase(torch, init, want)
     del init, want
     torch.cuda.empty_cache()
+    mark("serving yi-9b and the resilience phases")
     # training last, so that every earlier phase runs as it did before
     train_launches, train_variants, _ = train_phase(
-        torch, TRAIN_ARCH, TRAIN_LAYERS, TRAIN_STEPS)
+        torch, train_cut(TRAIN_ARCH, n_layers=TRAIN_LAYERS), TRAIN_STEPS)
     fault_launches = train_fault_phase(torch)
     # the Dh-256 families' training after it, so that every earlier phase
     # runs as it did before: the two backward kernels at their training
@@ -3433,11 +3903,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     flash_bwd_256 = flash_bwd_256_phase(torch, ptxas["flash_attn_bwd_hd"])
     scan_bwd = scan_bwd_phase(torch)
+    # the two backward kernels deepseek-v3 and xlstm-125m train through,
+    # at their training shapes, beside the others (their training comes
+    # last)
+    flash_bwd_mla = flash_bwd_mla_phase(torch, ptxas["flash_attn_bwd_hd"])
+    slstm_bwd = slstm_bwd_phase(torch)
+    mark("yi-9b's training, the fault path, the backward kernels' phases")
     g2t_launches, g2t_variants, _ = train_phase(
-        torch, GEMMA2_ARCH, GEMMA2_TRAIN_LAYERS, FAMILY_TRAIN_STEPS)
+        torch, train_cut(GEMMA2_ARCH, n_layers=GEMMA2_TRAIN_LAYERS),
+        FAMILY_TRAIN_STEPS)
     rgt_launches, rgt_variants, _ = train_phase(
-        torch, RG_ARCH, None, FAMILY_TRAIN_STEPS, tol=RG_TRAIN_GRAD_TOL,
+        torch, train_cut(RG_ARCH), FAMILY_TRAIN_STEPS, tol=RG_TRAIN_GRAD_TOL,
         spread=True)
+    mark("the Dh-256 families' training")
     # the other families' serving last, so that every earlier phase runs
     # as it did before; each alone on the card (qwen3's weights are 61 GB)
     torch.cuda.empty_cache()
@@ -3524,8 +4002,26 @@ def main() -> None:
     mla_layer = mla_layer_check(torch, bundle, params)
     del bundle, params
     torch.cuda.empty_cache()
-    # flash attention as an HDArray device kernel, last
+    # flash attention as an HDArray device kernel
     hd_launches, hd_variants, hd_by_shape = hd_flash_phase(torch)
+    mark("the serving phases and the HDArray flash kernel")
+    # deepseek-v3's and xlstm-125m's training last.  deepseek-v3 (2 dense
+    # layers and the MTP head) peaks at 78.4 GB of the card's 85: after
+    # the earlier phases the allocator's cached blocks were too split up
+    # for it (out of memory with 6.7 GiB reserved but free), so from here
+    # on the allocator maps expandable segments.  xlstm's profiled step
+    # (some 100,000 small launches, host-bound) left the profiler keeping
+    # none of a later short window's kernels (the sLSTM serving phase's)
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    dst_launches, dst_variants, _ = train_phase(
+        torch, train_cut(DSV3_ARCH, n_layers=DSV3_TRAIN_LAYERS,
+                         dense_layers=DSV3_TRAIN_LAYERS), FAMILY_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    xlt_launches, xlt_variants, _ = train_phase(
+        torch, train_cut(XLSTM_ARCH), FAMILY_TRAIN_STEPS,
+        gate_dtype=XLSTM_GATE_DTYPE)
+    mark("deepseek-v3's and xlstm-125m's training")
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -3542,6 +4038,10 @@ def main() -> None:
                                      g2t_launches["flash_attn_hd"],
                                  "(h) recurrentgemma train":
                                      rgt_launches["flash_attn_hd"],
+                                 "(h) deepseek-v3 train":
+                                     dst_launches["flash_attn_hd"],
+                                 "(h) xlstm train":
+                                     xlt_launches["flash_attn_hd"],
                                  "gemma2 engine": g2_launches["flash_attn_hd"],
                                  "qwen3 engine": q3_launches["flash_attn_hd"],
                                  "recurrentgemma engine":
@@ -3557,6 +4057,7 @@ def main() -> None:
     flash["launches_by_variant"] = {
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2t_variants["flash_attn_hd"][k] + rgt_variants["flash_attn_hd"][k]
+        + dst_variants["flash_attn_hd"][k] + xlt_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         + rg_variants["flash_attn_hd"][k] + xl_variants["flash_attn_hd"][k]
         + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
@@ -3569,6 +4070,7 @@ def main() -> None:
     mla = flash["wgmma_mla"]
     mla["launches_by_path"] = {
         "deepseek-v3 engine": ds_variants["flash_attn_hd"]["wgmma"],
+        "(h) deepseek-v3 train": dst_variants["flash_attn_hd"]["wgmma"],
         "hd flash kernel": hd_by_shape[HD_FLASH_SHAPES[1]]}
     mla["launches"] = sum(mla["launches_by_path"].values())
     mla["mla_layer_naive_vs_absorbed"] = mla_layer
@@ -3585,12 +4087,21 @@ def main() -> None:
         "(h) train": train_launches["flash_attn_bwd_hd"],
         "(h) fault path": fault_launches["flash_attn_bwd_hd"],
         "(h) gemma2 train": g2t_launches["flash_attn_bwd_hd"],
-        "(h) recurrentgemma train": rgt_launches["flash_attn_bwd_hd"]}
+        "(h) recurrentgemma train": rgt_launches["flash_attn_bwd_hd"],
+        "(h) deepseek-v3 train": dst_launches["flash_attn_bwd_hd"],
+        "(h) xlstm train": xlt_launches["flash_attn_bwd_hd"]}
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["launches_by_variant"] = {
         k: n + g2t_variants["flash_attn_bwd_hd"][k]
         + rgt_variants["flash_attn_bwd_hd"][k]
+        + dst_variants["flash_attn_bwd_hd"][k]
+        + xlt_variants["flash_attn_bwd_hd"][k]
         for k, n in train_variants["flash_attn_bwd_hd"].items()}
+    # the Dh 192 / Dv 128 backward: deepseek-v3's training (every backward
+    # there is at 192 / 128)
+    flash_bwd_mla["launches_by_path"] = {
+        "(h) deepseek-v3 train": dst_launches["flash_attn_bwd_hd"]}
+    flash_bwd_mla["launches"] = dst_launches["flash_attn_bwd_hd"]
     # the Dh-256 backward: the two training paths' launches (every
     # backward there is Dh 256)
     flash_bwd_256["launches_by_path"] = {
@@ -3615,11 +4126,19 @@ def main() -> None:
     scan["backward_launches_by_path"] = scan_bwd["launches_by_path"]
     scan_bwd["ptxas"] = {k: r for k, r in ptxas["rglru_scan"]
                          if "bwd" in k or "dlam" in k}
-    slstm["launches_by_path"] = {"xlstm engine": xl_launches["slstm_scan"]}
-    slstm["launches"] = xl_launches["slstm_scan"]
-    slstm["launches_by_variant"] = xl_variants["slstm_scan"]
+    slstm["launches_by_path"] = {"xlstm engine": xl_launches["slstm_scan"],
+                                 "(h) xlstm train": xlt_launches["slstm_scan"]}
+    slstm["launches"] = sum(slstm["launches_by_path"].values())
+    slstm["launches_by_variant"] = {
+        k: n + xlt_variants["slstm_scan"][k]
+        for k, n in xl_variants["slstm_scan"].items()}
+    slstm_bwd["launches_by_path"] = {"(h) xlstm train":
+                                     xlt_launches["slstm_scan_bwd"]}
+    slstm_bwd["launches"] = xlt_launches["slstm_scan_bwd"]
+    slstm_bwd["ptxas"] = {k: r for k, r in ptxas["slstm_scan"] if "bwd" in k}
     print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd,
-                                  flash_bwd_256, scan, scan_bwd, slstm]}))
+                                  flash_bwd_256, flash_bwd_mla, scan,
+                                  scan_bwd, slstm, slstm_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

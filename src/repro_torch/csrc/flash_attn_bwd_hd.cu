@@ -1,7 +1,7 @@
 // The backward of causal / windowed GQA flash attention: dq (B, T, Hq, D),
-// dk and dv (B, S, Hkv, D) from q, k, v, the forward's output o and
-// dO = dL/do, all (B, T|S, H, D), the per-row log-sum-exp lse (B, Hq, T)
-// that the forward wrote, and qpos (B, T).
+// dk (B, S, Hkv, D) and dv (B, S, Hkv, Dv) from q, k (D wide), v, the
+// forward's output o and dO = dL/do (Dv wide), the per-row log-sum-exp
+// lse (B, Hq, T) that the forward wrote, and qpos (B, T).
 //
 // Replaces the reference's flash backward, `_bw_blocks` under the
 // `custom_vjp` of `blockwise_attention`
@@ -28,7 +28,8 @@
 // kernel.py: bwd_variant).  Neither uses atomics: every sum has one
 // fixed order, so each is bit-deterministic across launches.
 //
-// * wgmma (bf16 and fp16, D = 64, 128 or 256: every training launch).
+// * wgmma (bf16 and fp16, D = Dv = 64, 128 or 256, or D 192 / Dv 128:
+//   every training launch).
 //   At D 64 and 128 five launches.  (a) A pre-pass, a block per
 //   (64-row query tile, query head, batch): delta = sum dO * o per row and lse * log2(e) (1e30
 //   for a row that sees no key, so that its p underflows to 0), both
@@ -87,6 +88,19 @@
 //   on the MUFU, as the forward.  So the
 //   backward does 14 D flops a visible pair and query head (8 + 6)
 //   against the bound's 10 D.
+//   At D 192 / Dv 128 (deepseek-v3's MLA in its naive form, 128 query
+//   heads over 128, the RoPE columns joined to q and k) the same four
+//   launches: the dK/dV pass by role with S^T over 192 and dP^T over
+//   128, dV (64 registers) on the S^T side and dK (96, a new m64n192k16)
+//   on the other, three stages of Q and dO; dQ as at D 256 (no producer
+//   warpgroup, 256 threads: dQ's 96 registers beside S, dP and dS at
+//   64 keys do not fit 168) with three 64-key stages of K and V.  The
+//   pre-pass's delta runs over Dv.  Per visible pair and query head 2
+//   (4 D + 4 Dv) flops (the dK/dV pass 4 (D + Dv), dQ 2 (2 D + Dv))
+//   against the bound's 2 (3 D + 2 Dv) = 1664.  With G = 1 there is no
+//   GQA sum.  At deepseek-v3's training microbatch (128 heads, 4096
+//   tokens, causal) 6.47 ms, 28% of its 1.807 ms bound (NVIDIA H100
+//   80GB HBM3, 700.00 W; chip_smoke.py).
 // * ffma (float32): FlashAttention-2's split into three launches, as
 //   plain FFMA loops, not TF32: (a) delta, one warp per (b, t, h) row;
 //   (b) dK, dV, a block per (64 keys, 32 at D 256; kv head, batch) that loops
@@ -95,7 +109,8 @@
 //   head, batch) over the key tiles its rows can see, longest first.
 // wgmma rounds p and dz to the operand type for its products, as
 // FlashAttention-2 does (the reference keeps them float32; the tests
-// state the tolerance).  Head dims: D = Dh = Dv in {64, 128, 256}.
+// state the tolerance).  Head dims: D = Dv in {64, 128, 256}, and D 192
+// / Dv 128 in 16-bit types (no ffma instantiation there).
 // Times against the bound are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -124,11 +139,14 @@ struct Params {
   // wgmma: (B, 64 n_tiles) int2 row bounds (lo, hi], then (B, n_tiles)
   // int4 tile ranges, written by (a); else null
   int* rows;
-  float* part;           // wgmma with G > 1: (2, B, S, Hq, D); else null
+  // wgmma with G > 1: (2, B, S, Hq, max(D, Dv)), dk's partials then
+  // dv's; else null
+  float* part;
   void* dq;              // (B, T, Hq, D), contiguous
   void* dk;              // (B, S, Hkv, D), contiguous
-  void* dv;              // (B, S, Hkv, D), contiguous
-  int B, T, S, Hq, Hkv, D;
+  void* dv;              // (B, S, Hkv, Dv), contiguous
+  int B, T, S, Hq, Hkv;
+  int D, Dv;             // head dims of q and k, of v, o and dout
   int n_tiles;           // wgmma: 64-row query tiles, 2 * ceil(T / 128)
   // element strides: batch, position, head of q, k, v, o and dout (the
   // last dim is unit-stride); batch and position of qpos
@@ -196,7 +214,7 @@ __global__ void __launch_bounds__(256) delta_kernel(const Params p) {
   const T* o = (const T*)p.o + b * p.o_sb + t * p.o_st + h * p.o_sh;
   const T* d = (const T*)p.dout + b * p.d_sb + t * p.d_st + h * p.d_sh;
   float s = 0.f;
-  for (int c = lane; c < p.D; c += 32) s = fmaf(to_f(d[c]), to_f(o[c]), s);
+  for (int c = lane; c < p.Dv; c += 32) s = fmaf(to_f(d[c]), to_f(o[c]), s);
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) p.delta[lse_index(p, b, h, t)] = s;
@@ -438,26 +456,29 @@ constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNoKey = 1e30f;  // lse * log2(e) of a row that sees no key
 constexpr int kThreads3 = 128 * (kConsumers + 1);
-// The dQ kernel keeps this shape at D 256 too, where
-// an accumulator is 128 registers a thread and ptxas holds a block of
-// 384 threads (or 288) to 168: there the block is the two consumer
-// warpgroups alone (up to 255 registers), their thread 0 issues the
-// copies between its own products, and K and V stream in 32-key stages
-// beside Q and dO of 128 rows (128 KB), S and dP m64n32, three stages
-// of them.  (A dQ split
-// by role like the dK/dV pass, and one that issued the next stage's
-// scores behind this stage's product, were slower: PERF.md.)
+// The dQ kernel keeps this shape where q and k are 192 or 256 wide too,
+// where ptxas holds a block of 384 threads (or 288) to 168 registers
+// and a consumer needs more (at D 256 its accumulator alone is 128; at
+// 192 dQ's 96 beside S, dP and dS at 64 keys are some 180): there the
+// block is the two consumer warpgroups alone (up to 255 registers),
+// their thread 0 issues the copies between its own products, and K and
+// V stream in three stages: of 32 keys at D 256 beside Q and dO of 128
+// rows (128 KB), S and dP m64n32; of 64 keys at 192 / 128 beside Q and
+// dO (80 KB), 200 KB in all.  (A dQ split by role like the dK/dV pass,
+// and one that issued the next stage's scores behind this stage's
+// product, were slower at D 256: PERF.md.)  Templated on q's and k's
+// width D.
 template <int D>
-constexpr bool kProducerWarpgroup = D != 256;
+constexpr bool kProducerWarpgroup = D <= 128;
 template <int D>
 constexpr int kThreadsAt = 128 * (kProducerWarpgroup<D> ? kConsumers + 1
                                                         : kConsumers);
 template <int D>
 constexpr int kSub = D == 256 ? 32 : kTile;     // keys a dQ stage
-// dQ's K/V stages: a third fits beside Q and dO at D 256 (224 KB), so a
-// stage is refilled three stages ahead of its use
+// dQ's K/V stages: without a producer warpgroup a third fits beside Q
+// and dO, so a stage is refilled three stages ahead of its use
 template <int D>
-constexpr int kQStages = D == 256 ? 3 : kStages;
+constexpr int kQStages = kProducerWarpgroup<D> ? kStages : 3;
 
 // Row t sees exactly the keys in (lo, hi]: hi = min(qpos, S - 1), or -1
 // for a padding row or one past T; lo = qpos - window with a window,
@@ -494,7 +515,7 @@ __global__ void __launch_bounds__(256) prep_kernel(const Params p) {
     if (t < p.T) {
       const T* o = (const T*)p.o + b * p.o_sb + t * p.o_st + h * p.o_sh;
       const T* d = (const T*)p.dout + b * p.d_sb + t * p.d_st + h * p.d_sh;
-      for (int c = 2 * lane; c < p.D; c += 64)
+      for (int c = 2 * lane; c < p.Dv; c += 64)
         s = fmaf(to_f(d[c]), to_f(o[c]), fmaf(to_f(d[c + 1]), to_f(o[c + 1]), s));
     }
 #pragma unroll
@@ -837,31 +858,36 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// Dynamic shared memory of the dQ kernel: Q and dO of the block's rows,
-// then kStages stages of a streamed K tile and of its V tile
-template <int D>
+// Dynamic shared memory of the dQ kernel: Q (DK wide) and dO (DV) of
+// the block's rows, then kS stages of a streamed K tile and of its V
+// tile
+template <int DK, int DV>
 struct QLayout {
-  static constexpr int kKeys = kSub<D>;                 // keys a stage
-  static constexpr int kS = kQStages<D>;                // stages
-  static constexpr int kQBytes = kBlock * D * 2;        // Q or dO
-  static constexpr int kTileBytes = kKeys * D * 2;      // a K or V stage
+  static constexpr int kKeys = kSub<DK>;                // keys a stage
+  static constexpr int kS = kQStages<DK>;               // stages
+  static constexpr int kQBytes = kBlock * DK * 2;       // Q
+  static constexpr int kOBytes = kBlock * DV * 2;       // dO
+  static constexpr int kKBytes = kKeys * DK * 2;        // a K stage
+  static constexpr int kVBytes = kKeys * DV * 2;        // a V stage
   static constexpr int kQ = 0;
   static constexpr int kO = kQBytes;
-  static constexpr int kK = 2 * kQBytes;                // + stage * kTileBytes
-  static constexpr int kV = kK + kS * kTileBytes;
+  static constexpr int kK = kQBytes + kOBytes;          // + stage * kKBytes
+  static constexpr int kV = kK + kS * kKBytes;          // + stage * kVBytes
   // mbarriers: Q and dO full, then full [kS], free [kS]
-  static constexpr int kBar = kV + kS * kTileBytes;
+  static constexpr int kBar = kV + kS * kVBytes;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kS);
 };
 
-// (d) dQ: a block per (kBlock query rows, query head, batch)
-template <typename T, int D, bool kSoftcap>
-__global__ void __launch_bounds__(kThreadsAt<D>, 1)
+// (d) dQ: a block per (kBlock query rows, query head, batch); q and k
+// DK wide, v and dO DV
+template <typename T, int DK, int DV, bool kSoftcap>
+__global__ void __launch_bounds__(kThreadsAt<DK>, 1)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using L = QLayout<D>;
+  constexpr int D = DK;
+  using L = QLayout<DK, DV>;
   constexpr int kK = L::kKeys;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -879,26 +905,28 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_stages = key_hi >= key_lo ? key_hi / kK + 1 - tile_first : 0;
 
   auto load_q = [&]() {
-    mbar_expect_tx(bars, 2 * L::kQBytes);
+    mbar_expect_tx(bars, L::kQBytes + L::kOBytes);
 #pragma unroll
-    for (int c = 0; c < D / kTmaPanel; ++c) {
+    for (int c = 0; c < DK / kTmaPanel; ++c)
       tma_load_4d(base + L::kQ + c * kBlock * 128, &tm_q, bars,
                   c * kTmaPanel, h, i0 * kTile, b);
+#pragma unroll
+    for (int c = 0; c < DV / kTmaPanel; ++c)
       tma_load_4d(base + L::kO + c * kBlock * 128, &tm_do, bars,
                   c * kTmaPanel, h, i0 * kTile, b);
-    }
   };
   // K and V stage n into stage s
   auto load_kv = [&](int n, int s) {
     const int kv0 = (tile_first + n) * kK;
-    mbar_expect_tx(bar_full(bars, s), 2 * L::kTileBytes);
+    mbar_expect_tx(bar_full(bars, s), L::kKBytes + L::kVBytes);
 #pragma unroll
-    for (int c = 0; c < D / kTmaPanel; ++c) {
-      tma_load_4d(base + L::kK + s * L::kTileBytes + c * kK * 128, &tm_k,
+    for (int c = 0; c < DK / kTmaPanel; ++c)
+      tma_load_4d(base + L::kK + s * L::kKBytes + c * kK * 128, &tm_k,
                   bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
-      tma_load_4d(base + L::kV + s * L::kTileBytes + c * kK * 128, &tm_v,
+#pragma unroll
+    for (int c = 0; c < DV / kTmaPanel; ++c)
+      tma_load_4d(base + L::kV + s * L::kVBytes + c * kK * 128, &tm_v,
                   bar_full(bars, s), c * kTmaPanel, hk, kv0, b);
-    }
   };
 
   if (kProducerWarpgroup<D> && tid >= kConsumers * 128) {
@@ -947,12 +975,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int kv0 = (tile_first + n) * kK;
       mbar_wait(bar_full(bars, s), (n / L::kS) & 1);
       if (tile_sees(tr, kv0, kv0 + kK - 1)) {
-        const uint32_t k_s = base + L::kK + s * L::kTileBytes;
-        const uint32_t v_s = base + L::kV + s * L::kTileBytes;
+        const uint32_t k_s = base + L::kK + s * L::kKBytes;
+        const uint32_t v_s = base + L::kV + s * L::kVBytes;
         float sc[kK / 2], dp[kK / 2];     // S then P; dP then dS
         wgmma_fence();
-        issue_abt<T, D, kBlock, kK>(sc, q_desc, sw128_desc(k_s, 16));
-        issue_abt<T, D, kBlock, kK>(dp, o_desc, sw128_desc(v_s, 16));
+        issue_abt<T, DK, kBlock, kK>(sc, q_desc, sw128_desc(k_s, 16));
+        issue_abt<T, DV, kBlock, kK>(dp, o_desc, sw128_desc(v_s, 16));
         wgmma_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
@@ -998,7 +1026,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---- D 256: dK and dV in one pass, two warpgroups split by role ----
+// ---- D 256 and 192 / 128: dK and dV in one pass, split by role ----
 // A consumer's accumulator of 64 x 256 float32 takes 128 registers a
 // thread, so a block holds one a warpgroup.  Rather than two launches
 // each recomputing S^T beside one accumulator (dV, then dK, the first
@@ -1011,11 +1039,15 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // producer warp of its own (288 threads) ptxas gave 168, as it does a
 // block of 384, and the pass spilled 928 bytes (PERF.md).  So thread
 // 0 of the dP^T side, the side that releases a stage last, issues the
-// copies, each right after that release, two parts ahead, where it
+// copies, each right after that release, kS parts ahead, where it
 // waits on no other warp.  Each warpgroup waits for each of its
 // products before its next step, so that no product is in flight across
 // the loop's back edge (else ptxas serialises the wgmmas, C7515); the
 // two warpgroups' products and elementwise math overlap each other.
+// At DK 192 / DV 128 (MLA's naive form: q and k 192 wide, v 128) the
+// same pass: S^T = K Q^T over 192, dV (64 x 128, 64 registers) on the
+// S^T side, dP^T = V dO^T over 128, dK (64 x 192, 96 registers) on the
+// other; K, V and three stages of Q and dO take 160 KB.
 constexpr int kRoleThreads = 2 * 128;
 constexpr int kRoleRows = 64;    // keys of a block, rows of a part
 // named barriers (0 is __syncthreads) of the block's 256 threads
@@ -1052,43 +1084,49 @@ __device__ __forceinline__ float prob_elem(float& s, float lse2, int key,
 }
 
 // Dynamic shared memory of dkdv_roles_kernel from a 1024-byte aligned
-// base: K and V of the block's 64 keys, kStages stages of a 64-row Q
-// tile and of its dO tile, the P^T exchange (float32), then per stage
-// the rows' lse2 and delta and their row bounds, and the mbarriers
+// base: K (DK wide) and V (DV) of the block's 64 keys, kS stages of a
+// 64-row Q tile and of its dO tile, the P^T exchange (float32), then
+// per stage the rows' lse2 and delta and their row bounds, and the
+// mbarriers.  Two stages at D 256 (194 KB), three at 192 / 128.
+template <int DK, int DV>
 struct RoleKVLayout {
-  static constexpr int kTileBytes = kRoleRows * 256 * 2;   // 32 KB
+  static constexpr int kS = DK == 256 ? kStages : 3;
+  static constexpr int kKBytes = kRoleRows * DK * 2;     // K, or a Q stage
+  static constexpr int kVBytes = kRoleRows * DV * 2;     // V, or a dO stage
   static constexpr int kStatBytes = 2 * kRoleRows * 4;
   static constexpr int kRowBytes = kRoleRows * 8;
   static constexpr int kK = 0;
-  static constexpr int kV = kTileBytes;
-  static constexpr int kQ = 2 * kTileBytes;              // + stage * kTileBytes
-  static constexpr int kO = kQ + kStages * kTileBytes;
-  static constexpr int kX = kO + kStages * kTileBytes;   // 64 x 64 float32
+  static constexpr int kV = kKBytes;
+  static constexpr int kQ = kKBytes + kVBytes;           // + stage * kKBytes
+  static constexpr int kO = kQ + kS * kKBytes;           // + stage * kVBytes
+  static constexpr int kX = kO + kS * kVBytes;           // 64 x 64 float32
   static constexpr int kStat = kX + kRoleRows * kRoleRows * 4;
-  static constexpr int kRow = kStat + kStages * kStatBytes;
-  // mbarriers: K and V full, then full [kStages], free [kStages]
-  static constexpr int kBar = kRow + kStages * kRowBytes;
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr int kRow = kStat + kS * kStatBytes;
+  // mbarriers: K and V full, then full [kS], free [kS]
+  static constexpr int kBar = kRow + kS * kRowBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS);
 };
 
-// (b) dK and dV at D 256 in one pass: a block per (64 keys, query head,
-// batch), key blocks in order (under a causal mask the longest first),
-// a GQA group's heads neighbours in the grid.  Warpgroup 0: S^T = K Q^T
-// (m64n64k16, both K-major), P^T in place, P^T times the softcap factor
-// to the exchange, dV += P^T dO (A from registers, dO read MN-major).
-// Warpgroup 1: dP^T = V dO^T, then, once P^T is in, dS^T = P^T (dP^T -
-// delta) (softcap factor) scale and dK += dS^T Q.  8 D flops a visible
-// pair and query head.  The block streams every 64-row query tile whose
-// rows see one of its keys, a stage each.
-template <typename T, int D, bool kSoftcap>
+// (b) dK and dV in one pass: a block per (64 keys, query head, batch),
+// key blocks in order (under a causal mask the longest first), a GQA
+// group's heads neighbours in the grid.  Warpgroup 0: S^T = K Q^T
+// (m64n64k16, both K-major, over DK), P^T in place, P^T times the
+// softcap factor to the exchange, dV += P^T dO (A from registers, dO
+// read MN-major).  Warpgroup 1: dP^T = V dO^T (over DV), then, once P^T
+// is in, dS^T = P^T (dP^T - delta) (softcap factor) scale and dK +=
+// dS^T Q.  4 (DK + DV) flops a visible pair and query head.  The block
+// streams every 64-row query tile whose rows see one of its keys, a
+// stage each.
+template <typename T, int DK, int DV, bool kSoftcap>
 __global__ void __launch_bounds__(kRoleThreads, 1)
 dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_do,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  static_assert(D == 256, "the role split is the D 256 design");
-  using L = RoleKVLayout;
-  constexpr int kR = kRoleRows;
+  static_assert((DK == 256 && DV == 256) || (DK == 192 && DV == 128),
+                "the role split is the D 256 and 192 / 128 design");
+  using L = RoleKVLayout<DK, DV>;
+  constexpr int kR = kRoleRows, kS = L::kS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
@@ -1101,7 +1139,7 @@ dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float* stats =
       p.delta + (long long)(b * p.Hq + h) * p.n_tiles * 2 * kTile;
   const int* rows = p.rows + (long long)b * p.n_tiles * kTile * 2;
-  init_bars(bars);
+  init_bars<kS>(bars);
   // the next query tile after i whose rows see one of the block's keys;
   // n_tiles past the last
   auto next = [&](int i) {
@@ -1115,172 +1153,197 @@ dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
   // their bounds
   auto load_part = [&](int i, int s) {
     const uint32_t full = bar_full(bars, s);
-    mbar_expect_tx(full, 2 * L::kTileBytes + L::kStatBytes + L::kRowBytes);
+    mbar_expect_tx(full, L::kKBytes + L::kVBytes + L::kStatBytes +
+                             L::kRowBytes);
 #pragma unroll
-    for (int c = 0; c < D / kTmaPanel; ++c) {
-      tma_load_4d(base + L::kQ + s * L::kTileBytes + c * kR * 128, &tm_q,
+    for (int c = 0; c < DK / kTmaPanel; ++c)
+      tma_load_4d(base + L::kQ + s * L::kKBytes + c * kR * 128, &tm_q,
                   full, c * kTmaPanel, h, i * kTile, b);
-      tma_load_4d(base + L::kO + s * L::kTileBytes + c * kR * 128, &tm_do,
+#pragma unroll
+    for (int c = 0; c < DV / kTmaPanel; ++c)
+      tma_load_4d(base + L::kO + s * L::kVBytes + c * kR * 128, &tm_do,
                   full, c * kTmaPanel, h, i * kTile, b);
-    }
     bulk_load(base + L::kStat + s * L::kStatBytes, stats + i * 2 * kTile,
               L::kStatBytes, full);
     bulk_load(base + L::kRow + s * L::kRowBytes, rows + i * kTile * 2,
               L::kRowBytes, full);
   };
-  // the copier: K, V and the first kStages parts now, the rest in the
-  // loop below
+  // the copier: K, V and the first kS parts now, the rest in the loop
+  // below
   const bool copier = tid == 128;
   int i = next(-1);
   int ahead = p.n_tiles;                  // the copier's next part's tile
   if (copier) {
-    mbar_expect_tx(bars, 2 * L::kTileBytes);
+    mbar_expect_tx(bars, L::kKBytes + L::kVBytes);
 #pragma unroll
-    for (int c = 0; c < D / kTmaPanel; ++c) {
+    for (int c = 0; c < DK / kTmaPanel; ++c)
       tma_load_4d(base + L::kK + c * kR * 128, &tm_k, bars, c * kTmaPanel,
                   hk, kv0, b);
+#pragma unroll
+    for (int c = 0; c < DV / kTmaPanel; ++c)
       tma_load_4d(base + L::kV + c * kR * 128, &tm_v, bars, c * kTmaPanel,
                   hk, kv0, b);
-    }
     ahead = i;
-    for (int n = 0; n < kStages && ahead < p.n_tiles; ++n, ahead = next(ahead))
+    for (int n = 0; n < kS && ahead < p.n_tiles; ++n, ahead = next(ahead))
       load_part(ahead, n);
   }
 
-  // ---- consumers: warpgroup 0 the S^T side (dV), 1 the dP^T side (dK)
+  // ---- consumers: warpgroup 0 the S^T side (dV), 1 the dP^T side (dK),
+  // each running its own loop: a wgmma that the two sides issue with
+  // other widths inside one loop is divergent code, where ptxas
+  // serialises every wgmma (C7520)
   const int wgi = tid / 128, t = tid % 128, warp = t / 32, lane = tid % 32;
   const int tig = lane & 3;
   const int key0 = kv0 + warp * 16 + (lane >> 2);    // and key0 + 8
   unsigned char* xbuf = sm + L::kX;
-  const uint64_t a_desc = sw128_desc(base + (wgi ? L::kV : L::kK), 16);
-  // the S^T side reads Q for its scores and dO for its product, the dP^T
-  // side the other way round
-  const int score_b = wgi ? L::kO : L::kQ, acc_b = wgi ? L::kQ : L::kO;
   const float lg_in = kSoftcap ? 2.f * kLog2e * p.scale / p.softcap
                                : p.scale * kLog2e;
   const float lg_out = p.softcap * kLog2e;
-  float acc[D / 2];                       // dV or dK rows key0, key0 + 8
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
-  float sc[kR / 2];                       // S^T then P^T, or dP^T then dS^T
-  uint32_t f[kR / 4];
   mbar_wait(bars, 0);
-  for (int n = 0; i < p.n_tiles; ++n) {
-    const int s = n % kStages;
-    const int in = next(i);               // the part after this one
-    // the scores; no product is in flight across the loop's back edge,
-    // where ptxas may move the accumulators' registers (else it
-    // serialises the wgmmas, C7515)
-    mbar_wait(bar_full(bars, s), (n / kStages) & 1);
-    wgmma_fence();
-    issue_abt<T, D, kR, kR>(sc, a_desc,
-                            sw128_desc(base + score_b + s * L::kTileBytes, 16));
-    wgmma_wait<0>();
-    fence_regs(sc);
-    const float* st = reinterpret_cast<const float*>(
-        sm + L::kStat + s * L::kStatBytes);
-    if (wgi == 0) {
-      // element 4 nn + e: key key0 + 8 (e >> 1), query row nn * 8 + 2
-      // tig + (e & 1) of the part
-      const int* rb =
-          reinterpret_cast<const int*>(sm + L::kRow + s * L::kRowBytes);
-      const bool masked = !tile_full(__ldg(tiles + i), kv0, kv_last);
-      if (n > 0) named_sync(kPFree);      // the dP^T side has read n - 1
+  auto side = [&](auto role) {
+    constexpr int kSide = decltype(role)::value;
+    // the scores' depth and the accumulator's width: S^T = K Q^T over
+    // DK and dV (DV wide), or dP^T = V dO^T over DV and dK (DK wide)
+    constexpr int kDepth = kSide ? DV : DK, kW = kSide ? DK : DV;
+    const uint64_t a_desc = sw128_desc(base + (kSide ? L::kV : L::kK), 16);
+    // the S^T side reads Q for its scores and dO for its product, the
+    // dP^T side the other way round
+    const uint32_t score_b = base + (kSide ? L::kO : L::kQ);
+    const uint32_t acc_b = base + (kSide ? L::kQ : L::kO);
+    constexpr int score_st = kSide ? L::kVBytes : L::kKBytes;
+    constexpr int acc_st = kSide ? L::kKBytes : L::kVBytes;
+    float acc[kW / 2];                    // dV or dK rows key0, key0 + 8
 #pragma unroll
-      for (int nn = 0; nn < kR / 8; ++nn) {
-        const int col = nn * 8 + tig * 2;
-        const float2 l2 = *reinterpret_cast<const float2*>(st + col);
-        int4 bnd = make_int4(0, 0, 0, 0);
-        if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
-        float pf[4];
+    for (int j = 0; j < kW / 2; ++j) acc[j] = 0.f;
+    float sc[kR / 2];                     // S^T then P^T, or dP^T then dS^T
+    uint32_t f[kR / 4];
+    for (int n = 0; i < p.n_tiles; ++n) {
+      const int s = n % kS;
+      const int in = next(i);             // the part after this one
+      // the scores; no product is in flight across the loop's back edge,
+      // where ptxas may move the accumulators' registers (else it
+      // serialises the wgmmas, C7515)
+      mbar_wait(bar_full(bars, s), (n / kS) & 1);
+      wgmma_fence();
+      issue_abt<T, kDepth, kR, kR>(sc, a_desc,
+                                   sw128_desc(score_b + s * score_st, 16));
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const float* st = reinterpret_cast<const float*>(
+          sm + L::kStat + s * L::kStatBytes);
+      if constexpr (kSide == 0) {
+        // element 4 nn + e: key key0 + 8 (e >> 1), query row nn * 8 + 2
+        // tig + (e & 1) of the part
+        const int* rb =
+            reinterpret_cast<const int*>(sm + L::kRow + s * L::kRowBytes);
+        const bool masked = !tile_full(__ldg(tiles + i), kv0, kv_last);
+        if (n > 0) named_sync(kPFree);    // the dP^T side has read n - 1
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pf[e] = prob_elem<kSoftcap>(
-              sc[4 * nn + e], (e & 1) ? l2.y : l2.x, key0 + 8 * (e >> 1),
-              (e & 1) ? bnd.z : bnd.x, (e & 1) ? bnd.w : bnd.y, masked,
-              lg_in, lg_out);
-        reinterpret_cast<float4*>(xbuf)[nn * 128 + t] =
-            make_float4(pf[0], pf[1], pf[2], pf[3]);
-      }
-      named_arrive(kPFull);
-    } else {
-      named_sync(kPFull);
+        for (int nn = 0; nn < kR / 8; ++nn) {
+          const int col = nn * 8 + tig * 2;
+          const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+          int4 bnd = make_int4(0, 0, 0, 0);
+          if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
+          float pf[4];
 #pragma unroll
-      for (int nn = 0; nn < kR / 8; ++nn) {
-        const float4 x = reinterpret_cast<const float4*>(xbuf)[nn * 128 + t];
-        const float2 dl = *reinterpret_cast<const float2*>(
-            st + kR + nn * 8 + tig * 2);
-        const float pf[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[4 * nn + e] =
-              pf[e] * (sc[4 * nn + e] - ((e & 1) ? dl.y : dl.x)) * p.scale;
-      }
-      if (in < p.n_tiles) named_arrive(kPFree);
-    }
-    // dV += P^T dO, or dK += dS^T Q
-    pack<T, kR>(f, sc);
-    fence_regs(f);
-    fence_regs(acc);
-    wgmma_fence();
-    issue_fz<T, D, kR>(acc, f,
-                       sw128_desc(base + acc_b + s * L::kTileBytes, kR * 128));
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(f);
-    release(bar_free(bars, s));
-    // part n + 2 into this stage once both sides are done with it: the
-    // S^T side runs ahead, so it already is
-    if (copier && ahead < p.n_tiles) {
-      mbar_wait(bar_free(bars, s), (n / kStages) & 1);
-      load_part(ahead, s);
-      ahead = next(ahead);
-    }
-    i = in;
-  }
-
-  // rows key0 and key0 + 8: this head's float32 partial, or with one
-  // query head per kv head the result; part[0] is dK, part[1] dV
-  const long long other = wgi ? 0 : (long long)p.B * p.S * p.Hq * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = key0 + 8 * half;
-    if (key >= p.S) continue;
-#pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn) {
-      const int col = nn * 8 + tig * 2, j = 4 * nn + 2 * half;
-      if (p.part != nullptr) {
-        const long long at = (((long long)b * p.S + key) * p.Hq + h) * D + col;
-        *reinterpret_cast<float2*>(p.part + other + at) =
-            make_float2(acc[j], acc[j + 1]);
+          for (int e = 0; e < 4; ++e)
+            pf[e] = prob_elem<kSoftcap>(
+                sc[4 * nn + e], (e & 1) ? l2.y : l2.x, key0 + 8 * (e >> 1),
+                (e & 1) ? bnd.z : bnd.x, (e & 1) ? bnd.w : bnd.y, masked,
+                lg_in, lg_out);
+          reinterpret_cast<float4*>(xbuf)[nn * 128 + t] =
+              make_float4(pf[0], pf[1], pf[2], pf[3]);
+        }
+        named_arrive(kPFull);
       } else {
-        const long long at = (((long long)b * p.S + key) * p.Hkv + hk) * D + col;
-        *reinterpret_cast<uint32_t*>((T*)(wgi ? p.dk : p.dv) + at) =
-            Ops<T>::pack(acc[j], acc[j + 1]);
+        named_sync(kPFull);
+#pragma unroll
+        for (int nn = 0; nn < kR / 8; ++nn) {
+          const float4 x = reinterpret_cast<const float4*>(xbuf)[nn * 128 + t];
+          const float2 dl = *reinterpret_cast<const float2*>(
+              st + kR + nn * 8 + tig * 2);
+          const float pf[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * nn + e] =
+                pf[e] * (sc[4 * nn + e] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+        }
+        if (in < p.n_tiles) named_arrive(kPFree);
+      }
+      // dV += P^T dO, or dK += dS^T Q
+      pack<T, kR>(f, sc);
+      fence_regs(f);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_fz<T, kW, kR>(acc, f, sw128_desc(acc_b + s * acc_st, kR * 128));
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(f);
+      release(bar_free<kS>(bars, s));
+      // part n + kS into this stage once both sides are done with it:
+      // the S^T side runs ahead, so it already is
+      if (kSide == 1 && copier && ahead < p.n_tiles) {
+        mbar_wait(bar_free<kS>(bars, s), (n / kS) & 1);
+        load_part(ahead, s);
+        ahead = next(ahead);
+      }
+      i = in;
+    }
+
+    // rows key0 and key0 + 8: this head's float32 partial, or with one
+    // query head per kv head the result; part[0] is dK, part[1] dV, each
+    // row max(DK, DV) floats apart
+    constexpr int kP = DK > DV ? DK : DV;
+    const long long other = kSide ? 0 : (long long)p.B * p.S * p.Hq * kP;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key0 + 8 * half;
+      if (key >= p.S) continue;
+#pragma unroll
+      for (int nn = 0; nn < kW / 8; ++nn) {
+        const int col = nn * 8 + tig * 2, j = 4 * nn + 2 * half;
+        if (p.part != nullptr) {
+          const long long at =
+              (((long long)b * p.S + key) * p.Hq + h) * kP + col;
+          *reinterpret_cast<float2*>(p.part + other + at) =
+              make_float2(acc[j], acc[j + 1]);
+        } else {
+          const long long at =
+              (((long long)b * p.S + key) * p.Hkv + hk) * kW + col;
+          *reinterpret_cast<uint32_t*>((T*)(kSide ? p.dk : p.dv) + at) =
+              Ops<T>::pack(acc[j], acc[j + 1]);
+        }
       }
     }
-  }
+  };
+  if (wgi == 0)
+    side(std::integral_constant<int, 0>{});
+  else
+    side(std::integral_constant<int, 1>{});
 }
 
 // (e) dk and dv: the G float32 partials of each kv head, summed in head
-// order and rounded; four elements a thread
+// order and rounded; four elements a thread.  A partial's rows are
+// max(D, Dv) floats apart
 template <typename T>
 __global__ void __launch_bounds__(256) gqa_sum_kernel(const Params p) {
-  const long long quads = (long long)p.B * p.S * p.Hkv * p.D / 4;
+  const long long rows = (long long)p.B * p.S * p.Hkv;
+  const long long quads_k = rows * p.D / 4;
   long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= 2 * quads) return;
-  const int which = i >= quads;                 // 0 dk, 1 dv
-  if (which) i -= quads;
+  if (i >= quads_k + rows * p.Dv / 4) return;
+  const int which = i >= quads_k;               // 0 dk, 1 dv
+  if (which) i -= quads_k;
   const int G = p.Hq / p.Hkv;
-  const long long e = 4 * i;                    // into (B, S, Hkv, D)
-  const int d = (int)(e % p.D);
-  const long long bsk = e / p.D;                // (b S + s) Hkv + hk
+  const int W = which ? p.Dv : p.D, Dp = max(p.D, p.Dv);
+  const long long e = 4 * i;                    // into (B, S, Hkv, W)
+  const int d = (int)(e % W);
+  const long long bsk = e / W;                  // (b S + s) Hkv + hk
   const int hk = (int)(bsk % p.Hkv);
-  const float* src = p.part + which * ((long long)p.B * p.S * p.Hq * p.D) +
-                     ((bsk / p.Hkv) * p.Hq + (long long)hk * G) * p.D + d;
+  const float* src = p.part + which * ((long long)p.B * p.S * p.Hq * Dp) +
+                     ((bsk / p.Hkv) * p.Hq + (long long)hk * G) * Dp + d;
   float4 acc = *reinterpret_cast<const float4*>(src);
   for (int gi = 1; gi < G; ++gi) {
-    const float4 x = *reinterpret_cast<const float4*>(src + (long long)gi * p.D);
+    const float4 x = *reinterpret_cast<const float4*>(src + (long long)gi * Dp);
     acc.x += x.x;
     acc.y += x.y;
     acc.z += x.z;
@@ -1334,16 +1397,20 @@ int launch_tma(K kern, dim3 grid, int threads, int smem,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kSoftcap>
+// DK: the width of q and k; DV: of v, o and dout (DK = DV but for MLA's
+// 192 / 128)
+template <typename T, int DK, int DV, bool kSoftcap>
 int launch_wgmma(const Params& p, cudaStream_t s) {
   constexpr CUtensorMapDataType type = tma_type<T>();
-  // keys of a dK/dV block: 128 at D 64 and 128, 64 in D 256's one pass;
-  // the dQ kernel's blocks of 128 rows stream kSub keys a stage
-  constexpr int blk = D == 256 ? wg::kRoleRows : wg::kBlock;
-  constexpr int sub = wg::kSub<D>;
+  // keys of a dK/dV block: 128 at D 64 and 128, 64 in the one pass by
+  // role at D 256 and 192 / 128; the dQ kernel's blocks of 128 rows
+  // stream kSub keys a stage
+  constexpr bool roles = DK >= 192;
+  constexpr int blk = roles ? wg::kRoleRows : wg::kBlock;
+  constexpr int sub = wg::kSub<DK>;
   const long long key_blocks = (p.S + blk - 1) / blk;
   const long long sum_blocks =
-      (2LL * p.B * p.S * p.Hkv * p.D / 4 + 255) / 256;
+      ((long long)p.B * p.S * p.Hkv * (DK + DV) / 4 + 255) / 256;
   if (key_blocks > 65535 || p.n_tiles / 2 > 65535 ||
       (long long)p.B * p.Hq > INT_MAX || sum_blocks > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
@@ -1354,68 +1421,74 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
   const struct {
     CUtensorMap* map;
     const void* ptr;
-    int heads, n;
+    int width, heads, n;
     long long sh, st, sb;
     int rows;
   } maps[8] = {
-      {&q_t, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kTile},
-      {&o_t, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kTile},
-      {&k_b, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, blk},
-      {&v_b, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, blk},
-      {&q_b, p.q, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kBlock},
-      {&o_b, p.dout, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kBlock},
-      {&k_t, p.k, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, sub},
-      {&v_t, p.v, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, sub}};
+      {&q_t, p.q, DK, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kTile},
+      {&o_t, p.dout, DV, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kTile},
+      {&k_b, p.k, DK, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, blk},
+      {&v_b, p.v, DV, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, blk},
+      {&q_b, p.q, DK, p.Hq, p.T, p.q_sh, p.q_st, p.q_sb, wg::kBlock},
+      {&o_b, p.dout, DV, p.Hq, p.T, p.d_sh, p.d_st, p.d_sb, wg::kBlock},
+      {&k_t, p.k, DK, p.Hkv, p.S, p.k_sh, p.k_ss, p.k_sb, sub},
+      {&v_t, p.v, DV, p.Hkv, p.S, p.v_sh, p.v_ss, p.v_sb, sub}};
   for (const auto& m : maps) {
-    const int e = make_map(m.map, m.ptr, type, D, m.heads, m.n, p.B, m.sh,
-                           m.st, m.sb, m.rows);
+    const int e = make_map(m.map, m.ptr, type, m.width, m.heads, m.n, p.B,
+                           m.sh, m.st, m.sb, m.rows);
     if (e != 0) return e;
   }
   wg::prep_kernel<T><<<dim3(p.n_tiles, p.Hq, p.B), 256, 0, s>>>(p);
   int e = (int)cudaGetLastError();
   const dim3 kv_grid(p.B * p.Hq, (unsigned)key_blocks);
-  if constexpr (D == 256) {
+  if constexpr (roles) {
     if (e == 0)
-      e = launch_tma(wg::dkdv_roles_kernel<T, D, kSoftcap>, kv_grid,
-                     wg::kRoleThreads, wg::RoleKVLayout::kBytes + 1024, q_t,
-                     o_t, k_b, v_b, p, s);
+      e = launch_tma(wg::dkdv_roles_kernel<T, DK, DV, kSoftcap>, kv_grid,
+                     wg::kRoleThreads,
+                     wg::RoleKVLayout<DK, DV>::kBytes + 1024, q_t, o_t, k_b,
+                     v_b, p, s);
   } else {
-    const int kv_smem = wg::KVLayout<D>::kBytes + 1024;   // + the alignment
+    static_assert(DK == DV, "two passes take DK = DV");
+    const int kv_smem = wg::KVLayout<DK>::kBytes + 1024;   // + the alignment
     if (e == 0)
-      e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, false>, kv_grid,
+      e = launch_tma(wg::dkv_wgmma_kernel<T, DK, kSoftcap, false>, kv_grid,
                      wg::kThreads3, kv_smem, q_t, o_t, k_b, v_b, p, s);
     if (e == 0)
-      e = launch_tma(wg::dkv_wgmma_kernel<T, D, kSoftcap, true>, kv_grid,
+      e = launch_tma(wg::dkv_wgmma_kernel<T, DK, kSoftcap, true>, kv_grid,
                      wg::kThreads3, kv_smem, q_t, o_t, k_b, v_b, p, s);
   }
   if (e == 0)
-    e = launch_tma(wg::dq_wgmma_kernel<T, D, kSoftcap>,
-                   dim3(p.B * p.Hq, p.n_tiles / 2), wg::kThreadsAt<D>,
-                   wg::QLayout<D>::kBytes + 1024, q_b, o_b, k_t, v_t, p, s);
+    e = launch_tma(wg::dq_wgmma_kernel<T, DK, DV, kSoftcap>,
+                   dim3(p.B * p.Hq, p.n_tiles / 2), wg::kThreadsAt<DK>,
+                   wg::QLayout<DK, DV>::kBytes + 1024, q_b, o_b, k_t, v_t, p,
+                   s);
   if (e != 0 || p.part == nullptr) return e;
   wg::gqa_sum_kernel<T><<<(unsigned)sum_blocks, 256, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV = DK>
 int launch_16(const Params& p, cudaStream_t s) {
-  return p.softcap != 0.f ? launch_wgmma<T, D, true>(p, s)
-                          : launch_wgmma<T, D, false>(p, s);
+  return p.softcap != 0.f ? launch_wgmma<T, DK, DV, true>(p, s)
+                          : launch_wgmma<T, DK, DV, false>(p, s);
 }
+
 
 }  // namespace
 
 // dtype: 0 float32 (the ffma variant), 1 bfloat16 or 2 float16 (wgmma),
-// for q, k, v, o, dout, dq, dk and dv alike.  D = Dh = Dv must be 64,
-// 128 or 256; any other D or dtype, or missing scratch, returns
+// for q, k, v, o, dout, dq, dk and dv alike.  Head dims: Dh (q, k) = Dv
+// (v, o, dout) in {64, 128, 256}, or in a 16-bit type Dh 192 / Dv 128;
+// any other pair or dtype, or missing scratch, returns
 // cudaErrorInvalidValue and launches nothing.  strides: 17 element
 // strides, (batch, position, head) of q, k, v, o and dout, then (batch,
 // position) of qpos (int32); every last dim is unit-stride.  lse (B, Hq,
 // T) float32 from the forward.  Scratch, allocated by the caller, with
 // n = 2 ceil(T / 128): delta float32, (B, Hq, T) for ffma, (B, Hq, n, 2,
 // 64) for wgmma; rows int32 (B, 64 n, 2) then (B, n, 4) for wgmma, else
-// null; part float32 (2, B, S, Hq, D) for wgmma with Hq > Hkv, else
-// null.  dq (B, T, Hq, D), dk and dv (B, S, Hkv, D) contiguous outputs.
+// null; part float32 (2, B, S, Hq, max(Dh, Dv)) for wgmma with Hq > Hkv,
+// else null.  dq (B, T, Hq, Dh), dk (B, S, Hkv, Dh) and dv (B, S, Hkv,
+// Dv) contiguous outputs.
 // has_window = 0 means causal only.  The caller checks Hq % Hkv == 0,
 // 16-byte aligned rows for 16-bit types and grid limits; with B, T, S
 // or Hq zero nothing is launched (the caller's outputs are zeros).
@@ -1430,18 +1503,25 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
                                  void* delta, void* rows, void* part,
                                  void* dq, void* dk, void* dv, int dtype,
                                  int B, int T, int S, int Hq, int Hkv, int D,
-                                 const long long* strides,
+                                 int Dv, const long long* strides,
                                  float scale, float softcap, int has_window,
                                  long long window, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0) return 0;
-  if ((D != 64 && D != 128 && D != 256) || dtype < 0 || dtype > 2 ||
-      Hkv <= 0 ||
+  // D = Dv, or MLA's naive form: q and k 192 wide, v 128, 16-bit only
+  const bool mla = D == 192 && Dv == 128;
+  if (!mla) {
+    if ((D != 64 && D != 128 && D != 256) || Dv != D)
+      return (int)cudaErrorInvalidValue;
+  } else if (dtype == 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype < 0 || dtype > 2 || Hkv <= 0 ||
       Hq % Hkv != 0 ||
       (dtype != 0 && (rows == nullptr || (Hq > Hkv && part == nullptr))))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, qpos, (const float*)lse, (float*)delta,
            (int*)rows, dtype != 0 && Hq > Hkv ? (float*)part : nullptr,
-           dq, dk, dv, B, T, S, Hq, Hkv, D, (T + 127) / 128 * 2,
+           dq, dk, dv, B, T, S, Hq, Hkv, D, Dv, (T + 127) / 128 * 2,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], strides[12], strides[13], strides[14],
@@ -1455,10 +1535,12 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
                       : launch_f32<256>(p, s);
   }
   if (dtype == 1)
-    return D == 64    ? launch_16<__nv_bfloat16, 64>(p, s)
+    return mla        ? launch_16<__nv_bfloat16, 192, 128>(p, s)
+           : D == 64  ? launch_16<__nv_bfloat16, 64>(p, s)
            : D == 128 ? launch_16<__nv_bfloat16, 128>(p, s)
                       : launch_16<__nv_bfloat16, 256>(p, s);
-  return D == 64    ? launch_16<__half, 64>(p, s)
+  return mla        ? launch_16<__half, 192, 128>(p, s)
+         : D == 64  ? launch_16<__half, 64>(p, s)
          : D == 128 ? launch_16<__half, 128>(p, s)
                     : launch_16<__half, 256>(p, s);
 }

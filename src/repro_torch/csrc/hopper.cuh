@@ -2,8 +2,8 @@
 // forward (flash_attn_hd.cu) and backward (flash_attn_bwd_hd.cu):
 // mbarriers, TMA copies (tensor maps built at run time through the
 // driver's cuTensorMapEncodeTiled), wgmma shared-memory descriptors for
-// the 128-byte swizzle, and the wgmma products m64n64k16 (both operands
-// in shared memory) and m64n{64,128,256}k16 (A in registers, B read
+// the 128-byte swizzle, and the wgmma products m64n{32,64}k16 (both operands
+// in shared memory) and m64n{64,128,192,256}k16 (A in registers, B read
 // MN-major), and the softcap's tanh on the MUFU.  Every function is
 // inline; each source that includes the header compiles its own copy.
 // sm_90a only.
@@ -149,6 +149,7 @@ __device__ __forceinline__ float tanh_2log2e(float x) {
 #define WG_D16 WG_D8(0), WG_D8(8)
 #define WG_D32 WG_D16, WG_D8(16), WG_D8(24)
 #define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_D96 WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88)
 #define WG_D128                                                           \
   WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96),          \
       WG_D8(104), WG_D8(112), WG_D8(120)
@@ -193,6 +194,18 @@ __device__ __forceinline__ float tanh_2log2e(float x) {
   "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "    \
   "%119, %120, %121, %122, %123, %124, %125, %126, %127}, "               \
   "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+#define WGMMA_RS_N192(TY)                                                 \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                           \
+  "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " "            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                   \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "          \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "          \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "          \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "          \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "          \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "          \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "         \
+  "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
 #define WGMMA_RS_N64(TY)                                                  \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
@@ -229,6 +242,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
                  "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   else
     asm volatile(WGMMA_RS_N256("bf16") : WG_D128 : "r"(a[0]), "r"(a[1]),
+                 "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(WGMMA_RS_N192("f16") : WG_D96 : "r"(a[0]), "r"(a[1]),
+                 "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile(WGMMA_RS_N192("bf16") : WG_D96 : "r"(a[0]), "r"(a[1]),
                  "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <typename T>

@@ -17,7 +17,10 @@
 // Replaces the `lax.scan` of `slstm_block` in src/repro/models/xlstm.py
 // (:187, the step at :203-215, the scan at :217; a float32 scan, not a
 // Pallas kernel: on the card a loop of PyTorch ops over T launches
-// about 18 kernels a step).
+// about 18 kernels a step), and the gradient JAX takes through it
+// (slstm_bwd_kernel, below: the `cluster` layout in reverse time).  A
+// forward with grad also writes each step's pre-activations and c, n
+// and m, which the backward reads.
 //
 // Bound on an H100: the sequential chain.  A step is 2 B H Dh 4Dh
 // operations (4.72 MFLOP at B 4 and xlstm-125m's D 768, H 4), which the
@@ -141,6 +144,16 @@ __device__ __forceinline__ void gate_step(float i_, float f_, float z_,
   ms = m_new;
   hv = (1.0f / (1.0f + expf(-o_))) * (cs / fmaxf(ns, 1e-6f));
 }
+
+// What a forward with grad saves for the backward, per step: pre (B, T,
+// 4D) = pre_x + the recurrent product, and the state c, n, m (B, T, D),
+// all float32 (h is hs); every pointer null when nothing is saved
+struct Saved {
+  float* pre;
+  float* c;
+  float* n;
+  float* m;
+};
 
 // Sets a kernel's launch attributes once per device (bit `dev` of
 // `ready`); returns the CUDA error.
@@ -289,8 +302,8 @@ __global__ void __launch_bounds__(kUnits / kCols * 32, 1)
 slstm_cluster_kernel(const In* __restrict__ px, const float* __restrict__ r,
                      const float* c0, const float* n0, const float* h0,
                      const float* m0, float* __restrict__ hs, float* c1,
-                     float* n1, float* h1, float* m1, int B, int T, int D,
-                     int H, long long psb, long long pst) {
+                     float* n1, float* h1, float* m1, Saved sv, int B, int T,
+                     int D, int H, long long psb, long long pst) {
   constexpr int kD = kMaxDh / kDGroups;   // d a lane
   constexpr int kChunks = kD / 4;         // its 4-wide chunks
   extern __shared__ __align__(16) float hbuf[];     // [kBufs][H][hsd]
@@ -477,8 +490,20 @@ slstm_cluster_kernel(const In* __restrict__ px, const float* __restrict__ r,
                     cluster_map(nbar, (uint32_t)peer));
       }
     }
-    if (!kProbe && sender && live)
-      hs[((long long)row * T + t) * D + u] = hv;
+    if (!kProbe && live) {
+      const long long at = (long long)row * T + t;
+      if (sender) hs[at * D + u] = hv;
+      if (sv.pre != nullptr) {
+        // what the backward reads: pre (each gate's lanes dg and dg ^ 1
+        // hold it), and c, n and m
+        if ((dg & 1) == 0) sv.pre[at * 4 * D + j] = pre;
+        if (sender) {
+          sv.c[at * D + u] = cs;
+          sv.n[at * D + u] = ns;
+          sv.m[at * D + u] = ms;
+        }
+      }
+    }
   };
 
   float xa = load(0), xb = load(1), xc;
@@ -525,8 +550,8 @@ cudaError_t cluster_config(int D, int H, cudaLaunchConfig_t& cfg,
 template <typename In, bool kProbe>
 int launch_cluster(const void* px, const void* r, const void* c0,
                    const void* n0, const void* h0, const void* m0, void* hs,
-                   void* c1, void* n1, void* h1, void* m1, int B, int T,
-                   int D, int H, long long psb, long long pst,
+                   void* c1, void* n1, void* h1, void* m1, Saved sv, int B,
+                   int T, int D, int H, long long psb, long long pst,
                    cudaStream_t stream) {
   if (!cluster_fits(D, H) || B > 65535) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
@@ -539,8 +564,8 @@ int launch_cluster(const void* px, const void* r, const void* c0,
                            (const In*)px, (const float*)r, (const float*)c0,
                            (const float*)n0, (const float*)h0,
                            (const float*)m0, (float*)hs, (float*)c1,
-                           (float*)n1, (float*)h1, (float*)m1, B, T, D, H,
-                           psb, pst);
+                           (float*)n1, (float*)h1, (float*)m1, sv, B, T, D,
+                           H, psb, pst);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -624,8 +649,8 @@ __global__ void __launch_bounds__(kStepThreads, kStepMinBlocks)
 slstm_step_kernel(const In* __restrict__ px, const float* __restrict__ r,
                   const float* c0, const float* n0, const float* h0,
                   const float* m0, float* __restrict__ hs, float* c1,
-                  float* n1, float* h1, float* m1, int B, int T, int D,
-                  int H, long long psb, long long pst, int slot) {
+                  float* n1, float* h1, float* m1, Saved sv, int B, int T,
+                  int D, int H, long long psb, long long pst, int slot) {
   extern __shared__ __align__(16) float4 hsm[];     // [D]: 4 rows a unit
   __shared__ float red[kStepThreads / 32][8][16];   // warp, quad, c 4 + b
   __shared__ float pre_s[8][16];                    // quad, c 4 + b
@@ -747,10 +772,21 @@ slstm_step_kernel(const In* __restrict__ px, const float* __restrict__ r,
     if (is_gate) {
       // gate gg of unit u0 + gu: quad gg 2 + gu / 4, column gu % 4
       const int qc = gu >> 2, k = (gu & 3) * 4 + gr;
-      gate_step(pre_s[qc][k] + xg[0], pre_s[2 + qc][k] + xg[1],
-                pre_s[4 + qc][k] + xg[2], pre_s[6 + qc][k] + xg[3], cs, ns,
-                ms, hv);
-      if (gate_live) hs[((long long)row * T + t) * D + u] = hv;
+      float pre[4];
+#pragma unroll
+      for (int gg = 0; gg < 4; ++gg) pre[gg] = pre_s[2 * gg + qc][k] + xg[gg];
+      gate_step(pre[0], pre[1], pre[2], pre[3], cs, ns, ms, hv);
+      if (gate_live) {
+        const long long at = (long long)row * T + t;
+        hs[at * D + u] = hv;
+        if (sv.pre != nullptr) {
+#pragma unroll
+          for (int gg = 0; gg < 4; ++gg) sv.pre[at * 4 * D + gg * D + u] = pre[gg];
+          sv.c[at * D + u] = cs;
+          sv.n[at * D + u] = ns;
+          sv.m[at * D + u] = ms;
+        }
+      }
     }
     if (t + 1 < T) {
       // every block's h_t is in hs before any block reads it
@@ -773,8 +809,9 @@ slstm_step_kernel(const In* __restrict__ px, const float* __restrict__ r,
 template <typename In>
 int launch_step(const void* px, const void* r, const void* c0,
                 const void* n0, const void* h0, const void* m0, void* hs,
-                void* c1, void* n1, void* h1, void* m1, int B, int T, int D,
-                int H, long long psb, long long pst, cudaStream_t stream) {
+                void* c1, void* n1, void* h1, void* m1, Saved sv, int B,
+                int T, int D, int H, long long psb, long long pst,
+                cudaStream_t stream) {
   if (!step_fits(B, D)) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned> next_slot{0};
   cudaLaunchConfig_t cfg = {};
@@ -792,8 +829,344 @@ int launch_step(const void* px, const void* r, const void* c0,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, slstm_step_kernel<In>, (const In*)px, (const float*)r,
       (const float*)c0, (const float*)n0, (const float*)h0, (const float*)m0,
-      (float*)hs, (float*)c1, (float*)n1, (float*)h1, (float*)m1, B, T, D, H,
-      psb, pst, slot);
+      (float*)hs, (float*)c1, (float*)n1, (float*)h1, (float*)m1, sv, B, T, D,
+      H, psb, pst, slot);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// the backward: `cluster` in reverse time
+// ---------------------------------------------------------------------
+// The gradient JAX takes through the `lax.scan` of slstm_block, step by
+// step from t = T - 1 down to 0, with the state's gradients (dc, dn,
+// dm) carried back a step: at step t, from dh_t = g_t (dL/dhs) + the
+// recurrent product of dpre_{t+1},
+//   h = sigmoid(o) c / max(n, 1e-6);  c, n, m from pre_t and step t - 1
+//   dpre_t = (di, df, dz, do);   dh_{t-1} gets r[head, d, :] . dpre_t
+// where jnp.maximum's gradient splits evenly at a tie (max(f + m, i)
+// and max(n, 1e-6) alike) and m, a stabiliser, is differentiated as
+// JAX does, not dropped.  dr = sum_t h_{t-1} (x) dpre_t per head is one
+// product over B T, left to the wrapper (torch.matmul, as the
+// reference leaves it to XLA), as is dh_{-1} of a state.
+//
+// Layout: the forward's cluster of 16 blocks a batch row, block `rank`
+// owning U units, a warp 4 of them.  Here unit u's product is over its
+// head's 4Dh columns of dpre: dh[u] = sum_e r[hd, d, e] dpre[hd 4Dh +
+// e], so a warp holds r[hd, d, :] of its 4 units in registers (lane l
+// the 16-byte chunks l, l + 32, ... of each, 96 floats), reads a chunk
+// of the buffer once for all 4 units (one head), and reduces the 4 sums
+// over its 32 lanes by a transposing shuffle: lane l ends with unit l
+// >> 3's sum; the 8 lanes of a unit each take its whole gate step and
+// lane k keeps gate k & 3's gradient.  Exchange: each block sends its
+// units' dpre_t to the blocks whose units read those columns (with H
+// <= 4 a head's 4Dh >= D columns hold a gate of every unit, so every
+// block sends to every block, as the forward's h does, and the
+// forward's three-buffer argument holds); a warp's 4 units of one gate
+// are neighbours, one 16-byte st.async a destination.  Each block
+// waits only on its own buffer's mbarrier, which expects the bytes of
+// the heads its units span (4Dh floats each).  A step's inputs (g, pre,
+// the state before it) are loaded one step ahead.
+//
+// Bound on an H100: the chain, as the forward: a step is 2 B D 4Dh
+// operations (1.18 MFLOP a row at xlstm-125m's D 768, 4 heads: 0.0721
+// ms at (1, 4096, 768) over 67 TFLOP/s), its bytes (g, pre, c, n, m
+// read, dpre written: 48 B a unit and step) 0.0458 ms; a step costs
+// one dot product, the gate step's gradient and one exchange.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py): 6.93 ms
+// at (1, 4096, 768), 1.69 us a step against the forward's 1.47-1.54.
+constexpr int kBwdChunks = kMaxDh / 32;   // chunks of 4Dh a lane: <= 6
+
+__host__ __device__ inline bool bwd_fits(int D, int H) {
+  return cluster_fits(D, H) && H <= 4;
+}
+
+// dynamic shared memory of a backward block: kBufs buffers of the 4D
+// columns of dpre
+__host__ __device__ inline size_t bwd_smem(int D) {
+  return sizeof(float) * kBufs * 4 * (size_t)D;
+}
+
+// The gradient of one unit's gate step (gate_step on pre = (i, f, z,
+// o) from the state cp, np, mp): dh = dL/dh of the step, dc, dn, dm the
+// gradients of its c, n and m, which become those of cp, np and mp;
+// out = dL/d(i, f, z, o).  float32, JAX's terms in JAX's order.
+__device__ __forceinline__ void gate_grad(float i_, float f_, float z_,
+                                          float o_, float cp, float np,
+                                          float mp, float dh, float& dc,
+                                          float& dn, float& dm,
+                                          float (&out)[4]) {
+  const float fm = f_ + mp;
+  const float mn = fmaxf(fm, i_);
+  const float ig = expf(i_ - mn);
+  const float fg = expf(fm - mn);
+  const float tz = tanhf(z_);
+  const float c = fg * cp + ig * tz;
+  const float n = fg * np + ig;
+  const float nc = fmaxf(n, 1e-6f);
+  const float so = 1.0f / (1.0f + expf(-o_));
+  const float q = c / nc;
+  // h = so q, q = c / nc, nc = max(n, 1e-6)
+  const float dq = dh * so;
+  dc += dq / nc;
+  const float wn = n > 1e-6f ? 1.0f : (n == 1e-6f ? 0.5f : 0.0f);
+  dn += -dq * q / nc * wn;
+  out[3] = dh * q * so * (1.0f - so);
+  // c = fg cp + ig tanh(z), n = fg np + ig
+  const float dfg = dc * cp + dn * np;
+  const float dig = dc * tz + dn;
+  out[2] = dc * ig * (1.0f - tz * tz);
+  // fg = exp(fm - mn), ig = exp(i - mn), mn = max(fm, i) (and the next
+  // step's m)
+  const float af = dfg * fg, ai = dig * ig;
+  const float dmn = dm - af - ai;
+  const float wf = fm > i_ ? 1.0f : (fm == i_ ? 0.5f : 0.0f);
+  const float dfm = af + dmn * wf;
+  out[0] = ai + dmn * (1.0f - wf);
+  out[1] = dfm;
+  dc *= fg;
+  dn *= fg;
+  dm = dfm;                                 // fm = f + mp
+}
+
+// a step's inputs for one unit: g = dL/dh_t, pre_t, the state before it
+struct StepIn {
+  float g, i, f, z, o, cp, np, mp;
+};
+
+// Grid (kCluster, B), clusters of kCluster along x, as the forward.
+// dhs (B, T, D), pre (B, T, 4D), c, n, m (B, T, D): the forward's saved
+// tensors; c0, n0, m0 the state it started from (null: zero); dc1, dn1,
+// dm1 the gradients of its final c, n and m (null: zero).  Writes dpre
+// (B, T, 4D) and, where not null, dc0, dn0, dm0.
+__global__ void __launch_bounds__(kUnits / kCols * 32, 1)
+slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
+                 const float* __restrict__ pre, const float* __restrict__ cs,
+                 const float* __restrict__ ns, const float* __restrict__ ms,
+                 const float* c0, const float* n0, const float* m0,
+                 const float* dc1, const float* dn1, const float* dm1,
+                 float* __restrict__ dpre, float* dc0, float* dn0,
+                 float* dm0, int T, int D, int H) {
+  extern __shared__ __align__(16) float dbuf[];     // [kBufs][4D]
+  __shared__ __align__(8) unsigned long long bar[kBufs];
+
+  const int U = units_per_block(D);
+  const int Dh = D / H, E = 4 * Dh, D4 = 4 * D;
+  const uint32_t rank = cluster_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int uw = (int)rank * U + warp * kCols;      // the warp's unit 0
+  const int row = blockIdx.y;
+  auto unit_live = [&](int c) {
+    return warp * kCols + c < U && uw + c < D;
+  };
+  // the block's units [u_lo, u_hi) and the bytes of the heads they span
+  const int u_lo = (int)rank * U, u_hi = min(u_lo + U, D);
+  const bool has_units = u_lo < u_hi;
+  const uint32_t expect =
+      has_units ? 4u * E * ((u_hi - 1) / Dh - u_lo / Dh + 1) : 0u;
+
+  // r[hd, d, :] of the warp's units: rr[c 4 kBwdChunks + 4 kk + i] at e
+  // = 4 (lane + 32 kk) + i (zeros for a unit past the block's);
+  // roff[c]: the unit's head's first column (unit 0's for a unit past
+  // the block's, so that a warp's units stay in one head)
+  float rr[kCols * 4 * kBwdChunks];
+  int roff[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const bool lc = unit_live(c);
+    const int uc = lc ? uw + c : (unit_live(0) ? uw : 0);
+    roff[c] = (uc / Dh) * E;
+    const float* rp = r + (long long)uc * E;        // r[hd, d, 0]
+#pragma unroll
+    for (int kk = 0; kk < kBwdChunks; ++kk) {
+      const int ch = lane + 32 * kk;
+      const float4 q = lc && ch < Dh
+                           ? __ldg(reinterpret_cast<const float4*>(rp) + ch)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        rr[c * 4 * kBwdChunks + 4 * kk + i] = component(q, i);
+    }
+  }
+  bool one_head = true;
+#pragma unroll
+  for (int c = 1; c < kCols; ++c) one_head = one_head && roff[c] == roff[0];
+
+  // dpre_T = 0 in buffer 0
+  for (int k = threadIdx.x; k < kBufs * D4; k += blockDim.x) dbuf[k] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBufs; ++s) mbar_init(smem_u32(&bar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive(smem_u32(&bar[0]));
+  }
+
+  // the lane's unit after the reduction, its lane among the unit's 8
+  const int cu = lane >> 3, k8 = lane & 7;
+  const int u = uw + cu;
+  const bool live = unit_live(cu);
+  const long long idx = (long long)row * D + u;
+  float dc = live && dc1 != nullptr ? dc1[idx] : 0.0f;
+  float dn = live && dn1 != nullptr ? dn1[idx] : 0.0f;
+  float dm = live && dm1 != nullptr ? dm1[idx] : 0.0f;
+  auto load = [&](int n) {
+    StepIn x{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (live && n < T) {
+      const int t = T - 1 - n;
+      const long long at = (long long)row * T + t;
+      x.g = dhs[at * D + u];
+      const float* pr = pre + at * D4 + u;
+      x.i = pr[0];
+      x.f = pr[D];
+      x.z = pr[2 * D];
+      x.o = pr[3 * D];
+      if (t > 0) {
+        x.cp = cs[(at - 1) * D + u];
+        x.np = ns[(at - 1) * D + u];
+        x.mp = ms[(at - 1) * D + u];
+      } else if (c0 != nullptr) {
+        x.cp = c0[idx];
+        x.np = n0[idx];
+        x.mp = m0[idx];
+      }
+    }
+    return x;
+  };
+  // the warp's units are in whole, 16-byte aligned groups of each gate
+  const bool packed = warp * kCols + kCols <= U && uw + kCols <= D &&
+                      D % 4 == 0 && uw % 4 == 0;
+  const uint32_t dbuf_u32 = smem_u32(dbuf);
+
+  // step n (t = T - 1 - n) on inputs x; loads step n + 1's into xn
+  auto step = [&](int n, const StepIn& x, StepIn& xn) {
+    const int s = n % kBufs;
+    xn = load(n + 1);
+    mbar_wait(smem_u32(&bar[s]), (n / kBufs) & 1);
+    if (n + 1 < T && threadIdx.x == 0)
+      mbar_expect_tx(smem_u32(&bar[(n + 1) % kBufs]), expect);
+
+    // r . dpre_{t+1} of the warp's 4 units over the lane's chunks
+    const float* bp = dbuf + s * D4;
+    float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
+    auto madd = [&](int c, int kk, const float4& v) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[c] = fmaf(rr[c * 4 * kBwdChunks + 4 * kk + i], component(v, i),
+                      acc[c]);
+    };
+#pragma unroll
+    for (int kk = 0; kk < kBwdChunks; ++kk) {
+      const int ch = lane + 32 * kk;
+      if (ch < Dh) {
+        if (one_head) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(bp + roff[0] + 4 * ch);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) madd(c, kk, v);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            madd(c, kk,
+                 *reinterpret_cast<const float4*>(bp + roff[c] + 4 * ch));
+        }
+      }
+    }
+    // 32 lanes' sums of 4 units, transposed: lane l ends with unit l >> 3
+    const bool hi = lane & 16, mid = lane & 8;
+    float k0 = hi ? acc[2] : acc[0];
+    float k1 = hi ? acc[3] : acc[1];
+    k0 += __shfl_xor_sync(0xffffffffu, hi ? acc[0] : acc[2], 16);
+    k1 += __shfl_xor_sync(0xffffffffu, hi ? acc[1] : acc[3], 16);
+    float kv = (mid ? k1 : k0) + __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 8);
+    kv += __shfl_xor_sync(0xffffffffu, kv, 4);
+    kv += __shfl_xor_sync(0xffffffffu, kv, 2);
+    kv += __shfl_xor_sync(0xffffffffu, kv, 1);
+
+    float out[4];
+    gate_grad(x.i, x.f, x.z, x.o, x.cp, x.np, x.mp, kv + x.g, dc, dn, dm,
+              out);
+    const int gk = k8 & 3;
+    const float mine = gk == 0 ? out[0] : gk == 1 ? out[1]
+                                        : gk == 2 ? out[2] : out[3];
+
+    // dpre_t into the next buffer of every block that reads it
+    if (n + 1 < T) {
+      const int sn = (n + 1) % kBufs;
+      const uint32_t dst = dbuf_u32 + 4u * (uint32_t)(sn * D4);
+      const uint32_t nbar = smem_u32(&bar[sn]);
+      if (packed) {
+        // lane l: gate l & 3 of the warp's 4 units, to destinations
+        // l >> 2, + 8
+        const int g = lane & 3;
+        float seg[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          seg[c] = __shfl_sync(0xffffffffu, mine, c * 8 + g);
+        const int j0 = g * D + uw, hd = j0 / E;
+        const int lo = hd * Dh / U, last = (hd * Dh + Dh - 1) / U;
+        for (int peer = lo + (lane >> 2); peer <= last; peer += 8)
+          st_async4(cluster_map(dst + 4u * (uint32_t)j0, (uint32_t)peer), seg,
+                    cluster_map(nbar, (uint32_t)peer));
+      } else if (live) {
+        const int j = gk * D + u, hd = j / E;
+        const int lo = hd * Dh / U, last = (hd * Dh + Dh - 1) / U;
+        for (int peer = lo + (k8 >> 2); peer <= last; peer += 2)
+          st_async1(cluster_map(dst + 4u * (uint32_t)j, (uint32_t)peer), mine,
+                    cluster_map(nbar, (uint32_t)peer));
+      }
+    }
+    if (live && k8 < 4)
+      dpre[((long long)row * T + (T - 1 - n)) * D4 + gk * D + u] = mine;
+  };
+
+  StepIn xa = load(0), xb;
+  // every block's buffers and barriers are ready
+  cluster_sync();
+  if (has_units) {
+    // two steps an iteration: the inputs loaded at step n are first read,
+    // by their own name, at step n + 1
+    for (int n = 0; n < T; n += 2) {
+      step(n, xa, xb);
+      if (n + 1 < T) step(n + 1, xb, xa);
+    }
+  }
+  // no block leaves while a peer may still write its shared memory
+  cluster_sync();
+  if (live && k8 == 0) {
+    if (dc0 != nullptr) dc0[idx] = dc;
+    if (dn0 != nullptr) dn0[idx] = dn;
+    if (dm0 != nullptr) dm0[idx] = dm;
+  }
+}
+
+int launch_bwd(const void* dhs, const void* r, const void* pre,
+               const void* c, const void* n, const void* m, const void* c0,
+               const void* n0, const void* m0, const void* dc1,
+               const void* dn1, const void* dm1, void* dpre, void* dc0,
+               void* dn0, void* dm0, int B, int T, int D, int H,
+               cudaStream_t stream) {
+  if (!bwd_fits(D, H) || B > 65535) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> ready{0};
+  cudaError_t err = prepare(slstm_bwd_kernel, ready,
+                            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(kCluster, B);
+  cfg.blockDim = dim3(cluster_threads(D));
+  cfg.dynamicSmemBytes = bwd_smem(D);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, slstm_bwd_kernel, (const float*)dhs, (const float*)r,
+      (const float*)pre, (const float*)c, (const float*)n, (const float*)m,
+      (const float*)c0, (const float*)n0, (const float*)m0,
+      (const float*)dc1, (const float*)dn1, (const float*)dm1, (float*)dpre,
+      (float*)dc0, (float*)dn0, (float*)dm0, T, D, H);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -816,7 +1189,7 @@ int variant_for(int B, int T, int D, int H) {
 
 typedef int (*Launch)(const void*, const void*, const void*, const void*,
                       const void*, const void*, void*, void*, void*, void*,
-                      void*, int, int, int, int, long long, long long,
+                      void*, Saved, int, int, int, int, long long, long long,
                       cudaStream_t);
 
 template <typename In>
@@ -848,13 +1221,17 @@ extern "C" int slstm_scan_max_clusters(int D, int H, int* clusters) {
 // The function of slstm_scan_hd on the kernel `kernel`: 0 `step`, 1
 // `cluster`, 2 the exchange probe (the `cluster` step loop without the
 // product and the gates; not the function: hs is not written, the final
-// state is not the recurrence's).  Returns cudaErrorInvalidValue for a
-// kernel that does not take the shape.
+// state is not the recurrence's).  pre (B, T, 4D), c, n and m (B, T, D),
+// float32 and contiguous, all null or all given: with them the kernel
+// also writes what slstm_scan_bwd_hd reads (a forward with grad).
+// Returns cudaErrorInvalidValue for a kernel that does not take the
+// shape.
 extern "C" int slstm_scan_kernel_hd(const void* px, const void* r,
                                     const void* c0, const void* n0,
                                     const void* h0, const void* m0,
                                     void* hs, void* c1, void* n1, void* h1,
-                                    void* m1, int dtype, int kernel, int B,
+                                    void* m1, void* pre, void* c, void* n,
+                                    void* m, int dtype, int kernel, int B,
                                     int T, int D, int H, long long psb,
                                     long long pst, void* stream) {
   if (B == 0 || T == 0 || D == 0) return 0;
@@ -862,9 +1239,13 @@ extern "C" int slstm_scan_kernel_hd(const void* px, const void* r,
   const Launch fn = dtype == 0   ? launcher<float>(kernel)
                     : dtype == 1 ? launcher<__nv_bfloat16>(kernel)
                                  : nullptr;
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1, B, T, D, H, psb, pst,
-            (cudaStream_t)stream);
+  const bool save = pre != nullptr;
+  if (fn == nullptr || save != (c != nullptr) || save != (n != nullptr) ||
+      save != (m != nullptr) || (save && kernel == kProbeCode))
+    return (int)cudaErrorInvalidValue;
+  const Saved sv{(float*)pre, (float*)c, (float*)n, (float*)m};
+  return fn(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1, sv, B, T, D, H, psb,
+            pst, (cudaStream_t)stream);
 }
 
 // px: (B, T, 4D) of the type `dtype` (0 float32, 1 bfloat16), unit
@@ -887,5 +1268,28 @@ extern "C" int slstm_scan_hd(const void* px, const void* r, const void* c0,
   const int kernel = variant_for(B, T, D, H);
   if (kernel < 0) return (int)cudaErrorInvalidValue;
   return slstm_scan_kernel_hd(px, r, c0, n0, h0, m0, hs, c1, n1, h1, m1,
-                              dtype, kernel, B, T, D, H, psb, pst, stream);
+                              nullptr, nullptr, nullptr, nullptr, dtype,
+                              kernel, B, T, D, H, psb, pst, stream);
+}
+
+// The backward of a forward with grad (slstm_scan_kernel_hd with pre, c,
+// n, m): dhs (B, T, D) = dL/dhs, r (H, D / H, 4 D / H), pre (B, T, 4D),
+// c, n, m (B, T, D), the state c0, n0, m0 (B, D) or all null (zero),
+// dc1, dn1, dm1 (B, D) the gradients of the final c, n, m or all null
+// (zero); all float32 and contiguous.  Writes dpre (B, T, 4D) float32
+// and, where given, dc0, dn0, dm0 (B, D).  The `cluster` layout in
+// reverse time; takes the shapes `cluster` takes with H <= 4, else
+// returns cudaErrorInvalidValue.  Returns the CUDA error of the launch.
+extern "C" int slstm_scan_bwd_hd(const void* dhs, const void* r,
+                                 const void* pre, const void* c,
+                                 const void* n, const void* m,
+                                 const void* c0, const void* n0,
+                                 const void* m0, const void* dc1,
+                                 const void* dn1, const void* dm1,
+                                 void* dpre, void* dc0, void* dn0, void* dm0,
+                                 int B, int T, int D, int H, void* stream) {
+  if (B == 0 || T == 0 || D == 0) return 0;
+  if (H <= 0 || D % H != 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd(dhs, r, pre, c, n, m, c0, n0, m0, dc1, dn1, dm1, dpre,
+                    dc0, dn0, dm0, B, T, D, H, (cudaStream_t)stream);
 }

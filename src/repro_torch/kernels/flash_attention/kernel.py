@@ -28,14 +28,17 @@ them in place (``q`` and ``k`` 128 wide, ``Dr`` 64); for any other
 split the wrapper concatenates them and launches the variant the
 joined head dims take.
 
-The backward has two, both for ``Dh == Dv`` in {64, 128, 256}:
-:func:`bwd_variant` picks ``"wgmma"`` (warp-specialised, TMA-fed wgmma,
-every training launch) for bf16 and fp16 and ``"ffma"`` for float32.
-At Dh 64 and 128 ``wgmma`` is five launches (a pre-pass, dV, dK, dQ,
-the GQA sum); at Dh 256 four, dK and dV in one pass whose two
-warpgroups split by role on the same 64 keys (S^T and P^T on one side,
-dP^T and dS^T on the other, P^T handed over in shared memory).  MLA's
-``Dh`` 192 / ``Dv`` 128 has no backward kernel yet.
+The backward has two, for ``Dh == Dv`` in {64, 128, 256} and for MLA's
+``Dh`` 192 / ``Dv`` 128: :func:`bwd_variant` picks ``"wgmma"``
+(warp-specialised, TMA-fed wgmma, every training launch) for bf16 and
+fp16 and ``"ffma"`` for float32 (``Dh == Dv`` only).  At Dh 64 and 128
+``wgmma`` is five launches (a pre-pass, dV, dK, dQ, the GQA sum); at Dh
+256 and at 192 / 128 four, dK and dV in one pass whose two warpgroups
+split by role on the same 64 keys (S^T and P^T on one side, dP^T and
+dS^T on the other, P^T handed over in shared memory).  With grad, MLA's
+RoPE operands are joined to q and k first, so the backward takes q and
+k 192 wide and autograd sums the shared RoPE key's gradient over the
+heads.
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 WGMMA_MLA_DIMS = (192, 128)
 WGMMA_ROPE_SPLIT = (128, 64)
 BWD_HEAD_DIMS = (64, 128, 256)
+# (Dh, Dv) the wgmma backward also takes: MLA's naive form
+BWD_MLA_DIMS = (192, 128)
 WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1
 
@@ -76,10 +81,17 @@ def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
 def bwd_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     """The backward kernel's variant for these types and head dims;
     raises ValueError for head dims it does not take."""
+    if (Dh, Dv) == BWD_MLA_DIMS:
+        if dtype == torch.float32:
+            raise ValueError("the flash backward kernel takes Dh 192 / Dv "
+                             "128 in bf16 and fp16 only: float32 has no "
+                             "ffma instantiation there (ROADMAP, speed "
+                             "satellites)")
+        return "wgmma"
     if Dh != Dv or Dh not in BWD_HEAD_DIMS:
         raise ValueError(f"the flash backward kernel takes Dh = Dv in "
-                         f"{BWD_HEAD_DIMS}, got Dh={Dh}, Dv={Dv} (ROADMAP "
-                         f"Queue 2 item 1 lists Dh 192 / Dv 128 as open)")
+                         f"{BWD_HEAD_DIMS} or Dh, Dv = {BWD_MLA_DIMS}, got "
+                         f"Dh={Dh}, Dv={Dv}")
     return "ffma" if dtype == torch.float32 else "wgmma"
 
 
@@ -88,7 +100,7 @@ ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
 # flash_attn_bwd_hd's C parameters, in order
-BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
+BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
 
@@ -301,7 +313,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16 bytes).  Dh and Dv are multiples of 8 up to 256.  With grad
     enabled and q, k or v requiring it, the result has a ``grad_fn``
     (:class:`FlashAttentionFunction`; the backward takes Dh = Dv in
-    {64, 128, 256} and raises ValueError here for other head dims)."""
+    {64, 128, 256} and, in 16-bit types, Dh 192 / Dv 128, the RoPE
+    operands joined to q and k; it raises ValueError here for other head
+    dims)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (q, k, v, q_rope, k_rope)):
@@ -318,15 +332,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bwd_scratch(variant: str, B: int, T: int, S: int, Hq: int, Hkv: int,
-                D: int, device) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                         Optional[torch.Tensor]]:
+                D: int, device, Dv: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
     """The backward kernels' scratch (delta, rows, part), as the C entry
     ``flash_attn_bwd_hd`` documents it: ``ffma`` takes delta (B, Hq, T)
     float32 alone; ``wgmma`` takes per 64-row query
     tile (n = 2 * ceil(T / 128) of them) the rows' lse and delta (B, Hq,
     n, 2, 64) float32, row bounds and tile ranges (B*64n*2 + B*n*4)
     int32, and with Hq > Hkv the float32 per-query-head partials of dk
-    and dv (2, B, S, Hq, D) that its last pass sums over the group."""
+    and dv (2, B, S, Hq, max(D, Dv)) that its last pass sums over the
+    group.  ``D`` is q's and k's head dim, ``Dv`` v's (default D)."""
     f32 = dict(dtype=torch.float32, device=device)
     if variant != "wgmma":
         return torch.empty((B, Hq, T), **f32), None, None
@@ -334,7 +350,8 @@ def bwd_scratch(variant: str, B: int, T: int, S: int, Hq: int, Hkv: int,
     delta = torch.empty((B, Hq, n, 2, 64), **f32)
     rows = torch.empty(B * 64 * n * 2 + B * n * 4, dtype=torch.int32,
                        device=device)
-    part = torch.empty((2, B, S, Hq, D), **f32) if Hq > Hkv else None
+    Dp = D if Dv is None else max(D, Dv)
+    part = torch.empty((2, B, S, Hq, Dp), **f32) if Hq > Hkv else None
     return delta, rows, part
 
 
@@ -348,15 +365,16 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     """dq, dk, dv of attention from ``dout`` = dL/d``out``, where
     ``out`` and ``lse`` (B, Hq, T) float32 are the forward kernel's
     output and log-sum-exp on these q, k, v and qpos.  Returns new
-    tensors in the operands' dtype: dq (B,T,Hq,D), dk and dv
-    (B,S,Hkv,D).
+    tensors in the operands' dtype: dq (B,T,Hq,Dh), dk (B,S,Hkv,Dh) and
+    dv (B,S,Hkv,Dv).
 
     One call launches the kernels of ``csrc/flash_attn_bwd_hd.cu`` for
     :func:`bwd_variant`'s choice (``wgmma``: five at Dh 64 and 128, four
-    at Dh 256, whose dK and dV come from one pass) and counts one launch
-    in
+    at Dh 256 and at 192 / 128, whose dK and dV come from one pass) and
+    counts one launch in
     ``flash_attention_bwd_cuda.launches`` (and its variant in
-    ``by_variant``).  Takes Dh = Dv in {64, 128, 256}; operands with any
+    ``by_variant``).  Takes Dh = Dv in {64, 128, 256}, and Dh 192 / Dv
+    128 in 16-bit types (scale by default 1/sqrt(Dh)); operands with any
     strides whose last dim is unit-stride (16-byte rows for 16-bit
     types).  A launch that fails raises; nothing falls back to another
     variant or to the plain version."""
@@ -387,7 +405,8 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     if T == 0 or S == 0:
         return dq, dk, dv
     align = 8 if q.dtype != torch.float32 else 1
-    delta, rows, part = bwd_scratch(variant, B, T, S, Hq, Hkv, Dh, q.device)
+    delta, rows, part = bwd_scratch(variant, B, T, S, Hq, Hkv, Dh, q.device,
+                                    Dv)
     qpos = qpos.to(torch.int32)
     strides = (ctypes.c_longlong * 17)(
         *_strides(q, "q", align), *_strides(k, "k", align),
@@ -402,7 +421,8 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
             delta.data_ptr(), None if rows is None else rows.data_ptr(),
             None if part is None else part.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh, ctypes.addressof(strides), float(scale),
+            _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh, Dv,
+            ctypes.addressof(strides), float(scale),
             float(softcap or 0.0), int(window is not None), window or 0,
             torch.cuda.current_stream().cuda_stream)
     if err < 0:

@@ -164,7 +164,7 @@ def train(run: TrainRun, steps: int, *, start_step: int = 0,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--full", action="store_true",
                     help="exact assigned config (default: reduced)")
     ap.add_argument("--steps", type=int, default=200)

@@ -19,17 +19,17 @@ Structure notes:
     copied into their rows, the ring written by ``_update_ring``;
   * ``forward`` and ``forward_fused`` run each layer under
     ``torch.utils.checkpoint`` while grad is enabled, the reference's
-    ``remat=True``.  On the card no backward exists yet for the RG-LRU
-    kernel nor for flash attention at Dh 256, so a bundle whose
-    parameters require grad raises there, naming ROADMAP.
+    ``remat=True``; on the card their gradients come from the RG-LRU
+    scan's and flash attention's backward kernels.
 
 The xLSTM LM's params are ``{"emb", "mlstm", "slstm", "norms"}``, each a
 list of per-layer dicts; its cache is the reference's ``{"m": {C, n,
 m}, "s": {c, n, h, m}, "pos"}`` (mLSTM state (n_m, B, H, Dh, Dh),
 (n_m, B, H, Dh), (n_m, B, H); sLSTM state (n_s, B, D) each; all
 float32), whose size does not depend on ``T_max``.  Prefill and decode
-update it in place.  No backward exists yet for the sLSTM kernel, so on
-the card a bundle whose parameters require grad raises, naming ROADMAP.
+update it in place.  It trains as recurrentgemma does, each layer under
+``torch.utils.checkpoint``; on the card the sLSTM layers' gradient comes
+from the recurrence's backward kernel, the mLSTM's from autograd.
 """
 from __future__ import annotations
 
@@ -37,8 +37,6 @@ from typing import Dict
 
 import torch
 from torch.utils.checkpoint import checkpoint
-
-from repro_torch.tree import tree_leaves
 
 from . import layers as LY
 from . import rglru as RG
@@ -211,11 +209,6 @@ def build_xlstm_lm(cfg, dt, dev) -> ModelBundle:
         """All layers in order; with a cache, its rows updated in place.
         Without one, each layer runs under ``torch.utils.checkpoint``
         while grad is enabled."""
-        if x.is_cuda and torch.is_grad_enabled() and any(
-                t.requires_grad for t in tree_leaves(params)):
-            raise NotImplementedError(
-                f"{cfg.name} has no backward on the card yet: the sLSTM "
-                f"recurrence kernel has none (ROADMAP: Queue 2 item 3)")
         remat = cache is None and torch.is_grad_enabled()
         mi = si = 0
         for j in range(cfg.n_layers):

@@ -13,8 +13,9 @@ float32 (TF32 stays off on the card).
 
 The sLSTM's recurrence runs in ``kernels/slstm_scan``: on the card the
 hand-written kernel (``csrc/slstm_scan.cu``, one launch a block for all
-T steps: ``cluster`` in a prefill, ``step`` in a decode step), on the
-CPU its plain float32 loop.  The recurrent weights
+T steps: ``cluster`` in a prefill, ``step`` in a decode step; with grad
+its backward kernel too, the reverse of ``cluster``), on the CPU its
+plain float32 loop, differentiated by autograd.  The recurrent weights
 ``r_in`` are read in float32 (``xlstm.py:201``): they stay float32
 whatever the compute dtype.
 

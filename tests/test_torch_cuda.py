@@ -1084,6 +1084,85 @@ BWD_EDGES = [  # B, T, S, Hq, Hkv, D, window, softcap, qpos
 ]
 
 
+# MLA's Dh 192 / Dv 128: deepseek-v3's MHA (G = 1), a GQA group with a
+# window (the GQA sum over partials of two widths), ragged rows with
+# padding, T and S off 64, one query
+BWD_MLA_SHAPES = [  # B, T, S, Hq, Hkv, window, qpos
+    (2, 100, 130, 4, 4, None, "tail"),
+    (1, 200, 200, 8, 2, 40, "tail"),
+    (2, 96, 80, 4, 4, None, "ragged"),
+    (1, 63, 65, 2, 1, 7, "tail"),
+    (1, 1, 3, 2, 2, None, "tail"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", BWD_MLA_SHAPES)
+def test_flash_bwd_mla_dims_match_f64(cuda, dtype, shape):
+    """q and k 192 wide, v and dO 128, scale 1/sqrt(192): the wgmma
+    backward against float64 dense autograd, one launch each."""
+    B, T, S, Hq, Hkv, window, kind = shape
+    q, k, _, _, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, 192, kind,
+                                   seed=T + S)
+    _, _, v, do, _ = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, 128, kind,
+                                 seed=T + S + 1)
+    _, want = _dense_grads(q, k, v, do, qpos, window=window)
+    fn = flash_kernel.flash_attention_bwd_cuda
+    before, by = fn.launches, fn.by_variant["wgmma"]
+    got = _bwd(do, q, k, v, qpos, window=window)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.by_variant["wgmma"]) == (before + 1, by + 1)
+    assert [tuple(x.shape) for x in got] == [q.shape, k.shape, v.shape]
+    _check_grads(got, want, dtype)
+
+
+def test_flash_bwd_mla_rope_operands_sum_the_shared_key(cuda):
+    """With grad, q_rope and k_rope (one RoPE key a position for every
+    head) are joined to q and k and the backward runs at 192 / 128:
+    dq_rope is dq's last 64 columns, and dk_rope the sum over the heads
+    of dk's, against float64 dense autograd on the joined operands."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B, T, H = 1, 300, 4
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda).bfloat16()
+                   for s in ((B, T, H, 128), (B, T, H, 128), (B, T, H, 128),
+                             (B, T, H, 128)))
+    qr = torch.randn((B, T, H, 64), generator=g, device=cuda).bfloat16()
+    kr = torch.randn((B, T, 1, 64), generator=g, device=cuda).bfloat16()
+    qpos = torch.arange(T, dtype=torch.int32, device=cuda)[None]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, qr, kr)]
+    fn = flash_kernel.flash_attention_bwd_cuda
+    before = fn.launches
+    out = flash_kernel.flash_attention_cuda(
+        *leaves[:3], qpos=qpos, q_rope=leaves[3], k_rope=leaves[4])
+    out.backward(do)
+    assert fn.launches == before + 1
+    joined = [torch.cat([q, qr], -1), torch.cat([k, kr.expand(-1, -1, H, -1)],
+                                                -1)]
+    _, (dq, dk, dv) = _dense_grads(*joined, v, do, qpos)
+    want = [dq[..., :128], dk[..., :128], dv, dq[..., 128:],
+            dk[..., 128:].sum(2, keepdim=True)]
+    for x, w in zip((l.grad for l in leaves), want):
+        err = torch.linalg.norm(x.double() - w) / torch.linalg.norm(w)
+        assert float(err) <= BWD_FRO_TOL[torch.bfloat16], float(err)
+
+
+def test_flash_bwd_mla_training_shape_is_deterministic(cuda):
+    """deepseek-v3's training microbatch, 128 heads over 128 at 4096
+    tokens: two launches give the same bits, finite."""
+    q, k, _, _, qpos = _bwd_inputs(cuda, torch.bfloat16, 1, 4096, 4096,
+                                   128, 128, 192, "tail", seed=30)
+    _, _, v, do, _ = _bwd_inputs(cuda, torch.bfloat16, 1, 4096, 4096, 128,
+                                 128, 128, "tail", seed=31)
+    out, lse = flash_kernel._forward(q, k, v, qpos, None, 0.0, None,
+                                     with_lse=True)
+    runs = [flash_kernel.flash_attention_bwd_cuda(do, q, k, v, out, lse,
+                                                  qpos=qpos)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(bool(torch.isfinite(x).all()) for x in runs[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", BWD_EDGES)
 def test_flash_bwd_wgmma_edges_match_f64(cuda, dtype, shape):
@@ -1855,11 +1934,75 @@ def test_slstm_scan_cuda_rejects_bad_input_and_grad(cuda):
         wide, rw = _slstm_inputs(64, 8, 4096, 16, torch.bfloat16, False,
                                  cuda, 2)[:2]
         slstm_scan(wide, rw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slstm_scan(pre_x, r.clone().requires_grad_())
+    # with grad the kernel runs (a backward exists), but takes no out=
+    # and at most BWD_MAX_HEADS heads
+    with pytest.raises(ValueError, match="no out= with grad"):
+        slstm_scan(pre_x, r.clone().requires_grad_(), state, out=state)
+    with pytest.raises(ValueError, match="backward takes"):
+        p8, r8 = _slstm_inputs(2, 8, 64, 8, torch.bfloat16, False, cuda,
+                               3)[:2]
+        slstm_scan(p8, r8.requires_grad_())
+    hs, _ = slstm_scan(pre_x, r.clone().requires_grad_())
+    assert hs.grad_fn is not None
     with torch.no_grad():
         slstm_scan(pre_x, r.clone().requires_grad_())
-    assert slstm_kernel.slstm_scan_cuda.launches == n0 + 1
+    assert slstm_kernel.slstm_scan_cuda.launches == n0 + 2
+
+
+# the backward kernel against float64 autograd and the plain reverse
+# loop, each gradient within _SLSTM_TOL of its largest magnitude
+@pytest.mark.parametrize("B, T, D, H", [(1, 300, 768, 4), (2, 64, 64, 4),
+                                        (3, 7, 48, 2), (2, 1, 768, 4),
+                                        (1, 2, 96, 1), (2, 40, 72, 4)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_slstm_scan_bwd_cuda_matches_plain_and_f64(cuda, B, T, D, H,
+                                                   with_state):
+    """Through autograd (SlstmScanFunction): d pre_x in pre_x's bf16, dr,
+    and with a state dc, dn, dh, dm, with the final state's gradients
+    given too; one forward and one backward launch; two backward
+    launches bit-identical."""
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref
+
+    pre_x, r, state = _slstm_inputs(B, T, D, H, torch.bfloat16, with_state,
+                                    cuda, 7 * T + D)
+    g = torch.Generator(device=cuda).manual_seed(T)
+    dhs = torch.randn((B, T, D), generator=g, device=cuda)
+    dfin = [torch.randn((B, D), generator=g, device=cuda) for _ in range(4)]
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (pre_x, r) + (state or ())]
+    sk, bk = slstm_kernel.slstm_scan_cuda, slstm_kernel.slstm_scan_bwd_cuda
+    n0, b0 = sk.launches, bk.launches
+    hs, fin = slstm_scan(leaves[0], leaves[1],
+                         tuple(leaves[2:]) if with_state else None)
+    loss = (hs * dhs).sum() + sum((a * b).sum() for a, b in zip(fin, dfin))
+    got = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert (sk.launches - n0, bk.launches - b0) == (1, 1)
+    assert got[0].dtype == torch.bfloat16
+    plain = slstm_scan_bwd_ref(dhs, pre_x, r, state, dfin)
+    want64 = [x.double().detach().requires_grad_()
+              for x in (pre_x, r) + (state or ())]
+    hs64, fin64 = slstm_scan_ref(want64[0], want64[1],
+                                 tuple(want64[2:]) if with_state else None)
+    loss64 = (hs64 * dhs.double()).sum() + sum(
+        (a * b.double()).sum() for a, b in zip(fin64, dfin))
+    want = torch.autograd.grad(loss64, want64)
+    ref_list = [plain[0], plain[1]] + (list(plain[2]) if with_state else [])
+    for a, p, w in zip(got, ref_list, want):
+        top = float(w.abs().max())
+        # bf16 d pre_x: one bf16 ulp of its own on top
+        slack = w.abs() * 2.0 ** -7 if a.dtype == torch.bfloat16 else 0.0
+        assert bool(((a.double() - w).abs() <= _SLSTM_TOL * top + slack)
+                    .all())
+        assert bool(((a.double() - p.double()).abs()
+                     <= _SLSTM_TOL * top + slack).all())
+    # forward and backward again: the same bits
+    hs2, fin2 = slstm_scan(leaves[0], leaves[1],
+                           tuple(leaves[2:]) if with_state else None)
+    loss2 = (hs2 * dhs).sum() + sum((a * b).sum()
+                                    for a, b in zip(fin2, dfin))
+    again = torch.autograd.grad(loss2, leaves)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_reduced_xlstm_engine_on_card_matches_cpu(cuda):
@@ -1886,16 +2029,79 @@ def test_reduced_xlstm_engine_on_card_matches_cpu(cuda):
 
 
 def test_xlstm_with_grad_on_card_raises(cuda):
-    bundle = build(get_config("xlstm-125m").reduced(), torch.bfloat16,
-                   "cuda")
-    params = bundle.init(0, dtype=torch.float32)
-    params["slstm"][0]["w_in"].requires_grad_(True)
-    toks = torch.randint(0, 256, (1, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bundle.forward(params, {"tokens": toks})
-    with torch.no_grad():
-        logits, _ = bundle.forward(params, {"tokens": toks})
-    assert bool(torch.isfinite(logits).all())
+    """No longer raises: reduced xlstm (2 mLSTM, 2 sLSTM blocks) trains on
+    the card, at T 40 and 512.  In float32, its loss and every gradient
+    through the sLSTM kernels (forward twice a layer, the checkpoint's
+    recompute included, and the backward once) within 1e-3 of each
+    leaf's largest of the plain loop's on the same card.  In bf16, where
+    the model's own gradients part under changes far below an ulp
+    (tests/test_torch_xlstm_spread.py), every gradient finite and each
+    sLSTM layer's kernels held on the microbatch's own inputs: hs, d
+    pre_x (one bf16 ulp more) and dr within 1e-3 of their largest of the
+    plain loops'; the logits of a forward without grad finite."""
+    import repro_torch.models.xlstm as XL
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        value_and_grad)
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("xlstm-125m").reduced()
+    sk, bk = slstm_kernel.slstm_scan_cuda, slstm_kernel.slstm_scan_bwd_cuda
+    real = XL.slstm_scan
+    for dtype in (torch.float32, torch.bfloat16):
+        bundle = build(cfg, dtype, "cuda")
+        params = bundle.init(0, dtype=torch.float32)
+        grad_fn = value_and_grad(make_loss_fn(bundle, TrainConfig()))
+        n_s = len(params["slstm"])
+        for T in (40, 512):
+            toks = torch.randint(0, cfg.vocab, (2, T + 1), device=cuda)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            taps = []
+
+            def scan(pre_x, r, state=None, out=None):
+                hs, fin = real(pre_x, r, state, out=out)
+                tap = {"pre_x": pre_x.detach(), "r": r.detach(),
+                       "hs": hs.detach()}
+                hs.register_hook(lambda g: tap.__setitem__("dhs", g))
+                pre_x.register_hook(lambda g: tap.__setitem__("dpre", g))
+                taps.append(tap)
+                return hs, fin
+            n0, b0 = sk.launches, bk.launches
+            XL.slstm_scan = scan
+            try:
+                loss, _, grads = grad_fn(params, batch)
+                torch.cuda.synchronize()
+            finally:
+                XL.slstm_scan = real
+            assert (sk.launches - n0, bk.launches - b0) == (2 * n_s, n_s)
+            for a in tree_leaves(grads):
+                assert torch.isfinite(a).all()
+            if dtype == torch.bfloat16:
+                taps = [t for t in taps if "dhs" in t]
+                assert len(taps) == n_s
+                for t, g in zip(taps, grads["slstm"]):
+                    hs, _ = slstm_scan_ref(t["pre_x"], t["r"])
+                    dpre, dr, _ = slstm_scan_bwd_ref(t["dhs"].float(),
+                                                     t["pre_x"], t["r"])
+                    for x, w, slack in ((t["hs"], hs, 0.0),
+                                        (t["dpre"], dpre, 2.0 ** -7),
+                                        (g["r_in"], dr, 0.0)):
+                        err = (x.double() - w.double()).abs()
+                        assert bool((err <= 1e-3 * float(w.abs().max())
+                                     + slack * w.double().abs()).all())
+                with torch.no_grad():
+                    logits, _ = bundle.forward(params, batch)
+                assert bool(torch.isfinite(logits).all())
+                continue
+            XL.slstm_scan = slstm_scan_ref
+            try:
+                loss_p, _, plain = grad_fn(params, batch)
+            finally:
+                XL.slstm_scan = real
+            torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=1e-6)
+            for a, b in zip(tree_leaves(grads), tree_leaves(plain)):
+                top = float(b.abs().max())
+                assert float((a - b).abs().max()) <= 1e-3 * max(top, 1e-30)
 
 
 @pytest.mark.parametrize("Dh, Dv", [(128, 128), (48, 32)])

@@ -129,9 +129,30 @@ def test_auto_dispatch_on_cpu_is_differentiable_past_the_dense_limit():
 @pytest.mark.parametrize("dtype, Dh, Dv, want", [
     (torch.bfloat16, 128, 128, "wgmma"), (torch.float16, 64, 64, "wgmma"),
     (torch.float32, 128, 128, "ffma"), (torch.float32, 64, 64, "ffma"),
-    (torch.bfloat16, 256, 256, "wgmma"), (torch.float32, 256, 256, "ffma")])
+    (torch.bfloat16, 256, 256, "wgmma"), (torch.float32, 256, 256, "ffma"),
+    (torch.bfloat16, 192, 128, "wgmma"), (torch.float16, 192, 128, "wgmma")])
 def test_backward_variant_by_dtype(dtype, Dh, Dv, want):
     assert kernel.bwd_variant(dtype, Dh, Dv) == want
+
+
+def test_backward_at_mla_dims_has_no_float32_kernel():
+    """float32 at Dh 192 / Dv 128 has no ffma instantiation: it raises,
+    naming ROADMAP, rather than falling back to anything."""
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kernel.bwd_variant(torch.float32, 192, 128)
+
+
+@pytest.mark.parametrize("Hq, Hkv, part", [
+    (128, 128, None), (8, 2, (2, 1, 4096, 8, 192))])
+def test_backward_scratch_at_mla_dims(Hq, Hkv, part):
+    """deepseek-v3's training microbatch (128 heads over 128: no GQA
+    partials) and a GQA group, whose partials of dk (192) and dv (128)
+    share rows of max(Dh, Dv) floats."""
+    got = kernel.bwd_scratch("wgmma", 1, 4096, 4096, Hq, Hkv, 192, "cpu",
+                             Dv=128)
+    assert tuple(got[0].shape) == (1, Hq, 64, 2, 64)
+    assert tuple(got[1].shape) == (8448,)
+    assert (None if got[2] is None else tuple(got[2].shape)) == part
 
 
 @pytest.mark.parametrize("variant, B, T, S, Hq, Hkv, D, shapes", [
@@ -163,7 +184,9 @@ def test_backward_scratch_by_variant(variant, B, T, S, Hq, Hkv, D, shapes):
         assert got[2].numel() * 4 == 2 * B * S * Hq * D * 4
 
 
-@pytest.mark.parametrize("Dh, Dv", [(32, 32), (192, 128), (128, 64)])
+# (192, 128), MLA's naive form, is taken since the backward kernel came
+# to it; (192, 64) keeps a Dh != Dv pair that is still refused
+@pytest.mark.parametrize("Dh, Dv", [(32, 32), (192, 64), (128, 64)])
 def test_backward_refuses_other_head_dims(Dh, Dv):
     with pytest.raises(ValueError, match="Dh = Dv in"):
         kernel.bwd_variant(torch.bfloat16, Dh, Dv)
@@ -187,10 +210,11 @@ def test_cpu_tensors_launch_no_backward_kernel():
 
 
 # ----------------------------------------------------------------------
-# the Dh-256 kernels' blocking, emulated in float32
+# the Dh-256 and Dh 192 / Dv 128 kernels' blocking, emulated in float32
 # ----------------------------------------------------------------------
 _ROWS = 64          # keys of a dK/dV block, rows of a part and a tile
-_DQ_KEYS = 32       # keys of a dQ stage
+_DQ_KEYS = 32       # keys of a dQ stage at Dh 256
+_DQ_KEYS_MLA = 64   # at Dh 192 / Dv 128
 _NO_KEY = 1e30      # lse * log2(e) of a row that sees no key
 _LOG2E = 1.4426950408889634
 
@@ -218,17 +242,20 @@ def _tile_ranges(lo, hi):
     return x, y, (lo + 1).amax(-1), hi.amin(-1)
 
 
-def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale):
-    """dq, dk, dv of the Dh-256 kernels' arithmetic in float32, and the
-    (visited, full) tile counts of the dK/dV pass: 64-key blocks per
-    query head stream every 64-row query tile whose row hull sees one of
-    their keys, masking only tiles that are not full; the S^T side hands
-    P^T (times the softcap's factor) to the dP^T side, which forms dS^T;
-    dK and dV are per-query-head partials summed in head order.  dQ
-    blocks of 128 rows walk the 32-key stages of their two tiles' hull,
-    each tile (a warpgroup's 64 rows) skipping the stages it does not
-    see."""
+def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale,
+               dq_keys=_DQ_KEYS):
+    """dq, dk, dv of the Dh-256 (and Dh 192 / Dv 128) kernels'
+    arithmetic in float32, and the (visited, full) tile counts of the
+    dK/dV pass: 64-key blocks per query head stream every 64-row query
+    tile whose row hull sees one of their keys, masking only tiles that
+    are not full; the S^T side (scores over Dh) hands P^T (times the
+    softcap's factor) to the dP^T side (over Dv), which forms dS^T; dK
+    and dV are per-query-head partials summed in head order.  dQ blocks
+    of 128 rows walk the ``dq_keys``-key stages of their two tiles'
+    hull, each tile (a warpgroup's 64 rows) skipping the stages it does
+    not see."""
     B, T, Hq, D = q.shape
+    Dv = v.shape[-1]
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     n = 2 * -(-T // 128)
@@ -260,7 +287,8 @@ def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale):
             p = torch.where(seen, p, 0.0)
         return p, p * fac
 
-    part = torch.zeros((2, B, nk * _ROWS, Hq, D))
+    part_k = torch.zeros((B, nk * _ROWS, Hq, D))
+    part_v = torch.zeros((B, nk * _ROWS, Hq, Dv))
     visited = full = 0
     for b in range(B):
         for h in range(Hq):
@@ -268,7 +296,7 @@ def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale):
             for kb in range(nk):
                 k0, k1 = kb * _ROWS, kb * _ROWS + _ROWS - 1
                 keys = slice(k0, k1 + 1)
-                dv = torch.zeros((_ROWS, D))
+                dv = torch.zeros((_ROWS, Dv))
                 dk = torch.zeros((_ROWS, D))
                 for i in range(n):
                     if not (ty[b, i] >= k0 and tx[b, i] <= k1):
@@ -286,13 +314,13 @@ def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale):
                     dpt = V[b, keys, hk] @ dO[b, rows, h].T
                     dst = hand * (dpt - delta[b, rows, h][None]) * scale
                     dk += dst @ Q[b, rows, h]
-                part[0, b, keys, h] = dk
-                part[1, b, keys, h] = dv
-    dk = part[0, :, :, 0::G].clone()
-    dv = part[1, :, :, 0::G].clone()
+                part_k[b, keys, h] = dk
+                part_v[b, keys, h] = dv
+    dk = part_k[:, :, 0::G].clone()
+    dv = part_v[:, :, 0::G].clone()
     for gi in range(1, G):                        # head order
-        dk += part[0, :, :, gi::G]
-        dv += part[1, :, :, gi::G]
+        dk += part_k[:, :, gi::G]
+        dv += part_v[:, :, gi::G]
     dq = torch.zeros((B, n * _ROWS, Hq, D))
     for b in range(B):
         for h in range(Hq):
@@ -302,8 +330,8 @@ def _roles_bwd(q, k, v, o, do, qpos, lse, window, softcap, scale):
                 hi_key = max(int(ty[b, i0]), int(ty[b, i0 + 1]))
                 if hi_key < lo_key:
                     continue                      # no row sees a key
-                for st in range(lo_key // _DQ_KEYS, hi_key // _DQ_KEYS + 1):
-                    k0, k1 = st * _DQ_KEYS, st * _DQ_KEYS + _DQ_KEYS - 1
+                for st in range(lo_key // dq_keys, hi_key // dq_keys + 1):
+                    k0, k1 = st * dq_keys, st * dq_keys + dq_keys - 1
                     keys = slice(k0, k1 + 1)
                     for i in (i0, i0 + 1):        # a warpgroup's 64 rows
                         if not (ty[b, i] >= k0 and tx[b, i] <= k1):
@@ -371,3 +399,40 @@ def test_dh256_role_split_matches_reference_custom_vjp(case):
     assert 0 < visited <= B * Hq * n_tiles * n_blocks
     assert ragged or visited < B * Hq * n_tiles * n_blocks
     assert (full > 0) == (window != 24)
+
+
+# B, T, S, Hq, Hkv, window, ragged at Dh 192 / Dv 128: deepseek-v3's
+# causal MHA over several blocks (full tiles), ragged rows with padding,
+# and a GQA group with a window (the GQA sum over partials of 192 and
+# 128)
+MLA_ROLE_CASES = [
+    (1, 200, 200, 3, 3, None, False),
+    (2, 70, 90, 2, 2, None, True),
+    (1, 150, 150, 4, 2, 40, False),
+]
+
+
+@pytest.mark.parametrize("case", MLA_ROLE_CASES)
+def test_mla_role_split_matches_reference_custom_vjp(case):
+    """The Dh 192 / Dv 128 backward's blocking, the Dh-256 one with
+    scores over 192 (S^T, S), dP over 128 and 64-key dQ stages, against
+    jax.grad of the reference's custom VJP at Dh != Dv, scale
+    1/sqrt(192)."""
+    B, T, S, Hq, Hkv, window, ragged = case
+    q, k, v, qpos = _mk(B, T, S, Hq, Hkv, 192, 128, ragged, seed=T + 1)
+    if ragged:
+        qpos[:, :5] = -1
+    want = _ref_grads(q, k, v, qpos, window, 0.0, 32)
+    scale = 1.0 / np.sqrt(192.0)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    qp = torch.from_numpy(qpos)
+    o, lse = _dense_forward(qt, kt, vt, qp, window, 0.0, scale)
+    do = 2 * o
+    got, (visited, full) = _roles_bwd(qt, kt, vt, o, do, qp, lse, window,
+                                      0.0, scale, dq_keys=_DQ_KEYS_MLA)
+    assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+    # full tiles (no mask) only where a tile's rows all see a block: not
+    # under a window of 40 nor with ragged, padded rows here
+    assert visited > 0 and (full > 0) == (window is None and not ragged)

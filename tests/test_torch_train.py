@@ -171,24 +171,34 @@ def _port_leaves(pp, cfg):
     """The port's leaves keyed like the reference's stacked tree: a
     layer leaf as (group, sub, name, layer), or (group, name, layer)
     where the group's layers hold leaves directly (the hybrid's per-kind
-    lists: rec, attn, mlp, norms)."""
+    lists: rec, attn, mlp, norms), with a moe layer's nested dicts in
+    the path (group, "ffn", "shared", name, layer); a group that is one
+    tensor (deepseek's mtp_proj) as ("top", group)."""
     out = {("emb", n): t for n, t in pp["emb"].items()}
+
+    def walk(path, d, i):
+        for n, t in d.items():
+            if isinstance(t, dict):
+                walk(path + (n,), t, i)
+            else:
+                out[path + (n, i)] = t
+
     for group, layers in pp.items():
         if group == "emb":
             continue
+        if isinstance(layers, torch.Tensor):
+            out[("top", group)] = layers
+            continue
         for i, layer in enumerate(layers):
-            for sub, d in layer.items():
-                if isinstance(d, dict):
-                    for n, t in d.items():
-                        out[(group, sub, n, i)] = t
-                else:
-                    out[(group, sub, i)] = d
+            walk((group,), layer, i)
     return out
 
 
 def _ref_leaf(tree, key):
     if key[0] == "emb":
         return np.asarray(tree["emb"][key[1]])
+    if key[0] == "top":
+        return np.asarray(tree[key[1]])
     node = tree
     for k in key[:-1]:
         node = node[k]
@@ -218,10 +228,23 @@ def _assert_grads_close(got, want_tree, cfg):
     # the hybrid: two RG-LRU blocks and a local attention layer
     ("recurrentgemma-2b", 16, 2, 3, None, None),
     ("recurrentgemma-2b", 1024, 1, 3, None, None),
+    # deepseek-v3: MLA's naive form at T >= FLASH_MIN_T (flash at Dh 192
+    # / Dv 128 on the joined RoPE columns), its leading dense layer, moe
+    # layers and MTP head; then the cut the card trains, every layer a
+    # leading dense one (layers as (n_layers, dense_layers): an empty
+    # main stack) with the MTP head
+    ("deepseek-v3-671b", 1024, 1, None, None, None),
+    ("deepseek-v3-671b", 40, 2, (2, 2), None, None),
+    # xlstm: 2 mLSTM and 2 sLSTM blocks, one chunk and two chunks of 256
+    ("xlstm-125m", 40, 2, None, None, None),
+    ("xlstm-125m", 512, 1, None, None, None),
 ])
 def test_model_loss_and_every_grad_match_reference(arch, seq, batch, layers,
                                                    vocab, d_head):
     cfg = get_config(arch).reduced()
+    if isinstance(layers, tuple):
+        layers, dense = layers
+        cfg = dataclasses.replace(cfg, dense_layers=dense)
     if layers or vocab or d_head:
         cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
                                   vocab=vocab or cfg.vocab,

@@ -109,6 +109,18 @@ def test_backward_entry_takes_the_head_dims_bwd_variant_accepts():
         assert flash_kernel.bwd_variant(BF16, d, d) == "wgmma"
 
 
+def test_backward_entry_takes_mla_dims_in_16_bit_types():
+    """The backward's C entry takes Dh 192 / Dv 128, as bwd_variant
+    does, with a launch in both 16-bit types and none in float32."""
+    text = (CSRC / "flash_attn_bwd_hd.cu").read_text()
+    dh, dv = flash_kernel.BWD_MLA_DIMS
+    assert f"const bool mla = D == {dh} && Dv == {dv};" in text
+    assert "} else if (dtype == 0) {" in text
+    for t in ("__nv_bfloat16", "__half"):
+        assert f"launch_16<{t}, {dh}, {dv}>" in text
+    assert flash_kernel.bwd_variant(BF16, dh, dv) == "wgmma"
+
+
 @pytest.mark.parametrize("in_dtype, out_dtype, want", [
     (F32, F32, "pipelined"), (BF16, BF16, "tiled"), (BF16, F32, "tiled"),
     (F32, BF16, "tiled")])
