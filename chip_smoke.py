@@ -6,7 +6,9 @@
 1. Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and holds each against its
    plain PyTorch version on the card, at the main path's shapes and at
-   ragged ones, timing kernel, plain version and library call.
+   ragged ones, timing kernel, plain version and library call (for the
+   Jacobi sweep a conv2d of the 4-neighbour stencil, TF32 off, which
+   computes the interior only).
 2. Drives the main path, HDArrayRuntime -> planner -> TorchExecutor ->
    kernels, at the paper's problem sizes (benchmarks/paper_programs.py)
    with 4 logical ranks on the one card:
@@ -107,9 +109,12 @@
    RoPE columns joined as MLA's naive form joins them under grad, v
    (1, 4096, 128, 128), causal) against the plain backward and float64
    (heads 0-7), two launches bit-identical, timed beside its bound and
-   SDPA's backward; the sLSTM recurrence's backward at (1, 4096, 768)
-   and (4, 2048, 768) against float64 and its plain reverse loop, timed
-   in us a step.  deepseek-v3 and xlstm-125m train last of all (7.).
+   SDPA's backward, each pass's TFLOP/s and the dK/dV pass's two probes
+   (elementwise math left out, copies left out); the sLSTM recurrence's
+   backward at (1, 4096, 768) and (4, 2048, 768) against float64 and its
+   plain reverse loop, timed in us a step beside its two probes (the
+   exchange alone, the product and gate math alone).  deepseek-v3 and
+   xlstm-125m train last of all (7.).
    Every kernel launch counter, the total and each variant's, is set to
    0 just before each path (each Jacobi schedule, each phase) and read
    just after; counts are executions, a launch captured into a graph
@@ -475,14 +480,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
+def cuda_ms(torch, fn, reps: int, warm: bool = True,
+            queued: bool = False) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
-    call (none without ``warm``), from CUDA events."""
+    call (none without ``warm``), from CUDA events.  With ``queued`` the
+    stream first spins for about 50 ms (``torch.cuda._sleep``), so the
+    host has queued every call before the first runs: a call whose
+    device work is shorter than its host work is timed on the device."""
     if warm:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -613,6 +624,18 @@ def kernel_phase(torch):
         jac_err = max(jac_err, err)
     sm, sn = slab.shape
     wm, wn = out.shape
+    # the library's one call: a float32 convolution with the 4-neighbour
+    # 0.25 kernel (cuDNN; main turns TF32 off) computes the slab's
+    # interior, the same sweep without the edges that pass through; its
+    # sums run in another order, so it is not bit-identical to the kernel
+    stencil = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
+                            [0.0, 0.25, 0.0]], device=dev).view(1, 1, 3, 3)
+
+    def library():
+        return torch.nn.functional.conv2d(slab.view(1, 1, sm, sn), stencil)
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN's TF32 is on")
+    lib_err = float((library()[0, 0] - out).abs().max())
+    lib_ms = cuda_ms(torch, library, 20)
     jac = dict(
         name="jacobi_hd", route="cuda",
         source="src/repro_torch/csrc/jacobi_hd.cu",
@@ -623,8 +646,16 @@ def kernel_phase(torch):
             slab, window=win, out=out, impl="ref"), 5),
         bound_ms=1e3 * max((sm * sn + wm * wn) * 4 / HBM_BYTES_PER_S,
                            5 * wm * wn / FP32_FLOPS_PER_S),
-        bound_by="bytes", library_ms=None,
-        shape=[sm, sn])
+        bound_by="bytes", library_ms=lib_ms,
+        library="conv2d, the 4-neighbour 0.25 kernel, cuDNN with TF32 off "
+                "(the interior only; not bit-identical)",
+        library_max_abs_err=lib_err, shape=[sm, sn])
+    print(f"jacobi at the rank 0 slab {[sm, sn]}: kernel {jac['ms']:.4f} ms, "
+          f"conv2d (interior, TF32 off) {lib_ms:.4f} ms, within "
+          f"{lib_err:.3e} of the kernel's interior; bound "
+          f"{jac['bound_ms']:.4f} ms (bytes)")
+    check(lib_err <= 1e-5 * float(slab.abs().max()),
+          "conv2d computes another sweep than the Jacobi kernel")
     del full, dst, slab, out
 
     # -- GEMM: against the float64 product ------------------------------
@@ -1312,7 +1343,7 @@ def bwd_blocks(torch, qpos, S: int, Hq: int, rows: int = 64,
     return (B * Hq * len(k0), int(steps.sum()) * Hq, int(steps.max()))
 
 
-def profiled_events(torch, fn, reps: int, kept, windows: int = 3,
+def profiled_events(torch, fn, reps: int, kept, windows: int = 6,
                     cpu: bool = False):
     """(the CUDA events of ``reps`` calls of ``fn`` under torch.profiler,
     windows profiled), after one call outside it; with ``cpu``, CPU
@@ -1694,9 +1725,12 @@ def flash_bwd_mla_phase(torch, ptxas):
     operands alone) within BWD_FRO_TOL; two launches bit-identical;
     timed (and split by launch) beside its operations bound, the plain
     backward and SDPA's backward on the same operands (memory-efficient
-    backend, is_causal).  Prints the ptxas lines of its kernels
-    (``ptxas``: flash_attn_bwd_hd's (kernel, report) pairs).  Returns its
-    entry."""
+    backend, is_causal); each pass's TFLOP/s (the dK/dV pass 4 (Dh + Dv)
+    flops a visible pair and head, dQ 2 (2 Dh + Dv)) and the dK/dV pass's
+    two probes (its elementwise math left out, its copies left out; not
+    the function), from CUDA events by difference of the probe entry's
+    launches.  Prints the ptxas lines of its kernels (``ptxas``:
+    flash_attn_bwd_hd's (kernel, report) pairs).  Returns its entry."""
     import re
 
     import torch.nn.functional as F
@@ -1712,9 +1746,9 @@ def flash_bwd_mla_phase(torch, ptxas):
                if re.search(r"(\(int\)|[<, ])192, (\(int\))?128[,>]", k)]
     for kernel, report in reports:
         print(f"flash bwd Dh 192 / Dv 128 ptxas: {kernel}: {report}")
-    check(len(reports) == 8, f"{len(reports)} Dh 192 / Dv 128 backward "
-          f"kernels in the build log, want 8 (the dK/dV pass and dQ for two "
-          f"types with and without a softcap)")
+    check(len(reports) == 10, f"{len(reports)} Dh 192 / Dv 128 backward "
+          f"kernels in the build log, want 10 (the dK/dV pass and dQ for two "
+          f"types with and without a softcap, and the pass's two probes)")
     check(fk.bwd_variant(torch.bfloat16, 192, 128) == "wgmma",
           "the Dh 192 / Dv 128 backward does not take wgmma in bf16")
     cfg = get_config(DSV3_ARCH)
@@ -1814,8 +1848,48 @@ def flash_bwd_mla_phase(torch, ptxas):
     blocks, steps, longest = bwd_blocks(torch, qpos, T, H, keys=64)
     entry["grid"] = dict(dkdv_blocks=blocks, dkdv_tile_steps=steps,
                          dkdv_longest=longest, dq_blocks=H * -(-T // 128))
+    # the work each pass does: the dK/dV pass 4 (Dh + Dv) flops a visible
+    # pair and head, dQ 2 (2 Dh + Dv) (S and dP again), 2 (4 Dh + 3 Dv)
+    # in all against the bound's 2 (3 Dh + 2 Dv).  Each pass and probe
+    # timed by CUDA events, by difference: the probe entry's pre-pass
+    # alone, the pre-pass and the dK/dV pass alone, the pre-pass and each
+    # probe; dQ is the whole backward less the pre-pass and the dK/dV
+    # pass (Hq = Hkv: no GQA sum); every call queued before the first
+    # runs, since the pre-pass alone takes less device time than host
+    # time.  torch.profiler's split above may keep none of a window's
+    # kernels; these times do not depend on it.
+    check(q.shape[2] == k.shape[2], "deepseek-v3's backward has a GQA sum")
+
+    def alone(name):
+        return cuda_ms(torch, lambda: fk.flash_attention_bwd_probe(
+            do, q, k, v, out, lse, qpos=qpos, scale=scale, probe=name), 10,
+            queued=True)
+    pre, upto, whole = (alone("pre-pass"), alone("pre-pass and dK/dV"),
+                        cuda_ms(torch, kernel, 10, queued=True))
+    probes = {name: alone(name) - pre for name in fk.BWD_PROBES}
+    rates = {}
+    for name, ms, per_pair in (("dK/dV", upto - pre, 4 * (Dh + Dv)),
+                               ("dQ", whole - upto, 2 * (2 * Dh + Dv))):
+        tf = pairs * H * per_pair / ms / 1e9 if ms > 0 else float("nan")
+        rates[name] = dict(ms=ms, tflops=tf,
+                           peak_share=tf * 1e12 / BF16_FLOPS_PER_S)
+    entry["pass_rates"] = rates
+    entry["prepass_ms"] = pre
+    entry["dkdv_probes_ms"] = probes
+    print(f"flash bwd Dh {Dh} / Dv {Dv} passes (CUDA events, by difference;"
+          f" pre-pass {pre:.4f} ms): "
+          + "; ".join(f"{k} {r['ms']:.4f} ms, {r['tflops']:.1f} TFLOP/s, "
+                      f"{100 * r['peak_share']:.1f}% of the 989 TFLOP/s "
+                      f"peak" for k, r in rates.items())
+          + "; the dK/dV pass's probes (not the function): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in probes.items()))
+    check(all(r["ms"] > 0 for r in rates.values()) and all(
+        v > 0 for v in probes.values()),
+        f"the Dh 192 / Dv 128 passes or probes timed at no time: {rates}, "
+        f"{probes}")
     print(f"flash bwd Dh {Dh} / Dv {Dv} at {DSV3_ARCH}'s training shape: "
-          f"{flops:.4e} flops (2 (3 Dh + 2 Dv) a pair and head), "
+          f"{flops:.4e} flops (the bound's 2 (3 Dh + 2 Dv) a pair and head; "
+          f"the kernel does 2 (4 Dh + 3 Dv) = {2 * (4 * Dh + 3 * Dv)}), "
           f"{nbytes:.4e} bytes; bound {entry['bound_ms']:.4f} ms "
           f"({entry['bound_by']}), wgmma {entry['ms']:.4f} ms "
           f"({flops / entry['ms'] / 1e9:.1f} TFLOP/s, "
@@ -1849,10 +1923,13 @@ def slstm_bwd_phase(torch):
     against the plain reverse loop; a forward and a backward launch a
     call; two backward launches bit-identical.  Then the backward alone
     timed at the training shape (CUDA events) beside its bound and the
-    plain loop, in us a step.  Returns its entry."""
+    plain loop, in us a step, and its two probes (the step loop with the
+    exchange alone; the product and gate math alone, no exchange; not
+    the function) in us a step.  Returns its entry."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.slstm_scan.kernel import (
-        VARIANTS, slstm_scan_bwd_cuda, slstm_scan_cuda, slstm_scan_kernel)
+        BWD_PROBES, VARIANTS, slstm_scan_bwd_cuda, slstm_scan_bwd_probe,
+        slstm_scan_cuda, slstm_scan_kernel)
     from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_ref,
                                                     slstm_scan_ref)
 
@@ -1958,8 +2035,14 @@ def slstm_bwd_phase(torch):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         bytes_bound_ms=1e3 * t_bytes, library_ms=None, shape=[B, T, D])
     entry["us_per_step"] = 1e3 * entry["ms"] / T
+    entry["probes_us_per_step"] = {
+        name: 1e3 * cuda_ms(torch, lambda: slstm_scan_bwd_probe(
+            dhs, r, saved, name), 10) / T for name in BWD_PROBES}
     print(f"slstm_scan bwd at {entry['shape']} (bf16 pre_x): "
-          f"{entry['ms']:.4f} ms ({entry['us_per_step']:.3f} us a step), "
+          f"{entry['ms']:.4f} ms ({entry['us_per_step']:.3f} us a step; "
+          f"probes, not the function: " + ", ".join(
+              f"{k} alone {v:.3f}" for k, v in
+              entry["probes_us_per_step"].items()) + " us a step), "
           f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {ops:.4e} "
           f"operations over the float32 rate; bytes "
           f"{entry['bytes_bound_ms']:.4f} ms), plain reverse loop "
@@ -2230,7 +2313,7 @@ def scan_bwd_phase(torch):
 
 
 def scan_device_ms(torch, fn, reps: int, kernel: str = "rglru",
-                   not_kernel: str | None = None, windows: int = 3):
+                   not_kernel: str | None = None, windows: int = 6):
     """(mean device time of one launch of the kernel named with
     ``kernel`` that ``fn`` launches, launches seen, windows profiled),
     from torch.profiler's kernel intervals in ``reps`` calls, with CPU

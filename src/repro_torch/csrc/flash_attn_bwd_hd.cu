@@ -92,15 +92,17 @@
 //   heads over 128, the RoPE columns joined to q and k) the same four
 //   launches: the dK/dV pass by role with S^T over 192 and dP^T over
 //   128, dV (64 registers) on the S^T side and dK (96, a new m64n192k16)
-//   on the other, three stages of Q and dO; dQ as at D 256 (no producer
+//   on the other, three stages of Q and dO, each side taking two parts
+//   an iteration so that its products overlap its own elementwise math;
+//   dQ as at D 256 (no producer
 //   warpgroup, 256 threads: dQ's 96 registers beside S, dP and dS at
 //   64 keys do not fit 168) with three 64-key stages of K and V.  The
 //   pre-pass's delta runs over Dv.  Per visible pair and query head 2
-//   (4 D + 4 Dv) flops (the dK/dV pass 4 (D + Dv), dQ 2 (2 D + Dv))
-//   against the bound's 2 (3 D + 2 Dv) = 1664.  With G = 1 there is no
-//   GQA sum.  At deepseek-v3's training microbatch (128 heads, 4096
-//   tokens, causal) 6.47 ms, 28% of its 1.807 ms bound (NVIDIA H100
-//   80GB HBM3, 700.00 W; chip_smoke.py).
+//   (4 D + 3 Dv) = 2304 flops (the dK/dV pass 4 (D + Dv) = 1280, dQ 2
+//   (2 D + Dv) = 1024, which computes S and dP again) against the
+//   bound's 2 (3 D + 2 Dv) = 1664.  With G = 1 there is no GQA sum.
+//   Times at deepseek-v3's training microbatch (128 heads, 4096 tokens,
+//   causal) against the bound, and the first design's, are in PERF.md.
 // * ffma (float32): FlashAttention-2's split into three launches, as
 //   plain FFMA loops, not TF32: (a) delta, one warp per (b, t, h) row;
 //   (b) dK, dV, a block per (64 keys, 32 at D 256; kv head, batch) that loops
@@ -1047,11 +1049,30 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // At DK 192 / DV 128 (MLA's naive form: q and k 192 wide, v 128) the
 // same pass: S^T = K Q^T over 192, dV (64 x 128, 64 registers) on the
 // S^T side, dP^T = V dO^T over 128, dK (64 x 192, 96 registers) on the
-// other; K, V and three stages of Q and dO take 160 KB.
+// other; K, V and three stages of Q and dO take 160 KB.  There a 64 x 64
+// tile carries 640 columns of products against 1024 at D 256, for the
+// same elementwise work, so a warpgroup that waits for each of its
+// products before its math leaves the tensor cores idle whenever both
+// sides do elementwise work (the first design: the pass at 35.5% of the
+// tensor cores' peak, against 44% at D 256).  So at 192 / 128
+// (kPair) each side takes two parts an iteration and overlaps its own
+// products with its own math (FlashAttention-3's intra-warpgroup
+// overlap): it issues the scores of both parts, runs part a's math while
+// part b's scores run, issues part a's product, runs part b's math while
+// that product runs, then issues part b's; it waits for everything
+// before the loop's back edge (C7515).  P^T goes through two exchange
+// buffers, part a's and part b's, each with its own pair of named
+// barriers, so neither side waits for the other to have read a buffer
+// before it writes the next part.  A second score tile costs 32
+// registers a thread; at D 256 the accumulator's 128 leave no room for
+// it, nor does shared memory hold a second exchange buffer beside two
+// stages there, so D 256 keeps one part an iteration.
 constexpr int kRoleThreads = 2 * 128;
 constexpr int kRoleRows = 64;    // keys of a block, rows of a part
-// named barriers (0 is __syncthreads) of the block's 256 threads
-constexpr int kPFull = 1, kPFree = 2;
+// named barriers (0 is __syncthreads) of the block's 256 threads: P^T
+// in exchange buffer x full, and read
+__device__ __forceinline__ int bar_pfull(int x) { return 1 + 2 * x; }
+__device__ __forceinline__ int bar_pfree(int x) { return 2 + 2 * x; }
 
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
@@ -1083,29 +1104,63 @@ __device__ __forceinline__ float prob_elem(float& s, float lse2, int key,
   return kSoftcap ? pe * fac : pe;
 }
 
+// two parts an iteration, each side overlapping its products with its
+// math: at DK 192 / DV 128 only (above)
+template <int DK>
+constexpr bool kPair = DK == 192;
+// The grid's order.  At D 256 the (batch, head) is the fast index, so
+// that a GQA group's heads, which share K and V, are neighbours.  At
+// 192 / 128 with 128 heads that put 128 heads' blocks of one key range
+// on the card at once, each streaming Q and dO tiles that no other
+// resident block reads: every tile came from device memory, 10.9 GB a
+// call at deepseek-v3's training shape, and the copies, not the
+// products, held the pass back.  So there a (batch, head)'s key blocks
+// are neighbours (the key block the fast index, longest first), and the
+// blocks resident together read the same head's Q and dO, 2.5 MB, from
+// L2.
+template <int DK>
+constexpr bool kHeadMajor = DK == 192;
+
 // Dynamic shared memory of dkdv_roles_kernel from a 1024-byte aligned
 // base: K (DK wide) and V (DV) of the block's 64 keys, kS stages of a
-// 64-row Q tile and of its dO tile, the P^T exchange (float32), then
-// per stage the rows' lse2 and delta and their row bounds, and the
-// mbarriers.  Two stages at D 256 (194 KB), three at 192 / 128.
+// 64-row Q tile and of its dO tile, the P^T exchange buffers (float32,
+// one at D 256, two at 192 / 128), then per stage the rows' lse2 and
+// delta and their row bounds, and the mbarriers.  Two stages at D 256
+// (215,080 B); at 192 / 128 three beside two exchange buffers (199,736
+// B), or four beside one (225,352 B), which leaves the S^T side waiting
+// for the dP^T side to have read part n before it writes part n + 1 and
+// measured slower (tools/bwd_layouts.py, PERF.md).
 template <int DK, int DV>
 struct RoleKVLayout {
-  static constexpr int kS = DK == 256 ? kStages : 3;
+  static constexpr int kXBufs = kPair<DK> ? 2 : 1;
+  static constexpr int kS = DK == 256 ? kStages : 5 - kXBufs;
   static constexpr int kKBytes = kRoleRows * DK * 2;     // K, or a Q stage
   static constexpr int kVBytes = kRoleRows * DV * 2;     // V, or a dO stage
+  static constexpr int kXBytes = kRoleRows * kRoleRows * 4;  // an exchange
   static constexpr int kStatBytes = 2 * kRoleRows * 4;
   static constexpr int kRowBytes = kRoleRows * 8;
   static constexpr int kK = 0;
   static constexpr int kV = kKBytes;
   static constexpr int kQ = kKBytes + kVBytes;           // + stage * kKBytes
   static constexpr int kO = kQ + kS * kKBytes;           // + stage * kVBytes
-  static constexpr int kX = kO + kS * kVBytes;           // 64 x 64 float32
-  static constexpr int kStat = kX + kRoleRows * kRoleRows * 4;
+  static constexpr int kX = kO + kS * kVBytes;           // + x * kXBytes
+  static constexpr int kStat = kX + kXBufs * kXBytes;
   static constexpr int kRow = kStat + kS * kStatBytes;
   // mbarriers: K and V full, then full [kS], free [kS]
   static constexpr int kBar = kRow + kS * kRowBytes;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kS);
 };
+
+// probes of the dK/dV pass at 192 / 128, not the function (their outputs
+// are not the gradients): kNoMath leaves out the elementwise math and
+// the exchange's loads and stores between each side's two products (the
+// named barriers stay), kNoCopies every copy of a part after the first
+// kS (each part reuses what its stage holds)
+enum { kNoProbe = 0, kNoMath = 1, kNoCopies = 2 };
+// the probe entry's other codes, for timing each launch alone by CUDA
+// events: the pre-pass alone, and the pre-pass and the dK/dV pass as the
+// function runs it (no kernel of its own)
+enum { kPrePassAlone = 3, kPassAlone = 4 };
 
 // (b) dK and dV in one pass: a block per (64 keys, query head, batch),
 // key blocks in order (under a causal mask the longest first), a GQA
@@ -1117,7 +1172,7 @@ struct RoleKVLayout {
 // dS^T Q.  4 (DK + DV) flops a visible pair and query head.  The block
 // streams every 64-row query tile whose rows see one of its keys, a
 // stage each.
-template <typename T, int DK, int DV, bool kSoftcap>
+template <typename T, int DK, int DV, bool kSoftcap, int kProbe = kNoProbe>
 __global__ void __launch_bounds__(kRoleThreads, 1)
 dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_do,
@@ -1125,16 +1180,19 @@ dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_v, const Params p) {
   static_assert((DK == 256 && DV == 256) || (DK == 192 && DV == 128),
                 "the role split is the D 256 and 192 / 128 design");
+  static_assert(kProbe == kNoProbe || DK == 192, "probes at 192 / 128");
   using L = RoleKVLayout<DK, DV>;
-  constexpr int kR = kRoleRows, kS = L::kS;
+  constexpr int kR = kRoleRows, kS = L::kS, kXB = L::kXBufs;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - smem_addr(smem_raw));
   const uint32_t bars = base + L::kBar;
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / p.Hq, h = blockIdx.x % p.Hq;
+  const int bh = kHeadMajor<DK> ? blockIdx.y : blockIdx.x;
+  const int b = bh / p.Hq, h = bh % p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
-  const int kv0 = blockIdx.y * kR, kv_last = kv0 + kR - 1;
+  const int kv0 = (kHeadMajor<DK> ? blockIdx.x : blockIdx.y) * kR;
+  const int kv_last = kv0 + kR - 1;
   const int4* tiles = tile_ranges(p, b);
   const float* stats =
       p.delta + (long long)(b * p.Hq + h) * p.n_tiles * 2 * kTile;
@@ -1195,7 +1253,6 @@ dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wgi = tid / 128, t = tid % 128, warp = t / 32, lane = tid % 32;
   const int tig = lane & 3;
   const int key0 = kv0 + warp * 16 + (lane >> 2);    // and key0 + 8
-  unsigned char* xbuf = sm + L::kX;
   const float lg_in = kSoftcap ? 2.f * kLog2e * p.scale / p.softcap
                                : p.scale * kLog2e;
   const float lg_out = p.softcap * kLog2e;
@@ -1215,80 +1272,148 @@ dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
     float acc[kW / 2];                    // dV or dK rows key0, key0 + 8
 #pragma unroll
     for (int j = 0; j < kW / 2; ++j) acc[j] = 0.f;
-    float sc[kR / 2];                     // S^T then P^T, or dP^T then dS^T
-    uint32_t f[kR / 4];
-    for (int n = 0; i < p.n_tiles; ++n) {
-      const int s = n % kS;
-      const int in = next(i);             // the part after this one
-      // the scores; no product is in flight across the loop's back edge,
-      // where ptxas may move the accumulators' registers (else it
-      // serialises the wgmmas, C7515)
-      mbar_wait(bar_full(bars, s), (n / kS) & 1);
+
+    // part n (tile i) in stage s: waits for its copy
+    auto arrived = [&](int s, int n) {
+      if (kProbe != kNoCopies || n < kS)
+        mbar_wait(bar_full(bars, s), (n / kS) & 1);
+    };
+    // its scores, issued as one wgmma group and not waited for
+    auto scores = [&](float (&sc)[kR / 2], int s) {
       wgmma_fence();
       issue_abt<T, kDepth, kR, kR>(sc, a_desc,
                                    sw128_desc(score_b + s * score_st, 16));
-      wgmma_wait<0>();
-      fence_regs(sc);
+    };
+    // its elementwise math, through exchange buffer x: the S^T side
+    // writes P^T once the dP^T side has read the buffer's last part
+    // (reuse), the dP^T side reads it and then frees the buffer for a
+    // later part (later)
+    auto math = [&](float (&sc)[kR / 2], int s, int i, int x, bool reuse,
+                    bool later) {
       const float* st = reinterpret_cast<const float*>(
           sm + L::kStat + s * L::kStatBytes);
+      float4* xbuf = reinterpret_cast<float4*>(sm + L::kX + x * L::kXBytes);
       if constexpr (kSide == 0) {
-        // element 4 nn + e: key key0 + 8 (e >> 1), query row nn * 8 + 2
-        // tig + (e & 1) of the part
-        const int* rb =
-            reinterpret_cast<const int*>(sm + L::kRow + s * L::kRowBytes);
-        const bool masked = !tile_full(__ldg(tiles + i), kv0, kv_last);
-        if (n > 0) named_sync(kPFree);    // the dP^T side has read n - 1
+        if (reuse) named_sync(bar_pfree(x));
+        if constexpr (kProbe != kNoMath) {
+          // element 4 nn + e: key key0 + 8 (e >> 1), query row nn * 8 +
+          // 2 tig + (e & 1) of the part
+          const int* rb =
+              reinterpret_cast<const int*>(sm + L::kRow + s * L::kRowBytes);
+          const bool masked = !tile_full(__ldg(tiles + i), kv0, kv_last);
 #pragma unroll
-        for (int nn = 0; nn < kR / 8; ++nn) {
-          const int col = nn * 8 + tig * 2;
-          const float2 l2 = *reinterpret_cast<const float2*>(st + col);
-          int4 bnd = make_int4(0, 0, 0, 0);
-          if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
-          float pf[4];
+          for (int nn = 0; nn < kR / 8; ++nn) {
+            const int col = nn * 8 + tig * 2;
+            const float2 l2 = *reinterpret_cast<const float2*>(st + col);
+            int4 bnd = make_int4(0, 0, 0, 0);
+            if (masked) bnd = *reinterpret_cast<const int4*>(rb + 2 * col);
+            float pf[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            pf[e] = prob_elem<kSoftcap>(
-                sc[4 * nn + e], (e & 1) ? l2.y : l2.x, key0 + 8 * (e >> 1),
-                (e & 1) ? bnd.z : bnd.x, (e & 1) ? bnd.w : bnd.y, masked,
-                lg_in, lg_out);
-          reinterpret_cast<float4*>(xbuf)[nn * 128 + t] =
-              make_float4(pf[0], pf[1], pf[2], pf[3]);
+            for (int e = 0; e < 4; ++e)
+              pf[e] = prob_elem<kSoftcap>(
+                  sc[4 * nn + e], (e & 1) ? l2.y : l2.x, key0 + 8 * (e >> 1),
+                  (e & 1) ? bnd.z : bnd.x, (e & 1) ? bnd.w : bnd.y, masked,
+                  lg_in, lg_out);
+            xbuf[nn * 128 + t] = make_float4(pf[0], pf[1], pf[2], pf[3]);
+          }
         }
-        named_arrive(kPFull);
+        named_arrive(bar_pfull(x));
       } else {
-        named_sync(kPFull);
+        named_sync(bar_pfull(x));
+        if constexpr (kProbe != kNoMath) {
 #pragma unroll
-        for (int nn = 0; nn < kR / 8; ++nn) {
-          const float4 x = reinterpret_cast<const float4*>(xbuf)[nn * 128 + t];
-          const float2 dl = *reinterpret_cast<const float2*>(
-              st + kR + nn * 8 + tig * 2);
-          const float pf[4] = {x.x, x.y, x.z, x.w};
+          for (int nn = 0; nn < kR / 8; ++nn) {
+            const float4 xv = xbuf[nn * 128 + t];
+            const float2 dl = *reinterpret_cast<const float2*>(
+                st + kR + nn * 8 + tig * 2);
+            const float pf[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[4 * nn + e] =
-                pf[e] * (sc[4 * nn + e] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+            for (int e = 0; e < 4; ++e)
+              sc[4 * nn + e] = pf[e] *
+                               (sc[4 * nn + e] - ((e & 1) ? dl.y : dl.x)) *
+                               p.scale;
+          }
         }
-        if (in < p.n_tiles) named_arrive(kPFree);
+        if (later) named_arrive(bar_pfree(x));
       }
-      // dV += P^T dO, or dK += dS^T Q
+    };
+    // dV += P^T dO, or dK += dS^T Q, issued and not waited for
+    auto product = [&](uint32_t (&f)[kR / 4], const float (&sc)[kR / 2],
+                       int s) {
       pack<T, kR>(f, sc);
       fence_regs(f);
       fence_regs(acc);
       wgmma_fence();
       issue_fz<T, kW, kR>(acc, f, sw128_desc(acc_b + s * acc_st, kR * 128));
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(f);
+    };
+    // part n's stage read by this warpgroup; the copier refills it with
+    // part n + kS once both sides are done with it (the S^T side runs
+    // ahead, so it already is)
+    auto done = [&](int s, int n) {
       release(bar_free<kS>(bars, s));
-      // part n + kS into this stage once both sides are done with it:
-      // the S^T side runs ahead, so it already is
-      if (kSide == 1 && copier && ahead < p.n_tiles) {
+      if (kSide == 1 && kProbe != kNoCopies && copier && ahead < p.n_tiles) {
         mbar_wait(bar_free<kS>(bars, s), (n / kS) & 1);
         load_part(ahead, s);
         ahead = next(ahead);
       }
+    };
+
+    float sc[kR / 2];                     // S^T then P^T, or dP^T then dS^T
+    uint32_t f[kR / 4];
+    int n = 0;
+    if constexpr (kPair<DK>) {
+      // parts n (tile i, exchange 0) and n + 1 (tile ib, exchange 1)
+      float sc2[kR / 2];
+      uint32_t f2[kR / 4];
+      int ib = i < p.n_tiles ? next(i) : p.n_tiles;
+      while (ib < p.n_tiles) {
+        const int sa = n % kS, sb = (n + 1) % kS;
+        const int ic = next(ib);          // parts n + 2 and n + 3
+        const int id = ic < p.n_tiles ? next(ic) : p.n_tiles;
+        arrived(sa, n);
+        scores(sc, sa);
+        arrived(sb, n + 1);
+        scores(sc2, sb);
+        wgmma_wait<1>();                  // part n's scores
+        fence_regs(sc);
+        math(sc, sa, i, 0, n > 0, kXB == 1 || ic < p.n_tiles);
+        product(f, sc, sa);
+        wgmma_wait<1>();                  // part n + 1's scores
+        fence_regs(sc2);
+        math(sc2, sb, ib, kXB - 1, kXB == 1 || n > 0,
+             (kXB == 1 ? ic : id) < p.n_tiles);
+        product(f2, sc2, sb);
+        wgmma_wait<1>();                  // part n's product
+        fence_regs(f);
+        done(sa, n);
+        // nothing in flight across the back edge (else C7515)
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(f2);
+        done(sb, n + 1);
+        n += 2;
+        i = ic;
+        ib = id;
+      }
+    }
+    // one part an iteration: every part at D 256, at 192 / 128 the last
+    // of an odd count (exchange 0, read by no later part)
+    for (; i < p.n_tiles; ++n) {
+      const int s = n % kS;
+      const int in = next(i);             // the part after this one
+      arrived(s, n);
+      scores(sc, s);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      math(sc, s, i, 0, kXB == 2 ? n > 1 : n > 0, in < p.n_tiles);
+      product(f, sc, s);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(f);
+      done(s, n);
       i = in;
     }
+    if constexpr (kProbe != kNoProbe) return;
 
     // rows key0 and key0 + 8: this head's float32 partial, or with one
     // query head per kv head the result; part[0] is dK, part[1] dV, each
@@ -1398,9 +1523,14 @@ int launch_tma(K kern, dim3 grid, int threads, int smem,
 }
 
 // DK: the width of q and k; DV: of v, o and dout (DK = DV but for MLA's
-// 192 / 128)
-template <typename T, int DK, int DV, bool kSoftcap>
+// 192 / 128).  With a probe code (192 / 128 only) the pre-pass alone
+// (kPrePassAlone), or it and the dK/dV pass alone: the function's
+// (kPassAlone) or a probe of it (kNoMath, kNoCopies).
+template <typename T, int DK, int DV, bool kSoftcap, int kProbe = 0>
 int launch_wgmma(const Params& p, cudaStream_t s) {
+  constexpr int kKernelProbe =
+      kProbe == wg::kNoMath || kProbe == wg::kNoCopies ? kProbe
+                                                       : wg::kNoProbe;
   constexpr CUtensorMapDataType type = tma_type<T>();
   // keys of a dK/dV block: 128 at D 64 and 128, 64 in the one pass by
   // role at D 256 and 192 / 128; the dQ kernel's blocks of 128 rows
@@ -1412,7 +1542,8 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
   const long long sum_blocks =
       ((long long)p.B * p.S * p.Hkv * (DK + DV) / 4 + 255) / 256;
   if (key_blocks > 65535 || p.n_tiles / 2 > 65535 ||
-      (long long)p.B * p.Hq > INT_MAX || sum_blocks > INT_MAX)
+      (long long)p.B * p.Hq > (wg::kHeadMajor<DK> ? 65535 : INT_MAX) ||
+      sum_blocks > INT_MAX)
     return (int)cudaErrorInvalidConfiguration;
   // q and dO in streamed tiles of 64 rows (dK, dV) and blocks of 128
   // (dQ); k and v in blocks of blk keys (dK, dV) and streamed tiles of
@@ -1440,13 +1571,17 @@ int launch_wgmma(const Params& p, cudaStream_t s) {
   }
   wg::prep_kernel<T><<<dim3(p.n_tiles, p.Hq, p.B), 256, 0, s>>>(p);
   int e = (int)cudaGetLastError();
-  const dim3 kv_grid(p.B * p.Hq, (unsigned)key_blocks);
+  if (kProbe == wg::kPrePassAlone) return e;
+  const dim3 kv_grid =
+      wg::kHeadMajor<DK> ? dim3((unsigned)key_blocks, p.B * p.Hq)
+                         : dim3(p.B * p.Hq, (unsigned)key_blocks);
   if constexpr (roles) {
     if (e == 0)
-      e = launch_tma(wg::dkdv_roles_kernel<T, DK, DV, kSoftcap>, kv_grid,
-                     wg::kRoleThreads,
+      e = launch_tma(wg::dkdv_roles_kernel<T, DK, DV, kSoftcap, kKernelProbe>,
+                     kv_grid, wg::kRoleThreads,
                      wg::RoleKVLayout<DK, DV>::kBytes + 1024, q_t, o_t, k_b,
                      v_b, p, s);
+    if (kProbe != 0) return e;
   } else {
     static_assert(DK == DV, "two passes take DK = DV");
     const int kv_smem = wg::KVLayout<DK>::kBytes + 1024;   // + the alignment
@@ -1543,4 +1678,45 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
          : D == 64  ? launch_16<__half, 64>(p, s)
          : D == 128 ? launch_16<__half, 128>(p, s)
                     : launch_16<__half, 256>(p, s);
+}
+
+// Probes of the dK/dV pass at Dh 192 / Dv 128 in bfloat16 without a
+// softcap, for measurements, not the function: on flash_attn_bwd_hd's
+// arguments, the pre-pass and then the pass with probe 1 its elementwise
+// math left out, or 2 its copies of every part after the first three
+// (dq, dk and dv not written); probe 3 the pre-pass alone, 4 the
+// pre-pass and the dK/dV pass alone (dk and dv written, dq not), so that
+// CUDA events time each launch by difference.  Any other shape, dtype or
+// probe returns cudaErrorInvalidValue and launches nothing.
+extern "C" int flash_attn_bwd_probe_hd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const int* qpos, const void* lse, void* delta,
+    void* rows, void* part, void* dq, void* dk, void* dv, int dtype, int B,
+    int T, int S, int Hq, int Hkv, int D, int Dv, const long long* strides,
+    float scale, float softcap, int has_window, long long window,
+    void* stream, int probe) {
+  if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0) return 0;
+  if (dtype != 1 || D != 192 || Dv != 128 || softcap != 0.f || Hkv <= 0 ||
+      Hq % Hkv != 0 || rows == nullptr || (Hq > Hkv && part == nullptr) ||
+      probe < wg::kNoMath || probe > wg::kPassAlone)
+    return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, o, dout, qpos, (const float*)lse, (float*)delta,
+           (int*)rows, Hq > Hkv ? (float*)part : nullptr,
+           dq, dk, dv, B, T, S, Hq, Hkv, D, Dv, (T + 127) / 128 * 2,
+           strides[0], strides[1], strides[2], strides[3], strides[4],
+           strides[5], strides[6], strides[7], strides[8], strides[9],
+           strides[10], strides[11], strides[12], strides[13], strides[14],
+           strides[15], strides[16], scale, softcap, has_window, window};
+  cudaStream_t s = (cudaStream_t)stream;
+  using BF = __nv_bfloat16;
+  switch (probe) {
+    case wg::kNoMath:
+      return launch_wgmma<BF, 192, 128, false, wg::kNoMath>(p, s);
+    case wg::kNoCopies:
+      return launch_wgmma<BF, 192, 128, false, wg::kNoCopies>(p, s);
+    case wg::kPrePassAlone:
+      return launch_wgmma<BF, 192, 128, false, wg::kPrePassAlone>(p, s);
+    default:
+      return launch_wgmma<BF, 192, 128, false, wg::kPassAlone>(p, s);
+  }
 }

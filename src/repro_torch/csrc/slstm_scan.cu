@@ -865,8 +865,12 @@ int launch_step(const void* px, const void* r, const void* c0,
 // forward's three-buffer argument holds); a warp's 4 units of one gate
 // are neighbours, one 16-byte st.async a destination.  Each block
 // waits only on its own buffer's mbarrier, which expects the bytes of
-// the heads its units span (4Dh floats each).  A step's inputs (g, pre,
-// the state before it) are loaded one step ahead.
+// the heads its units span (4Dh floats each).  A step's raw inputs (g,
+// pre, the state before it) are loaded two steps ahead, one a lane of
+// the unit's 8, and the gate step's forward half (gate_fwd) runs for
+// step n + 1 once step n has sent its dpre, while the peers' dpre is on
+// its way: the chain of a step is the wait, the product, the shuffles,
+// the terms in the carried gradients (gate_bwd) and the sends.
 //
 // Bound on an H100: the chain, as the forward: a step is 2 B D 4Dh
 // operations (1.18 MFLOP a row at xlstm-125m's D 768, 4 heads: 0.0721
@@ -888,57 +892,95 @@ __host__ __device__ inline size_t bwd_smem(int D) {
 }
 
 // The gradient of one unit's gate step (gate_step on pre = (i, f, z,
-// o) from the state cp, np, mp): dh = dL/dh of the step, dc, dn, dm the
-// gradients of its c, n and m, which become those of cp, np and mp;
-// out = dL/d(i, f, z, o).  float32, JAX's terms in JAX's order.
-__device__ __forceinline__ void gate_grad(float i_, float f_, float z_,
-                                          float o_, float cp, float np,
-                                          float mp, float dh, float& dc,
-                                          float& dn, float& dm,
-                                          float (&out)[4]) {
+// o) from the state cp, np, mp) in two halves.  gate_fwd: what depends
+// only on pre_t and the state before the step, the gate step's forward
+// again (three expf, a tanhf, the sigmoid's reciprocal, c / nc) and the
+// tie weights; it runs off the chain, for step n + 1 while the block
+// waits on step n's exchange.  gate_bwd: the terms in the carried
+// gradients, on the chain: dh = dL/dh of the step; dc, dn, dm the
+// gradients of its c, n and m, which become those of cp, np and mp; out
+// = dL/d(i, f, z, o).  float32, JAX's terms in JAX's order; the one
+// rounding that differs from a plain step's is the chain's division by
+// nc = max(n, 1e-6), taken as a product with 1 / nc from the forward
+// half, so that no IEEE division is left on the chain (each gradient
+// stays within its tolerance; the time it saves is in PERF.md).
+struct GateFwd {
+  float g;                  // dL/dh_t from above
+  float cp, np;             // the state before the step
+  float ig, fg, tz;         // exp(i - m), exp(f + mp - m), tanh(z)
+  float so, rn, q;          // sigmoid(o), 1 / max(n, 1e-6), c / max(...)
+  float wn, wf;             // ties: n against 1e-6, f + mp against i
+};
+
+// from the raw inputs: g, pre_t = (i, f, z, o), and cp, np, mp
+__device__ __forceinline__ GateFwd gate_fwd(float g, float i_, float f_,
+                                            float z_, float o_, float cp,
+                                            float np, float mp) {
+  GateFwd a;
+  a.g = g;
+  a.cp = cp;
+  a.np = np;
   const float fm = f_ + mp;
   const float mn = fmaxf(fm, i_);
-  const float ig = expf(i_ - mn);
-  const float fg = expf(fm - mn);
-  const float tz = tanhf(z_);
-  const float c = fg * cp + ig * tz;
-  const float n = fg * np + ig;
+  a.ig = expf(i_ - mn);
+  a.fg = expf(fm - mn);
+  a.tz = tanhf(z_);
+  const float c = a.fg * cp + a.ig * a.tz;
+  const float n = a.fg * np + a.ig;
   const float nc = fmaxf(n, 1e-6f);
-  const float so = 1.0f / (1.0f + expf(-o_));
-  const float q = c / nc;
+  a.so = 1.0f / (1.0f + expf(-o_));
+  a.q = c / nc;
+  a.rn = 1.0f / nc;
+  a.wn = n > 1e-6f ? 1.0f : (n == 1e-6f ? 0.5f : 0.0f);
+  a.wf = fm > i_ ? 1.0f : (fm == i_ ? 0.5f : 0.0f);
+  return a;
+}
+
+__device__ __forceinline__ void gate_bwd(const GateFwd& a, float dh,
+                                         float& dc, float& dn, float& dm,
+                                         float (&out)[4]) {
   // h = so q, q = c / nc, nc = max(n, 1e-6)
-  const float dq = dh * so;
-  dc += dq / nc;
-  const float wn = n > 1e-6f ? 1.0f : (n == 1e-6f ? 0.5f : 0.0f);
-  dn += -dq * q / nc * wn;
-  out[3] = dh * q * so * (1.0f - so);
+  const float dq = dh * a.so;
+  dc += dq * a.rn;
+  dn += -dq * a.q * a.rn * a.wn;
+  out[3] = dh * a.q * a.so * (1.0f - a.so);
   // c = fg cp + ig tanh(z), n = fg np + ig
-  const float dfg = dc * cp + dn * np;
-  const float dig = dc * tz + dn;
-  out[2] = dc * ig * (1.0f - tz * tz);
+  const float dfg = dc * a.cp + dn * a.np;
+  const float dig = dc * a.tz + dn;
+  out[2] = dc * a.ig * (1.0f - a.tz * a.tz);
   // fg = exp(fm - mn), ig = exp(i - mn), mn = max(fm, i) (and the next
   // step's m)
-  const float af = dfg * fg, ai = dig * ig;
+  const float af = dfg * a.fg, ai = dig * a.ig;
   const float dmn = dm - af - ai;
-  const float wf = fm > i_ ? 1.0f : (fm == i_ ? 0.5f : 0.0f);
-  const float dfm = af + dmn * wf;
-  out[0] = ai + dmn * (1.0f - wf);
+  const float dfm = af + dmn * a.wf;
+  out[0] = ai + dmn * (1.0f - a.wf);
   out[1] = dfm;
-  dc *= fg;
-  dn *= fg;
+  dc *= a.fg;
+  dn *= a.fg;
   dm = dfm;                                 // fm = f + mp
 }
 
-// a step's inputs for one unit: g = dL/dh_t, pre_t, the state before it
-struct StepIn {
-  float g, i, f, z, o, cp, np, mp;
-};
+// probes of the backward, not the function (dpre is not the gradient,
+// the state's gradients are not written): kBwdExchange the step loop
+// with the exchange alone (no product, no gate math), kBwdCompute the
+// product and the gate math alone on the block's own buffer (no
+// exchange), each step's product made to wait for the step before's
+// gate math as the exchange makes it wait in the function
+enum { kBwdFunction = 0, kBwdExchange = 1, kBwdCompute = 2 };
+
+// a zero that the compiler cannot know before v is computed
+__device__ __forceinline__ float zero_after(float v) {
+  float z;
+  asm volatile("and.b32 %0, %1, 0;\n" : "=f"(z) : "f"(v));
+  return z;
+}
 
 // Grid (kCluster, B), clusters of kCluster along x, as the forward.
 // dhs (B, T, D), pre (B, T, 4D), c, n, m (B, T, D): the forward's saved
 // tensors; c0, n0, m0 the state it started from (null: zero); dc1, dn1,
 // dm1 the gradients of its final c, n and m (null: zero).  Writes dpre
 // (B, T, 4D) and, where not null, dc0, dn0, dm0.
+template <int kProbe>
 __global__ void __launch_bounds__(kUnits / kCols * 32, 1)
 slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
                  const float* __restrict__ pre, const float* __restrict__ cs,
@@ -949,6 +991,8 @@ slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
                  float* dm0, int T, int D, int H) {
   extern __shared__ __align__(16) float dbuf[];     // [kBufs][4D]
   __shared__ __align__(8) unsigned long long bar[kBufs];
+  constexpr bool kExchange = kProbe != kBwdCompute;
+  constexpr bool kCompute = kProbe != kBwdExchange;
 
   const int U = units_per_block(D);
   const int Dh = D / H, E = 4 * Dh, D4 = 4 * D;
@@ -973,7 +1017,7 @@ slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
   int roff[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
-    const bool lc = unit_live(c);
+    const bool lc = unit_live(c) && kCompute;
     const int uc = lc ? uw + c : (unit_live(0) ? uw : 0);
     roff[c] = (uc / Dh) * E;
     const float* rp = r + (long long)uc * E;        // r[hd, d, 0]
@@ -1008,88 +1052,97 @@ slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
   float dc = live && dc1 != nullptr ? dc1[idx] : 0.0f;
   float dn = live && dn1 != nullptr ? dn1[idx] : 0.0f;
   float dm = live && dm1 != nullptr ? dm1[idx] : 0.0f;
+  // A step's raw inputs, spread over the unit's 8 lanes: lane k8 loads
+  // g (0), pre's i, f, z, o (1-4) or the state before the step, cp, np,
+  // mp (5-7), two steps ahead; gate_fwd gathers them by shuffles.
+  const float* lsrc = k8 == 0 ? dhs : k8 < 5 ? pre : k8 == 5 ? cs
+                                                 : k8 == 6 ? ns : ms;
+  const float* lst = k8 == 5 ? c0 : k8 == 6 ? n0 : m0;
+  const long long lw = k8 >= 1 && k8 <= 4 ? D4 : D;   // the row's width
+  const int loff = k8 >= 1 && k8 <= 4 ? (k8 - 1) * D + u : u;
+  const int lback = k8 >= 5 ? 1 : 0;    // the state before step t: t - 1
   auto load = [&](int n) {
-    StepIn x{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (live && n < T) {
-      const int t = T - 1 - n;
-      const long long at = (long long)row * T + t;
-      x.g = dhs[at * D + u];
-      const float* pr = pre + at * D4 + u;
-      x.i = pr[0];
-      x.f = pr[D];
-      x.z = pr[2 * D];
-      x.o = pr[3 * D];
-      if (t > 0) {
-        x.cp = cs[(at - 1) * D + u];
-        x.np = ns[(at - 1) * D + u];
-        x.mp = ms[(at - 1) * D + u];
-      } else if (c0 != nullptr) {
-        x.cp = c0[idx];
-        x.np = n0[idx];
-        x.mp = m0[idx];
-      }
-    }
-    return x;
+    if (!live || n >= T) return 0.0f;
+    const int t = T - 1 - n - lback;
+    if (t >= 0) return lsrc[((long long)row * T + t) * lw + loff];
+    return lst != nullptr ? lst[idx] : 0.0f;
+  };
+  auto prepare = [&](float raw) {
+    const int l0 = lane & ~7;
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = __shfl_sync(0xffffffffu, raw, l0 + k);
+    return gate_fwd(x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[7]);
   };
   // the warp's units are in whole, 16-byte aligned groups of each gate
   const bool packed = warp * kCols + kCols <= U && uw + kCols <= D &&
                       D % 4 == 0 && uw % 4 == 0;
   const uint32_t dbuf_u32 = smem_u32(dbuf);
 
-  // step n (t = T - 1 - n) on inputs x; loads step n + 1's into xn
-  auto step = [&](int n, const StepIn& x, StepIn& xn) {
+  float link = 0.0f;          // the compute probe's step-to-step chain
+  // Step n (t = T - 1 - n) on the forward half a; loads step n + 2's raw
+  // input into rn and, once dpre_t is sent, turns step n + 1's (r1)
+  // into a.
+  auto step = [&](int n, GateFwd& a, float r1, float& rn) {
     const int s = n % kBufs;
-    xn = load(n + 1);
-    mbar_wait(smem_u32(&bar[s]), (n / kBufs) & 1);
-    if (n + 1 < T && threadIdx.x == 0)
-      mbar_expect_tx(smem_u32(&bar[(n + 1) % kBufs]), expect);
+    rn = load(n + 2);
+    if (kExchange) {
+      mbar_wait(smem_u32(&bar[s]), (n / kBufs) & 1);
+      if (n + 1 < T && threadIdx.x == 0)
+        mbar_expect_tx(smem_u32(&bar[(n + 1) % kBufs]), expect);
+    }
 
-    // r . dpre_{t+1} of the warp's 4 units over the lane's chunks
-    const float* bp = dbuf + s * D4;
-    float acc[kCols] = {0.0f, 0.0f, 0.0f, 0.0f};
-    auto madd = [&](int c, int kk, const float4& v) {
+    float mine;
+    if constexpr (kCompute) {
+      // r . dpre_{t+1} of the warp's 4 units over the lane's chunks
+      const float* bp = dbuf + (kExchange ? s : 0) * D4;
+      float acc[kCols] = {link, 0.0f, 0.0f, 0.0f};
+      auto madd = [&](int c, int kk, const float4& v) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[c] = fmaf(rr[c * 4 * kBwdChunks + 4 * kk + i], component(v, i),
-                      acc[c]);
-    };
+        for (int i = 0; i < 4; ++i)
+          acc[c] = fmaf(rr[c * 4 * kBwdChunks + 4 * kk + i], component(v, i),
+                        acc[c]);
+      };
 #pragma unroll
-    for (int kk = 0; kk < kBwdChunks; ++kk) {
-      const int ch = lane + 32 * kk;
-      if (ch < Dh) {
-        if (one_head) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(bp + roff[0] + 4 * ch);
+      for (int kk = 0; kk < kBwdChunks; ++kk) {
+        const int ch = lane + 32 * kk;
+        if (ch < Dh) {
+          if (one_head) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(bp + roff[0] + 4 * ch);
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) madd(c, kk, v);
-        } else {
+            for (int c = 0; c < kCols; ++c) madd(c, kk, v);
+          } else {
 #pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            madd(c, kk,
-                 *reinterpret_cast<const float4*>(bp + roff[c] + 4 * ch));
+            for (int c = 0; c < kCols; ++c)
+              madd(c, kk,
+                   *reinterpret_cast<const float4*>(bp + roff[c] + 4 * ch));
+          }
         }
       }
-    }
-    // 32 lanes' sums of 4 units, transposed: lane l ends with unit l >> 3
-    const bool hi = lane & 16, mid = lane & 8;
-    float k0 = hi ? acc[2] : acc[0];
-    float k1 = hi ? acc[3] : acc[1];
-    k0 += __shfl_xor_sync(0xffffffffu, hi ? acc[0] : acc[2], 16);
-    k1 += __shfl_xor_sync(0xffffffffu, hi ? acc[1] : acc[3], 16);
-    float kv = (mid ? k1 : k0) + __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 8);
-    kv += __shfl_xor_sync(0xffffffffu, kv, 4);
-    kv += __shfl_xor_sync(0xffffffffu, kv, 2);
-    kv += __shfl_xor_sync(0xffffffffu, kv, 1);
+      // 32 lanes' sums of 4 units, transposed: lane l ends with unit l >> 3
+      const bool hi = lane & 16, mid = lane & 8;
+      float k0 = hi ? acc[2] : acc[0];
+      float k1 = hi ? acc[3] : acc[1];
+      k0 += __shfl_xor_sync(0xffffffffu, hi ? acc[0] : acc[2], 16);
+      k1 += __shfl_xor_sync(0xffffffffu, hi ? acc[1] : acc[3], 16);
+      float kv =
+          (mid ? k1 : k0) + __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 8);
+      kv += __shfl_xor_sync(0xffffffffu, kv, 4);
+      kv += __shfl_xor_sync(0xffffffffu, kv, 2);
+      kv += __shfl_xor_sync(0xffffffffu, kv, 1);
 
-    float out[4];
-    gate_grad(x.i, x.f, x.z, x.o, x.cp, x.np, x.mp, kv + x.g, dc, dn, dm,
-              out);
-    const int gk = k8 & 3;
-    const float mine = gk == 0 ? out[0] : gk == 1 ? out[1]
-                                        : gk == 2 ? out[2] : out[3];
+      float out[4];
+      gate_bwd(a, kv + a.g, dc, dn, dm, out);
+      const int gk = k8 & 3;
+      mine = gk == 0 ? out[0] : gk == 1 ? out[1] : gk == 2 ? out[2] : out[3];
+      if (!kExchange) link = zero_after(mine);
+    } else {
+      mine = a.g + a.q;
+    }
 
     // dpre_t into the next buffer of every block that reads it
-    if (n + 1 < T) {
+    if (kExchange && n + 1 < T) {
       const int sn = (n + 1) % kBufs;
       const uint32_t dst = dbuf_u32 + 4u * (uint32_t)(sn * D4);
       const uint32_t nbar = smem_u32(&bar[sn]);
@@ -1107,7 +1160,7 @@ slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
           st_async4(cluster_map(dst + 4u * (uint32_t)j0, (uint32_t)peer), seg,
                     cluster_map(nbar, (uint32_t)peer));
       } else if (live) {
-        const int j = gk * D + u, hd = j / E;
+        const int j = (k8 & 3) * D + u, hd = j / E;
         const int lo = hd * Dh / U, last = (hd * Dh + Dh - 1) / U;
         for (int peer = lo + (k8 >> 2); peer <= last; peer += 2)
           st_async1(cluster_map(dst + 4u * (uint32_t)j, (uint32_t)peer), mine,
@@ -1115,29 +1168,34 @@ slstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ r,
       }
     }
     if (live && k8 < 4)
-      dpre[((long long)row * T + (T - 1 - n)) * D4 + gk * D + u] = mine;
+      dpre[((long long)row * T + (T - 1 - n)) * D4 + (k8 & 3) * D + u] = mine;
+    // off the chain: the next step's forward half, while the peers'
+    // dpre_t is on its way
+    a = prepare(r1);
   };
 
-  StepIn xa = load(0), xb;
+  GateFwd a = prepare(load(0));
+  float ra = load(1), rb;
   // every block's buffers and barriers are ready
   cluster_sync();
   if (has_units) {
-    // two steps an iteration: the inputs loaded at step n are first read,
-    // by their own name, at step n + 1
+    // two steps an iteration: the raw input loaded at step n is first
+    // read, by its own name, at step n + 1
     for (int n = 0; n < T; n += 2) {
-      step(n, xa, xb);
-      if (n + 1 < T) step(n + 1, xb, xa);
+      step(n, a, ra, rb);
+      if (n + 1 < T) step(n + 1, a, rb, ra);
     }
   }
   // no block leaves while a peer may still write its shared memory
   cluster_sync();
-  if (live && k8 == 0) {
+  if (kProbe == kBwdFunction && live && k8 == 0) {
     if (dc0 != nullptr) dc0[idx] = dc;
     if (dn0 != nullptr) dn0[idx] = dn;
     if (dm0 != nullptr) dm0[idx] = dm;
   }
 }
 
+template <int kProbe>
 int launch_bwd(const void* dhs, const void* r, const void* pre,
                const void* c, const void* n, const void* m, const void* c0,
                const void* n0, const void* m0, const void* dc1,
@@ -1146,7 +1204,7 @@ int launch_bwd(const void* dhs, const void* r, const void* pre,
                cudaStream_t stream) {
   if (!bwd_fits(D, H) || B > 65535) return (int)cudaErrorInvalidValue;
   static std::atomic<unsigned long long> ready{0};
-  cudaError_t err = prepare(slstm_bwd_kernel, ready,
+  cudaError_t err = prepare(slstm_bwd_kernel<kProbe>, ready,
                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -1162,7 +1220,7 @@ int launch_bwd(const void* dhs, const void* r, const void* pre,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, slstm_bwd_kernel, (const float*)dhs, (const float*)r,
+      &cfg, slstm_bwd_kernel<kProbe>, (const float*)dhs, (const float*)r,
       (const float*)pre, (const float*)c, (const float*)n, (const float*)m,
       (const float*)c0, (const float*)n0, (const float*)m0,
       (const float*)dc1, (const float*)dn1, (const float*)dm1, (float*)dpre,
@@ -1290,6 +1348,33 @@ extern "C" int slstm_scan_bwd_hd(const void* dhs, const void* r,
                                  int B, int T, int D, int H, void* stream) {
   if (B == 0 || T == 0 || D == 0) return 0;
   if (H <= 0 || D % H != 0) return (int)cudaErrorInvalidValue;
-  return launch_bwd(dhs, r, pre, c, n, m, c0, n0, m0, dc1, dn1, dm1, dpre,
-                    dc0, dn0, dm0, B, T, D, H, (cudaStream_t)stream);
+  return launch_bwd<kBwdFunction>(dhs, r, pre, c, n, m, c0, n0, m0, dc1,
+                                  dn1, dm1, dpre, dc0, dn0, dm0, B, T, D, H,
+                                  (cudaStream_t)stream);
+}
+
+// The backward's probes on slstm_scan_bwd_hd's arguments, for
+// measurements, not the function: probe 1 the step loop with the
+// exchange alone (no product, no gate math), 2 the product and the gate
+// math alone on the block's own buffer (no exchange).  dpre is written
+// but is not the gradient; dc0, dn0, dm0 are not written.  Returns
+// cudaErrorInvalidValue for another probe code or a shape the backward
+// does not take.
+extern "C" int slstm_scan_bwd_probe_hd(
+    const void* dhs, const void* r, const void* pre, const void* c,
+    const void* n, const void* m, const void* c0, const void* n0,
+    const void* m0, const void* dc1, const void* dn1, const void* dm1,
+    void* dpre, void* dc0, void* dn0, void* dm0, int B, int T, int D, int H,
+    void* stream, int probe) {
+  if (B == 0 || T == 0 || D == 0) return 0;
+  if (H <= 0 || D % H != 0) return (int)cudaErrorInvalidValue;
+  if (probe == kBwdExchange)
+    return launch_bwd<kBwdExchange>(dhs, r, pre, c, n, m, c0, n0, m0, dc1,
+                                    dn1, dm1, dpre, dc0, dn0, dm0, B, T, D,
+                                    H, (cudaStream_t)stream);
+  if (probe == kBwdCompute)
+    return launch_bwd<kBwdCompute>(dhs, r, pre, c, n, m, c0, n0, m0, dc1,
+                                   dn1, dm1, dpre, dc0, dn0, dm0, B, T, D, H,
+                                   (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -103,10 +103,21 @@ ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
 BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
     ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_void_p]
+# flash_attn_bwd_probe_hd's: the same, then the probe's code
+BWD_PROBE_ARGTYPES = BWD_ARGTYPES + [ctypes.c_int]
+# the dK/dV pass's probes at Dh 192 / Dv 128 (the source's kNoMath and
+# kNoCopies): its elementwise math left out, its copies after the first
+# three parts left out
+BWD_PROBES = {"no math": 1, "no copies": 2}
+# the probe entry's launches of the function's own parts, for timing each
+# by CUDA events (the source's kPrePassAlone and kPassAlone): the
+# pre-pass alone, the pre-pass and the dK/dV pass alone
+BWD_PARTS = {"pre-pass": 3, "pre-pass and dK/dV": 4}
 
 
-def _entry(name: str = "flash_attn_hd", argtypes=ARGTYPES):
-    fn = getattr(build.load(name), name)
+def _entry(name: str = "flash_attn_hd", argtypes=ARGTYPES,
+           lib: Optional[str] = None):
+    fn = getattr(build.load(lib or name), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -378,6 +389,32 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     strides whose last dim is unit-stride (16-byte rows for 16-bit
     types).  A launch that fails raises; nothing falls back to another
     variant or to the plain version."""
+    grads = _bwd(dout, q, k, v, out, lse, qpos, window, softcap, scale)
+    if q.shape[1] and k.shape[1]:            # else nothing was launched
+        count_launch(flash_attention_bwd_cuda,
+                     bwd_variant(q.dtype, q.shape[-1], v.shape[-1]))
+    return grads
+
+
+def flash_attention_bwd_probe(dout: torch.Tensor, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, *,
+                              qpos: torch.Tensor, probe: str,
+                              scale: Optional[float] = None) -> None:
+    """One uncounted launch of the pre-pass and a probe of the dK/dV pass
+    (``probe``, a key of :data:`BWD_PROBES`), or of the parts of the
+    function named by a key of :data:`BWD_PARTS`, on the operands of
+    :func:`flash_attention_bwd_cuda`, for measurements: bf16 at Dh 192 /
+    Dv 128 without a window or softcap.  Not the function: its gradients
+    are not returned."""
+    _bwd(dout, q, k, v, out, lse, qpos, None, 0.0, scale,
+         probe={**BWD_PROBES, **BWD_PARTS}[probe])
+
+
+def _bwd(dout, q, k, v, out, lse, qpos, window, softcap, scale, probe=0):
+    """flash_attention_bwd_cuda's launch, or with ``probe`` the C entry
+    flash_attn_bwd_probe_hd's; returns (dq, dk, dv), unwritten under a
+    probe."""
     B, T, S, Hq, Hkv, Dh, Dv = _check(q, k, v, qpos)
     variant = bwd_variant(q.dtype, Dh, Dv)
     for name, t, shape in (("out", out, (B, T, Hq, Dv)),
@@ -414,8 +451,11 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
         *_strides(dout, "dout", align), *qpos.stride())
     scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
     window = None if window is None else int(window)
+    entry = _entry("flash_attn_bwd_hd", BWD_ARGTYPES) if not probe else \
+        _entry("flash_attn_bwd_probe_hd", BWD_PROBE_ARGTYPES,
+               "flash_attn_bwd_hd")
     with torch.cuda.device(q.device):
-        err = _entry("flash_attn_bwd_hd", BWD_ARGTYPES)(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), qpos.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if rows is None else rows.data_ptr(),
@@ -424,7 +464,8 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
             _DTYPES[q.dtype], B, T, S, Hq, Hkv, Dh, Dv,
             ctypes.addressof(strides), float(scale),
             float(softcap or 0.0), int(window is not None), window or 0,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream,
+            *([probe] if probe else []))
     if err < 0:
         raise RuntimeError(
             f"flash_attn_bwd_hd ({variant}) could not build a TMA tensor "
@@ -434,7 +475,6 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     if err:
         raise RuntimeError(f"flash_attn_bwd_hd ({variant}) launch failed "
                            f"with CUDA error {err}")
-    count_launch(flash_attention_bwd_cuda, variant)
     return dq, dk, dv
 
 

@@ -59,6 +59,11 @@ KERNEL_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
 # slstm_scan_bwd_hd's
 BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p]
+# slstm_scan_bwd_probe_hd's: the same, then the probe's code
+BWD_PROBE_ARGTYPES = BWD_ARGTYPES + [ctypes.c_int]
+# the backward's probes (the source's kBwdExchange and kBwdCompute): the
+# step loop with the exchange alone, and the product and gate math alone
+BWD_PROBES = {"exchange": 1, "compute": 2}
 # the backward's largest head count: with H <= 4 every block of a
 # cluster sends its dpre to every other
 BWD_MAX_HEADS = 4
@@ -122,7 +127,8 @@ def _entry(name: str):
         fn = getattr(build.load("slstm_scan"), name)
         fn.argtypes = {"slstm_scan_hd": ARGTYPES,
                        "slstm_scan_kernel_hd": KERNEL_ARGTYPES,
-                       "slstm_scan_bwd_hd": BWD_ARGTYPES}[name]
+                       "slstm_scan_bwd_hd": BWD_ARGTYPES,
+                       "slstm_scan_bwd_probe_hd": BWD_PROBE_ARGTYPES}[name]
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
@@ -352,6 +358,24 @@ def slstm_scan_bwd_cuda(dhs: torch.Tensor, r: torch.Tensor,
     without dr and dh0.  One launch of ``csrc/slstm_scan.cu``'s
     backward, counted in ``slstm_scan_bwd_cuda.launches``; a launch that
     fails raises, nothing falls back to the plain version."""
+    out = _bwd(dhs, r, saved, state, dfinal)
+    count_launch(slstm_scan_bwd_cuda)
+    return out
+
+
+def slstm_scan_bwd_probe(dhs: torch.Tensor, r: torch.Tensor,
+                         saved: Tuple[torch.Tensor, ...], probe: str
+                         ) -> None:
+    """One uncounted launch of a probe of the backward (``probe``, a key
+    of :data:`BWD_PROBES`) on the operands of
+    :func:`slstm_scan_bwd_cuda`, for measurements: not the function, its
+    dpre is not the gradient."""
+    _bwd(dhs, r, saved, None, None, BWD_PROBES[probe])
+
+
+def _bwd(dhs, r, saved, state, dfinal, probe=0):
+    """slstm_scan_bwd_cuda's launch, or with ``probe`` the C entry
+    slstm_scan_bwd_probe_hd's; returns (dpre, the state's gradients)."""
     B, T, D = dhs.shape
     H = r.shape[0]
     if not (dhs.is_cuda and r.is_cuda):
@@ -388,12 +412,11 @@ def slstm_scan_bwd_cuda(dhs: torch.Tensor, r: torch.Tensor,
     st = (None,) * 3 if state is None else [
         state[k].data_ptr() for k in (0, 1, 3)]
     fin = (None,) * 3 if dfinal is None else [t.data_ptr() for t in dfinal]
-    _call("slstm_scan_bwd_hd",
+    _call("slstm_scan_bwd_probe_hd" if probe else "slstm_scan_bwd_hd",
           [dhs.data_ptr(), r.data_ptr(), *(t.data_ptr() for t in saved),
            *st, *fin, dpre.data_ptr(),
            *((None,) * 3 if dst is None else (t.data_ptr() for t in dst)),
-           B, T, D, H, _stream(dev)], dev)
-    count_launch(slstm_scan_bwd_cuda)
+           B, T, D, H, _stream(dev)] + ([probe] if probe else []), dev)
     return dpre, dst
 
 

@@ -1163,6 +1163,85 @@ def test_flash_bwd_mla_training_shape_is_deterministic(cuda):
     assert all(bool(torch.isfinite(x).all()) for x in runs[0])
 
 
+def test_flash_bwd_mla_training_shape_matches_plain_and_f64(cuda):
+    """deepseek-v3's training microbatch (q, k (1, 4096, 128, 192), v,
+    dO (1, 4096, 128, 128), causal): the dK/dV pass takes its 64-key
+    blocks' parts two at a time, key blocks with an odd and an even count
+    of parts alike; against the plain blockwise backward (every head)
+    and float64 dense autograd (heads 0-7) within BWD_FRO_TOL, two
+    launches bit-identical; the pass's two probes launch on the same
+    operands and leave the function's bits unchanged after them."""
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+
+    q, k, _, _, qpos = _bwd_inputs(cuda, torch.bfloat16, 1, 4096, 4096,
+                                   128, 128, 192, "tail", seed=32)
+    _, _, v, do, _ = _bwd_inputs(cuda, torch.bfloat16, 1, 4096, 4096, 128,
+                                 128, 128, "tail", seed=33)
+    out, lse = flash_kernel._forward(q, k, v, qpos, None, 0.0, None,
+                                     with_lse=True)
+
+    def kernel():
+        return flash_kernel.flash_attention_bwd_cuda(do, q, k, v, out, lse,
+                                                     qpos=qpos)
+    got = kernel()
+    for probe in {**flash_kernel.BWD_PROBES, **flash_kernel.BWD_PARTS}:
+        flash_kernel.flash_attention_bwd_probe(do, q, k, v, out, lse,
+                                               qpos=qpos, probe=probe)
+    again = kernel()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        blockwise_attention(*plain, qpos=qpos, window=None), plain, do)
+    for x, w in zip(got, want):
+        err = torch.linalg.norm(x.double() - w.double()) / \
+            torch.linalg.norm(w.double())
+        assert float(err) <= BWD_FRO_TOL[torch.bfloat16], float(err)
+    del plain, want
+    heads = slice(0, 8)
+    _, want64 = _dense_grads(q[:, :, heads], k[:, :, heads], v[:, :, heads],
+                             do[:, :, heads], qpos)
+    _check_grads([x[:, :, heads] for x in got], want64, torch.bfloat16)
+
+
+def test_slstm_scan_bwd_training_shape_matches_plain_and_f64(cuda):
+    """xlstm-125m's training microbatch (1, 4096, 768), 4 heads, bf16
+    pre_x: the backward kernel's dpre (the gate step's forward half
+    computed a step ahead, off the chain) within _SLSTM_TOL of its
+    largest against float64 autograd through the recurrence and against
+    the plain reverse loop; two launches bit-identical; its two probes
+    launch on the same operands and leave the function's bits unchanged
+    after them."""
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref
+
+    B, T, D, H = 1, 4096, 768, 4
+    pre_x, r, _ = _slstm_inputs(B, T, D, H, torch.bfloat16, False, cuda, 40)
+    pre_x = pre_x.contiguous()
+    dhs = torch.randn((B, T, D), generator=torch.Generator(
+        device=cuda).manual_seed(41), device=cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    saved = (torch.empty((B, T, 4 * D), **f32),
+             *(torch.empty((B, T, D), **f32) for _ in range(3)))
+    slstm_kernel.slstm_scan_kernel(pre_x, r, None,
+                                   slstm_kernel.VARIANTS.index("cluster"),
+                                   saved)
+    got = slstm_kernel.slstm_scan_bwd_cuda(dhs, r, saved)[0]
+    for probe in slstm_kernel.BWD_PROBES:
+        slstm_kernel.slstm_scan_bwd_probe(dhs, r, saved, probe)
+    again = slstm_kernel.slstm_scan_bwd_cuda(dhs, r, saved)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    plain = slstm_scan_bwd_ref(dhs, pre_x, r)[0]
+    leaf = pre_x.double().requires_grad_()
+    hs64, _ = slstm_scan_ref(leaf, r.double(), None)
+    (want,) = torch.autograd.grad((hs64 * dhs.double()).sum(), leaf)
+    top = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= _SLSTM_TOL * top
+    assert float((got.double() - plain.double()).abs().max()) \
+        <= _SLSTM_TOL * top
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", BWD_EDGES)
 def test_flash_bwd_wgmma_edges_match_f64(cuda, dtype, shape):

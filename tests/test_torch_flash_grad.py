@@ -8,6 +8,8 @@ reference's tolerance for that test, rtol = atol = 2e-4.  Inputs come
 from numpy with a seed.  The backward kernel itself runs only on a card
 (tests/test_torch_cuda.py); here its wrapper's contract is checked.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -436,3 +438,149 @@ def test_mla_role_split_matches_reference_custom_vjp(case):
     # full tiles (no mask) only where a tile's rows all see a block: not
     # under a window of 40 nor with ragged, padded rows here
     assert visited > 0 and (full > 0) == (window is None and not ragged)
+
+
+# ----------------------------------------------------------------------
+# the dK/dV pass's hand-over of P^T, emulated from the source's rules
+# ----------------------------------------------------------------------
+def _handover(n_parts, pair, xbufs):
+    """Each side's operations on the P^T exchange for a block of
+    ``n_parts`` parts, as dkdv_roles_kernel's loops issue them: two
+    parts an iteration with ``pair`` (the last of an odd count alone),
+    else one; ``xbufs`` exchange buffers, a part's buffer its index
+    modulo 2 in a pair loop with two.  The S^T side: (wait for buffer x
+    to be read, if ``reuse``), write the part, (arrive full); the dP^T
+    side: (wait full), read, (arrive free, if ``later``)."""
+    s_ops, p_ops = [], []
+
+    def part(n, x, reuse, later):
+        if reuse:
+            s_ops.append(("sync", ("free", x)))
+        s_ops.extend([("write", (x, n)), ("arrive", ("full", x))])
+        p_ops.append(("sync", ("full", x)))
+        p_ops.append(("read", (x, n)))
+        if later:
+            p_ops.append(("arrive", ("free", x)))
+
+    n = 0
+    if pair:
+        while n + 1 < n_parts:                    # parts n and n + 1
+            ic, id_ = n + 2 < n_parts, n + 3 < n_parts
+            part(n, 0, n > 0, xbufs == 1 or ic)
+            part(n + 1, xbufs - 1, xbufs == 1 or n > 0,
+                 ic if xbufs == 1 else id_)
+            n += 2
+    while n < n_parts:                            # one part an iteration
+        part(n, 0, n > 1 if xbufs == 2 else n > 0, n + 1 < n_parts)
+        n += 1
+    return s_ops, p_ops
+
+
+def _run_handover(s_ops, p_ops):
+    """Runs both sides with named-barrier semantics (a bar.sync of one
+    side completes once the other side's matching bar.arrive is in; no
+    side arrives again at a barrier whose last phase the other has not
+    synced) and checks that a part is written only into a buffer whose
+    last part was read and read only once written.  Returns whether both
+    sides finish."""
+    ops = {"s": list(s_ops), "p": list(p_ops)}
+    arrived = {"s": {}, "p": {}}
+    synced = {"s": {}, "p": {}}
+    held, read = {}, set()
+    while ops["s"] or ops["p"]:
+        moved = False
+        for side, other in (("s", "p"), ("p", "s")):
+            if not ops[side]:
+                continue
+            kind, arg = ops[side][0]
+            if kind == "sync":
+                if arrived[other].get(arg, 0) <= synced[side].get(arg, 0):
+                    continue
+                synced[side][arg] = synced[side].get(arg, 0) + 1
+            elif kind == "arrive":
+                if arrived[side].get(arg, 0) > synced[other].get(arg, 0):
+                    continue
+                arrived[side][arg] = arrived[side].get(arg, 0) + 1
+            elif kind == "write":
+                x, n = arg
+                assert x not in held or held[x] in read, (x, n)
+                held[x] = n
+            else:
+                x, n = arg
+                assert held.get(x) == n, (x, n, held.get(x))
+                read.add(n)
+            ops[side].pop(0)
+            moved = True
+        if not moved:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("n_parts", range(1, 10))
+@pytest.mark.parametrize("pair, xbufs", [(True, 2), (True, 1), (False, 1)])
+def test_roles_pass_hands_every_part_over_once(n_parts, pair, xbufs):
+    """The S^T side's P^T reaches the dP^T side part by part through the
+    exchange buffers: no part overwritten before it is read, none read
+    before it is written, every barrier's arrivals matched by its waits,
+    and no deadlock, for blocks of 1 to 9 parts: two parts an iteration
+    with two buffers (Dh 192 / Dv 128) or one (its four-stage layout),
+    and one part an iteration with one (Dh 256)."""
+    s_ops, p_ops = _handover(n_parts, pair, xbufs)
+    assert _run_handover(s_ops, p_ops)
+    writes = [arg[1] for kind, arg in s_ops if kind == "write"]
+    assert writes == list(range(n_parts))
+    # every free arrival is waited for: the block ends with none pending
+    frees = sum(kind == "arrive" and arg[0] == "free" for kind, arg in p_ops)
+    assert frees == sum(kind == "sync" for kind, _ in s_ops)
+
+
+def test_roles_pass_rules_are_the_sources():
+    """_handover's rules are dkdv_roles_kernel's math() calls, and the
+    192 / 128 layout (three stages beside two exchange buffers, or four
+    beside one) fits the 232,448 bytes a block may have, with its 1024
+    of alignment."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    text = (Path(fk.__file__).resolve().parents[2] / "csrc"
+            / "flash_attn_bwd_hd.cu").read_text()
+    for line in ("math(sc, sa, i, 0, n > 0, kXB == 1 || ic < p.n_tiles);",
+                 "math(sc2, sb, ib, kXB - 1, kXB == 1 || n > 0,",
+                 "(kXB == 1 ? ic : id) < p.n_tiles);",
+                 "math(sc, s, i, 0, kXB == 2 ? n > 1 : n > 0, "
+                 "in < p.n_tiles);",
+                 "static constexpr int kXBufs = kPair<DK> ? 2 : 1;",
+                 "static constexpr int kS = DK == 256 ? kStages : 5 - kXBufs;",
+                 "constexpr bool kPair = DK == 192;",
+                 "constexpr bool kHeadMajor = DK == 192;"):
+        assert line in text, line
+
+    def smem(DK, DV, stages, xbufs):
+        stage = _ROWS * (DK + DV) * 2 + 2 * _ROWS * 4 + _ROWS * 8
+        return (_ROWS * (DK + DV) * 2 + stages * stage
+                + xbufs * _ROWS * _ROWS * 4 + 8 * (1 + 2 * stages))
+    assert smem(192, 128, 3, 2) == 199_736
+    assert smem(192, 128, 4, 1) == 225_352
+    assert smem(256, 256, 2, 1) == 215_080
+    for size in (199_736, 225_352, 215_080):
+        assert size + 1024 <= 232_448
+    # a fourth stage beside two buffers would not fit
+    assert smem(192, 128, 4, 2) + 1024 > 232_448
+
+
+def test_probe_codes_are_the_sources():
+    """The wrapper's probe and part codes are the source's enums, and
+    the function's parts launch the function's own dK/dV kernel (no
+    probe instantiation of their own)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    text = (Path(fk.__file__).resolve().parents[2] / "csrc"
+            / "flash_attn_bwd_hd.cu").read_text()
+    for line in ("enum { kNoProbe = 0, kNoMath = 1, kNoCopies = 2 };",
+                 "enum { kPrePassAlone = 3, kPassAlone = 4 };",
+                 "if (kProbe == wg::kPrePassAlone) return e;",
+                 "kProbe == wg::kNoMath || kProbe == wg::kNoCopies ? kProbe",
+                 "probe < wg::kNoMath || probe > wg::kPassAlone)"):
+        assert line in text, line
+    assert fk.BWD_PROBES == {"no math": 1, "no copies": 2}
+    assert fk.BWD_PARTS == {"pre-pass": 3, "pre-pass and dK/dV": 4}
+    assert not set(fk.BWD_PROBES) & set(fk.BWD_PARTS)

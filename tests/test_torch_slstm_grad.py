@@ -263,6 +263,183 @@ def test_bwd_constants_match_the_source():
     assert not slstm_kernel.bwd_fits(1024, 4)
 
 
+# ----------------------------------------------------------------------
+# the backward kernel's step, emulated: its raw loads and the gate step's
+# forward half taken off the chain
+# ----------------------------------------------------------------------
+# the emulated kernel against the plain reverse loop: both float32 with
+# the same product; they part only where the kernel multiplies by
+# 1 / max(n, 1e-6) instead of dividing, one rounding a step
+STEP_TOL = 1e-5
+
+
+def _saved(px, r, state):
+    """What a forward with grad writes for the backward: pre (B, T, 4D)
+    and the state c, n, m after each step (B, T, D), float32."""
+    from repro_torch.kernels.slstm_scan.ref import _gate_step, _pre
+
+    B, T, D4 = px.shape
+    D = D4 // 4
+    zero = torch.zeros((B, D))
+    c, n, h, m = state if state is not None else (zero,) * 4
+    out = [torch.empty((B, T, D4))] + [torch.empty((B, T, D))
+                                       for _ in range(3)]
+    for t in range(T):
+        pre = _pre(px[:, t], r, h)
+        c, n, h, m = _gate_step(pre, c, n, m)
+        for x, v in zip(out, (pre, c, n, m)):
+            x[:, t] = v
+    return out
+
+
+def _gate_fwd(g, i_, f_, z_, o_, cp, np_, mp):
+    """The source's gate_fwd: what depends on pre_t and the state before
+    the step alone."""
+    fm = f_ + mp
+    mn = torch.maximum(fm, i_)
+    ig, fg, tz = torch.exp(i_ - mn), torch.exp(fm - mn), torch.tanh(z_)
+    c = fg * cp + ig * tz
+    n = fg * np_ + ig
+    nc = torch.clamp(n, min=1e-6)
+    so = 1.0 / (1.0 + torch.exp(-o_))
+    half = torch.tensor(0.5)
+    return dict(g=g, cp=cp, np=np_, ig=ig, fg=fg, tz=tz, so=so, q=c / nc,
+                rn=1.0 / nc,
+                wn=torch.where(n > 1e-6, 1.0, torch.where(n == 1e-6, half,
+                                                          0.0)),
+                wf=torch.where(fm > i_, 1.0, torch.where(fm == i_, half,
+                                                         0.0)))
+
+
+def _gate_bwd(a, dh, dc, dn, dm):
+    """The source's gate_bwd: the terms in the carried gradients, in
+    its order; returns (di, df, dz, do) and the carried dc, dn, dm."""
+    dq = dh * a["so"]
+    dc = dc + dq * a["rn"]
+    dn = dn + -dq * a["q"] * a["rn"] * a["wn"]
+    do = dh * a["q"] * a["so"] * (1.0 - a["so"])
+    dfg = dc * a["cp"] + dn * a["np"]
+    dig = dc * a["tz"] + dn
+    dz = dc * a["ig"] * (1.0 - a["tz"] * a["tz"])
+    af, ai = dfg * a["fg"], dig * a["ig"]
+    dmn = dm - af - ai
+    dfm = af + dmn * a["wf"]
+    di = ai + dmn * (1.0 - a["wf"])
+    return (di, dfm, dz, do), dc * a["fg"], dn * a["fg"], dfm
+
+
+def _kernel_bwd(dhs, r, saved, state, dfin):
+    """slstm_bwd_kernel's step loop in float32, every unit at once: each
+    of a unit's 8 lanes loads one raw input two steps ahead, as the
+    source's `load` addresses it (g from dhs, i, f, z, o from pre, the
+    state before the step from c, n, m one row back, or the state the
+    forward started from), and the gate step's forward half for step
+    n + 1 runs once step n's dpre is out, off the chain."""
+    pre, cs, ns, ms = saved
+    B, T, D = dhs.shape
+    D4 = 4 * D
+    H = r.shape[0]
+    u = torch.arange(D)
+    flat = [x.reshape(-1) for x in (dhs, pre, cs, ns, ms)]
+
+    def load(n, k8):
+        """Lane k8's raw input of step n for every (row, unit)."""
+        if n >= T:
+            return torch.zeros((B, D))
+        src = flat[0] if k8 == 0 else flat[1] if k8 < 5 else flat[k8 - 3]
+        lw = D4 if 1 <= k8 <= 4 else D
+        loff = (k8 - 1) * D + u if 1 <= k8 <= 4 else u
+        t = T - 1 - n - (1 if k8 >= 5 else 0)
+        if t >= 0:
+            rows = torch.arange(B)[:, None] * T + t
+            return src[rows * lw + loff]
+        if state is None:
+            return torch.zeros((B, D))
+        return state[(0, 1, 3)[k8 - 5]].clone()
+
+    def raw_of(n):
+        return [load(n, k8) for k8 in range(8)]
+    dc, dn, dm = ((torch.zeros((B, D)),) * 3 if dfin is None
+                  else (dfin[0], dfin[1], dfin[3]))
+    dpre = torch.empty((B, T, D4))
+    a, r1 = _gate_fwd(*raw_of(0)), raw_of(1)
+    back = torch.zeros((B, D))              # r . dpre_{t+1}
+    for n in range(T):
+        t = T - 1 - n
+        rn = raw_of(n + 2)
+        # the final h's gradient joins the last step's, as the wrapper
+        # adds it to dhs
+        g = a["g"] + (dfin[2] if dfin is not None and n == 0 else 0.0)
+        out, dc, dn, dm = _gate_bwd(a, back + g, dc, dn, dm)
+        dpre[:, t] = torch.cat(out, -1)
+        back = torch.einsum("bhe,hde->bhd", dpre[:, t].reshape(B, H, -1),
+                            r).reshape(B, D)
+        a, r1 = _gate_fwd(*r1), rn
+    return dpre, (dc, dn, back, dm)
+
+
+# B, T, D, H, with a state, tie, clamp
+STEP_CASES = [
+    (2, 40, 64, 4, False, True, False),
+    (2, 40, 64, 4, True, False, False),
+    (1, 9, 32, 4, False, False, True),
+    (3, 7, 48, 2, True, False, False),
+    (2, 1, 16, 4, True, False, False),
+    (1, 2, 48, 1, False, False, False),
+]
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_bwd_kernel_step_with_the_forward_half_off_the_chain(case):
+    """The backward kernel's step in its order (raw inputs loaded two
+    steps ahead, one a lane; the gate step's forward half for step n + 1
+    computed after step n's dpre, with 1 / max(n, 1e-6); the chain's
+    terms in the carried gradients) against the plain reverse loop
+    slstm_scan_bwd_ref within STEP_TOL of each gradient's largest, ties
+    of f + m with i and a clamped n included."""
+    B, T, D, H, with_state, tie, clamp = case
+    rng = np.random.default_rng(7 * T + D)
+    px = torch.from_numpy(_pre_x(B, T, D, rng, tie, clamp))
+    r = torch.from_numpy((0.5 / np.sqrt(D // H) * rng.standard_normal(
+        (H, D // H, 4 * D // H))).astype(np.float32))
+    st = tuple(map(torch.from_numpy, _state(B, D, rng))) if with_state \
+        else None
+    dhs = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32))
+    dfin = [torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+            for _ in range(4)]
+    saved = _saved(px, r, st)
+    got, gst = _kernel_bwd(dhs, r, saved, st, dfin)
+    want, _, wst = slstm_scan_bwd_ref(dhs, px, r, st, dfin)
+    _close(got.numpy(), want.numpy(), STEP_TOL, "dpre")
+    if st is not None:
+        for k, a, w in zip("cnhm", gst, wst):
+            _close(a.numpy(), w.numpy(), STEP_TOL, "d" + k)
+
+
+def test_bwd_kernel_step_matches_the_source():
+    """The emulation above reads the source's lane loads, its two
+    halves of the gate step and its probes' codes."""
+    text = (Path(slstm_kernel.__file__).resolve().parents[2] / "csrc"
+            / "slstm_scan.cu").read_text()
+    for line in (
+            "const float* lsrc = k8 == 0 ? dhs : k8 < 5 ? pre : k8 == 5 ? cs",
+            "const long long lw = k8 >= 1 && k8 <= 4 ? D4 : D;",
+            "const int loff = k8 >= 1 && k8 <= 4 ? (k8 - 1) * D + u : u;",
+            "const int lback = k8 >= 5 ? 1 : 0;",
+            "rn = load(n + 2);",
+            "a.rn = 1.0f / nc;",
+            "dc += dq * a.rn;",
+            "dn += -dq * a.q * a.rn * a.wn;",
+            "a = prepare(r1);",
+            "enum { kBwdFunction = 0, kBwdExchange = 1, kBwdCompute = 2 };"):
+        assert line in text, line
+    assert slstm_kernel.BWD_PROBES == {"exchange": 1, "compute": 2}
+    # the raw input of step n + 1 is first read at step n's end, by the
+    # name it was loaded into at step n - 1: two steps an iteration
+    assert "step(n, a, ra, rb);" in text
+    assert "if (n + 1 < T) step(n + 1, a, rb, ra);" in text
+
+
 def test_cuda_entries_refuse_cpu_tensors():
     """The card's forward and backward wrappers take no CPU tensor:
     nothing falls back to the plain version."""

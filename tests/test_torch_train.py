@@ -39,7 +39,6 @@ from repro.data.pipeline import DataConfig as RefDataConfig  # noqa: E402
 from repro.data.pipeline import TokenPipeline as RefPipeline  # noqa: E402
 from repro.executors import device_kernel as ref_device_kernel  # noqa: E402
 from repro.executors import kernel_put as ref_kernel_put  # noqa: E402
-from repro.models import build as ref_build  # noqa: E402
 from repro.models.common import cross_entropy_loss as ref_ce  # noqa: E402
 from repro.models.common import fused_cross_entropy as ref_fused  # noqa: E402
 from repro.optim import adamw as ref_adamw  # noqa: E402
@@ -52,14 +51,12 @@ from repro_torch.launch.train import setup, train  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.common import (cross_entropy_loss,  # noqa: E402
                                        fused_cross_entropy)
-from repro_torch.models.convert import (from_jax_params,  # noqa: E402
-                                        opt_state_from_jax)
+from repro_torch.models.convert import opt_state_from_jax  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import step as port_step  # noqa: E402
+from torch_train_grads import (LOSS_TOL, _batch, _models,  # noqa: E402
+                               _port_leaves, _ref_leaf)
 
-LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
-GRAD_FRO_TOL = 1e-4
-GRAD_MAX_TOL = 1e-4
 STEP_FRO_TOL = 2e-3
 STEP_MAX_TOL = 0.25          # of the learning rate
 
@@ -147,120 +144,9 @@ def test_fused_cross_entropy_and_grads_match_reference(cap, masked):
 
 
 # ----------------------------------------------------------------------
-# model loss and gradients
+# model loss and gradients (every family's against the reference's:
+# tests/test_torch_train_grads.py and tests/test_torch_train_grads_rg.py)
 # ----------------------------------------------------------------------
-def _models(cfg, seed=0):
-    """The reference's float32 bundle and numpy params, and the port's
-    float32 bundle with the same weights on the CPU."""
-    rb = ref_build(cfg, jnp.float32)
-    pr = jax.jit(lambda k: rb.init(k)[0])(jax.random.PRNGKey(seed))
-    pr_np = jax.tree.map(np.asarray, pr)
-    pb = build(cfg, torch.float32, "cpu")
-    pp = from_jax_params(pr_np, cfg, device="cpu",
-                         compute_dtype=torch.float32)
-    return rb, pr, pr_np, pb, pp
-
-
-def _batch(cfg, seq, batch, seed=0):
-    b = TokenPipeline(DataConfig(cfg.vocab, seq, batch, seed)).batch_at(0)
-    return ({k: jnp.asarray(v) for k, v in b.items()},
-            {k: torch.from_numpy(v) for k, v in b.items()})
-
-
-def _port_leaves(pp, cfg):
-    """The port's leaves keyed like the reference's stacked tree: a
-    layer leaf as (group, sub, name, layer), or (group, name, layer)
-    where the group's layers hold leaves directly (the hybrid's per-kind
-    lists: rec, attn, mlp, norms), with a moe layer's nested dicts in
-    the path (group, "ffn", "shared", name, layer); a group that is one
-    tensor (deepseek's mtp_proj) as ("top", group)."""
-    out = {("emb", n): t for n, t in pp["emb"].items()}
-
-    def walk(path, d, i):
-        for n, t in d.items():
-            if isinstance(t, dict):
-                walk(path + (n,), t, i)
-            else:
-                out[path + (n, i)] = t
-
-    for group, layers in pp.items():
-        if group == "emb":
-            continue
-        if isinstance(layers, torch.Tensor):
-            out[("top", group)] = layers
-            continue
-        for i, layer in enumerate(layers):
-            walk((group,), layer, i)
-    return out
-
-
-def _ref_leaf(tree, key):
-    if key[0] == "emb":
-        return np.asarray(tree["emb"][key[1]])
-    if key[0] == "top":
-        return np.asarray(tree[key[1]])
-    node = tree
-    for k in key[:-1]:
-        node = node[k]
-    return np.asarray(node)[key[-1]]
-
-
-def _assert_grads_close(got, want_tree, cfg):
-    for key, g in _port_leaves(got, cfg).items():
-        w = _ref_leaf(want_tree, key)
-        g = g.numpy()
-        assert g.shape == w.shape, key
-        scale = float(np.abs(w).max())
-        fro = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
-        assert fro <= GRAD_FRO_TOL, (key, fro)
-        assert float(np.abs(g - w).max()) <= GRAD_MAX_TOL * scale, key
-
-
-@pytest.mark.parametrize("arch, seq, batch, layers, vocab, d_head", [
-    ("yi-9b", 16, 2, 2, None, None),
-    ("deepseek-7b", 24, 2, 2, 65536, None),      # the fused head + CE path
-    ("yi-9b", 1024, 1, 1, None, None),   # T >= FLASH_MIN_T: flash_attention
-    # alternating windows (16 binds at T 1024), softcaps 50 and 30,
-    # post-norms; then the heads of 256 the card's backward takes
-    ("gemma2-9b", 16, 2, 2, None, None),
-    ("gemma2-9b", 1024, 1, 2, None, None),
-    ("gemma2-9b", 40, 2, 2, None, 256),
-    # the hybrid: two RG-LRU blocks and a local attention layer
-    ("recurrentgemma-2b", 16, 2, 3, None, None),
-    ("recurrentgemma-2b", 1024, 1, 3, None, None),
-    # deepseek-v3: MLA's naive form at T >= FLASH_MIN_T (flash at Dh 192
-    # / Dv 128 on the joined RoPE columns), its leading dense layer, moe
-    # layers and MTP head; then the cut the card trains, every layer a
-    # leading dense one (layers as (n_layers, dense_layers): an empty
-    # main stack) with the MTP head
-    ("deepseek-v3-671b", 1024, 1, None, None, None),
-    ("deepseek-v3-671b", 40, 2, (2, 2), None, None),
-    # xlstm: 2 mLSTM and 2 sLSTM blocks, one chunk and two chunks of 256
-    ("xlstm-125m", 40, 2, None, None, None),
-    ("xlstm-125m", 512, 1, None, None, None),
-])
-def test_model_loss_and_every_grad_match_reference(arch, seq, batch, layers,
-                                                   vocab, d_head):
-    cfg = get_config(arch).reduced()
-    if isinstance(layers, tuple):
-        layers, dense = layers
-        cfg = dataclasses.replace(cfg, dense_layers=dense)
-    if layers or vocab or d_head:
-        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
-                                  vocab=vocab or cfg.vocab,
-                                  d_head=d_head or cfg.d_head)
-    rb, pr, _, pb, pp = _models(cfg)
-    bj, bt = _batch(cfg, seq, batch)
-    tcfg_r, tcfg_p = ref_step.TrainConfig(), port_step.TrainConfig()
-    (want, _), gwant = jax.value_and_grad(
-        ref_step.make_loss_fn(rb, tcfg_r), has_aux=True)(pr, bj)
-    grad_fn = port_step.value_and_grad(port_step.make_loss_fn(pb, tcfg_p))
-    got, metrics, grads = grad_fn(pp, bt)
-    np.testing.assert_allclose(float(got), float(want), **LOSS_TOL)
-    assert "ce" in metrics
-    _assert_grads_close(grads, jax.tree.map(np.asarray, gwant), cfg)
-
-
 def test_fused_gate_is_the_references():
     """The fused CE path only for vocabularies of 65536 and more."""
     cfg = get_config("yi-9b").reduced()

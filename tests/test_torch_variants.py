@@ -155,7 +155,13 @@ def _c_params(source: str, name: str):
     ("rglru_scan.cu", "rglru_scan_bwd_hd", rglru_kernel, "BWD_ARGTYPES"),
     ("slstm_scan.cu", "slstm_scan_hd", slstm_kernel, "ARGTYPES"),
     ("slstm_scan.cu", "slstm_scan_kernel_hd", slstm_kernel,
-     "KERNEL_ARGTYPES")])
+     "KERNEL_ARGTYPES"),
+    ("slstm_scan.cu", "slstm_scan_bwd_hd", slstm_kernel, "BWD_ARGTYPES"),
+    # the backward kernels' probes, for measurements
+    ("flash_attn_bwd_hd.cu", "flash_attn_bwd_probe_hd", flash_kernel,
+     "BWD_PROBE_ARGTYPES"),
+    ("slstm_scan.cu", "slstm_scan_bwd_probe_hd", slstm_kernel,
+     "BWD_PROBE_ARGTYPES")])
 def test_argtypes_match_the_c_entry_point(source, name, module, attr):
     """A wrapper that passes another argument list than the C function
     declares would pass garbage on the card; this holds them equal."""

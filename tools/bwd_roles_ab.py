@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The training path's two backward kernels of two source trees, side by
-side on one card: the flash backward at Dh 256 and the RG-LRU scan's
-backward, with the Dh-128 flash backward as a control.
+"""The training path's backward kernels of two source trees, side by
+side on one card: the flash backward at Dh 192 / Dv 128 and at Dh 256,
+the sLSTM recurrence's backward and the RG-LRU scan's backward, with the
+Dh-128 flash backward as a control.
 
     python3 tools/bwd_roles_ab.py [--base DIR]
 
@@ -21,6 +22,15 @@ version on the same inputs, and whether two launches agree bit for bit:
   (1, 4096, 16, 256), k, v (1, 4096, 8, 256), causal, softcap 50) and
   recurrentgemma-2b's (10 query heads over 1, window 2048);
 * flash backward, bf16, Dh 128: yi-9b's (32 over 4, causal);
+* flash backward, bf16, Dh 192 / Dv 128: deepseek-v3's (q, k (1, 4096,
+  128, 192), the RoPE columns joined, the key's shared by every head, v
+  (1, 4096, 128, 128), causal), and where the tree has them the dK/dV
+  pass's probes (its elementwise math left out, its copies left out),
+  each pass's TFLOP/s in the summary;
+* the sLSTM recurrence's backward at xlstm-125m's training microbatch
+  (1, 4096, 768), 4 heads, bf16 pre_x, against the plain reverse loop,
+  in us a step, and where the tree has them its probes (the exchange
+  alone, the product and gate math alone);
 * the scan's backward, bf16 (1, 4096, 2560), no state, and five times
   each at widths of 640, 1280, 2464 and 2560 (a quarter, a half, the
   clusters the card holds at once, all of them).
@@ -44,6 +54,9 @@ FLASH = {  # label: (Hq, Hkv, D, window, softcap)
 }
 SCAN = (1, 4096, 2560)
 SCAN_WIDTHS = (640, 1280, 2464, 2560)
+MLA = (128, 128, 64, 128)      # heads, d_nope, d_rope, d_v
+SLSTM = (1, 4096, 768, 4)      # B, T, D, heads
+BF16_FLOPS_PER_S = 989e12
 
 
 def _cuda_ms(torch, fn, reps):
@@ -86,6 +99,90 @@ def _rel(torch, got, want):
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
+def kernel_ms(split, kernel):
+    """The ms of ``kernel`` (a name's start) in a split by kernel, or
+    None."""
+    return next((v for k, v in split.items() if k.startswith(kernel)),
+                None)
+
+
+def measure_mla(torch, fk) -> dict:
+    """The Dh 192 / Dv 128 backward at deepseek-v3's training shape."""
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+    from repro_torch.kernels.flash_attention.ref import join_rope
+
+    H, Dn, Dr, Dv = MLA
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+    q, k = join_rope(randn(1, T, H, Dn), randn(1, T, H, Dn),
+                     randn(1, T, H, Dr), randn(1, T, 1, Dr))
+    v, do = randn(1, T, H, Dv), randn(1, T, H, Dv)
+    qpos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    scale = 1.0 / (Dn + Dr) ** 0.5
+    o, lse = fk._forward(q, k, v, qpos, None, 0.0, scale, with_lse=True)
+
+    def kernel():
+        return fk.flash_attention_bwd_cuda(do, q, k, v, o, lse, qpos=qpos,
+                                           scale=scale)
+    got, again = kernel(), kernel()
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        blockwise_attention(*plain, qpos=qpos, window=None, scale=scale),
+        plain, do)
+    res = dict(
+        ms=_cuda_ms(torch, kernel, 10), split=_by_kernel(torch, kernel),
+        fro_rel=[_rel(torch, a, b) for a, b in zip(got, want)],
+        bit_identical=all(torch.equal(a, b) for a, b in zip(got, again)))
+    del got, again, plain, want
+    probe = getattr(fk, "flash_attention_bwd_probe", None)
+    if probe is not None:
+        res["probes"] = {name: kernel_ms(_by_kernel(torch, lambda: probe(
+            do, q, k, v, o, lse, qpos=qpos, scale=scale, probe=name)),
+            "dkdv_roles_kernel") for name in fk.BWD_PROBES}
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return res
+
+
+def measure_slstm(torch) -> dict:
+    """The sLSTM backward at xlstm-125m's training microbatch."""
+    from repro_torch.kernels.slstm_scan import kernel as sk
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref
+
+    B, Ts, D, H = SLSTM
+    Dh = D // H
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(31)
+    r = torch.randn((H, Dh, 4 * Dh), generator=g, device=dev) \
+        * (0.5 / Dh ** 0.5)
+    pre_x = torch.randn((B, Ts, 4 * D), generator=g, device=dev).bfloat16()
+    dhs = torch.randn((B, Ts, D), generator=g, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    saved = (torch.empty((B, Ts, 4 * D), **f32),
+             *(torch.empty((B, Ts, D), **f32) for _ in range(3)))
+    sk.slstm_scan_kernel(pre_x, r, None, sk.VARIANTS.index("cluster"), saved)
+
+    def kernel():
+        return sk.slstm_scan_bwd_cuda(dhs, r, saved)
+    got, again = kernel()[0], kernel()[0]
+    want = slstm_scan_bwd_ref(dhs, pre_x, r)[0]
+    ms = _cuda_ms(torch, kernel, 10)
+    res = dict(ms=ms, us_per_step=1e3 * ms / Ts,
+               err=float((got.double() - want.double()).abs().max()
+                         / want.double().abs().max()),
+               bit_identical=torch.equal(got, again))
+    probe = getattr(sk, "slstm_scan_bwd_probe", None)
+    if probe is not None:
+        res["probes_us_per_step"] = {
+            name: 1e3 * _cuda_ms(torch, lambda: probe(dhs, r, saved, name),
+                                 10) / Ts for name in sk.BWD_PROBES}
+    return res
+
+
 def measure() -> dict:
     import torch
 
@@ -97,8 +194,10 @@ def measure() -> dict:
                                                        rglru_scan_cuda)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref
 
-    logs = build.build(("flash_attn_hd", "flash_attn_bwd_hd", "rglru_scan"))
-    ptxas = [line.strip() for name in ("flash_attn_bwd_hd", "rglru_scan")
+    logs = build.build(("flash_attn_hd", "flash_attn_bwd_hd", "rglru_scan",
+                        "slstm_scan"))
+    ptxas = [line.strip() for name in ("flash_attn_bwd_hd", "rglru_scan",
+                                       "slstm_scan")
              for line in logs[name].splitlines()
              if re.search(r"Compiling entry|Used \d+ registers|bytes spill"
                           r"|C75\d\d", line)]
@@ -128,6 +227,8 @@ def measure() -> dict:
             bit_identical=all(torch.equal(a, b) for a, b in zip(got, again)))
         del q, k, v, do, o, lse, got, again, plain, want
         torch.cuda.empty_cache()
+    out["dsv3 Dh192/128"] = measure_mla(torch, fk)
+    out["slstm bwd"] = measure_slstm(torch)
     B, Ts, W = SCAN
     g = torch.Generator(device=dev).manual_seed(29)
     lam = torch.rand((W,), generator=g, device=dev) * 10 - 6
@@ -185,10 +286,37 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    for label in list(FLASH) + ["scan bwd"]:
+
+    def who(r):
+        return "base" if Path(r["src"]) != ROOT else "this"
+    for label in list(FLASH) + ["dsv3 Dh192/128", "slstm bwd", "scan bwd"]:
         print(f"{label}: " + ", ".join(
-            f"{'base' if Path(r['src']) != ROOT else 'this'} "
-            f"{r[label]['ms']:.4f} ms" for r in runs))
+            f"{who(r)} {r[label]['ms']:.4f} ms" for r in runs))
+    # the Dh 192 / Dv 128 passes' rates: the dK/dV pass 4 (Dh + Dv) flops
+    # a visible pair and head, dQ 2 (2 Dh + Dv)
+    H, Dn, Dr, Dv = MLA
+    Dh, pairs = Dn + Dr, T * (T + 1) // 2 * H
+    for r in runs:
+        m = r["dsv3 Dh192/128"]
+        rates = []
+        for name, kernel, flops in (
+                ("dK/dV", "dkdv_roles_kernel", 4 * (Dh + Dv)),
+                ("dQ", "dq_wgmma_kernel", 2 * (2 * Dh + Dv))):
+            ms = kernel_ms(m["split"], kernel)
+            if ms:
+                tf = pairs * flops / ms / 1e9
+                rates.append(f"{name} {ms:.4f} ms {tf:.1f} TFLOP/s "
+                             f"({100 * tf * 1e12 / BF16_FLOPS_PER_S:.1f}% of "
+                             f"989)")
+        probes = ", ".join(f"{k} {v:.4f} ms" for k, v in
+                           m.get("probes", {}).items() if v)
+        s = r["slstm bwd"]
+        sp = ", ".join(f"{k} {v:.3f}" for k, v in
+                       s.get("probes_us_per_step", {}).items())
+        print(f"{who(r)}: Dh 192 / Dv 128 " + "; ".join(rates)
+              + (f"; dK/dV probes {probes}" if probes else "")
+              + f"; sLSTM bwd {s['us_per_step']:.3f} us a step"
+              + (f" (probes, us a step: {sp})" if sp else ""))
 
 
 if __name__ == "__main__":
