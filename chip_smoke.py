@@ -217,7 +217,24 @@
    float32 compute for xlstm): per microbatch flash 2 a layer and 1 for
    the MTP block and its backward 1 each; the sLSTM's `cluster` 2 and
    its backward 1 per sLSTM layer.  The allocator maps expandable
-   segments from there on.
+   segments from there on.  Then the last three families, each alone,
+   4 steps after its gate, through launch.train.setup with a depth cut
+   and the family's extra inputs (launch.train._extra_inputs, bf16):
+   llama-3.2-vision-11b with 10 of its 40 layers (two super-blocks,
+   two cross-attentions over (1601, 4096) image embeddings a sample)
+   and qwen3-moe-30b-a3b with 4 of its 48 under the published capacity
+   factor 1.25, both with the yi-9b traffic (per microbatch flash 2 and
+   its backward 1 a self-attention layer, all wgmma; the dense
+   cross-attentions none), qwen3's gate on the kernels' routing (its
+   drops and the pairs the plain pass routes otherwise printed, a layer
+   each), its free routing within twice the plain path's own spread;
+   whisper-base whole with its own traffic (448-token decoder
+   sequences, 1500 frames, a global batch of 32 in 2 microbatches): no
+   kernel launches, and its gate holds one sample's float32 loss and
+   gradients on the card to the same model on the host within 1e-3.
+   The flash phase (3.) also holds the Dh-128 backward at
+   llama-vision's 32/8 heads to the plain backward and times it beside
+   SDPA's.
 8. Prints one JSON line of kernel measurements (flash's launches by
    path, the deepseek-v3 engine and the HDArray flash kernel among
    them), the card's name and power limit, and as the last line
@@ -454,6 +471,26 @@ DSV3_TRAIN_LAYERS = 2
 # the sLSTM kernels are held in bf16 layer by layer on a training
 # microbatch's own inputs (slstm_train_check), the model in float32
 XLSTM_GATE_DTYPE = "float32"
+# (h) the last three families, each alone after every earlier phase:
+# llama-3.2-vision-11b at full width with 10 of its 40 layers, two
+# super-blocks of cross_every 5 and their two cross-attentions (untied
+# embeddings 2 x 0.5253 B, ten blocks x 0.2181 B, two cross-attentions x
+# 0.0671 B: 3.366 B parameters, 53.9 GB at 16 bytes a parameter; all 40
+# would need 165 GB), and qwen3-moe-30b-a3b with 4 of its 48 layers
+# under the published capacity factor 1.25 (embeddings 2 x 0.3112 B,
+# each layer 18.87 M of attention, 604.0 M of experts, 0.26 M of router:
+# 3.115 B parameters, 49.8 GB; a fifth layer would make 59.8 GB), both
+# with the yi-9b traffic; whisper-base whole (97 M parameters) with its
+# own: decoder sequences of its n_text_ctx, 448 tokens, 1500 frames a
+# sample, a global batch of 32 in 2 microbatches
+VLM_TRAIN_LAYERS, QWEN3_TRAIN_LAYERS = 10, 4
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_MICRO = 32, 2
+# whisper's path launches no kernel (its 448 tokens are under
+# FLASH_MIN_T, its encoder and cross-attentions dense), so its gate holds
+# one sample's float32 loss and gradients on the card to the same float32
+# model on the host: the two sum in other orders, a few float32 ulps a
+# product carried back through 12 layers; fro_rel per leaf
+HOST_GATE_TOL = 1e-3
 # the scan's backward at the training microbatch and at the pool's
 # prefill shape, from a state and without
 SCAN_BWD_SHAPES = ((1, 4096, 2560), (4, 2048, 2560))
@@ -1487,85 +1524,102 @@ def flash_bwd_phase(torch):
                   + ("max_abs_err" if dtype == torch.float32 else "fro_rel")
                   + " dq,dk,dv=" + ", ".join(f"{e:.3e}" for e in errs))
 
-    # -- the training shape: one layer of yi-9b at 4096 tokens ----------
-    cfg_T, Hq, Hkv, D = TRAIN_SEQ, 32, 4, 128
-    q, k, v, do, qpos = inputs(torch.bfloat16, 1, cfg_T, cfg_T, Hq, Hkv, D,
-                               "tail")
-    out, lse = fk._forward(q, k, v, qpos, BIG_WINDOW, 0.0, None,
-                           with_lse=True)
+    def training_shape(Hkv: int, arch: str, timings: bool):
+        """One layer's backward at 4096 tokens and 32 query heads of 128
+        over ``Hkv`` key heads (``arch``'s training microbatch): against
+        the plain blockwise backward, two launches bit-identical, SDPA's
+        backward computing the same function; timed beside the plain
+        backward, SDPA's and the bound, with ``timings`` also split by
+        launch and the dK, dV grid printed."""
+        cfg_T, Hq, D = TRAIN_SEQ, 32, 128
+        q, k, v, do, qpos = inputs(torch.bfloat16, 1, cfg_T, cfg_T, Hq, Hkv,
+                                   D, "tail")
+        out, lse = fk._forward(q, k, v, qpos, BIG_WINDOW, 0.0, None,
+                               with_lse=True)
 
-    def kernel():
-        return fk.flash_attention_bwd_cuda(do, q, k, v, out, lse, qpos=qpos,
-                                           window=BIG_WINDOW)
+        def kernel():
+            return fk.flash_attention_bwd_cuda(do, q, k, v, out, lse,
+                                               qpos=qpos, window=BIG_WINDOW)
 
-    got = kernel()
-    again = kernel()
-    plain = [x.clone().requires_grad_() for x in (q, k, v)]
-    out_p = blockwise_attention(*plain, qpos=qpos, window=BIG_WINDOW)
-    want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "two wgmma backward launches differ at the training shape")
-    main_err, rels = 0.0, []
-    for name, x, w in zip("qkv", got, want):
-        rels.append(fro_rel(torch, x, w))
-        main_err = max(main_err, float((x.float() - w.float()).abs().max()))
-        check(rels[-1] <= BWD_MAIN_TOL, f"flash backward d{name} at the "
-              f"training shape: {rels[-1]} against the plain backward")
-    print(f"flash bwd main bf16 q {tuple(q.shape)} k,v {tuple(k.shape)} "
-          f"causal: fro_rel dq,dk,dv vs plain blockwise = "
-          + ", ".join(f"{e:.3e}" for e in rels)
-          + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={main_err:.3e}, two "
-          f"launches bit-identical")
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    do_t = do.transpose(1, 2)
-    lib = torch.autograd.grad(o_s, (qt, kt, vt), do_t, retain_graph=True)
-    lib_err = max(fro_rel(torch, a.transpose(1, 2), b)
-                  for a, b in zip(lib, got))
-    print(f"flash bwd vs SDPA backward at the training shape: fro_rel "
-          f"{lib_err:.3e}")
-    check(lib_err <= 2 * BWD_MAIN_TOL, "SDPA's backward computes another "
-          "function than the kernel at the training shape")
-    seen = torch.clamp(qpos.long() + 1, 0, cfg_T)
-    pairs = int(seen.sum())
-    flops = pairs * Hq * (6 * D + 4 * D)
-    nbytes = 2 * (4 * cfg_T * Hq * D + 4 * cfg_T * Hkv * D) + 4 * Hq * cfg_T
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    split = bwd_split(torch, kernel)
-    blocks, steps, longest = bwd_blocks(torch, qpos, cfg_T, Hq)
-    bwd = dict(
-        name="flash_attn_bwd_hd", route="cuda",
-        source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
-        replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
-        max_abs_err=main_err,
-        ms=cuda_ms(torch, kernel, 10),
-        plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-            out_p, plain, do, retain_graph=True), 3),
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-            o_s, (qt, kt, vt), do_t, retain_graph=True), 10),
-        wgmma_split_ms={k: round(x, 4) for k, x in split.items()},
-        shape=[list(q.shape), list(k.shape)])
-    print(f"flash bwd at {tuple(q.shape)} x {tuple(k.shape)}: {flops:.4e} "
-          f"flops (10 D a pair and head), {nbytes:.4e} bytes; bound "
-          f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}), plain "
-          f"{bwd['plain_ms']:.4f} ms, SDPA backward "
-          f"{bwd['library_ms']:.4f} ms")
-    print(f"  wgmma: {bwd['ms']:.4f} ms ({flops / bwd['ms'] / 1e9:.1f} "
-          f"TFLOP/s at 10 D, {100 * bwd['bound_ms'] / bwd['ms']:.1f}% of the "
-          f"bound)")
-    print(f"  wgmma per launch (torch.profiler, ms): "
-          + ", ".join(f"{k} {x:.4f}" for k, x in split.items())
-          + f"; dK, dV grid {blocks} blocks, {steps} tile steps, the "
-          f"longest {longest} ({100 * longest * 132 / steps:.1f}% of an "
-          f"SM's even share, from the tile counts)")
-    del q, k, v, do, out, lse, got, again, plain, out_p, want
-    del qt, kt, vt, o_s, lib
-    torch.cuda.empty_cache()
+        got = kernel()
+        again = kernel()
+        plain = [x.clone().requires_grad_() for x in (q, k, v)]
+        out_p = blockwise_attention(*plain, qpos=qpos, window=BIG_WINDOW)
+        want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"two wgmma backward launches differ at {arch}'s training "
+              f"shape")
+        main_err, rels = 0.0, []
+        for name, x, w in zip("qkv", got, want):
+            rels.append(fro_rel(torch, x, w))
+            main_err = max(main_err,
+                           float((x.float() - w.float()).abs().max()))
+            check(rels[-1] <= BWD_MAIN_TOL, f"flash backward d{name} at "
+                  f"{arch}'s training shape: {rels[-1]} against the plain "
+                  f"backward")
+        print(f"flash bwd main bf16 q {tuple(q.shape)} k,v {tuple(k.shape)} "
+              f"causal ({arch}): fro_rel dq,dk,dv vs plain blockwise = "
+              + ", ".join(f"{e:.3e}" for e in rels)
+              + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={main_err:.3e}, two "
+              f"launches bit-identical")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        lib = torch.autograd.grad(o_s, (qt, kt, vt), do_t, retain_graph=True)
+        lib_err = max(fro_rel(torch, a.transpose(1, 2), b)
+                      for a, b in zip(lib, got))
+        print(f"flash bwd vs SDPA backward at {arch}'s training shape: "
+              f"fro_rel {lib_err:.3e}")
+        check(lib_err <= 2 * BWD_MAIN_TOL, f"SDPA's backward computes "
+              f"another function than the kernel at {arch}'s training shape")
+        seen = torch.clamp(qpos.long() + 1, 0, cfg_T)
+        pairs = int(seen.sum())
+        flops = pairs * Hq * (6 * D + 4 * D)
+        nbytes = 2 * (4 * cfg_T * Hq * D + 4 * cfg_T * Hkv * D) \
+            + 4 * Hq * cfg_T
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        res = dict(
+            max_abs_err=main_err, fro_rel_vs_plain=max(rels),
+            ms=cuda_ms(torch, kernel, 10),
+            plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                out_p, plain, do, retain_graph=True), 3),
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                o_s, (qt, kt, vt), do_t, retain_graph=True), 10),
+            shape=[list(q.shape), list(k.shape)])
+        print(f"flash bwd at {tuple(q.shape)} x {tuple(k.shape)} ({arch}): "
+              f"{flops:.4e} flops (10 D a pair and head), {nbytes:.4e} "
+              f"bytes; bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+              f"plain {res['plain_ms']:.4f} ms, SDPA backward "
+              f"{res['library_ms']:.4f} ms")
+        print(f"  wgmma: {res['ms']:.4f} ms ({flops / res['ms'] / 1e9:.1f} "
+              f"TFLOP/s at 10 D, {100 * res['bound_ms'] / res['ms']:.1f}% of "
+              f"the bound)")
+        if timings:
+            split = bwd_split(torch, kernel)
+            blocks, steps, longest = bwd_blocks(torch, qpos, cfg_T, Hq)
+            res["wgmma_split_ms"] = {k: round(x, 4) for k, x in split.items()}
+            print(f"  wgmma per launch (torch.profiler, ms): "
+                  + ", ".join(f"{k} {x:.4f}" for k, x in split.items())
+                  + f"; dK, dV grid {blocks} blocks, {steps} tile steps, the "
+                  f"longest {longest} ({100 * longest * 132 / steps:.1f}% of "
+                  f"an SM's even share, from the tile counts)")
+        del q, k, v, do, out, lse, got, again, plain, out_p, want
+        del qt, kt, vt, o_s, lib
+        torch.cuda.empty_cache()
+        return res
+
+    # one layer of yi-9b's training microbatch, then of llama-vision's
+    # (32/8 heads)
+    bwd = dict(name="flash_attn_bwd_hd", route="cuda",
+               source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
+               replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
+               **training_shape(4, TRAIN_ARCH, True))
+    bwd["at_32_8_heads"] = training_shape(8, VLM_ARCH, False)
     return bwd
 
 
@@ -3599,13 +3653,9 @@ def named_leaves(tree, prefix: str = ""):
 
 
 def train_cut(arch: str, **cut):
-    """``arch``'s configuration with the fields in ``cut`` replaced: the
-    cut the card trains (n_layers, dense_layers)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-
-    return dataclasses.replace(get_config(arch), **cut)
+    """``arch`` and the fields of its configuration that the card's
+    training replaces (n_layers, dense_layers): ``setup``'s ``cut``."""
+    return arch, cut
 
 
 def slstm_train_check(torch, bundle, params, mb) -> None:
@@ -3664,45 +3714,129 @@ def slstm_train_check(torch, bundle, params, mb) -> None:
           + f" (bound {SLSTM_TOL:g}, bf16 d pre_x + one ulp)")
 
 
-def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
-                spread: bool = False, gate_dtype=None):
-    """(h) ``cfg`` (a ``train_cut``) trained on the card at full width,
-    with the traffic TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO: a gate on one
-    microbatch's gradients, kernels against the plain versions
-    (blockwise attention, the plain scan and sLSTM loops) on the same
-    float32 masters, each leaf finite, non-zero and within ``tol`` (with
-    ``spread``, also within twice the plain path's own spread: its
-    distance from the plain path run with 256 x 256 attention blocks;
-    with ``gate_dtype``, a torch dtype's name, the gate's model computes
-    in that type, not bf16); with sLSTM layers, ``slstm_train_check``
-    on a bf16 microbatch; then ``steps`` steps
-    through make_train_step.
+def moe_routing(torch, cfg, taps, pass_names) -> None:
+    """Per moe layer of one microbatch, from the ids ``_route`` gave in
+    two passes (``taps``: one dict a pass, each layer's first routing
+    under its router's key, in the forward's order): the (token, choice)
+    pairs dropped by capacity in each pass, and the pairs the first pass
+    routed to an expert that the second did not choose for that
+    token."""
+    mo = cfg.moe
+    rows = []
+    for i, ids in enumerate(zip(*(list(t.values()) for t in taps))):
+        N = ids[0].shape[0]
+        C = max(1, int(mo.capacity_factor * N * mo.top_k / mo.num_experts))
+        drops = [int((torch.bincount(x.reshape(-1), minlength=mo.num_experts)
+                      - C).clamp(min=0).sum()) for x in ids]
+        flips = int((~(ids[0][:, :, None] == ids[1][:, None, :]).any(-1))
+                    .sum())
+        rows.append(f"layer {i}: dropped " + ", ".join(
+            f"{d} ({n})" for d, n in zip(drops, pass_names))
+            + f", pairs routed otherwise than the {pass_names[1]} pass "
+            f"{flips}")
+    print(f"(h) {cfg.name} routing of one microbatch, {N} tokens x top "
+          f"{mo.top_k} of {mo.num_experts} experts, capacity {C} a expert "
+          f"(capacity factor {mo.capacity_factor:g}): " + "; ".join(rows))
+
+
+def host_gate(torch, cfg, params, mb):
+    """One sample of ``mb`` through the float32 model, its loss and
+    every gradient on the card against the same float32 model on the
+    host: (the worst fro_rel of a leaf, its name)."""
+    from repro_torch.models import build
+    from repro_torch.train.step import (TrainConfig, make_loss_fn,
+                                        value_and_grad)
+    from repro_torch.tree import tree_map
+
+    one = {k: v[:1] for k, v in mb.items()}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fn = value_and_grad(make_loss_fn(build(cfg, torch.float32, dev),
+                                         TrainConfig()))
+        t0 = time.perf_counter()
+        loss, _, g = fn(tree_map(lambda t: t.to(dev), params),
+                        {k: v.to(dev) for k, v in one.items()})
+        torch.cuda.synchronize()
+        got[dev] = (float(loss), tree_map(lambda t: t.cpu(), g),
+                    time.perf_counter() - t0)
+    worst, leaf = max((fro_rel(torch, a, b), name) for (name, a), (_, b) in
+                      zip(named_leaves(got["cuda"][1]),
+                          named_leaves(got["cpu"][1])))
+    shape = {k: tuple(v.shape) for k, v in one.items()}
+    print(f"(h) {cfg.name} one sample {shape} in float32, the card against "
+          f"the host: loss {got['cuda'][0]:.7f} and {got['cpu'][0]:.7f}; "
+          f"worst fro_rel of a leaf's gradient {worst:.3e} ({leaf}), bound "
+          f"{HOST_GATE_TOL:g}; card {got['cuda'][2]:.2f} s, host "
+          f"{got['cpu'][2]:.2f} s (host clock)")
+    check(abs(got["cuda"][0] - got["cpu"][0])
+          <= HOST_GATE_TOL * abs(got["cpu"][0]) and worst <= HOST_GATE_TOL,
+          f"(h) {cfg.name}: the card's float32 loss or gradients part from "
+          f"the host's: {worst} at {leaf}")
+    return worst, leaf
+
+
+def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
+                spread: bool = False, gate_dtype=None, seq: int = TRAIN_SEQ,
+                batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
+                on_host: bool = False):
+    """(h) ``cut`` (a ``train_cut``) trained on the card at full width
+    through ``launch.train.setup``, with the traffic ``seq``, ``batch``,
+    ``micro`` (sequence length, global batch, microbatches) and the
+    family's extra inputs (``launch.train._extra_inputs``, as ``train``
+    makes them): a gate on one microbatch's gradients, kernels against
+    the plain versions (blockwise attention, the plain scan and sLSTM
+    loops) on the same float32 masters, each leaf finite, non-zero and
+    within ``tol`` (with ``spread``, also within twice the plain path's
+    own spread: its distance from the plain path run with 256 x 256
+    attention blocks; with ``gate_dtype``, a torch dtype's name, the
+    gate's model computes in that type, not bf16); with moe layers, the
+    plain versions on the kernels' routing within ``tol``, on their own
+    routing within twice the spread, and each pass's drops and routing
+    printed (``moe_routing``); with ``on_host``, where
+    the path launches no kernel, the gate holds one sample's float32
+    loss and gradients on the card to the host's instead
+    (``host_gate``); with sLSTM layers, ``slstm_train_check`` on a bf16
+    microbatch; then ``steps`` steps through the run's train step.
     Checks every launch: per microbatch flash's forward 2 and its
-    backward 1 per attention layer (the checkpointed layer's recompute
-    included) and 1 and 1 for an MTP block (no checkpoint), the scan's
-    forward 2 (``chunked``) and its backward 1 per recurrent layer, the
-    sLSTM's forward 2 (``cluster``) and its backward 1 per sLSTM layer.
-    Returns its launches, launches by variant and step stats."""
+    backward 1 per self-attention layer at ``FLASH_MIN_T`` tokens or
+    more (the checkpointed layer's recompute included) and 1 and 1 for
+    an MTP block (no checkpoint), the scan's forward 2 (``chunked``) and
+    its backward 1 per recurrent layer, the sLSTM's forward 2
+    (``cluster``) and its backward 1 per sLSTM layer; dense
+    cross-attentions and encoders none.  Returns its launches, launches
+    by variant and step stats."""
     import functools
 
     import repro_torch.models.layers as LY
     import repro_torch.models.mla as MLA
+    import repro_torch.models.moe as MOE
     import repro_torch.models.rglru as RG
     import repro_torch.models.xlstm as XL
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    from repro_torch.launch.train import _extra_inputs, setup
     from repro_torch.models import build
     from repro_torch.optim import adamw
     from repro_torch.tree import tree_leaves
     from repro_torch.train.step import (TrainConfig, make_loss_fn,
-                                        make_train_step, value_and_grad)
+                                        value_and_grad)
 
-    full = get_config(cfg.name).n_layers
+    arch, fields = cut
+    t0 = time.perf_counter()
+    run = setup(arch, reduced=False, cut=fields, seq_len=seq,
+                global_batch=batch, microbatches=micro, device="cuda")
+    cfg, bundle, params = run.cfg, run.bundle, run.params
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    # the moments, zeros, wait out the gate off the card: made again
+    # before the steps, as setup makes them
+    run.opt_state = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    full = get_config(arch).n_layers
     L = cfg.n_layers
-    n_rec = n_s = 0
+    n_rec = n_s = n_cross = n_enc = 0
     if cfg.family == "hybrid":
         n_att = L // (cfg.rg.pattern + 1)
         n_rec = L - n_att
@@ -3710,31 +3844,38 @@ def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
         n_att, n_s = 0, L // cfg.xlstm.slstm_every
     else:
         n_att = L
+    if cfg.family == "vlm":
+        n_cross = L // cfg.vision.cross_every
+    if cfg.family == "audio":
+        n_enc, n_cross = cfg.encdec.n_enc_layers, L
     n_mtp = int(bool(cfg.mtp))
-    t0 = time.perf_counter()
-    bundle = build(cfg, torch.bfloat16, "cuda")
-    params = bundle.init(0, dtype=torch.float32)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    torch.cuda.synchronize()
+    n_moe = L - cfg.dense_layers if cfg.moe is not None else 0
     kinds = ", ".join(f"{n} {k}" for n, k in (
-        (n_att, "attention"), (n_rec, "RG-LRU"), (n_s, "sLSTM"),
-        (L - n_s if cfg.family == "ssm" else 0, "mLSTM"),
+        (n_enc, "encoder"), (n_att, "self-attention"), (n_rec, "RG-LRU"),
+        (n_s, "sLSTM"), (L - n_s if cfg.family == "ssm" else 0, "mLSTM"),
+        (n_cross, "cross-attention"),
+        (n_moe, "moe feed-forward"),
         (n_mtp, "MTP block")) if n)
     print(f"(h) {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
           f"{L} of {full} layers ({kinds}): "
           f"{n_params / 1e9:.3f} B float32 parameters "
           f"({4 * n_params / 1e9:.2f} GB; {16 * n_params / 1e9:.1f} GB with "
-          f"gradients and two moments), init {time.perf_counter() - t0:.1f} s")
-    pipe = TokenPipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+          f"gradients and two moments), setup {time.perf_counter() - t0:.1f}"
+          f" s")
+    # the decoder's self-attention reaches flash from FLASH_MIN_T tokens
+    n_flash, m_flash = (n_att, n_mtp) if seq >= LY.FLASH_MIN_T else (0, 0)
+    extras = _extra_inputs(cfg, batch, seq, np.random.default_rng(123),
+                           "cuda")
 
     def batch_at(i):
-        return {k: torch.from_numpy(v).to("cuda")
-                for k, v in pipe.batch_at(i).items()}
+        b = {k: torch.from_numpy(v).to("cuda")
+             for k, v in run.pipeline.batch_at(i).items()}
+        return {**b, **extras}
 
     def per_microbatch(k: int):
-        return {"flash_attn_hd": (2 * n_att + n_mtp) * k,
-                "flash_attn_bwd_hd": (n_att + n_mtp) * k,
+        return {"flash_attn_hd": (2 * n_flash + m_flash) * k,
+                "flash_attn_bwd_hd": (n_flash + m_flash) * k,
                 "rglru_scan": 2 * n_rec * k, "rglru_scan_bwd": n_rec * k,
                 "slstm_scan": 2 * n_s * k, "slstm_scan_bwd": n_s * k}
 
@@ -3742,11 +3883,44 @@ def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
     gate_bundle = bundle if gate_dtype is None else build(
         cfg, getattr(torch, gate_dtype), "cuda")
     grad_fn = value_and_grad(make_loss_fn(gate_bundle, TrainConfig()))
-    mb = {k: v[0::TRAIN_MICRO] for k, v in batch_at(0).items()}
+    mb = {k: v[0::micro] for k, v in batch_at(0).items()}
+    real_route, taps = MOE._route, []
+
+    def route(router_w, x, top_k, aux=True):
+        w, ids, a = real_route(router_w, x, top_k, aux)
+        taps[-1].setdefault(router_w.data_ptr(), ids)
+        return w, ids, a
+
+    def pinned_route(router_w, x, top_k, aux=True):
+        """``_route`` on the kernels' pass's choices for this layer (its
+        router, the key): the router's softmax at those experts,
+        normalised, and the aux loss of those choices."""
+        ids = taps[0][router_w.data_ptr()]
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        w = probs.gather(-1, ids)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        E, flat = probs.shape[-1], ids.reshape(-1)
+        counts = torch.zeros(E, dtype=torch.float32, device=x.device)
+        counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+        a = E * torch.sum(probs.mean(0) * counts / ids.numel()) if aux \
+            else None
+        taps[-1].setdefault(router_w.data_ptr(), ids)
+        return w, ids, a
+
+    def tapped(fn, *args, pin=False):
+        """``fn`` with each moe layer's routing kept, by its router, in a
+        dict of its own; with ``pin``, on the kernels' pass's routing."""
+        taps.append({})
+        MOE._route = pinned_route if pin else route
+        try:
+            return fn(*args)
+        finally:
+            MOE._route = real_route
+
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loss_k, _, g_k = grad_fn(params, mb)
+    loss_k, _, g_k = tapped(grad_fn, params, mb)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
     got, variants = read_launches(), read_variants()
@@ -3761,14 +3935,14 @@ def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
           f"{want}")
     gate_peak = torch.cuda.max_memory_allocated()
 
-    def plain_grads(**blocks):
+    def plain_grads(pin=False, **blocks):
         saved = (LY.flash_attention, MLA.flash_attention, RG.rglru_scan,
                  XL.slstm_scan)
         LY.flash_attention = MLA.flash_attention = functools.partial(
             ops.flash_attention, impl="blockwise", **blocks)
         RG.rglru_scan, XL.slstm_scan = rglru_scan_ref, slstm_scan_ref
         try:
-            return grad_fn(params, mb)
+            return tapped(grad_fn, params, mb, pin=pin)
         finally:
             (LY.flash_attention, MLA.flash_attention, RG.rglru_scan,
              XL.slstm_scan) = saved
@@ -3777,53 +3951,82 @@ def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
         return max((fro_rel(torch, a, b), name) for (name, a), (_, b) in
                    zip(named_leaves(ga), named_leaves(gb)))
 
-    t0 = time.perf_counter()
-    loss_p, _, g_p = plain_grads()
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    check(read_launches() == got, f"(h) {cfg.name}: the plain versions "
-          f"launched a kernel")
     n = 0
     for name, a in named_leaves(g_k):
         check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
               f"(h) {cfg.name}: the gradient of {name} is not finite or "
               f"is zero")
         n += 1
-    worst, leaf = worst_leaf(g_k, g_p)
-    print(f"(h) {cfg.name} one microbatch (1 x {TRAIN_SEQ}, "
-          f"{gate_dtype or 'bfloat16'} compute): loss kernels "
-          f"{float(loss_k):.6f}, plain {float(loss_p):.6f}; {n} leaves "
-          f"finite and non-zero; worst fro_rel of a leaf's gradient "
-          f"{worst:.3e} ({leaf}), bound {tol:g}; kernels "
-          f"{t_kernel:.2f} s, plain versions {t_plain:.2f} s (host clock); "
-          f"max_memory_allocated {gate_peak / 1e9:.3f} GB after the "
-          f"kernels' microbatch, {torch.cuda.max_memory_allocated() / 1e9:.3f}"
-          f" GB after the plain one")
-    check(worst <= tol, f"(h) {cfg.name}: kernel gradients differ from the "
-          f"plain versions': {worst} at {leaf}")
-    del g_k
-    if spread:
-        _, _, g_s = plain_grads(block_q=256, block_kv=256)
-        floor, floor_leaf = worst_leaf(g_s, g_p)
-        print(f"(h) {cfg.name} the plain path's own spread (256 x 256 "
-              f"attention blocks against 512 x 1024): worst fro_rel "
-              f"{floor:.3e} ({floor_leaf}); the kernels' {worst:.3e} is "
-              f"{worst / floor:.2f} of it, bound 2")
-        check(worst <= 2 * floor, f"(h) {cfg.name}: kernel gradients part "
-              f"from the plain path by more than twice its own spread")
-        del g_s
-    del g_p
+    if on_host:
+        print(f"(h) {cfg.name} one microbatch ({seq} tokens x "
+              f"{batch // micro}, bfloat16 compute): loss "
+              f"{float(loss_k):.6f}; {n} leaves finite and non-zero; "
+              f"launches {got}; {t_kernel:.2f} s (host clock); "
+              f"max_memory_allocated {gate_peak / 1e9:.3f} GB")
+        del g_k
+        torch.cuda.empty_cache()
+        worst, leaf = host_gate(torch, cfg, params, mb)
+    else:
+        t0 = time.perf_counter()
+        loss_p, _, g_p = plain_grads()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        check(read_launches() == got, f"(h) {cfg.name}: the plain versions "
+              f"launched a kernel")
+        worst, leaf = worst_leaf(g_k, g_p)
+        print(f"(h) {cfg.name} one microbatch ({seq} tokens x "
+              f"{batch // micro}, {gate_dtype or 'bfloat16'} compute): loss "
+              f"kernels {float(loss_k):.6f}, plain {float(loss_p):.6f}; {n} "
+              f"leaves finite and non-zero; worst fro_rel of a leaf's "
+              f"gradient {worst:.3e} ({leaf}), bound {tol:g}; kernels "
+              f"{t_kernel:.2f} s, plain versions {t_plain:.2f} s (host "
+              f"clock); max_memory_allocated {gate_peak / 1e9:.3f} GB after "
+              f"the kernels' microbatch, "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB after the "
+              f"plain one")
+        against_spread = worst
+        if n_moe:
+            # a bf16 rounding that moves a router's top-k moves which
+            # pairs the capacity drops after it: the gate holds the
+            # kernels to the plain versions on the kernels' routing, the
+            # free routing to twice the plain path's own spread
+            moe_routing(torch, cfg, taps, ("kernels", "plain"))
+            _, _, g_q = plain_grads(pin=True)
+            worst, leaf = worst_leaf(g_k, g_q)
+            print(f"(h) {cfg.name} the plain versions on the kernels' "
+                  f"routing: worst fro_rel of a leaf's gradient {worst:.3e} "
+                  f"({leaf}), bound {tol:g}")
+            del g_q
+        check(worst <= tol, f"(h) {cfg.name}: kernel gradients differ from "
+              f"the plain versions': {worst} at {leaf}")
+        del g_k
+        if spread or n_moe:
+            _, _, g_s = plain_grads(block_q=256, block_kv=256)
+            floor, floor_leaf = worst_leaf(g_s, g_p)
+            print(f"(h) {cfg.name} the plain path's own spread (256 x 256 "
+                  f"attention blocks against 512 x 1024): worst fro_rel "
+                  f"{floor:.3e} ({floor_leaf}); the kernels' "
+                  f"{against_spread:.3e} is "
+                  f"{against_spread / max(floor, 1e-30):.2f} of it, bound 2")
+            if n_moe:
+                moe_routing(torch, cfg, [taps[1], taps[-1]],
+                            ("plain", "256 x 256"))
+            check(against_spread <= 2 * floor, f"(h) {cfg.name}: kernel "
+                  f"gradients part from the plain path by more than twice "
+                  f"its own spread")
+            del g_s
+        del g_p
+    del taps[:]
     torch.cuda.empty_cache()
     if n_s:
         slstm_train_check(torch, bundle, params, mb)
         torch.cuda.empty_cache()
 
     # -- the steps ---------------------------------------------------------
-    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=1000,
-                             moment_dtype="fp32")     # as launch.train.setup
-    step_fn = make_train_step(bundle, ocfg,
-                              TrainConfig(microbatches=TRAIN_MICRO))
-    state = adamw.init_opt_state(ocfg, params)
+    step_fn = run.step_fn
+    state = adamw.init_opt_state(adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=20, total_steps=1000, moment_dtype="fp32"),
+        params)                                  # as launch.train.setup
     batches = [batch_at(i) for i in range(steps + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3838,17 +4041,15 @@ def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
     launches, variants = read_launches(), read_variants()
     peak = torch.cuda.max_memory_allocated()
     steady = sum(ms[1:]) / len(ms[1:])
-    print(f"(h) {cfg.name} {steps} steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens, {TRAIN_MICRO} microbatches: losses "
-          f"{[round(x, 4) for x in losses]}; ms per step "
-          f"{[round(x, 3) for x in ms]} (host clock after synchronize), "
-          f"steps 2-{steps} mean {steady:.3f} ms, "
-          f"{TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:.1f} tokens/s; "
-          f"max_memory_allocated {peak / 1e9:.3f} GB; launches {launches}, "
-          f"by variant {variants}")
+    print(f"(h) {cfg.name} {steps} steps of {batch} x {seq} tokens, "
+          f"{micro} microbatches: losses {[round(x, 4) for x in losses]}; "
+          f"ms per step {[round(x, 3) for x in ms]} (host clock after "
+          f"synchronize), steps 2-{steps} mean {steady:.3f} ms, "
+          f"{batch * seq / steady * 1e3:.1f} tokens/s; max_memory_allocated "
+          f"{peak / 1e9:.3f} GB; launches {launches}, by variant {variants}")
     check(all(np.isfinite(losses)), f"(h) {cfg.name}: a loss is not finite: "
           f"{losses}")
-    want = per_microbatch(TRAIN_MICRO * steps)
+    want = per_microbatch(micro * steps)
     check({k: launches[k] for k in want} == want
           and variants["flash_attn_hd"]["wgmma"] == want["flash_attn_hd"]
           and variants["flash_attn_bwd_hd"]["wgmma"]
@@ -3861,9 +4062,9 @@ def train_phase(torch, cfg, steps: int, tol: float = TRAIN_GRAD_TOL,
     check(int(state.step) == steps, "(h) the optimizer step count")
     device_breakdown(torch, f"(h) {cfg.name} train step {steps + 1}",
                      lambda: step_fn(params, state, batches[steps]), top=8)
-    stats = dict(ms=ms, losses=losses, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+    stats = dict(ms=ms, losses=losses, tokens_per_s=batch * seq
                  / steady * 1e3, peak_gb=peak / 1e9, gate_worst=worst)
-    del bundle, gate_bundle, params, state, batches, step_fn
+    del run, bundle, gate_bundle, params, state, batches, step_fn, extras
     torch.cuda.empty_cache()
     return launches, variants, stats
 
@@ -4105,6 +4306,29 @@ def main() -> None:
         torch, train_cut(XLSTM_ARCH), FAMILY_TRAIN_STEPS,
         gate_dtype=XLSTM_GATE_DTYPE)
     mark("deepseek-v3's and xlstm-125m's training")
+    # the last three families' training after every other phase, each
+    # alone on the card: llama-3.2-vision-11b (10 layers: two super-blocks
+    # and their cross-attentions) and qwen3-moe-30b-a3b (4 layers, the
+    # published capacity factor) with the yi-9b traffic, whisper-base
+    # whole with its own; its path launches no kernel, so its gate holds
+    # the card's float32 gradients to the host's
+    torch.cuda.empty_cache()
+    vlt_launches, vlt_variants, _ = train_phase(
+        torch, train_cut(VLM_ARCH, n_layers=VLM_TRAIN_LAYERS),
+        FAMILY_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    q3t_launches, q3t_variants, _ = train_phase(
+        torch, train_cut(QWEN3_ARCH, n_layers=QWEN3_TRAIN_LAYERS),
+        FAMILY_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    wht_launches, wht_variants, _ = train_phase(
+        torch, train_cut(WHISPER_ARCH), FAMILY_TRAIN_STEPS,
+        seq=WHISPER_MAX_SEQ, batch=WHISPER_TRAIN_BATCH,
+        micro=WHISPER_TRAIN_MICRO, on_host=True)
+    check(sum(wht_launches.values()) == 0, f"(h) whisper's training "
+          f"launched a kernel: {wht_launches}")
+    mark("llama-3.2-vision-11b's, qwen3-moe-30b-a3b's and whisper-base's "
+         "training")
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -4125,6 +4349,12 @@ def main() -> None:
                                      dst_launches["flash_attn_hd"],
                                  "(h) xlstm train":
                                      xlt_launches["flash_attn_hd"],
+                                 "(h) llama-vision train":
+                                     vlt_launches["flash_attn_hd"],
+                                 "(h) qwen3 train":
+                                     q3t_launches["flash_attn_hd"],
+                                 "(h) whisper train":
+                                     wht_launches["flash_attn_hd"],
                                  "gemma2 engine": g2_launches["flash_attn_hd"],
                                  "qwen3 engine": q3_launches["flash_attn_hd"],
                                  "recurrentgemma engine":
@@ -4141,6 +4371,8 @@ def main() -> None:
         k: n + pool_variants[k] + train_variants["flash_attn_hd"][k]
         + g2t_variants["flash_attn_hd"][k] + rgt_variants["flash_attn_hd"][k]
         + dst_variants["flash_attn_hd"][k] + xlt_variants["flash_attn_hd"][k]
+        + vlt_variants["flash_attn_hd"][k] + q3t_variants["flash_attn_hd"][k]
+        + wht_variants["flash_attn_hd"][k]
         + g2_variants["flash_attn_hd"][k] + q3_variants["flash_attn_hd"][k]
         + rg_variants["flash_attn_hd"][k] + xl_variants["flash_attn_hd"][k]
         + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
@@ -4172,13 +4404,19 @@ def main() -> None:
         "(h) gemma2 train": g2t_launches["flash_attn_bwd_hd"],
         "(h) recurrentgemma train": rgt_launches["flash_attn_bwd_hd"],
         "(h) deepseek-v3 train": dst_launches["flash_attn_bwd_hd"],
-        "(h) xlstm train": xlt_launches["flash_attn_bwd_hd"]}
+        "(h) xlstm train": xlt_launches["flash_attn_bwd_hd"],
+        "(h) llama-vision train": vlt_launches["flash_attn_bwd_hd"],
+        "(h) qwen3 train": q3t_launches["flash_attn_bwd_hd"],
+        "(h) whisper train": wht_launches["flash_attn_bwd_hd"]}
     flash_bwd["launches"] = sum(flash_bwd["launches_by_path"].values())
     flash_bwd["launches_by_variant"] = {
         k: n + g2t_variants["flash_attn_bwd_hd"][k]
         + rgt_variants["flash_attn_bwd_hd"][k]
         + dst_variants["flash_attn_bwd_hd"][k]
         + xlt_variants["flash_attn_bwd_hd"][k]
+        + vlt_variants["flash_attn_bwd_hd"][k]
+        + q3t_variants["flash_attn_bwd_hd"][k]
+        + wht_variants["flash_attn_bwd_hd"][k]
         for k, n in train_variants["flash_attn_bwd_hd"].items()}
     # the Dh 192 / Dv 128 backward: deepseek-v3's training (every backward
     # there is at 192 / 128)

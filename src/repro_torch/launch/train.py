@@ -2,10 +2,18 @@
 checkpointing + fault tolerance + straggler monitoring, the port of the
 reference's ``repro/launch/train.py``.
 
-Runs the dense decoder family (full or ``reduced``) on one card, or on
-the CPU with ``device="cpu"``, where the vision decoder and the
-encoder-decoder also train, with the reference's extra inputs (image
-embeddings, audio frames: ``_extra_inputs``):
+Trains every registered family (full, ``reduced``, or with its depth
+``cut``) on one card, or on the CPU with ``device="cpu"``: the dense,
+moe (the sort dispatch under the config's capacity factor, the
+load-balance aux loss) and MLA decoders, the RG-LRU hybrid, the xLSTM
+LM, the vision decoder and the encoder-decoder, the last two with the
+reference's extra inputs (image embeddings, audio frames:
+``_extra_inputs``, bf16 on the run's device).  ``chip_smoke.py`` trains
+each at full width on one H100: yi-9b with 8 of its 48 layers,
+gemma2-9b with 8 of 42, deepseek-v3-671b with its 2 leading dense
+layers and the MTP head, llama-3.2-vision-11b with 10 of 40 (two
+super-blocks), qwen3-moe-30b-a3b with 4 of 48, and recurrentgemma-2b,
+xlstm-125m and whisper-base whole:
 
   * deterministic resumable pipeline: restore replays the exact stream;
   * atomic async checkpoints with keep-k, auto-restore of the newest
@@ -72,18 +80,24 @@ def _extra_inputs(cfg, B, S, rng, device="cpu"):
     return d
 
 
-def setup(arch: str, *, reduced: bool = True, seq_len: int = 128,
+def setup(arch: str, *, reduced: bool = True,
+          cut: Optional[Dict[str, Any]] = None, seq_len: int = 128,
           global_batch: int = 8, microbatches: int = 1, lr: float = 3e-3,
           ckpt_dir: Optional[str] = None, seed: int = 0,
           grad_compress: str = "none", moment_dtype: str = "fp32",
           total_steps: int = 1000, device="cuda") -> TrainRun:
     """The reference's ``setup`` on ``device`` ("cuda" by default;
-    raises without a card).  Parameters come from a generator seeded
-    with ``seed``, float32."""
+    raises without a card).  ``cut`` replaces fields of the
+    configuration after ``reduced``: a depth cut such as
+    ``{"n_layers": 10}`` keeps a full-width model's training state on
+    one card.  Parameters come from a generator seeded with ``seed``,
+    float32."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if cut:
+        cfg = dataclasses.replace(cfg, **cut)
     bundle = build(cfg, torch.bfloat16, dev)
     params = bundle.init(seed, dtype=torch.float32)
     ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=20, total_steps=total_steps,

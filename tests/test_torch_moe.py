@@ -413,3 +413,40 @@ def test_recovery_engine_failover_keeps_the_reference_streams(ref_params):
     assert _failover(eng, True) == want
     assert [r["kind"] for r in eng.recovery_log] == ["instance_loss",
                                                      "instance_join"]
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5, 8.0])
+def test_dispatch_gradients_are_gathers(monkeypatch, cf):
+    """The dispatch's two row gathers take their gradients by gathers
+    (``moe._Gather``), not by autograd's accumulating scatter, which on
+    CUDA adds each run of equal indices serially (every empty slot reads
+    the pad row, every drop the trash slot): no index backward of rows
+    in the graph (the routing weights' permutation, one scalar a pair,
+    stays), and in float64 the gradients of x, the router and the
+    experts equal those through plain indexing, drops or none."""
+    mo, _, tp, x = _layer(cf, B=2, T=24)
+    tp = {n: v.double().requires_grad_() for n, v in tp.items()}
+    xt = torch.from_numpy(x).double().requires_grad_()
+    leaves = [xt, *tp.values()]
+    dy = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        x.shape))
+
+    def grads():
+        out, aux = moe.moe_ffn(tp, xt, mo)
+        return out, torch.autograd.grad((out * dy).sum() + aux, leaves)
+
+    out, got = grads()
+    seen, stack = set(), [out.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if "IndexBackward" in type(fn).__name__:
+            assert len(fn._saved_self_sym_sizes) == 1, type(fn).__name__
+        stack.extend(f for f, _ in fn.next_functions)
+    monkeypatch.setattr(moe._Gather, "apply",
+                        staticmethod(lambda src, idx, back: src[idx]))
+    _, want = grads()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)

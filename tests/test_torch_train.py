@@ -388,6 +388,31 @@ def test_unported_families_raise_naming_the_roadmap():
     assert {"ce", "mtp", "aux"} <= set(m) and torch.isfinite(m["loss"])
 
 
+@pytest.mark.parametrize("arch, layers, groups", [
+    # one super-block of cross_every 2: its two layers, one cross layer
+    ("llama-3.2-vision-11b", 2, {"main": 2, "cross": 1, "cross_norm": 1}),
+    ("qwen3-moe-30b-a3b", 1, {"main": 1}),
+    # the cut is the decoder's depth; the encoder keeps its own
+    ("whisper-base", 1, {}),
+])
+def test_setup_cuts_depth_and_trains_with_extra_inputs(arch, layers,
+                                                       groups):
+    """``setup``'s ``cut`` replaces the config's depth, as the card's
+    training cuts it, and ``train`` runs the cut model with the family's
+    extra inputs over microbatches: finite losses."""
+    run = setup(arch, cut={"n_layers": layers}, seq_len=16, global_batch=4,
+                microbatches=2, device="cpu")
+    assert run.cfg.n_layers == layers
+    for group, n in groups.items():
+        assert len(run.params[group]) == n, group
+    if arch == "whisper-base":
+        assert len(run.params["dec"]["attn"]) == layers
+        assert len(run.params["enc"]["attn"]) == \
+            run.cfg.encdec.n_enc_layers
+    out = train(run, 2, verbose=False)
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+
+
 @pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-11b",
                                   "yi-9b"])
 def test_extra_inputs_match_the_reference(arch):

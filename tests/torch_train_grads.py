@@ -2,9 +2,11 @@
 helpers that tests/test_torch_train.py shares: the reference's and the
 port's float32 models on the same weights, one batch for both, the
 port's leaves keyed like the reference's stacked tree.  The check's
-cases live in tests/test_torch_train_grads.py and, the two slowest,
-recurrentgemma-2b's, in tests/test_torch_train_grads_rg.py, so that a
-run on several workers (one file a worker) spreads them.
+cases live in tests/test_torch_train_grads.py, recurrentgemma-2b's, the
+two slowest, in tests/test_torch_train_grads_rg.py, and those of the
+families with extra inputs or capacity drops (qwen3-moe,
+llama-3.2-vision, whisper) in tests/test_torch_train_grads_xfam.py, so
+that a run on several workers (one file a worker) spreads them.
 
 Tolerances, with their reasons in tests/test_torch_train.py: a loss
 within rtol 1e-5 and atol 1e-6; every leaf's gradient within a
@@ -18,10 +20,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.launch.train import _extra_inputs as ref_extra_inputs
 from repro.models import build as ref_build
 from repro.train import step as ref_step
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.launch.train import _extra_inputs
 from repro_torch.models import build
 from repro_torch.models.convert import from_jax_params
 from repro_torch.train import step as port_step
@@ -44,18 +48,29 @@ def _models(cfg, seed=0):
 
 
 def _batch(cfg, seq, batch, seed=0):
+    """One batch for both packages: the pipeline's tokens, and each
+    package's ``_extra_inputs`` (audio frames, image embeddings) from
+    its own ``np.random.default_rng(123)``, the same bf16 values."""
     b = TokenPipeline(DataConfig(cfg.vocab, seq, batch, seed)).batch_at(0)
-    return ({k: jnp.asarray(v) for k, v in b.items()},
-            {k: torch.from_numpy(v) for k, v in b.items()})
+    bj = {k: jnp.asarray(v) for k, v in b.items()}
+    bt = {k: torch.from_numpy(v) for k, v in b.items()}
+    bj.update(ref_extra_inputs(cfg, batch, seq, np.random.default_rng(123)))
+    bt.update(_extra_inputs(cfg, batch, seq, np.random.default_rng(123),
+                            "cpu"))
+    return bj, bt
 
 
 def _port_leaves(pp, cfg):
     """The port's leaves keyed like the reference's stacked tree: a
     layer leaf as (group, sub, name, layer), or (group, name, layer)
     where the group's layers hold leaves directly (the hybrid's per-kind
-    lists: rec, attn, mlp, norms), with a moe layer's nested dicts in
-    the path (group, "ffn", "shared", name, layer); a group that is one
-    tensor (deepseek's mtp_proj) as ("top", group)."""
+    lists: rec, attn, mlp, norms; the vision decoder's cross and
+    cross_norm), with a moe layer's nested dicts in the path (group,
+    "ffn", "shared", name, layer); a group that is a dict of layer lists
+    (whisper's enc and dec: attn, cross, mlp, norms) adds its key to the
+    path, (group, kind, name, layer); a group, or a dict's entry, that is
+    one tensor (deepseek's mtp_proj, the encoder's final_norm) as
+    ("top", group[, key])."""
     out = {("emb", n): t for n, t in pp["emb"].items()}
 
     def walk(path, d, i):
@@ -65,14 +80,19 @@ def _port_leaves(pp, cfg):
             else:
                 out[path + (n, i)] = t
 
-    for group, layers in pp.items():
-        if group == "emb":
-            continue
+    def group(path, layers):
         if isinstance(layers, torch.Tensor):
-            out[("top", group)] = layers
-            continue
-        for i, layer in enumerate(layers):
-            walk((group,), layer, i)
+            out[("top",) + path] = layers
+        elif isinstance(layers, dict):
+            for k, v in layers.items():
+                group(path + (k,), v)
+        else:
+            for i, layer in enumerate(layers):
+                walk(path, layer, i)
+
+    for name, layers in pp.items():
+        if name != "emb":
+            group((name,), layers)
     return out
 
 
@@ -80,7 +100,10 @@ def _ref_leaf(tree, key):
     if key[0] == "emb":
         return np.asarray(tree["emb"][key[1]])
     if key[0] == "top":
-        return np.asarray(tree[key[1]])
+        node = tree
+        for k in key[1:]:
+            node = node[k]
+        return np.asarray(node)
     node = tree
     for k in key[:-1]:
         node = node[k]
@@ -99,11 +122,14 @@ def _assert_grads_close(got, want_tree, cfg):
 
 
 def model_loss_and_every_grad_match_reference(arch, seq, batch, layers,
-                                              vocab, d_head):
+                                              vocab, d_head,
+                                              capacity_factor=None):
     """The float32 loss and every leaf's gradient of ``arch``, reduced
     (``layers``: a layer count, or (layers, leading dense layers);
-    ``vocab``, ``d_head`` overriding the reduced config's), on one batch
-    of ``batch`` x ``seq`` tokens, against the reference's."""
+    ``vocab``, ``d_head`` and a moe config's ``capacity_factor``
+    overriding the reduced config's), on one batch of ``batch`` x
+    ``seq`` tokens with the family's extra inputs, against the
+    reference's."""
     cfg = get_config(arch).reduced()
     if isinstance(layers, tuple):
         layers, dense = layers
@@ -112,6 +138,9 @@ def model_loss_and_every_grad_match_reference(arch, seq, batch, layers,
         cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
                                   vocab=vocab or cfg.vocab,
                                   d_head=d_head or cfg.d_head)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     rb, pr, _, pb, pp = _models(cfg)
     bj, bt = _batch(cfg, seq, batch)
     tcfg_r, tcfg_p = ref_step.TrainConfig(), port_step.TrainConfig()
