@@ -235,7 +235,25 @@
    The flash phase (3.) also holds the Dh-128 backward at
    llama-vision's 32/8 heads to the plain backward and times it beside
    SDPA's.
-8. Prints one JSON line of kernel measurements (flash's launches by
+8. (i) The H100 cost model (``repro_torch.roofline``) beside the card.
+   At the start a host process (no card) counts each (h) train step on
+   fake tensors, one device (the (1, 1) mesh), the same cut
+   configuration and traffic, with the kernels' work formulas in the
+   plain versions' place (``op_costs.card_kernels``), and a second one
+   runs the dry-run's production cell ``python -m
+   repro_torch.launch.dryrun --arch whisper-base --shape decode_32k
+   --mesh single`` on a fake process group of 256 ranks.  Last, for
+   each of the eight families it prints FLOPs, bytes, t_compute,
+   t_memory, the measured ms per step of (h) in this run (the mean of
+   steps 2 on), the share of the card's bound the step reaches
+   (max(t_compute, t_memory) / measured) and mfu (``model_flops`` over
+   the measured time at 989 TFLOP/s), and fails if a modelled time
+   passes 1.05 x the measured one; counts one yi-9b (8-layer) step of
+   one 4096-token microbatch on the card under ``op_costs.OpCosts``,
+   the kernels reporting their work, and fails unless its FLOPs are
+   within 1% of the host's fake count of the same step; prints the
+   production cell's record and fails unless its status is ok.
+9. Prints one JSON line of kernel measurements (flash's launches by
    path, the deepseek-v3 engine and the HDArray flash kernel among
    them), the card's name and power limit, and as the last line
    ``{"ok": true, "device": ...}``.
@@ -247,6 +265,7 @@ and convolution the script times.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import json
 import os
@@ -496,6 +515,15 @@ HOST_GATE_TOL = 1e-3
 SCAN_BWD_SHAPES = ((1, 4096, 2560), (4, 2048, 2560))
 # channels of that phase whose lam (-25) makes a = 1 in float32
 CLAMPED = 4
+
+
+# (i) the cost model: a modelled step may not take longer than this
+# share of the measured one (the model is a bound: max(t_compute,
+# t_memory) above the measurement is a fault of the count); the card's
+# count of one step against the host's fake count of it
+MODEL_OVER_MEASURED = 1.05
+CARD_COUNT_TOL = 1e-2
+DRYRUN_CELL = ("whisper-base", "decode_32k")
 
 
 def fail(msg: str) -> None:
@@ -778,17 +806,13 @@ def flash_work(torch, qpos, S: int, B: int, Hq: int, Hkv: int, Dh: int,
     positions (and window): 2 (Dh + Dv) flops (q.k and p.v) per visible
     (query, key) pair and head; q and o once, and the k and v rows some
     query sees, the last ``shared_k`` of K's Dh columns (MLA's RoPE key)
-    once a row for every kv head."""
-    hi = torch.clamp(qpos.long() + 1, 0, S)           # keys [lo, hi)
-    lo = torch.zeros_like(hi) if window is None else \
-        torch.clamp(qpos.long() + 1 - window, 0, S)
-    pairs = int((hi - lo).sum())
-    rows = int((hi.amax(dim=1) - lo.amin(dim=1)).clamp(min=0).sum())
-    T = qpos.shape[1]
-    flops = 2 * Hq * (Dh + Dv) * pairs
-    kv_row = Hkv * (Dh - shared_k + Dv) + shared_k
-    nbytes = itemsize * (B * T * Hq * (Dh + Dv) + rows * kv_row)
-    return flops, nbytes
+    once a row for every kv head: the formula the kernel reports to the
+    cost model (``roofline/kernel_work.py``)."""
+    from repro_torch.roofline import kernel_work
+    flops, nbytes, _ = kernel_work.flash_fwd(
+        B, qpos.shape[1], S, Hq, Hkv, Dh, Dv, itemsize,
+        *kernel_work.visible(qpos, S, window), shared_k)
+    return int(flops), int(nbytes)
 
 
 def flash_phase(torch, ptxas):
@@ -4099,6 +4123,198 @@ def train_fault_phase(torch):
     return launches
 
 
+def model_steps():
+    """(label, arch, cut, seq, batch, microbatches) of every (h) train
+    step the run measures, and last of the one-microbatch step (i)
+    counts on the card."""
+    return [
+        ("yi-9b", TRAIN_ARCH, {"n_layers": TRAIN_LAYERS}, TRAIN_SEQ,
+         TRAIN_BATCH, TRAIN_MICRO),
+        ("gemma2-9b", GEMMA2_ARCH, {"n_layers": GEMMA2_TRAIN_LAYERS},
+         TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+        ("recurrentgemma-2b", RG_ARCH, {}, TRAIN_SEQ, TRAIN_BATCH,
+         TRAIN_MICRO),
+        ("deepseek-v3-671b", DSV3_ARCH, {"n_layers": DSV3_TRAIN_LAYERS,
+                                         "dense_layers": DSV3_TRAIN_LAYERS},
+         TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+        ("xlstm-125m", XLSTM_ARCH, {}, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+        ("llama-3.2-vision-11b", VLM_ARCH, {"n_layers": VLM_TRAIN_LAYERS},
+         TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+        ("qwen3-moe-30b-a3b", QWEN3_ARCH, {"n_layers": QWEN3_TRAIN_LAYERS},
+         TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+        ("whisper-base", WHISPER_ARCH, {}, WHISPER_MAX_SEQ,
+         WHISPER_TRAIN_BATCH, WHISPER_TRAIN_MICRO),
+        ("yi-9b one microbatch", TRAIN_ARCH, {"n_layers": TRAIN_LAYERS},
+         TRAIN_SEQ, 1, 1),
+    ]
+
+
+def host_models(out_path: str) -> None:
+    """(i)'s host process: every ``model_steps`` step counted on fake
+    tensors on one device with the kernels' formulas in the plain
+    versions' place (``launch.dryrun.step_costs(..., card=True)``), AdamW
+    as ``launch.train.setup`` makes it; writes {label: counts} to
+    ``out_path`` as JSON."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import step_costs
+    from repro_torch.roofline import analysis as RL
+    from repro_torch.train.step import TrainConfig
+
+    out = {}
+    for label, arch, cut, seq, batch, micro in model_steps():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        counter, _ = step_costs(cfg, "train_4k", global_batch=batch,
+                                seq_len=seq, card=True,
+                                tcfg=TrainConfig(microbatches=micro))
+        cost = counter.cost
+        cell = dataclasses.replace(SHAPES["train_4k"], global_batch=batch,
+                                   seq_len=seq)
+        rep = RL.analyze(cost, arch=arch, shape=label, mesh_name="1x1",
+                         n_chips=1,
+                         model_flops_total=RL.model_flops(cfg, cell))
+        out[label] = dict(
+            flops=cost.flops, bytes=cost.hbm_bytes,
+            flops_by_type=cost.flops_by_type, t_compute=rep.t_compute,
+            t_memory=rep.t_memory, model_flops=rep.model_flops_total,
+            peak_bytes=cost.peak_bytes, ops=cost.n_ops,
+            kernels=cost.kernels, seconds=time.perf_counter() - t0)
+        print(f"host model {label}: {out[label]}", flush=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_host_jobs() -> dict:
+    """(i)'s two host processes, started before every card phase so that
+    they run beside them, without the card: ``host_models`` and the
+    dry-run's production cell.  Each writes its log (and the cell its
+    record) under ``build/cost_model``; both are stopped at exit."""
+    out = ROOT / "build" / "cost_model"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               REPRO_TORCH_RESULTS_DIR=str(out),
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    arch, shape = DRYRUN_CELL
+    cmds = {"models": [sys.executable, str(Path(__file__).resolve()),
+                       "--host-models", str(out / "host_models.json")],
+            "dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh", "single",
+                       "--force"]}
+    jobs = {}
+    for name, cmd in cmds.items():
+        log = open(out / f"{name}.log", "w")
+        jobs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log)
+
+    def stop():
+        for proc, log in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    atexit.register(stop)
+    return jobs
+
+
+def wait_job(jobs, name: str, timeout: float = 600.0) -> int:
+    proc, log = jobs[name]
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    log.flush()
+    tail = (ROOT / "build" / "cost_model" / f"{name}.log").read_text()[-3000:]
+    check(rc == 0, f"(i) the host's {name} process exited {rc}: {tail}")
+    return rc
+
+
+def cost_model_phase(torch, measured: dict, jobs) -> None:
+    """(i) the H100 cost model beside the card: each (h) step's host
+    count against its measured ms, one step counted on the card against
+    the host's count of it, the dry-run's production cell."""
+    from repro_torch.launch.train import setup
+    from repro_torch.roofline.op_costs import OpCosts
+
+    t0 = time.perf_counter()
+    wait_job(jobs, "models")
+    with open(ROOT / "build" / "cost_model" / "host_models.json") as f:
+        models = json.load(f)
+    print(f"(i) the cost model on {card_line()} (data-sheet rates: "
+          f"{BF16_FLOPS_PER_S:.3g} FLOP/s bf16, {FP32_FLOPS_PER_S:.3g} "
+          f"FP32, {HBM_BYTES_PER_S:.3g} B/s); host counts on fake tensors "
+          f"(one device, the kernels' formulas), measured: the mean of "
+          f"steps 2 on in (h)")
+    for label, ms in measured.items():
+        m = models[label]
+        model_ms = 1e3 * max(m["t_compute"], m["t_memory"])
+        mfu = m["model_flops"] / (ms / 1e3) / BF16_FLOPS_PER_S
+        kern = {k: int(v["launches"]) for k, v in m["kernels"].items()}
+        print(f"(i) {label}: {m['flops']:.4e} FLOPs {m['flops_by_type']}, "
+              f"{m['bytes']:.4e} bytes; t_compute {1e3 * m['t_compute']:.3f}"
+              f" ms, t_memory {1e3 * m['t_memory']:.3f} ms; measured "
+              f"{ms:.3f} ms a step: {100 * model_ms / ms:.1f}% of the "
+              f"card's bound; mfu {100 * mfu:.2f}% (model FLOPs "
+              f"{m['model_flops']:.4e}); modelled peak "
+              f"{m['peak_bytes'] / 1e9:.2f} GB, {m['ops']} ops, kernels "
+              f"{kern}; counted in {m['seconds']:.1f} s")
+        check(model_ms <= MODEL_OVER_MEASURED * ms, f"(i) {label}: the "
+              f"modelled {model_ms:.3f} ms passes {MODEL_OVER_MEASURED} x "
+              f"the measured {ms:.3f} ms")
+    # one microbatch's step counted on the card, the kernels reporting
+    label, arch, cut, seq, batch, micro = model_steps()[-1]
+    run = setup(arch, reduced=False, cut=cut, seq_len=seq,
+                global_batch=batch, microbatches=micro, device="cuda")
+    data = {k: torch.from_numpy(v).to("cuda")
+            for k, v in run.pipeline.batch_at(0).items()}
+    torch.cuda.synchronize()
+    with OpCosts() as counter:
+        run.step_fn(run.params, run.opt_state, data)
+        torch.cuda.synchronize()
+    card, host = counter.cost, models[label]
+    rel = abs(card.flops - host["flops"]) / host["flops"]
+    kern = {k: (int(v["launches"]), v["flops"])
+            for k, v in card.kernels.items()}
+    print(f"(i) {label} ({batch} x {seq} tokens) counted on the card: "
+          f"{card.flops:.6e} FLOPs, {card.hbm_bytes:.4e} bytes, "
+          f"{card.n_ops} ops, kernels reported {kern}; the host's fake "
+          f"count {host['flops']:.6e} FLOPs, {host['bytes']:.4e} bytes: "
+          f"FLOPs {rel:.3e} apart, bound {CARD_COUNT_TOL:g}")
+    check(rel <= CARD_COUNT_TOL, f"(i) the card's count of {label} parts "
+          f"from the host's by {rel}")
+    del run, data
+    torch.cuda.empty_cache()
+    # the dry-run's production cell, run under this machine's torch
+    wait_job(jobs, "dryrun")
+    arch, shape = DRYRUN_CELL
+    with open(ROOT / "build" / "cost_model"
+              / f"{arch}__{shape}__pod16x16.json") as f:
+        rec = json.load(f)
+    rl = rec.get("roofline", {})
+    print(f"(i) dry-run {arch} {shape} on the (16, 16) mesh of a fake "
+          f"group of {rl.get('n_chips')} ranks: status {rec['status']}, "
+          f"rules {rec['rules']}, per rank {rl.get('hlo_flops', 0):.4e} "
+          f"FLOPs, {rl.get('hlo_bytes', 0):.4e} bytes, collectives "
+          f"{rl.get('coll_by_kind')}; t_compute "
+          f"{rl.get('t_compute', 0):.4e} s, t_memory "
+          f"{rl.get('t_memory', 0):.4e} s, t_collective "
+          f"{rl.get('t_collective', 0):.4e} s, bottleneck "
+          f"{rl.get('bottleneck')}; peak {rl.get('mem_per_device')} bytes; "
+          f"traced in {rec.get('trace_s')} s")
+    check(rec["status"] == "ok", f"(i) the dry-run cell failed: "
+          f"{rec.get('error')}")
+    print(f"(i) done in {time.perf_counter() - t0:.1f} s on the critical "
+          f"path (host counts: "
+          f"{sum(m['seconds'] for m in models.values()):.1f} s beside "
+          f"the card phases)")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it "
@@ -4118,6 +4334,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     started = time.perf_counter()
+    # (i)'s host processes run beside every card phase
+    jobs = start_host_jobs()
 
     def mark(what: str) -> None:
         print(f"[{time.perf_counter() - started:.1f} s] done: {what}",
@@ -4177,8 +4395,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("serving yi-9b and the resilience phases")
     # training last, so that every earlier phase runs as it did before
-    train_launches, train_variants, _ = train_phase(
+    train_launches, train_variants, stats = train_phase(
         torch, train_cut(TRAIN_ARCH, n_layers=TRAIN_LAYERS), TRAIN_STEPS)
+    # (i) reads each (h) step's measured ms: the mean of steps 2 on
+    measured = {}
+
+    def steady(label, st):
+        measured[label] = sum(st["ms"][1:]) / len(st["ms"][1:])
+    steady("yi-9b", stats)
     fault_launches = train_fault_phase(torch)
     # the Dh-256 families' training after it, so that every earlier phase
     # runs as it did before: the two backward kernels at their training
@@ -4193,12 +4417,14 @@ def main() -> None:
     flash_bwd_mla = flash_bwd_mla_phase(torch, ptxas["flash_attn_bwd_hd"])
     slstm_bwd = slstm_bwd_phase(torch)
     mark("yi-9b's training, the fault path, the backward kernels' phases")
-    g2t_launches, g2t_variants, _ = train_phase(
+    g2t_launches, g2t_variants, stats = train_phase(
         torch, train_cut(GEMMA2_ARCH, n_layers=GEMMA2_TRAIN_LAYERS),
         FAMILY_TRAIN_STEPS)
-    rgt_launches, rgt_variants, _ = train_phase(
+    steady("gemma2-9b", stats)
+    rgt_launches, rgt_variants, stats = train_phase(
         torch, train_cut(RG_ARCH), FAMILY_TRAIN_STEPS, tol=RG_TRAIN_GRAD_TOL,
         spread=True)
+    steady("recurrentgemma-2b", stats)
     mark("the Dh-256 families' training")
     # the other families' serving last, so that every earlier phase runs
     # as it did before; each alone on the card (qwen3's weights are 61 GB)
@@ -4298,13 +4524,15 @@ def main() -> None:
     # none of a later short window's kernels (the sLSTM serving phase's)
     torch.cuda.empty_cache()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    dst_launches, dst_variants, _ = train_phase(
+    dst_launches, dst_variants, stats = train_phase(
         torch, train_cut(DSV3_ARCH, n_layers=DSV3_TRAIN_LAYERS,
                          dense_layers=DSV3_TRAIN_LAYERS), FAMILY_TRAIN_STEPS)
+    steady("deepseek-v3-671b", stats)
     torch.cuda.empty_cache()
-    xlt_launches, xlt_variants, _ = train_phase(
+    xlt_launches, xlt_variants, stats = train_phase(
         torch, train_cut(XLSTM_ARCH), FAMILY_TRAIN_STEPS,
         gate_dtype=XLSTM_GATE_DTYPE)
+    steady("xlstm-125m", stats)
     mark("deepseek-v3's and xlstm-125m's training")
     # the last three families' training after every other phase, each
     # alone on the card: llama-3.2-vision-11b (10 layers: two super-blocks
@@ -4313,22 +4541,28 @@ def main() -> None:
     # whole with its own; its path launches no kernel, so its gate holds
     # the card's float32 gradients to the host's
     torch.cuda.empty_cache()
-    vlt_launches, vlt_variants, _ = train_phase(
+    vlt_launches, vlt_variants, stats = train_phase(
         torch, train_cut(VLM_ARCH, n_layers=VLM_TRAIN_LAYERS),
         FAMILY_TRAIN_STEPS)
+    steady("llama-3.2-vision-11b", stats)
     torch.cuda.empty_cache()
-    q3t_launches, q3t_variants, _ = train_phase(
+    q3t_launches, q3t_variants, stats = train_phase(
         torch, train_cut(QWEN3_ARCH, n_layers=QWEN3_TRAIN_LAYERS),
         FAMILY_TRAIN_STEPS)
+    steady("qwen3-moe-30b-a3b", stats)
     torch.cuda.empty_cache()
-    wht_launches, wht_variants, _ = train_phase(
+    wht_launches, wht_variants, stats = train_phase(
         torch, train_cut(WHISPER_ARCH), FAMILY_TRAIN_STEPS,
         seq=WHISPER_MAX_SEQ, batch=WHISPER_TRAIN_BATCH,
         micro=WHISPER_TRAIN_MICRO, on_host=True)
+    steady("whisper-base", stats)
     check(sum(wht_launches.values()) == 0, f"(h) whisper's training "
           f"launched a kernel: {wht_launches}")
     mark("llama-3.2-vision-11b's, qwen3-moe-30b-a3b's and whisper-base's "
          "training")
+    torch.cuda.empty_cache()
+    cost_model_phase(torch, measured, jobs)
+    mark("(i) the cost model")
     # the Jacobi path is its six schedules; the count is their sum
     jac["launches"] = sum(n["jacobi_hd"] for n in jac_launches.values())
     jac["launches_by_schedule"] = {k: n["jacobi_hd"]
@@ -4467,4 +4701,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--host-models"] and len(sys.argv) == 3:
+        host_models(sys.argv[2])
+    else:
+        main()

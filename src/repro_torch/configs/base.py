@@ -1,14 +1,19 @@
 """Architecture configs: the assigned 10 architectures as frozen
-dataclasses, plus reduced variants for CPU smoke tests.
+dataclasses, plus reduced variants for CPU smoke tests and storage-free
+input stand-ins for the dry-run.
 
 A copy of the reference's ``repro/configs/base.py``: the configs are
 data, so the whole registry comes across.  ``ArchConfig.input_specs``
-(``jax.ShapeDtypeStruct`` stand-ins for the dry-run) is left out; it
-comes with the dry-run port (ROADMAP, queue 1 item 10)."""
+gives the reference's ``jax.ShapeDtypeStruct`` stand-ins as tensors
+without storage: on the ``meta`` device by default, or fake tensors when
+called under ``FakeTensorMode`` with a real device, as the dry-run
+(``launch/dryrun.py``) calls it."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -198,6 +203,39 @@ class ArchConfig:
         if self.xlstm:
             kw["xlstm"] = replace(self.xlstm, slstm_every=2)
         return replace(self, **kw)
+
+    def input_specs(self, shape_name: str, global_batch: Optional[int] = None,
+                    seq_len: Optional[int] = None, device="meta"
+                    ) -> Dict[str, torch.Tensor]:
+        """Stand-ins for every model input of a shape cell, the keys,
+        shapes and dtypes of the reference's ``input_specs``
+        (``repro/configs/base.py:204-235``), allocating no storage."""
+        sh = SHAPES[shape_name]
+        B = global_batch if global_batch is not None else sh.global_batch
+        S = seq_len if seq_len is not None else sh.seq_len
+        i32 = torch.int32
+
+        def spec(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        if sh.kind == "train":
+            d = {"tokens": spec((B, S), i32), "labels": spec((B, S), i32),
+                 "mask": spec((B, S), torch.float32)}
+        elif sh.kind == "prefill":
+            d = {"tokens": spec((B, S), i32)}
+        else:  # decode: one new token against a cache of length S
+            d = {"token": spec((B, 1), i32), "pos": spec((B,), i32)}
+        # modality-frontend stubs: precomputed embeddings are inputs for
+        # train/prefill; decode reads the cross-KV cached at prefill
+        if sh.kind != "decode":
+            if self.encdec is not None:
+                d["frames"] = spec((B, self.encdec.n_frames, self.d_model),
+                                   torch.bfloat16)
+            if self.vision is not None:
+                d["image_embeds"] = spec(
+                    (B, self.vision.n_image_tokens, self.vision.d_vision),
+                    torch.bfloat16)
+        return d
 
     def supports_shape(self, shape_name: str) -> Tuple[bool, str]:
         sh = SHAPES[shape_name]

@@ -142,13 +142,14 @@ def _bw_blocks(qg, qp, kp_, vp_, kpos, ob, lse, dob, w, softcap, scale,
     nq, nk = qg.shape[1] // bq, kp_.shape[1] // bk
     # delta[b,k,g,t] = sum_d do*o  (rows of the softmax jacobian)
     delta = torch.einsum("btkgd,btkgd->bkgt", dob, ob)
-    dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+    # *_like: a DTensor operand (the dry-run's) keeps its placements
+    dq = torch.zeros_like(qg, dtype=torch.float32)
     dks, dvs = [], []
     for j in range(nk):
         sl = slice(j * bk, (j + 1) * bk)
         k_j, v_j, kp_j = kp_[:, sl].float(), vp_[:, sl].float(), kpos[sl]
-        dk_j = torch.zeros(k_j.shape, dtype=torch.float32, device=qg.device)
-        dv_j = torch.zeros(v_j.shape, dtype=torch.float32, device=qg.device)
+        dk_j = torch.zeros_like(k_j)
+        dv_j = torch.zeros_like(v_j)
         for i in range(nq):
             rows = slice(i * bq, (i + 1) * bq)
             qg_i, do_i = qg[:, rows].float(), dob[:, rows]

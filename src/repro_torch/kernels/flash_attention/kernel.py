@@ -50,6 +50,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.counts import count_launch
+from repro_torch.roofline import kernel_work
+from repro_torch.roofline.op_costs import report_kernel
 
 from .ref import join_rope
 
@@ -265,6 +267,9 @@ def _forward(q, k, v, qpos, window, softcap, scale, with_lse: bool,
         raise RuntimeError(f"flash_attn_hd ({variant}) launch failed with "
                            f"CUDA error {err}")
     count_launch(flash_attention_cuda, variant)
+    report_kernel("flash_attn_hd", lambda: kernel_work.flash_fwd(
+        B, T, S, Hq, Hkv, Dh + Dr, Dv, q.element_size(),
+        *kernel_work.visible(qpos, S, window), Dr, with_lse))
     return out, lse
 
 
@@ -393,6 +398,10 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
     if q.shape[1] and k.shape[1]:            # else nothing was launched
         count_launch(flash_attention_bwd_cuda,
                      bwd_variant(q.dtype, q.shape[-1], v.shape[-1]))
+        (B, T, Hq, Dh), (S, Hkv), Dv = q.shape, k.shape[1:3], v.shape[3]
+        report_kernel("flash_attn_bwd_hd", lambda: kernel_work.flash_bwd(
+            B, T, S, Hq, Hkv, Dh, Dv, q.element_size(),
+            kernel_work.visible(qpos, S, window)[0]))
     return grads
 
 

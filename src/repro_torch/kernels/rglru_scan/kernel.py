@@ -29,6 +29,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.counts import count_launch
+from repro_torch.roofline import kernel_work
+from repro_torch.roofline.op_costs import report_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("sequential", "chunked")         # the source's variant codes
@@ -130,6 +132,8 @@ def _forward(x_in, gate_a, gate_i, lam, h0, variant) -> torch.Tensor:
         raise RuntimeError(f"rglru_scan_hd launch failed with CUDA error "
                            f"{err}")
     count_launch(rglru_scan_cuda, variant)
+    report_kernel("rglru_scan", lambda: kernel_work.rglru_fwd(
+        B, T, W, x_in.element_size(), h0 is not None))
     return out
 
 
@@ -228,6 +232,8 @@ def rglru_scan_bwd_cuda(g: torch.Tensor, x_in: torch.Tensor,
         raise RuntimeError(f"rglru_scan_bwd_hd launch failed with CUDA "
                            f"error {err}")
     count_launch(rglru_scan_bwd_cuda)
+    report_kernel("rglru_scan_bwd", lambda: kernel_work.rglru_bwd(
+        B, T, W, x_in.element_size(), h0 is not None))
     return dx, dga, dgi, dlam, dh0
 
 

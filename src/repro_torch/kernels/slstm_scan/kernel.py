@@ -31,6 +31,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.counts import count_launch
+from repro_torch.roofline import kernel_work
+from repro_torch.roofline.op_costs import report_kernel
 
 from .ref import State
 
@@ -241,6 +243,8 @@ class SlstmScanFunction(torch.autograd.Function):
         hs, out = _launch(pre_x, r, state, None, B, T, D, H,
                           VARIANTS.index(variant), saved)
         count_launch(slstm_scan_cuda, variant)
+        report_kernel("slstm_scan", lambda: kernel_work.slstm_fwd(
+            B, T, D, H, pre_x.element_size(), saving=True))
         ctx.save_for_backward(r, hs, *saved,
                               *(state if state is not None else ()))
         ctx.pre_dtype = pre_x.dtype
@@ -325,6 +329,8 @@ def slstm_scan_cuda(pre_x: torch.Tensor, r: torch.Tensor,
     hs, out = _launch(pre_x, r, state, out, B, T, D, H,
                       VARIANTS.index(variant))
     count_launch(slstm_scan_cuda, variant)
+    report_kernel("slstm_scan", lambda: kernel_work.slstm_fwd(
+        B, T, D, H, pre_x.element_size()))
     return hs, out
 
 
@@ -360,6 +366,9 @@ def slstm_scan_bwd_cuda(dhs: torch.Tensor, r: torch.Tensor,
     fails raises, nothing falls back to the plain version."""
     out = _bwd(dhs, r, saved, state, dfinal)
     count_launch(slstm_scan_bwd_cuda)
+    B, T, D = dhs.shape
+    report_kernel("slstm_scan_bwd", lambda: kernel_work.slstm_bwd(
+        B, T, D, r.shape[0]))
     return out
 
 

@@ -15,16 +15,18 @@ where two frameworks could round differently:
 "cuda") into a torch.device and raises without a card.
 
 ``cross_entropy_loss`` and ``fused_cross_entropy`` are the training
-losses, in float32.  The gold logit is a ``gather`` (the reference's
-iota-compare masked sum exists to keep a vocab-sharded axis local; on
-one card the two give the same value).  ``fused_cross_entropy`` runs
+losses, in float32.  The gold logit is a ``gather``; the reference's
+iota-compare masked sum, which keeps a vocab-sharded axis local, takes
+its place for DTensor logits (the dry-run's); the two give the same
+value.  ``fused_cross_entropy`` runs
 each sequence chunk under ``torch.utils.checkpoint``, as the reference
 runs its ``lax.scan`` body under ``jax.checkpoint``.
 
 ``batch_update`` is the per-slot cache write of the reference's
-``sharded_batch_update`` without the mesh.  It writes in place (the
-reference's is functional) and clamps each start into the cache the
-way ``lax.dynamic_update_slice`` does.
+``sharded_batch_update``.  It writes in place (the reference's is
+functional) and clamps each start into the cache the way
+``lax.dynamic_update_slice`` does; a DTensor cache (the dry-run's) is
+written shard by shard, as the reference's ``shard_map`` writes it.
 """
 from __future__ import annotations
 
@@ -133,6 +135,9 @@ def batch_update(cache: torch.Tensor, new: torch.Tensor,
     whole slot pool, so a slot near the end of its cache writes the
     last t rows instead of past them; the engine then restores every
     slot but the admitted one.  Returns ``cache``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache, DTensor):
+        return _sharded_batch_update(cache, new, pos)
     t = new.shape[1]
     start = torch.clamp(pos.long(), 0, cache.shape[1] - t)
     rows = start[:, None] + torch.arange(t, device=cache.device)[None, :]
@@ -141,13 +146,39 @@ def batch_update(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _sharded_batch_update(cache, new, pos):
+    """:func:`batch_update` of a DTensor cache, each rank writing its
+    own rows, as the reference's ``sharded_batch_update`` does under a
+    mesh (its ``shard_map``): ``new`` and ``pos`` take the cache's
+    placements (pos its batch dim's), then each shard updates its local
+    rows in place."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    new = new.redistribute(mesh, cache.placements)
+    pos = pos.redistribute(mesh, [Shard(0) if p == Shard(0) else Replicate()
+                                  for p in cache.placements])
+    batch_update(cache.to_local(), new.to_local(), pos.to_local())
+    return cache
+
+
+def _gold(logits, labels) -> torch.Tensor:
+    """The label's logit: a gather, or for a DTensor (the dry-run's,
+    its vocab axis sharded) the reference's iota-compare masked sum,
+    which keeps the vocab axis local; the two give the same value."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(logits, DTensor):
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        hit = iota == labels[..., None].long()
+        return torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
 def _nll_sum(h_chunk, final_norm, w, labels, mask, final_softcap):
     """Summed masked NLL of one sequence chunk: norm, head, CE."""
     h = rms_norm(h_chunk, final_norm)
     logits = softcap((h @ w).float(), final_softcap or None)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.sum((logz - gold) * mask)
+    return torch.sum((logz - _gold(logits, labels)) * mask)
 
 
 def fused_cross_entropy(x, final_norm, out_emb, labels, mask=None,
@@ -181,8 +212,7 @@ def cross_entropy_loss(logits, labels, mask=None) -> torch.Tensor:
     """Token-level CE in float32; logits (B, S, V), labels (B, S)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    nll = logz - _gold(logits, labels)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -49,7 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as LY
 from .common import rms_norm
-from .lm import ModelBundle, Params, _embed, _embed_params, _head
+from .lm import (EMBED_SPECS, ModelBundle, Params, _embed,
+                 _embed_params, _head)
 
 
 def _sinusoid(positions: torch.Tensor, D: int, dtype) -> torch.Tensor:
@@ -68,6 +69,10 @@ def _plain_mlp_params(gen, d_model: int, d_ff: int, *, dtype,
                              dtype, device),
             "w2": LY._normal(gen, (d_ff, d_model), 1 / math.sqrt(d_ff),
                              dtype, device)}
+
+
+# the reference's ``_plain_mlp_params`` specs (``encdec.py:35``)
+PLAIN_MLP_SPECS = {"w1": ("embed", "mlp"), "w2": ("mlp", "embed")}
 
 
 def _plain_mlp(p: Params, h: torch.Tensor) -> torch.Tensor:
@@ -108,6 +113,19 @@ def build_whisper(cfg, dt, dev) -> ModelBundle:
                 "norms": [LY.norms_params(D, ["pre_attn", "pre_cross",
                                               "pre_mlp"], device=dev)
                           for _ in range(n_dec)]}}
+
+    def specs():
+        return {"emb": EMBED_SPECS,
+                "enc": {"attn": [LY.ATTN_SPECS] * n_enc,
+                        "mlp": [PLAIN_MLP_SPECS] * n_enc,
+                        "norms": [LY.norms_specs(["pre_attn", "pre_mlp"])]
+                        * n_enc,
+                        "final_norm": ("embed",)},
+                "dec": {"attn": [LY.ATTN_SPECS] * n_dec,
+                        "cross": [LY.CROSS_SPECS] * n_dec,
+                        "mlp": [PLAIN_MLP_SPECS] * n_dec,
+                        "norms": [LY.norms_specs(["pre_attn", "pre_cross",
+                                                  "pre_mlp"])] * n_dec}}
 
     def _layers(fn, params, n, x, remat, *args):
         """``fn(params, i, x, *args)`` for i < n; under
@@ -216,4 +234,5 @@ def build_whisper(cfg, dt, dev) -> ModelBundle:
         cache["pos"] = pos + 1
         return _head(params["emb"], x, cfg), cache
 
-    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev)
+    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
+                       specs=specs)

@@ -42,7 +42,8 @@ from . import layers as LY
 from . import rglru as RG
 from . import xlstm as XL
 from .common import fused_cross_entropy, gated_mlp, rms_norm
-from .lm import ModelBundle, Params, _embed, _embed_params, _head
+from .lm import (EMBED_SPECS, ModelBundle, Params, _embed,
+                 _embed_params, _head)
 
 
 def build_recurrentgemma(cfg, dt, dev) -> ModelBundle:
@@ -68,6 +69,13 @@ def build_recurrentgemma(cfg, dt, dev) -> ModelBundle:
             "norms": [LY.norms_params(cfg.d_model, ["pre_mix", "pre_mlp"],
                                       device=dev)
                       for _ in range(cfg.n_layers)]}
+
+    def specs():
+        return {"emb": EMBED_SPECS, "rec": [RG.RGLRU_SPECS] * n_rec,
+                "attn": [LY.ATTN_SPECS] * n_attn,
+                "mlp": [LY.MLP_SPECS] * cfg.n_layers,
+                "norms": [LY.norms_specs(["pre_mix", "pre_mlp"])]
+                * cfg.n_layers}
 
     def _mlp_at(params, j, x):
         pl, nm = params["mlp"][j], params["norms"][j]
@@ -163,7 +171,7 @@ def build_recurrentgemma(cfg, dt, dev) -> ModelBundle:
         return _head(params["emb"], x, cfg), cache
 
     return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
-                       forward_fused)
+                       forward_fused, specs)
 
 
 # ======================================================================
@@ -188,6 +196,11 @@ def build_xlstm_lm(cfg, dt, dev) -> ModelBundle:
                       for _ in range(max(n_s, 1))],
             "norms": [LY.norms_params(cfg.d_model, ["pre"], device=dev)
                       for _ in range(cfg.n_layers)]}
+
+    def specs():
+        return {"emb": EMBED_SPECS, "mlstm": [XL.MLSTM_SPECS] * n_m,
+                "slstm": [XL.SLSTM_SPECS] * max(n_s, 1),
+                "norms": [LY.norms_specs(["pre"])] * cfg.n_layers}
 
     def _block(params, kind, i, j, x, cache):
         """Block i of ``kind`` ("m" or "s"; global layer j) with its
@@ -264,4 +277,4 @@ def build_xlstm_lm(cfg, dt, dev) -> ModelBundle:
         return _head(params["emb"], x, cfg), cache
 
     return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
-                       forward_fused)
+                       forward_fused, specs)

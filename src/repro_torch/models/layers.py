@@ -68,6 +68,19 @@ def mlp_params(gen, d_model: int, d_ff: int, *, dtype=torch.float32,
     }
 
 
+# The logical axes of each leaf above, the reference's specs
+# (``repro/models/layers.py:53-80``) without their leading "layers" axis:
+# the port's layers are a list, one dict a layer
+ATTN_SPECS = {"wq": ("embed", "qheads"), "wk": ("embed", "kvheads"),
+              "wv": ("embed", "kvheads"), "wo": ("qheads", "embed")}
+MLP_SPECS = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")}
+
+
+def norms_specs(names) -> Dict[str, Tuple[str, ...]]:
+    return {n: ("embed",) for n in names}
+
+
 def norms_params(d_model: int, names, *, device="cuda") -> Params:
     """rms scales, zero-initialised (the norm multiplies by 1 + w) and
     kept in float32, as ``rms_norm`` reads them."""
@@ -223,6 +236,11 @@ def cross_attn_params(gen, cfg, d_src: int, *, dtype=torch.float32,
         "wv": _normal(gen, (d_src, Hq * Dh), 1 / math.sqrt(d_src), **kw),
         "wo": _normal(gen, (Hq * Dh, D), 1 / math.sqrt(Hq * Dh), **kw),
     }
+
+
+# the reference's ``cross_attn_params`` specs (``layers.py:213-216``)
+CROSS_SPECS = {"wq": ("embed", "qheads"), "wk": ("vision", "qheads"),
+               "wv": ("vision", "qheads"), "wo": ("qheads", "embed")}
 
 
 def init_full_cache(cfg, n_layers: int, B: int, T_max: int,

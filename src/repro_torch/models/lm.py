@@ -38,7 +38,11 @@ Structure notes:
   * ``init(seed, dtype)`` stores the matrices in ``dtype``, the compute
     dtype by default (serving's bf16 weights); training passes
     float32 for the reference's float32 masters, which every use
-    casts to the compute dtype.
+    casts to the compute dtype;
+  * ``specs()`` gives every leaf's logical axes in a tree parallel to
+    ``init``'s params: the reference's spec tree (its ``init`` returns
+    ``(params, specs)``) with each layer's leaves in a list and without
+    the leading "layers" axis, which the sharding rules never map.
 
 The vlm family's cache is the reference's ``{"kv": {"k", "v"}, "pos",
 "img_k", "img_v"}``: K and V (n_sb, SB, B, T_max, Hkv, Dh), the image
@@ -79,6 +83,9 @@ class ModelBundle(NamedTuple):
     device: torch.device
     # the fused head+CE train path (never materializes B,S,V logits)
     forward_fused: Optional[Callable] = None  # (params, batch) -> (loss, metrics)
+    # () -> the logical axes of every leaf, a tree parallel to init's
+    # params (train/sharding.py maps them to mesh axes)
+    specs: Optional[Callable] = None
 
 
 # ======================================================================
@@ -93,6 +100,12 @@ def _embed_params(gen, cfg, dtype, device) -> Params:
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=device),
     }
+
+
+EMBED_SPECS = {"in_emb": ("vocab", "embed"),
+               # the head's contracting dim: never FSDP-sharded
+               "out_emb": ("embed_head", "vocab"),
+               "final_norm": ("embed",)}
 
 
 def _embed(p, tokens, cfg, dt) -> torch.Tensor:
@@ -135,6 +148,17 @@ def _dense_stack_params(gen, cfg, n_layers, dtype, device) -> List[Params]:
                      if cfg.moe is not None else
                      LY.mlp_params(gen, cfg.d_model, cfg.d_ff, **kw))}
             for _ in range(n_layers)]
+
+
+def _dense_stack_specs(cfg, n_layers) -> List[Dict[str, Any]]:
+    """The logical axes of :func:`_dense_stack_params`'s layers."""
+    names = ["pre_attn", "pre_mlp"] + (["post_attn", "post_mlp"]
+                                       if cfg.post_norms else [])
+    one = {"attn": MLA.MLA_SPECS if cfg.mla is not None else LY.ATTN_SPECS,
+           "norms": LY.norms_specs(names),
+           "ffn": (MOE.moe_specs(cfg.moe) if cfg.moe is not None
+                   else LY.MLP_SPECS)}
+    return [one] * n_layers
 
 
 def _dense_block(cfg, pl, x, window, cache_sl, is_moe=False):
@@ -228,6 +252,17 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
                 1 / math.sqrt(2 * cfg.d_model), pdt, dev)
         return p
 
+    def specs():
+        dcfg = dataclasses.replace(cfg, moe=None)
+        s = {"emb": EMBED_SPECS}
+        if n_dense:
+            s["dense"] = _dense_stack_specs(dcfg, n_dense)
+        s["main"] = _dense_stack_specs(cfg, n_main)
+        if cfg.mtp:
+            s["mtp"] = _dense_stack_specs(dcfg, 1)
+            s["mtp_proj"] = ("embed2", "embed")
+        return s
+
     def _run(params, x, cache, remat=False):
         """The leading dense layers, then the main stack; with a cache,
         each group's rows written and its pos advanced."""
@@ -304,7 +339,7 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
         return _head(params["emb"], x, cfg), cache
 
     return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
-                       forward_fused)
+                       forward_fused, specs)
 
 
 # ======================================================================
@@ -336,6 +371,12 @@ def _build_vlm(cfg, dt, dev) -> ModelBundle:
                 "cross_norm": [LY.norms_params(cfg.d_model, ["pre_cross"],
                                                device=dev)
                                for _ in range(n_sb)]}
+
+    def specs():
+        return {"emb": EMBED_SPECS,
+                "main": _dense_stack_specs(cfg, cfg.n_layers),
+                "cross": [LY.CROSS_SPECS] * n_sb,
+                "cross_norm": [LY.norms_specs(["pre_cross"])] * n_sb}
 
     def _img_kv(params, image_embeds):
         """Each super-block's image K and V (B, S_img, Hq, Dh), projected
@@ -417,7 +458,8 @@ def _build_vlm(cfg, dt, dev) -> ModelBundle:
         cache["pos"] = pos + 1
         return _head(params["emb"], x, cfg), cache
 
-    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev)
+    return ModelBundle(cfg, init, forward, prefill, decode, init_cache, dev,
+                       specs=specs)
 
 
 # ======================================================================

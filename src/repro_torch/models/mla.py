@@ -68,6 +68,13 @@ def mla_params(gen, cfg, *, dtype=torch.float32, device="cuda") -> Params:
     }
 
 
+# the reference's specs (``repro/models/mla.py:42-51``) without "layers"
+MLA_SPECS = {"wq_a": ("embed", "lora"), "wq_b": ("lora", "qheads"),
+             "wkv_a": ("embed", "lora"), "wk_b": ("lora", "qheads"),
+             "wv_b": ("lora", "qheads"), "wo": ("qheads", "embed"),
+             "q_norm": ("lora",), "kv_norm": ("lora",)}
+
+
 def _split_q(q: torch.Tensor, H: int, m) -> Tuple[torch.Tensor, torch.Tensor]:
     qn, qr = q[..., :H * m.d_nope], q[..., H * m.d_nope:]
     return (qn.reshape(*q.shape[:-1], H, m.d_nope),

@@ -75,6 +75,19 @@ def moe_params(gen: torch.Generator, d_model: int, mo, *,
     return p
 
 
+def moe_specs(mo) -> Dict[str, object]:
+    """The logical axes of :func:`moe_params`'s leaves: the reference's
+    specs (``repro/models/moe.py:39-57``) without "layers"."""
+    s = {"router": ("embed", "experts_r"),
+         "w_gate": ("experts", "embed", "expert_mlp"),
+         "w_up": ("experts", "embed", "expert_mlp"),
+         "w_down": ("experts", "expert_mlp", "embed")}
+    if mo.n_shared:
+        s["shared"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                       "w_down": ("mlp", "embed")}
+    return s
+
+
 def _route(router_w: torch.Tensor, x: torch.Tensor, top_k: int,
            aux: bool = True):
     """x: (N, D) -> (weights (N, k) float32, ids (N, k), aux_loss).

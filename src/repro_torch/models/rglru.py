@@ -56,6 +56,14 @@ def rglru_params(gen: torch.Generator, cfg, *, dtype=torch.float32,
     }
 
 
+# the reference's specs (``repro/models/rglru.py:44-55``) without "layers"
+RGLRU_SPECS = {"w_x": ("embed", "lru"), "w_g": ("embed", "lru"),
+               "conv_w": ("conv", "lru"), "conv_b": ("lru",),
+               "w_a": ("lru", "lru_in"), "b_a": ("lru",),
+               "w_i": ("lru", "lru_in"), "b_i": ("lru",), "lam": ("lru",),
+               "w_out": ("lru", "embed")}
+
+
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             state: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

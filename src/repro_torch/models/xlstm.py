@@ -71,6 +71,13 @@ def mlstm_params(gen: torch.Generator, cfg, *, dtype=torch.float32,
     }
 
 
+# the reference's specs (``repro/models/xlstm.py:46-55``) without "layers"
+MLSTM_SPECS = {"w_up": ("embed", "inner"), "w_q": ("inner", "inner"),
+               "w_k": ("inner", "inner"), "w_v": ("inner", "inner"),
+               "w_if": ("inner", "gates"), "b_if": ("gates",),
+               "skip": ("inner", "inner"), "w_down": ("inner", "embed")}
+
+
 def _mlstm_chunk(q, k, v, ig, fg, state: State):
     """One chunk of the chunkwise-parallel mLSTM, in float32.
 
@@ -194,6 +201,12 @@ def slstm_params(gen: torch.Generator, cfg, *, dtype=torch.float32,
         "w_ff1": _normal(gen, (D, ffd), 1 / math.sqrt(D), **kw),
         "w_ff2": _normal(gen, (ffd, D), 1 / math.sqrt(ffd), **kw),
     }
+
+
+# the reference's specs (``repro/models/xlstm.py:177-183``) without "layers"
+SLSTM_SPECS = {"w_in": ("embed", "gates"),
+               "r_in": ("heads", "head_dim", "gates"), "b_in": ("gates",),
+               "w_ff1": ("embed", "mlp"), "w_ff2": ("mlp", "embed")}
 
 
 def slstm_block(p: Params, x: torch.Tensor, cfg, *,

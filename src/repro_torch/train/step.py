@@ -13,9 +13,9 @@ the reference's ``repro/train/step.py``.
 Gradients come from ``torch.autograd.grad`` with respect to detached
 views of the parameter leaves, so the caller's tensors never carry
 autograd state; the update writes them in place
-(``optim.adamw.apply_updates``).  The reference's sharding trees
-(``repro.train.sharding``) matter only with more than one card and are
-not ported (ROADMAP).
+(``optim.adamw.apply_updates``).  The step runs as it is on DTensor
+parameters and batches too: the dry-run (``launch/dryrun.py``) traces
+it so, placed by ``train/sharding.py``.
 """
 from __future__ import annotations
 
