@@ -139,7 +139,11 @@
    and over, are compared too but show little);
    and layer 0's MoE at full width on the first admit's hidden state
    must lie within 2e-2 (relative Frobenius) of a float32 evaluation
-   of the same routing.  Each prints its parameters against the bytes
+   of the same routing, and through the expert-parallel dispatch
+   (``moe_ffn(..., impl="ep")``) on a (1, 1) ("data", "model")
+   DeviceMesh over a one-rank NCCL group it must equal the sort
+   dispatch bit for bit (both ms per call printed; no card or no NCCL
+   fails the run).  Each prints its parameters against the bytes
    allocated, max_memory_allocated, prefill ms per admit, median
    decode ms, tokens/s and a device breakdown of one prefill and one
    decode step.  The flash phase (3.) also holds wgmma at gemma2's
@@ -202,9 +206,10 @@
    yi-9b traffic: every prefill is MLA's naive form and launches flash
    ``wgmma`` 5 times, decode (the absorbed form) launches no kernel, no
    path launches ``mma_sync``;
-   the lone-prompt gate and the first moe layer's check (shared expert
-   included) as for qwen3; then one MLA layer at B 1 and T 1024 from a
-   cache holding 1024 rows, its naive form (the kernel) against its
+   the lone-prompt gate and the first moe layer's checks (shared expert
+   included, the ep dispatch bit for bit the sort) as for qwen3; then
+   one MLA layer at B 1 and T 1024 from a cache holding 1024 rows, its
+   naive form (the kernel) against its
    absorbed form (dense einsums) within 2e-2 Frobenius-relative.  Last,
    ``make_flash_kernel`` on the torch backend: one fp16 sequence of
    4096 tokens as HDArrays, its query rows over 4 ranks, at 32/8 heads
@@ -240,9 +245,11 @@
    fake tensors, one device (the (1, 1) mesh), the same cut
    configuration and traffic, with the kernels' work formulas in the
    plain versions' place (``op_costs.card_kernels``), and a second one
-   runs the dry-run's production cell ``python -m
+   runs the dry-run's production cells ``python -m
    repro_torch.launch.dryrun --arch whisper-base --shape decode_32k
-   --mesh single`` on a fake process group of 256 ranks.  Last, for
+   --mesh single`` and the same for qwen3-moe-30b-a3b at its exact
+   config (the expert-parallel moe dispatch, 8 experts a column), each
+   on a fake process group of 256 ranks.  Last, for
    each of the eight families it prints FLOPs, bytes, t_compute,
    t_memory, the measured ms per step of (h) in this run (the mean of
    steps 2 on), the share of the card's bound the step reaches
@@ -252,7 +259,7 @@
    one 4096-token microbatch on the card under ``op_costs.OpCosts``,
    the kernels reporting their work, and fails unless its FLOPs are
    within 1% of the host's fake count of the same step; prints the
-   production cell's record and fails unless its status is ok.
+   production cells' records and fails unless each status is ok.
 9. Prints one JSON line of kernel measurements (flash's launches by
    path, the deepseek-v3 engine and the HDArray flash kernel among
    them), the card's name and power limit, and as the last line
@@ -523,7 +530,8 @@ CLAMPED = 4
 # count of one step against the host's fake count of it
 MODEL_OVER_MEASURED = 1.05
 CARD_COUNT_TOL = 1e-2
-DRYRUN_CELL = ("whisper-base", "decode_32k")
+DRYRUN_CELLS = (("whisper-base", "decode_32k"),
+                ("qwen3-moe-30b-a3b", "decode_32k"))
 
 
 def fail(msg: str) -> None:
@@ -3472,14 +3480,20 @@ def lone_prompt_repeats(torch, bundle, params, prompt, steps: int) -> None:
     torch.cuda.empty_cache()
 
 
-def moe_layer_check(torch, bundle, params, prompt) -> None:
+def moe_layer_check(torch, bundle, params, prompt, mesh) -> None:
     """The first moe layer's feed-forward at full width on the hidden
     state of the first admit's prefill (the whole pool: the prompt in
     slot 0, empty slots of token 0 beside it; after the leading dense
     layers where the model has them), in bf16, against a float32
     evaluation of the same routing (the same ids and weights, the same
     capacity drops, every expert in float32, one expert at a time, and
-    the shared experts where the layer has them)."""
+    the shared experts where the layer has them); then the same layer
+    through the expert-parallel dispatch (``impl="ep"``) on ``mesh``, the
+    (1, 1) ("data", "model") mesh of :func:`ep_mesh`, which must equal
+    the sort dispatch bit for bit: one column holds every expert, so the
+    same routing, capacity and sums, and an all-reduce over one rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     import repro_torch.models.layers as LY
     from repro_torch.models import lm
     from repro_torch.models import mla as MLA
@@ -3536,6 +3550,40 @@ def moe_layer_check(torch, bundle, params, prompt) -> None:
           f"{err:.3e} (gate {MOE_LAYER_TOL:g}); {ms:.3f} ms a call")
     check(err <= MOE_LAYER_TOL, f"{cfg.name}: the bf16 MoE layer is "
           f"{err:.3e} from the float32 evaluation of its routing")
+    xd = DTensor.from_local(h, mesh, [Shard(0), Replicate()],
+                            run_check=False)
+
+    def ep_call():
+        return MOE.moe_ffn(pl["ffn"], xd, mo, aux=False, impl="ep")[0]
+    with torch.no_grad():
+        ep = ep_call()
+        bits = isinstance(ep, DTensor) and torch.equal(ep.to_local(), got)
+        ep_ms = cuda_ms(torch, ep_call, 5)
+    print(f"{cfg.name}: the first moe layer through impl='ep' on a (1, 1) "
+          f"('data', 'model') mesh over a one-rank NCCL group "
+          f"({mo.num_experts} experts a column, C = {C}): bit for bit the "
+          f"sort dispatch {bits}; ep {ep_ms:.3f} ms a call, sort {ms:.3f} "
+          f"ms a call ({card_line()})")
+    check(bits, f"{cfg.name}: the ep dispatch on one rank parts from the "
+          f"sort dispatch")
+
+
+def ep_mesh():
+    """The (1, 1) ("data", "model") DeviceMesh on the card over a
+    one-rank NCCL process group on a free localhost port, destroyed at
+    exit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    atexit.register(dist.destroy_process_group)
+    return make_debug_mesh((1, 1), device_type="cuda")
 
 
 def mla_layer_check(torch, bundle, params):
@@ -4189,8 +4237,9 @@ def host_models(out_path: str) -> None:
 def start_host_jobs() -> dict:
     """(i)'s two host processes, started before every card phase so that
     they run beside them, without the card: ``host_models`` and the
-    dry-run's production cell.  Each writes its log (and the cell its
-    record) under ``build/cost_model``; both are stopped at exit."""
+    dry-run's production cells, one after the other.  Each writes its
+    log (and each cell its record) under ``build/cost_model``; both are
+    stopped at exit."""
     out = ROOT / "build" / "cost_model"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -4199,12 +4248,14 @@ def start_host_jobs() -> dict:
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src")] + [p for p in os.environ.get(
                        "PYTHONPATH", "").split(os.pathsep) if p]))
-    arch, shape = DRYRUN_CELL
+    cells = "; ".join(
+        f"main(['--arch', '{arch}', '--shape', '{shape}', '--mesh', "
+        f"'single', '--force'])" for arch, shape in DRYRUN_CELLS)
     cmds = {"models": [sys.executable, str(Path(__file__).resolve()),
                        "--host-models", str(out / "host_models.json")],
-            "dryrun": [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", arch, "--shape", shape, "--mesh", "single",
-                       "--force"]}
+            "dryrun": [sys.executable, "-c",
+                       "from repro_torch.launch.dryrun import main; "
+                       + cells]}
     jobs = {}
     for name, cmd in cmds.items():
         log = open(out / f"{name}.log", "w")
@@ -4238,7 +4289,7 @@ def wait_job(jobs, name: str, timeout: float = 600.0) -> int:
 def cost_model_phase(torch, measured: dict, jobs) -> None:
     """(i) the H100 cost model beside the card: each (h) step's host
     count against its measured ms, one step counted on the card against
-    the host's count of it, the dry-run's production cell."""
+    the host's count of it, the dry-run's production cells."""
     from repro_torch.launch.train import setup
     from repro_torch.roofline.op_costs import OpCosts
 
@@ -4290,25 +4341,25 @@ def cost_model_phase(torch, measured: dict, jobs) -> None:
           f"from the host's by {rel}")
     del run, data
     torch.cuda.empty_cache()
-    # the dry-run's production cell, run under this machine's torch
+    # the dry-run's production cells, run under the card host's torch
     wait_job(jobs, "dryrun")
-    arch, shape = DRYRUN_CELL
-    with open(ROOT / "build" / "cost_model"
-              / f"{arch}__{shape}__pod16x16.json") as f:
-        rec = json.load(f)
-    rl = rec.get("roofline", {})
-    print(f"(i) dry-run {arch} {shape} on the (16, 16) mesh of a fake "
-          f"group of {rl.get('n_chips')} ranks: status {rec['status']}, "
-          f"rules {rec['rules']}, per rank {rl.get('hlo_flops', 0):.4e} "
-          f"FLOPs, {rl.get('hlo_bytes', 0):.4e} bytes, collectives "
-          f"{rl.get('coll_by_kind')}; t_compute "
-          f"{rl.get('t_compute', 0):.4e} s, t_memory "
-          f"{rl.get('t_memory', 0):.4e} s, t_collective "
-          f"{rl.get('t_collective', 0):.4e} s, bottleneck "
-          f"{rl.get('bottleneck')}; peak {rl.get('mem_per_device')} bytes; "
-          f"traced in {rec.get('trace_s')} s")
-    check(rec["status"] == "ok", f"(i) the dry-run cell failed: "
-          f"{rec.get('error')}")
+    for arch, shape in DRYRUN_CELLS:
+        with open(ROOT / "build" / "cost_model"
+                  / f"{arch}__{shape}__pod16x16.json") as f:
+            rec = json.load(f)
+        rl = rec.get("roofline", {})
+        print(f"(i) dry-run {arch} {shape} on the (16, 16) mesh of a fake "
+              f"group of {rl.get('n_chips')} ranks: status {rec['status']}, "
+              f"rules {rec['rules']}, per rank {rl.get('hlo_flops', 0):.4e} "
+              f"FLOPs, {rl.get('hlo_bytes', 0):.4e} bytes, collectives "
+              f"{rl.get('coll_by_kind')} ({rec.get('collective_ops')} ops); "
+              f"t_compute {rl.get('t_compute', 0):.4e} s, t_memory "
+              f"{rl.get('t_memory', 0):.4e} s, t_collective "
+              f"{rl.get('t_collective', 0):.4e} s, bottleneck "
+              f"{rl.get('bottleneck')}; peak {rl.get('mem_per_device')} "
+              f"bytes; traced in {rec.get('trace_s')} s")
+        check(rec["status"] == "ok", f"(i) the dry-run cell {arch} {shape} "
+              f"failed: {rec.get('error')}")
     print(f"(i) done in {time.perf_counter() - t0:.1f} s on the critical "
           f"path (host counts: "
           f"{sum(m['seconds'] for m in models.values()):.1f} s beside "
@@ -4437,7 +4488,9 @@ def main() -> None:
         torch, QWEN3_ARCH, "wgmma", "qwen3 serving", readmit_repeats=False)
     prompt = serve_prompts(bundle.cfg.vocab)[0]
     lone_prompt_repeats(torch, bundle, params, prompt, DECODE_STEPS)
-    moe_layer_check(torch, bundle, params, prompt)
+    # the moe gates' expert-parallel dispatch runs on this mesh
+    mesh = ep_mesh()
+    moe_layer_check(torch, bundle, params, prompt, mesh)
     del bundle, params
     torch.cuda.empty_cache()
     # recurrentgemma last, so that every earlier phase runs as it did
@@ -4508,7 +4561,7 @@ def main() -> None:
         readmit_repeats=False, cfg=ds_cfg)
     prompt = serve_prompts(bundle.cfg.vocab)[0]
     lone_prompt_repeats(torch, bundle, params, prompt, DECODE_STEPS)
-    moe_layer_check(torch, bundle, params, prompt)
+    moe_layer_check(torch, bundle, params, prompt, mesh)
     mla_layer = mla_layer_check(torch, bundle, params)
     del bundle, params
     torch.cuda.empty_cache()

@@ -27,6 +27,12 @@ runs its ``lax.scan`` body under ``jax.checkpoint``.
 functional) and clamps each start into the cache the way
 ``lax.dynamic_update_slice`` does; a DTensor cache (the dry-run's) is
 written shard by shard, as the reference's ``shard_map`` writes it.
+
+``shardwise`` applies an elementwise function to each shard of a
+DTensor (an op DTensor has no sharding strategy for, such as
+``log_sigmoid``), its placements kept; ``as_dtensor`` takes a plain
+tensor as one replicated over a mesh, and ``from_shards`` makes a
+DTensor of each rank's shard.
 """
 from __future__ import annotations
 
@@ -159,6 +165,41 @@ def _sharded_batch_update(cache, new, pos):
                                   for p in cache.placements])
     batch_update(cache.to_local(), new.to_local(), pos.to_local())
     return cache
+
+
+def as_dtensor(t: torch.Tensor, mesh):
+    """``t`` as a DTensor over ``mesh``: itself if it is one, else a plain
+    tensor taken as replicated (every rank holds all of it)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def shardwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``; a DTensor ``x`` (the
+    dry-run's) has ``fn`` applied to each rank's shard and keeps its
+    placements.  A partial sum is summed first (a counted all-reduce):
+    ``fn`` of a partial is not the partial of ``fn``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return fn(x)
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    return from_shards(fn(x.to_local()), x.device_mesh, pl, x.shape)
+
+
+def from_shards(local: torch.Tensor, mesh, placements, shape):
+    """The DTensor of global ``shape`` (contiguous) whose shard on this
+    rank is ``local`` (shards may be uneven), differentiable."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.insert(0, n)
+        n *= size
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def _gold(logits, labels) -> torch.Tensor:

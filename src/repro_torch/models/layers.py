@@ -21,8 +21,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .common import (batch_update, gqa_attention, make_causal_mask,
-                     make_local_mask, resolve_device, rope)
+from .common import (as_dtensor, batch_update, gqa_attention,
+                     make_causal_mask, make_local_mask, resolve_device, rope)
 from repro_torch.kernels.flash_attention import flash_attention
 
 # From this many query positions on, the dense O(T·S) logit tensor is
@@ -98,8 +98,12 @@ def _update_ring(cache_kv: torch.Tensor, kpos: torch.Tensor,
     (B, t, H, Dh) goes to slots (new_pos + i) % W, and kpos (B, W) takes
     the absolute positions (-1 = empty slot).  A t > W writes only the
     last W tokens, the ones that survive, so no slot is written twice
-    and the result does not depend on the order of a scatter.  Returns
-    (cache_kv, kpos)."""
+    and the result does not depend on the order of a scatter.  A
+    DTensor cache (the dry-run's) is written shard by shard, as
+    ``batch_update`` writes one.  Returns (cache_kv, kpos)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache_kv, DTensor):
+        return _sharded_update_ring(cache_kv, kpos, new_kv, new_pos)
     W = cache_kv.shape[1]
     t = new_kv.shape[1]
     t0 = max(0, t - W)
@@ -108,6 +112,26 @@ def _update_ring(cache_kv: torch.Tensor, kpos: torch.Tensor,
     bidx = torch.arange(cache_kv.shape[0], device=cache_kv.device)[:, None]
     cache_kv[bidx, idx] = new_kv[:, t0:].to(cache_kv.dtype)
     kpos[bidx, idx] = p.to(kpos.dtype)
+    return cache_kv, kpos
+
+
+def _sharded_update_ring(cache_kv, kpos, new_kv, new_pos):
+    """:func:`_update_ring` of a DTensor ring, each rank writing its own
+    rows: ``new_kv`` takes the cache's placements, ``new_pos`` its batch
+    dim's, which ``kpos`` must have already; then each shard is written
+    in place."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache_kv.device_mesh
+    rows = [Shard(0) if p == Shard(0) else Replicate()
+            for p in cache_kv.placements]
+    kpos = as_dtensor(kpos, mesh)
+    if list(kpos.placements) != rows:
+        raise ValueError(f"ring positions placed {kpos.placements}, the "
+                         f"cache's rows {rows}")
+    new_kv = as_dtensor(new_kv, mesh).redistribute(mesh, cache_kv.placements)
+    new_pos = as_dtensor(new_pos, mesh).redistribute(mesh, rows)
+    _update_ring(cache_kv.to_local(), kpos.to_local(), new_kv.to_local(),
+                 new_pos.to_local())
     return cache_kv, kpos
 
 

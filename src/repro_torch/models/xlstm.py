@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.slstm_scan import slstm_scan
 
-from .common import resolve_device
+from .common import as_dtensor, from_shards, resolve_device, shardwise
 from .layers import _normal
 
 Params = Dict[str, torch.Tensor]
@@ -85,7 +85,7 @@ def _mlstm_chunk(q, k, v, ig, fg, state: State):
     C (B, H, Dh, Dh), n (B, H, Dh), m (B, H).  Returns (out, new_state),
     with the reference's stabilisers (``xlstm.py:59-96``)."""
     t, Dh = q.shape[2], q.shape[3]
-    lf = F.logsigmoid(fg)
+    lf = shardwise(F.logsigmoid, fg)
     Fc = torch.cumsum(lf, dim=-1)
     C_prev, n_prev, m_prev = state
     # log weights of the pairs inside the chunk: F_i - F_j + ig_j, j <= i
@@ -138,7 +138,7 @@ def mlstm_block(p: Params, x: torch.Tensor, cfg, *,
         # the recurrent decode step; k and v stay in the compute dtype
         # and their outer product rounds there, as in the reference
         C, n, m = cache["C"], cache["n"], cache["m"]
-        lf = F.logsigmoid(fg[..., 0])
+        lf = shardwise(F.logsigmoid, fg[..., 0])
         m_new = torch.maximum(lf + m, ig[..., 0])
         wi = torch.exp(ig[..., 0] - m_new)
         wf = torch.exp(lf + m - m_new)
@@ -209,6 +209,36 @@ SLSTM_SPECS = {"w_in": ("embed", "gates"),
                "w_ff1": ("embed", "mlp"), "w_ff2": ("mlp", "embed")}
 
 
+def _scan(pre_x, r, state):
+    """:func:`slstm_scan`'s hs, the final state written into ``state``
+    when given.  A DTensor pre_x (the dry-run's) scans each rank's
+    batch rows whole: every unit's gates read all of h, so pre_x, r and
+    the state are gathered over every other mesh dim first (counted),
+    once, not once a step; hs keeps the rows' placements, and r's
+    gradient is a partial sum over the batch dims' ranks."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(pre_x, DTensor):
+        return slstm_scan(pre_x, r, state, out=state)[0]
+    mesh = pre_x.device_mesh
+    rows = [Shard(0) if q == Shard(0) else Replicate()
+            for q in pre_x.placements]
+    r = as_dtensor(r, mesh).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if q == Shard(0) else Replicate()
+                         for q in rows])
+    local = None
+    if state is not None:
+        state = tuple(as_dtensor(s, mesh) for s in state)
+        if any(list(s.placements) != rows for s in state):
+            raise ValueError(f"sLSTM state placed "
+                             f"{[s.placements for s in state]}, its rows "
+                             f"{rows}")
+        local = tuple(s.to_local() for s in state)
+    hs, _ = slstm_scan(pre_x.redistribute(mesh, rows).to_local(), r, local,
+                       out=local)
+    return from_shards(hs, mesh, rows, pre_x.shape[:2] + hs.shape[2:])
+
+
 def slstm_block(p: Params, x: torch.Tensor, cfg, *,
                 cache: Optional[Dict[str, torch.Tensor]] = None):
     """The sequential sLSTM with exponential gating and its stabiliser,
@@ -219,7 +249,7 @@ def slstm_block(p: Params, x: torch.Tensor, cfg, *,
     state = None
     if cache is not None:
         state = tuple(cache[k] for k in ("c", "n", "h", "m"))
-    hs, _ = slstm_scan(pre_x, p["r_in"].float(), state, out=state)
+    hs = _scan(pre_x, p["r_in"].float(), state)
     hs = hs.to(cdt)
     out = F.gelu(hs @ p["w_ff1"].to(cdt), approximate="tanh") \
         @ p["w_ff2"].to(cdt)
