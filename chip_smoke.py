@@ -249,7 +249,11 @@
    repro_torch.launch.dryrun --arch whisper-base --shape decode_32k
    --mesh single`` and the same for qwen3-moe-30b-a3b at its exact
    config (the expert-parallel moe dispatch, 8 experts a column), each
-   on a fake process group of 256 ranks.  Last, for
+   on a fake process group of 256 ranks, then four reduced cells at 32
+   x 64 tokens whose models once asked this host's torch for ops it
+   cannot place (deepseek-v3-671b ``train_4k``: ``roll``;
+   recurrentgemma-2b ``prefill_32k`` and ``decode_32k``: a shard turned
+   partial; xlstm-125m ``train_4k``: ``flip``).  Last, for
    each of the eight families it prints FLOPs, bytes, t_compute,
    t_memory, the measured ms per step of (h) in this run (the mean of
    steps 2 on), the share of the card's bound the step reaches
@@ -259,7 +263,23 @@
    one 4096-token microbatch on the card under ``op_costs.OpCosts``,
    the kernels reporting their work, and fails unless its FLOPs are
    within 1% of the host's fake count of the same step; prints the
-   production cells' records and fails unless each status is ok.
+   production cells' and the reduced cells' records and fails unless
+   each status is ok.
+   Before it, (j): the flash backward's ``ffma`` pair, which takes
+   every type and head dims the forward takes that ``wgmma`` does not,
+   at the reduced launcher's bf16 Dh 16 (8 x 1024, 4/1 heads), reduced
+   MLA's 24 / 16, float32 at 192 / 128 (T 2048), bf16 at 96 and 32,
+   fp16 at 40 / 72, a window with a softcap and a GQA group of 4,
+   through autograd and twice directly (bit-identical) against the
+   plain blockwise backward, and timed at the reduced launcher's shape
+   and at bf16 Dh 96 (1, 4096, 32/8 heads) beside its operations bound,
+   the plain backward and SDPA's backward; then the training launcher
+   at its default, reduced configs and 1024 tokens, every architecture
+   (``launch.train.setup(arch, reduced=True, seq_len=1024)``, global
+   batch 8): the gradient gate against the plain versions (5e-2;
+   xlstm's in float32), 3 steps, the first step's loss within 2e-3 of
+   the port's CPU step on the same weights and batch, and every
+   self-attention family's backward launched, only as ``ffma``.
 9. Prints one JSON line of kernel measurements (flash's launches by
    path, the deepseek-v3 engine and the HDArray flash kernel among
    them), the card's name and power limit, and as the last line
@@ -438,8 +458,8 @@ BWD_SHAPES = (  # B, T, S, Hq, Hkv, D, window, softcap, qpos
     (2, 100, 130, 16, 8, 256, 40, 50.0, "tail"),
     (1, 200, 200, 10, 1, 256, 64, 0.0, "tail"),
     (2, 96, 80, 4, 2, 256, 5, 0.0, "ragged"),
-    # MLA's Dh 192 / Dv 128 (D as the pair; bf16 and fp16 only, float32
-    # has no kernel there): deepseek-v3's heads over as many, a tail and
+    # MLA's Dh 192 / Dv 128 (D as the pair; wgmma in bf16 and fp16, the
+    # ffma pair in float32): deepseek-v3's heads over as many, a tail and
     # ragged rows with padding and fully masked rows
     (2, 100, 130, 4, 4, (192, 128), None, 0.0, "tail"),
     (2, 96, 80, 4, 4, (192, 128), None, 0.0, "ragged"))
@@ -532,6 +552,55 @@ MODEL_OVER_MEASURED = 1.05
 CARD_COUNT_TOL = 1e-2
 DRYRUN_CELLS = (("whisper-base", "decode_32k"),
                 ("qwen3-moe-30b-a3b", "decode_32k"))
+# (i) reduced cells (the config's ``reduced()`` at 32 x 64 tokens) traced
+# under this host's torch: the four whose models once asked DTensor for
+# what torch 2.11 cannot place (roll, a shard turned partial, flip)
+DRYRUN_REDUCED_CELLS = (("deepseek-v3-671b", "train_4k"),
+                        ("recurrentgemma-2b", "prefill_32k"),
+                        ("recurrentgemma-2b", "decode_32k"),
+                        ("xlstm-125m", "train_4k"))
+# (j) the training launcher at its default, reduced configs (d_model 64,
+# 4 heads of 16; MLA 24 / 16 with its RoPE part joined) and 1024
+# tokens, where every self-attention layer takes flash (FLASH_MIN_T), in
+# bf16: its backward is the ffma pair.  Every architecture, as the
+# reference's launcher trains each of them there on the CPU; the
+# launcher's global batch of 8 in one microbatch
+REDUCED_SEQ = 1024
+REDUCED_BATCH = 8
+REDUCED_STEPS = 3
+# the first step on the card against the port's CPU step on the same
+# weights and batch: two bf16 programs that round at other points (the
+# kernels against the CPU's plain attention), its loss within
+# REDUCED_LOSS_RTOL and its gradient's global norm within
+# REDUCED_GNORM_RTOL.  On the CPU the port and the reference part by
+# 3.7e-5 / 8.3e-4 (yi-9b) and 1.8e-4 / 3.3e-3 (deepseek-v3) in loss /
+# norm at global batch 2 (tests/test_torch_launch_train_1024.py).  At
+# init the loss alone is a weak check: faults planted on the CPU move
+# it by 7.0e-4 (the MTP roll dropped) to 7.2e-3 (no causal mask), the
+# norm by 2.1e-2 to 0.21; the attention kernels are held to their plain
+# versions at these shapes in flash_bwd_ffma_phase.  The norm is held
+# for every family but xlstm, whose bf16 gradients are not reproducible
+REDUCED_LOSS_RTOL = 2e-3
+REDUCED_GNORM_RTOL = 1e-2
+# the ffma pair against the plain blockwise backward at the widths the
+# forward takes and wgmma does not: fro_rel of dq, dk and dv within
+# BWD_MAIN_TOL.  (dtype, B, T, S, Hq, Hkv, Dh, Dv, window, softcap, qpos)
+FFMA_SHAPES = (
+    # the reduced launcher's (yi-9b's 4 heads over 1), reduced MLA's
+    ("bfloat16", 8, 1024, 1024, 4, 1, 16, 16, None, 0.0, "tail"),
+    ("bfloat16", 8, 1024, 1024, 4, 4, 24, 16, None, 0.0, "tail"),
+    # float32 at deepseek-v3's widths, a few heads
+    ("float32", 1, 2048, 2048, 4, 4, 192, 128, None, 0.0, "tail"),
+    ("bfloat16", 1, 2048, 2048, 8, 2, 96, 96, None, 0.0, "tail"),
+    ("bfloat16", 2, 1024, 1024, 8, 8, 32, 32, None, 0.0, "ragged"),
+    ("float16", 2, 1024, 1024, 4, 2, 40, 72, None, 0.0, "tail"),
+    # reduced gemma2's window and softcap; a GQA group of 4 with a window
+    ("bfloat16", 2, 1024, 1024, 4, 2, 16, 16, 16, 50.0, "tail"),
+    ("bfloat16", 1, 1024, 1024, 12, 3, 48, 48, 100, 0.0, "ragged"))
+# timed: the reduced launcher's shape and bf16 Dh 96 at 32/8 heads.
+# (dtype, B, T, Hq, Hkv, D), causal, T = S
+FFMA_TIMED = (("bfloat16", REDUCED_BATCH, REDUCED_SEQ, 4, 1, 16),
+              ("bfloat16", 1, 4096, 32, 8, 96))
 
 
 def fail(msg: str) -> None:
@@ -1474,6 +1543,25 @@ def bwd_split(torch, fn, reps: int = 5, want=()):
     return {k: us / 1e3 / count for k, (us, count) in split.items()}
 
 
+def bwd_inputs(torch, g, dtype, B, T, S, Hq, Hkv, Dh, Dv, kind):
+    """q, k, v and dO drawn from ``g`` on the card in ``dtype``, and
+    qpos: "tail" (T causal rows ending at S) or "ragged" (random
+    positions, padding rows and rows that see nothing)."""
+    dev = g.device
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                   for sh in ((B, T, Hq, Dh), (B, S, Hkv, Dh),
+                              (B, S, Hkv, Dv), (B, T, Hq, Dv)))
+    if kind == "tail":
+        qpos = torch.arange(S - T, S, dtype=torch.int32,
+                            device=dev).repeat(B, 1)
+    else:
+        qpos = torch.randint(-1, S + 10, (B, T), generator=g, device=dev,
+                             dtype=torch.int32)
+        qpos[:, :9] = -1
+        qpos[-1, 20:30] = S + 200
+    return q, k, v, do, qpos
+
+
 def flash_bwd_phase(torch):
     """The flash backward kernels, wgmma (ffma in float32), against
     float64 dense autograd at small shapes and against the plain
@@ -1486,23 +1574,7 @@ def flash_bwd_phase(torch):
         blockwise_attention
     from repro_torch.models.lm import BIG_WINDOW
 
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(4)
-
-    def inputs(dtype, B, T, S, Hq, Hkv, D, kind):
-        Dh, Dv = D if isinstance(D, tuple) else (D, D)
-        q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(dtype)
-                       for sh in ((B, T, Hq, Dh), (B, S, Hkv, Dh),
-                                  (B, S, Hkv, Dv), (B, T, Hq, Dv)))
-        if kind == "tail":
-            qpos = torch.arange(S - T, S, dtype=torch.int32,
-                                device=dev).repeat(B, 1)
-        else:                   # ragged, padding rows, rows seeing nothing
-            qpos = torch.randint(-1, S + 10, (B, T), generator=g,
-                                 device=dev, dtype=torch.int32)
-            qpos[:, :9] = -1
-            qpos[-1, 20:30] = S + 200
-        return q, k, v, do, qpos
+    g = torch.Generator(device="cuda").manual_seed(4)
 
     def kernel_grads(q, k, v, do, qpos, **kw):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -1515,14 +1587,9 @@ def flash_bwd_phase(torch):
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for B, T, S, Hq, Hkv, D, window, softcap, kind in BWD_SHAPES:
             Dh, Dv = D if isinstance(D, tuple) else (D, D)
-            if dtype == torch.float32 and Dh != Dv:
-                try:
-                    fk.bwd_variant(dtype, Dh, Dv)
-                except ValueError:
-                    continue             # no float32 kernel at 192 / 128
-                fail(f"bwd_variant takes float32 at Dh {Dh} / Dv {Dv}")
             variant = fk.bwd_variant(dtype, Dh, Dv)
-            q, k, v, do, qpos = inputs(dtype, B, T, S, Hq, Hkv, D, kind)
+            q, k, v, do, qpos = bwd_inputs(torch, g, dtype, B, T, S, Hq,
+                                           Hkv, Dh, Dv, kind)
             kw = dict(window=window, softcap=softcap)
             leaves = [x.double().requires_grad_() for x in (q, k, v)]
             dense64(torch, *leaves, qpos, **kw).backward(do.double())
@@ -1564,8 +1631,8 @@ def flash_bwd_phase(torch):
         backward, SDPA's and the bound, with ``timings`` also split by
         launch and the dK, dV grid printed."""
         cfg_T, Hq, D = TRAIN_SEQ, 32, 128
-        q, k, v, do, qpos = inputs(torch.bfloat16, 1, cfg_T, cfg_T, Hq, Hkv,
-                                   D, "tail")
+        q, k, v, do, qpos = bwd_inputs(torch, g, torch.bfloat16, 1, cfg_T,
+                                       cfg_T, Hq, Hkv, D, D, "tail")
         out, lse = fk._forward(q, k, v, qpos, BIG_WINDOW, 0.0, None,
                                with_lse=True)
 
@@ -1655,6 +1722,185 @@ def flash_bwd_phase(torch):
     return bwd
 
 
+def flash_bwd_ffma_phase(torch):
+    """(j) The flash backward's ffma pair, every type and head dims the
+    forward takes that wgmma does not: at ``FFMA_SHAPES`` one launch
+    through autograd (counted as ``ffma``) and two direct launches, all
+    three bit-identical, against the plain blockwise backward (fro_rel
+    of dq, dk and dv within BWD_MAIN_TOL), and the forward that autograd
+    ran (one launch, counted in the variant ``flash_variant`` names:
+    ``mma_sync`` in 16-bit types, the reduced launcher's) against the
+    plain blockwise forward (FLASH_MAIN_TOL, in float32 FLASH_TOL's);
+    then timed at ``FFMA_TIMED``
+    beside its operations bound (10 D flops a visible pair and query
+    head at 989 TFLOP/s in 16-bit types, 67 in float32), the plain
+    backward and SDPA's backward (``enable_gqa``), which must compute
+    the same function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.jnp_impl import \
+        blockwise_attention
+
+    g = torch.Generator(device="cuda").manual_seed(35)
+
+    worst, fwd = 0.0, {}
+    for name, B, T, S, Hq, Hkv, Dh, Dv, window, softcap, kind in FFMA_SHAPES:
+        dtype = getattr(torch, name)
+        check(fk.bwd_variant(dtype, Dh, Dv) == "ffma", f"bwd_variant sends "
+              f"{name} Dh {Dh} / Dv {Dv} elsewhere than ffma")
+        q, k, v, do, qpos = bwd_inputs(torch, g, dtype, B, T, S, Hq, Hkv,
+                                       Dh, Dv, kind)
+        kw = dict(window=window, softcap=softcap)
+        fwd_v = fk.flash_variant(dtype, Dh, Dv)
+        reset_launches()
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_auto = fk.flash_attention_cuda(*leaves, qpos=qpos, **kw)
+        o_auto.backward(do)
+        auto = [x.grad for x in leaves]
+        torch.cuda.synchronize()
+        by = read_variants()
+        check(by["flash_attn_bwd_hd"] == {"ffma": 1, "wgmma": 0}
+              and by["flash_attn_hd"][fwd_v] == 1
+              and sum(by["flash_attn_hd"].values()) == 1,
+              f"the forward and backward at {name} {Dh} / {Dv} launched "
+              f"{by['flash_attn_hd']} and {by['flash_attn_bwd_hd']}, want "
+              f"{fwd_v} once and ffma once")
+        out, lse = fk._forward(q, k, v, qpos, window, softcap, None,
+                               with_lse=True)
+        got = fk.flash_attention_bwd_cuda(do, q, k, v, out, lse, qpos=qpos,
+                                          **kw)
+        again = fk.flash_attention_bwd_cuda(do, q, k, v, out, lse,
+                                            qpos=qpos, **kw)
+        plain = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_plain = blockwise_attention(*plain, qpos=qpos, **kw)
+        want = torch.autograd.grad(o_plain, plain, do)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(got, again, auto)),
+              f"ffma backward launches differ at {name} {Dh} / {Dv}")
+        # the forward as autograd ran it, the path's launch
+        tol = FLASH_TOL[name] if dtype == torch.float32 else FLASH_MAIN_TOL
+        o_err = (o_auto.detach().float() - o_plain.detach().float()).abs()
+        bad = int((o_err > tol + tol * o_plain.detach().float().abs())
+                  .sum())
+        print(f"(j) flash fwd {fwd_v} {name} B,T,S,Hq,Hkv="
+              f"{(B, T, S, Hq, Hkv)} Dh {Dh} / Dv {Dv} window={window} "
+              f"softcap={softcap} qpos={kind}: max_abs_err="
+              f"{float(o_err.max()):.3e} vs plain blockwise, outside "
+              f"rtol=atol={tol:g}: {bad}")
+        check(bad == 0 and o_auto.dtype == dtype and
+              bool(torch.isfinite(o_auto).all()), f"the flash forward "
+              f"{fwd_v} at {name} {Dh} / {Dv} differs from plain blockwise")
+        fwd[f"{name} {(B, T, S, Hq, Hkv)} {Dh}/{Dv} window={window} "
+            f"softcap={softcap} qpos={kind}"] = dict(
+                variant=fwd_v, max_abs_err=float(o_err.max()))
+        rels, err = [], 0.0
+        for x_name, x, w in zip("qkv", got, want):
+            check(x.dtype == dtype and bool(torch.isfinite(x).all()),
+                  f"ffma backward d{x_name} not finite at {name} {Dh} / {Dv}")
+            rels.append(fro_rel(torch, x, w))
+            err = max(err, float((x.float() - w.float()).abs().max()))
+        print(f"(j) flash bwd ffma {name} B,T,S,Hq,Hkv={(B, T, S, Hq, Hkv)} "
+              f"Dh {Dh} / Dv {Dv} window={window} softcap={softcap} "
+              f"qpos={kind}: fro_rel dq,dk,dv vs plain blockwise = "
+              + ", ".join(f"{e:.3e}" for e in rels)
+              + f" (bound {BWD_MAIN_TOL:g}), max_abs_err={err:.3e}; "
+              f"autograd and two launches bit-identical")
+        check(max(rels) <= BWD_MAIN_TOL, f"ffma backward at {name} {Dh} / "
+              f"{Dv}: {rels} against the plain backward")
+        worst = max(worst, err)
+        del q, k, v, do, out, lse, got, again, auto, plain, want, leaves, \
+            o_auto, o_plain, o_err
+
+    def timed(name, B, T, Hq, Hkv, D):
+        dtype = getattr(torch, name)
+        q, k, v, do, qpos = bwd_inputs(torch, g, dtype, B, T, T, Hq, Hkv,
+                                       D, D, "tail")
+        out, lse = fk._forward(q, k, v, qpos, None, 0.0, None,
+                               with_lse=True)
+
+        def kernel():
+            return fk.flash_attention_bwd_cuda(do, q, k, v, out, lse,
+                                               qpos=qpos)
+
+        got = kernel()
+        plain = [x.clone().requires_grad_() for x in (q, k, v)]
+        out_p = blockwise_attention(*plain, qpos=qpos)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_s = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        lib = torch.autograd.grad(o_s, (qt, kt, vt), do_t, retain_graph=True)
+        lib_err = max(fro_rel(torch, a.transpose(1, 2), b)
+                      for a, b in zip(lib, got))
+        check(lib_err <= 2 * BWD_MAIN_TOL, f"SDPA's backward computes "
+              f"another function than the ffma pair at {name} Dh {D}")
+        pairs = int(torch.clamp(qpos.long() + 1, 0, T).sum())
+        flops = pairs * Hq * 10 * D
+        esize = q.element_size()
+        nbytes = esize * (4 * B * T * Hq * D + 4 * B * T * Hkv * D) \
+            + 4 * B * Hq * T
+        peak = FP32_FLOPS_PER_S if dtype == torch.float32 \
+            else BF16_FLOPS_PER_S
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        res = dict(
+            shape=[B, T, Hq, Hkv, D], dtype=name, max_abs_err=worst,
+            ms=cuda_ms(torch, kernel, 3),
+            plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                out_p, plain, do, retain_graph=True), 3),
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                o_s, (qt, kt, vt), do_t, retain_graph=True), 10),
+            sdpa_fro_rel=lib_err)
+        print(f"(j) flash bwd ffma {name} (B, T, Hq/Hkv, D) = ({B}, {T}, "
+              f"{Hq}/{Hkv}, {D}) causal: {flops:.4e} flops (10 D a pair and "
+              f"head), {nbytes:.4e} bytes; bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), ffma {res['ms']:.4f} ms "
+              f"({100 * res['bound_ms'] / res['ms']:.2f}% of the bound), "
+              f"plain {res['plain_ms']:.4f} ms, SDPA backward "
+              f"{res['library_ms']:.4f} ms (fro_rel to the kernel "
+              f"{lib_err:.3e}) on {card_line()}")
+        del q, k, v, do, out, lse, got, plain, out_p, qt, kt, vt, o_s, lib
+        torch.cuda.empty_cache()
+        return res
+
+    res = [timed(*shape) for shape in FFMA_TIMED]
+    return dict(name="flash_attn_bwd_hd ffma", route="cuda",
+                source="src/repro_torch/csrc/flash_attn_bwd_hd.cu",
+                replaces="src/repro/kernels/flash_attention/jnp_impl.py:130",
+                **res[0], at_dh96_32_8_heads=res[1], forward=fwd)
+
+
+def reduced_launcher_phase(torch):
+    """(j) The training launcher at its default, reduced configs and
+    ``REDUCED_SEQ`` tokens, every architecture (``train_phase(...,
+    reduced=True)``: the gradient gate against the plain versions, the
+    first step's loss and gradient norm against the port's CPU step,
+    ``REDUCED_STEPS`` steps), xlstm's gate in ``XLSTM_GATE_DTYPE`` as at full width.
+    Every self-attention family's backward runs only the ffma pair, at
+    least once.  Returns {arch: (launches, variants, stats)}."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+
+    out = {}
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).reduced()
+        out[arch] = train_phase(
+            torch, train_cut(arch), REDUCED_STEPS, seq=REDUCED_SEQ,
+            batch=REDUCED_BATCH, micro=1, reduced=True,
+            gate_dtype=XLSTM_GATE_DTYPE if cfg.family == "ssm" else None)
+        launches, variants, _ = out[arch]
+        bwd = variants["flash_attn_bwd_hd"]
+        if cfg.family != "ssm":
+            check(bwd["ffma"] > 0 and bwd["wgmma"] == 0, f"(j) {arch}: the "
+                  f"reduced launcher's backward launched {bwd}, want ffma "
+                  f"alone")
+        torch.cuda.empty_cache()
+    return out
+
+
 def flash_bwd_256_phase(torch, ptxas):
     """The flash backward at Dh 256 at the two training shapes, one
     microbatch of 4096 tokens: gemma2's (16 query heads over 8, softcap
@@ -1681,9 +1927,10 @@ def flash_bwd_256_phase(torch, ptxas):
                if re.search(r"(\(int\)|[<, ])256[,>]", k)]
     for kernel, report in reports:
         print(f"flash bwd Dh 256 ptxas: {kernel}: {report}")
-    check(len(reports) == 10, f"{len(reports)} Dh-256 backward kernels in "
-          f"the build log, want 10 (8 wgmma: the dK/dV pass and dQ for two "
-          f"types with and without a softcap; 2 ffma)")
+    check(len(reports) == 14, f"{len(reports)} Dh-256 backward kernels in "
+          f"the build log, want 14 (8 wgmma: the dK/dV pass and dQ for two "
+          f"types with and without a softcap; 6 ffma: its pair in three "
+          f"types at widths up to 256)")
     check(fk.bwd_variant(torch.bfloat16, 256, 256) == "wgmma",
           "the Dh-256 backward does not take wgmma in bf16")
     dev = "cuda"
@@ -3850,9 +4097,12 @@ def host_gate(torch, cfg, params, mb):
 def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
                 spread: bool = False, gate_dtype=None, seq: int = TRAIN_SEQ,
                 batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
-                on_host: bool = False):
+                on_host: bool = False, reduced: bool = False):
     """(h) ``cut`` (a ``train_cut``) trained on the card at full width
-    through ``launch.train.setup``, with the traffic ``seq``, ``batch``,
+    (with ``reduced``, at the launcher's default reduced config, its
+    first step's loss and gradient norm then held to the port's CPU step
+    on the same weights and batch within ``REDUCED_LOSS_RTOL`` and
+    ``REDUCED_GNORM_RTOL``, and no device breakdown) through ``launch.train.setup``, with the traffic ``seq``, ``batch``,
     ``micro`` (sequence length, global batch, microbatches) and the
     family's extra inputs (``launch.train._extra_inputs``, as ``train``
     makes them): a gate on one microbatch's gradients, kernels against
@@ -3875,7 +4125,9 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
     an MTP block (no checkpoint), the scan's forward 2 (``chunked``) and
     its backward 1 per recurrent layer, the sLSTM's forward 2
     (``cluster``) and its backward 1 per sLSTM layer; dense
-    cross-attentions and encoders none.  Returns its launches, launches
+    cross-attentions and encoders none; flash's forward and backward in
+    the variants ``flash_variant`` and ``bwd_variant`` name for the
+    model's bf16 head dims.  Returns its launches, launches
     by variant and step stats."""
     import functools
 
@@ -3885,19 +4137,21 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
     import repro_torch.models.rglru as RG
     import repro_torch.models.xlstm as XL
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
     from repro_torch.launch.train import _extra_inputs, setup
     from repro_torch.models import build
     from repro_torch.optim import adamw
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.train.step import (TrainConfig, make_loss_fn,
                                         value_and_grad)
 
     arch, fields = cut
+    ph = "(j)" if reduced else "(h)"      # the phase the prints name
     t0 = time.perf_counter()
-    run = setup(arch, reduced=False, cut=fields, seq_len=seq,
+    run = setup(arch, reduced=reduced, cut=fields, seq_len=seq,
                 global_batch=batch, microbatches=micro, device="cuda")
     cfg, bundle, params = run.cfg, run.bundle, run.params
     n_params = sum(p.numel() for p in tree_leaves(params))
@@ -3928,15 +4182,20 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
         (n_cross, "cross-attention"),
         (n_moe, "moe feed-forward"),
         (n_mtp, "MTP block")) if n)
-    print(f"(h) {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/"
+    print(f"{ph} {cfg.name} d_model {cfg.d_model}, {cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
           f"{L} of {full} layers ({kinds}): "
           f"{n_params / 1e9:.3f} B float32 parameters "
           f"({4 * n_params / 1e9:.2f} GB; {16 * n_params / 1e9:.1f} GB with "
           f"gradients and two moments), setup {time.perf_counter() - t0:.1f}"
           f" s")
-    # the decoder's self-attention reaches flash from FLASH_MIN_T tokens
+    # the decoder's self-attention reaches flash from FLASH_MIN_T tokens,
+    # in the variants its bf16 head dims take (MLA's RoPE part joined)
     n_flash, m_flash = (n_att, n_mtp) if seq >= LY.FLASH_MIN_T else (0, 0)
+    dims = ((cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v) if cfg.mla
+            else (cfg.head_dim, cfg.head_dim))
+    fwd_v = fk.flash_variant(torch.bfloat16, *dims)
+    bwd_v = fk.bwd_variant(torch.bfloat16, *dims)
     extras = _extra_inputs(cfg, batch, seq, np.random.default_rng(123),
                            "cuda")
 
@@ -3999,11 +4258,12 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
     want = per_microbatch(1)
     check({k: got[k] for k in want} == want
           and sum(got.values()) == sum(want.values())
-          and variants["flash_attn_bwd_hd"]["wgmma"] == want[
+          and variants["flash_attn_bwd_hd"][fk.bwd_variant(
+              getattr(torch, gate_dtype or "bfloat16"), *dims)] == want[
               "flash_attn_bwd_hd"]
           and variants["rglru_scan"]["chunked"] == want["rglru_scan"]
           and variants["slstm_scan"]["cluster"] == want["slstm_scan"],
-          f"(h) {cfg.name}: one microbatch launched {got} {variants}, want "
+          f"{ph} {cfg.name}: one microbatch launched {got} {variants}, want "
           f"{want}")
     gate_peak = torch.cuda.max_memory_allocated()
 
@@ -4026,11 +4286,11 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
     n = 0
     for name, a in named_leaves(g_k):
         check(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0,
-              f"(h) {cfg.name}: the gradient of {name} is not finite or "
+              f"{ph} {cfg.name}: the gradient of {name} is not finite or "
               f"is zero")
         n += 1
     if on_host:
-        print(f"(h) {cfg.name} one microbatch ({seq} tokens x "
+        print(f"{ph} {cfg.name} one microbatch ({seq} tokens x "
               f"{batch // micro}, bfloat16 compute): loss "
               f"{float(loss_k):.6f}; {n} leaves finite and non-zero; "
               f"launches {got}; {t_kernel:.2f} s (host clock); "
@@ -4043,10 +4303,10 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
         loss_p, _, g_p = plain_grads()
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
-        check(read_launches() == got, f"(h) {cfg.name}: the plain versions "
+        check(read_launches() == got, f"{ph} {cfg.name}: the plain versions "
               f"launched a kernel")
         worst, leaf = worst_leaf(g_k, g_p)
-        print(f"(h) {cfg.name} one microbatch ({seq} tokens x "
+        print(f"{ph} {cfg.name} one microbatch ({seq} tokens x "
               f"{batch // micro}, {gate_dtype or 'bfloat16'} compute): loss "
               f"kernels {float(loss_k):.6f}, plain {float(loss_p):.6f}; {n} "
               f"leaves finite and non-zero; worst fro_rel of a leaf's "
@@ -4065,17 +4325,17 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
             moe_routing(torch, cfg, taps, ("kernels", "plain"))
             _, _, g_q = plain_grads(pin=True)
             worst, leaf = worst_leaf(g_k, g_q)
-            print(f"(h) {cfg.name} the plain versions on the kernels' "
+            print(f"{ph} {cfg.name} the plain versions on the kernels' "
                   f"routing: worst fro_rel of a leaf's gradient {worst:.3e} "
                   f"({leaf}), bound {tol:g}")
             del g_q
-        check(worst <= tol, f"(h) {cfg.name}: kernel gradients differ from "
+        check(worst <= tol, f"{ph} {cfg.name}: kernel gradients differ from "
               f"the plain versions': {worst} at {leaf}")
         del g_k
         if spread or n_moe:
             _, _, g_s = plain_grads(block_q=256, block_kv=256)
             floor, floor_leaf = worst_leaf(g_s, g_p)
-            print(f"(h) {cfg.name} the plain path's own spread (256 x 256 "
+            print(f"{ph} {cfg.name} the plain path's own spread (256 x 256 "
                   f"attention blocks against 512 x 1024): worst fro_rel "
                   f"{floor:.3e} ({floor_leaf}); the kernels' "
                   f"{against_spread:.3e} is "
@@ -4083,7 +4343,7 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
             if n_moe:
                 moe_routing(torch, cfg, [taps[1], taps[-1]],
                             ("plain", "256 x 256"))
-            check(against_spread <= 2 * floor, f"(h) {cfg.name}: kernel "
+            check(against_spread <= 2 * floor, f"{ph} {cfg.name}: kernel "
                   f"gradients part from the plain path by more than twice "
                   f"its own spread")
             del g_s
@@ -4096,6 +4356,9 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
 
     # -- the steps ---------------------------------------------------------
     step_fn = run.step_fn
+    # the first step's weights, for the CPU step that holds its loss
+    params0 = tree_map(lambda t: t.detach().cpu(), params) if reduced \
+        else None
     state = adamw.init_opt_state(adamw.AdamWConfig(
         lr=3e-3, warmup_steps=20, total_steps=1000, moment_dtype="fp32"),
         params)                                  # as launch.train.setup
@@ -4110,32 +4373,63 @@ def train_phase(torch, cut, steps: int, tol: float = TRAIN_GRAD_TOL,
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(m["loss"]))
+        if i == 0:
+            norm0 = float(m["grad_norm"])
     launches, variants = read_launches(), read_variants()
     peak = torch.cuda.max_memory_allocated()
     steady = sum(ms[1:]) / len(ms[1:])
-    print(f"(h) {cfg.name} {steps} steps of {batch} x {seq} tokens, "
+    print(f"{ph} {cfg.name} {steps} steps of {batch} x {seq} tokens, "
           f"{micro} microbatches: losses {[round(x, 4) for x in losses]}; "
           f"ms per step {[round(x, 3) for x in ms]} (host clock after "
           f"synchronize), steps 2-{steps} mean {steady:.3f} ms, "
           f"{batch * seq / steady * 1e3:.1f} tokens/s; max_memory_allocated "
           f"{peak / 1e9:.3f} GB; launches {launches}, by variant {variants}")
-    check(all(np.isfinite(losses)), f"(h) {cfg.name}: a loss is not finite: "
+    check(all(np.isfinite(losses)), f"{ph} {cfg.name}: a loss is not finite: "
           f"{losses}")
     want = per_microbatch(micro * steps)
     check({k: launches[k] for k in want} == want
-          and variants["flash_attn_hd"]["wgmma"] == want["flash_attn_hd"]
-          and variants["flash_attn_bwd_hd"]["wgmma"]
+          and variants["flash_attn_hd"][fwd_v] == want["flash_attn_hd"]
+          and variants["flash_attn_bwd_hd"][bwd_v]
           == want["flash_attn_bwd_hd"]
           and variants["rglru_scan"]["chunked"] == want["rglru_scan"]
           and variants["slstm_scan"]["cluster"] == want["slstm_scan"],
-          f"(h) {cfg.name}: launched {launches} {variants}, want {want}")
+          f"{ph} {cfg.name}: launched {launches} {variants}, want {want}")
     check(sum(launches.values()) == sum(want.values()),
-          f"(h) {cfg.name}: training launched another kernel: {launches}")
-    check(int(state.step) == steps, "(h) the optimizer step count")
-    device_breakdown(torch, f"(h) {cfg.name} train step {steps + 1}",
-                     lambda: step_fn(params, state, batches[steps]), top=8)
+          f"{ph} {cfg.name}: training launched another kernel: {launches}")
+    check(int(state.step) == steps, f"{ph} the optimizer step count")
     stats = dict(ms=ms, losses=losses, tokens_per_s=batch * seq
                  / steady * 1e3, peak_gb=peak / 1e9, gate_worst=worst)
+    if reduced:
+        # the same first step on the host: the port's CPU path (its
+        # plain versions) on the card's first weights and batch
+        cpu = setup(arch, reduced=True, cut=fields, seq_len=seq,
+                    global_batch=batch, microbatches=micro, device="cpu")
+        b0 = {k: torch.from_numpy(v)
+              for k, v in cpu.pipeline.batch_at(0).items()}
+        b0.update(_extra_inputs(cfg, batch, seq, np.random.default_rng(123),
+                                "cpu"))
+        _, _, m = cpu.step_fn(params0, cpu.opt_state, b0)
+        host, host_norm = float(m["loss"]), float(m["grad_norm"])
+        rel = abs(losses[0] - host) / abs(host)
+        rel_norm = abs(norm0 - host_norm) / abs(host_norm)
+        print(f"{ph} {cfg.name} first step: card loss {losses[0]:.6f}, "
+              f"gradient norm {norm0:.6f}; the port's CPU step on the same "
+              f"weights and batch {host:.6f}, {host_norm:.6f}: {rel:.3e} "
+              f"and {rel_norm:.3e} apart, bounds {REDUCED_LOSS_RTOL:g} and "
+              f"{REDUCED_GNORM_RTOL:g}")
+        check(rel <= REDUCED_LOSS_RTOL, f"{ph} {cfg.name}: the card's first "
+              f"loss {losses[0]} parts from the CPU's {host} by {rel}")
+        # xlstm's bf16 gradients are not reproducible at init (its gate
+        # is float32, XLSTM_GATE_DTYPE): its norm is printed, not held
+        check(rel_norm <= REDUCED_GNORM_RTOL or cfg.family == "ssm",
+              f"{ph} {cfg.name}: the card's first gradient norm {norm0} "
+              f"parts from the CPU's {host_norm} by {rel_norm}")
+        stats["cpu_loss_rel"], stats["cpu_grad_norm_rel"] = rel, rel_norm
+        del cpu, params0
+    else:
+        device_breakdown(torch, f"{ph} {cfg.name} train step {steps + 1}",
+                         lambda: step_fn(params, state, batches[steps]),
+                         top=8)
     del run, bundle, gate_bundle, params, state, batches, step_fn, extras
     torch.cuda.empty_cache()
     return launches, variants, stats
@@ -4234,6 +4528,35 @@ def host_models(out_path: str) -> None:
         json.dump(out, f)
 
 
+def host_dryrun(out_dir: str) -> None:
+    """(i)'s second host process: the dry-run's production cells
+    (``DRYRUN_CELLS``) through ``launch.dryrun.main``, each writing its
+    record, then the reduced cells (``DRYRUN_REDUCED_CELLS``) through
+    ``lower_cell``, each record written to ``out_dir`` as
+    ``{arch}__{shape}__reduced.json`` (status "error" and the error
+    where a cell raises)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import lower_cell, main
+
+    for arch, shape in DRYRUN_CELLS:
+        main(["--arch", arch, "--shape", shape, "--mesh", "single",
+              "--force"])
+    for arch, shape in DRYRUN_REDUCED_CELLS:
+        t0 = time.perf_counter()
+        try:
+            rec = lower_cell(arch, shape, False, verbose=False,
+                             cfg=get_config(arch).reduced(),
+                             global_batch=32, seq_len=64)
+        except Exception as e:
+            rec = {"arch": arch, "shape": shape, "status": "error",
+                   "error": repr(e)[-2000:]}
+        rec["seconds"] = time.perf_counter() - t0
+        print(f"reduced cell {arch} {shape}: {rec['status']} "
+              f"{rec['seconds']:.1f} s", flush=True)
+        with open(Path(out_dir) / f"{arch}__{shape}__reduced.json", "w") as f:
+            json.dump(rec, f, default=str)
+
+
 def start_host_jobs() -> dict:
     """(i)'s two host processes, started before every card phase so that
     they run beside them, without the card: ``host_models`` and the
@@ -4248,14 +4571,10 @@ def start_host_jobs() -> dict:
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src")] + [p for p in os.environ.get(
                        "PYTHONPATH", "").split(os.pathsep) if p]))
-    cells = "; ".join(
-        f"main(['--arch', '{arch}', '--shape', '{shape}', '--mesh', "
-        f"'single', '--force'])" for arch, shape in DRYRUN_CELLS)
-    cmds = {"models": [sys.executable, str(Path(__file__).resolve()),
-                       "--host-models", str(out / "host_models.json")],
-            "dryrun": [sys.executable, "-c",
-                       "from repro_torch.launch.dryrun import main; "
-                       + cells]}
+    me = str(Path(__file__).resolve())
+    cmds = {"models": [sys.executable, me, "--host-models",
+                       str(out / "host_models.json")],
+            "dryrun": [sys.executable, me, "--host-dryrun", str(out)]}
     jobs = {}
     for name, cmd in cmds.items():
         log = open(out / f"{name}.log", "w")
@@ -4360,6 +4679,20 @@ def cost_model_phase(torch, measured: dict, jobs) -> None:
               f"bytes; traced in {rec.get('trace_s')} s")
         check(rec["status"] == "ok", f"(i) the dry-run cell {arch} {shape} "
               f"failed: {rec.get('error')}")
+    # the reduced cells whose models once asked this torch for ops it
+    # cannot place (roll, a shard turned partial, flip)
+    for arch, shape in DRYRUN_REDUCED_CELLS:
+        with open(ROOT / "build" / "cost_model"
+                  / f"{arch}__{shape}__reduced.json") as f:
+            rec = json.load(f)
+        rl = rec.get("roofline", {})
+        print(f"(i) dry-run {arch} {shape}, reduced config at 32 x 64 "
+              f"tokens, on the (16, 16) mesh under torch "
+              f"{torch.__version__}: status {rec['status']}, collectives "
+              f"{rl.get('coll_by_kind')} ({rec.get('collective_ops')} ops); "
+              f"{rec['seconds']:.1f} s")
+        check(rec["status"] == "ok", f"(i) the reduced dry-run cell {arch} "
+              f"{shape} failed: {rec.get('error')}")
     print(f"(i) done in {time.perf_counter() - t0:.1f} s on the critical "
           f"path (host counts: "
           f"{sum(m['seconds'] for m in models.values()):.1f} s beside "
@@ -4613,6 +4946,13 @@ def main() -> None:
           f"launched a kernel: {wht_launches}")
     mark("llama-3.2-vision-11b's, qwen3-moe-30b-a3b's and whisper-base's "
          "training")
+    # (j) after every earlier phase, so that each runs as it did before:
+    # the backward's ffma pair at the widths wgmma does not take, then
+    # the training launcher's default, reduced configs at 1024 tokens
+    torch.cuda.empty_cache()
+    flash_bwd_ffma = flash_bwd_ffma_phase(torch)
+    reduced = reduced_launcher_phase(torch)
+    mark("(j) the ffma backward and the reduced launcher at 1024 tokens")
     torch.cuda.empty_cache()
     cost_model_phase(torch, measured, jobs)
     mark("(i) the cost model")
@@ -4665,8 +5005,9 @@ def main() -> None:
         + vl_variants["flash_attn_hd"][k] + wh_variants["flash_attn_hd"][k]
         + ds_variants["flash_attn_hd"][k] + hd_variants[k]
         for k, n in serve_variants["flash_attn_hd"].items()}
-    # no served path launches mma_sync; every Dh 192 / Dv 128 launch is
-    # wgmma: deepseek-v3's prefills and the HDArray kernel's apply there
+    # no full-size path launches mma_sync; every Dh 192 / Dv 128 launch
+    # is wgmma: deepseek-v3's prefills and the HDArray kernel's apply
+    # there
     check(flash["launches_by_variant"]["mma_sync"] == 0,
           f"a path launched flash mma_sync: {flash['launches_by_variant']}")
     mla = flash["wgmma_mla"]
@@ -4744,9 +5085,43 @@ def main() -> None:
                                      xlt_launches["slstm_scan_bwd"]}
     slstm_bwd["launches"] = xlt_launches["slstm_scan_bwd"]
     slstm_bwd["ptxas"] = {k: r for k, r in ptxas["slstm_scan"] if "bwd" in k}
+    # (j) the reduced launcher's training (head dims 16 and 24 / 16):
+    # flash's mma_sync forward and the backward's ffma pair, the scan's
+    # and the sLSTM's kernels at the reduced widths
+    for arch, (n, by, _) in reduced.items():
+        path = f"(j) {arch} reduced train"
+        for entry, key in ((flash, "flash_attn_hd"),
+                           (flash_bwd, "flash_attn_bwd_hd"),
+                           (scan, "rglru_scan"), (scan_bwd, "rglru_scan_bwd"),
+                           (slstm, "slstm_scan"),
+                           (slstm_bwd, "slstm_scan_bwd")):
+            if n[key]:
+                entry["launches_by_path"][path] = n[key]
+                entry["launches"] += n[key]
+        for entry, key in ((flash, "flash_attn_hd"),
+                           (flash_bwd, "flash_attn_bwd_hd"),
+                           (scan, "rglru_scan"), (slstm, "slstm_scan")):
+            for k, x in by[key].items():
+                entry["launches_by_variant"][k] += x
+    flash_bwd_ffma["launches_by_path"] = {
+        f"(j) {arch} reduced train": by["flash_attn_bwd_hd"]["ffma"]
+        for arch, (_, by, _) in reduced.items()
+        if by["flash_attn_bwd_hd"]["ffma"]}
+    flash_bwd_ffma["launches"] = sum(
+        flash_bwd_ffma["launches_by_path"].values())
+    check(flash_bwd_ffma["launches"] ==
+          flash_bwd["launches_by_variant"]["ffma"], "a path outside (j) "
+          "launched the backward's ffma pair")
+    # the forward at (j)'s shapes, held to its plain version in (j)
+    flash["at_ffma_shapes"] = flash_bwd_ffma.pop("forward")
+    flash_bwd_ffma["first_loss_vs_cpu"] = {
+        arch: st["cpu_loss_rel"] for arch, (_, _, st) in reduced.items()}
+    flash_bwd_ffma["first_grad_norm_vs_cpu"] = {
+        arch: st["cpu_grad_norm_rel"] for arch, (_, _, st) in reduced.items()}
     print(json.dumps({"kernels": [jac, gemm, flash, flash_bwd,
-                                  flash_bwd_256, flash_bwd_mla, scan,
-                                  scan_bwd, slstm, slstm_bwd]}))
+                                  flash_bwd_256, flash_bwd_mla,
+                                  flash_bwd_ffma, scan, scan_bwd, slstm,
+                                  slstm_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4756,5 +5131,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--host-models"] and len(sys.argv) == 3:
         host_models(sys.argv[2])
+    elif sys.argv[1:2] == ["--host-dryrun"] and len(sys.argv) == 3:
+        host_dryrun(sys.argv[2])
     else:
         main()

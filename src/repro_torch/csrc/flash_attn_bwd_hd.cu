@@ -24,9 +24,11 @@
 // tensor-core peak.  Its bytes (q, k, v, o, dO read, dq, dk, dv written)
 // need far less at training lengths.
 //
-// Two variants, chosen by the operands' type (kernels/flash_attention/
-// kernel.py: bwd_variant).  Neither uses atomics: every sum has one
-// fixed order, so each is bit-deterministic across launches.
+// Two variants, chosen by the operands' type and head dims
+// (kernels/flash_attention/kernel.py: bwd_variant), between them every
+// type and pair of head dims the forward takes.  Neither uses atomics:
+// every sum has one fixed order, so each is bit-deterministic across
+// launches.
 //
 // * wgmma (bf16 and fp16, D = Dv = 64, 128 or 256, or D 192 / Dv 128:
 //   every training launch).
@@ -103,22 +105,33 @@
 //   bound's 2 (3 D + 2 Dv) = 1664.  With G = 1 there is no GQA sum.
 //   Times at deepseek-v3's training microbatch (128 heads, 4096 tokens,
 //   causal) against the bound, and the first design's, are in PERF.md.
-// * ffma (float32): FlashAttention-2's split into three launches, as
-//   plain FFMA loops, not TF32: (a) delta, one warp per (b, t, h) row;
-//   (b) dK, dV, a block per (64 keys, 32 at D 256; kv head, batch) that loops
-//   over the G query heads of its group and the query tiles whose qpos
-//   range can see the block; (c) dQ, a block per (16 query rows, query
-//   head, batch) over the key tiles its rows can see, longest first.
+// * ffma (float32 at every head dim; bf16 and fp16 at every pair of head
+//   dims wgmma does not take: Dh and Dv multiples of 8 up to 256, Dh !=
+//   Dv allowed, such as the reduced configs' Dh 16 and MLA's 24 / 16):
+//   FlashAttention-2's split into three launches, as plain FFMA loops on
+//   operands widened to float32, not TF32: (a) delta, one warp per (b,
+//   t, h) row; (b) dK, dV, a block per (64 keys, 32 at 256; query head,
+//   batch) over the query tiles whose qpos range can see the block,
+//   with G > 1 writing the head's float32 partials that wgmma's GQA sum
+//   (e) then sums; (c) dQ, a block per (16 query rows, query head,
+//   batch) over the key tiles its rows can see, longest first.  Shared
+//   memory and registers are sized for max(D, Dv) rounded up to 64, 128
+//   or 256, the columns past D or Dv zeros.
+//   A simple design that is right, not a fast one: per visible pair and
+//   query head it does 2 (5 D + 3 Dv) flops (S and dP twice, once in each
+//   pass) on the FP32 units (67 TFLOP/s), against the bound's 2 (3 D +
+//   2 Dv) at the tensor cores' 989 in 16-bit types.
 // wgmma rounds p and dz to the operand type for its products, as
 // FlashAttention-2 does (the reference keeps them float32; the tests
-// state the tolerance).  Head dims: D = Dv in {64, 128, 256}, and D 192
-// / Dv 128 in 16-bit types (no ffma instantiation there).
-// Times against the bound are in PERF.md.
+// state the tolerance); ffma keeps them float32 and rounds dq, dk and dv
+// once.  Times against the bound are in PERF.md.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -262,18 +275,39 @@ __device__ __forceinline__ void key_range(const Params& p, int lo, int hi,
   *key_begin = first > 0 ? first : 0;
 }
 
-// ---- float32: FFMA ---------------------------------------------------------
-// (b): BK keys a block (64, or 32 at D = 256, so that a thread's dk and
-// dv columns stay 2 x 64 registers), query tiles of 16.  Thread t owns
-// key row t % BK and the columns (t / BK) * COLS .. + COLS of its dk and
-// dv rows.
-template <int D>
-constexpr int kF32Keys = D == 256 ? 32 : 64;
+// ---- the ffma pair: every type and head dims ------------------------------
+// Plain FFMA loops on float32 in shared memory, not TF32 or the tensor
+// cores: 16-bit operands are widened as they are loaded, every sum is
+// float32, and dq, dk and dv are rounded to the operand type once, as
+// they are stored.  DM, the width of the shared-memory rows and of the
+// register accumulators, is max(D, Dv) rounded up to 64, 128 or 256;
+// columns of q and k at D or past, and of v and dO at Dv or past, load
+// as zeros, so they add nothing to a sum, and a store writes only the
+// columns below D (dq, dk) or Dv (dv), as the forward's ffma kernel
+// masks `d < p.Dv`.  The dot products run to D and to Dv alone.
+template <int DM>
+constexpr int kFfmaKeys = DM == 256 ? 32 : 64;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
-  constexpr int BK = kF32Keys<D>, BQ = 16, LDK = D + 1, LDP = BQ + 1;
-  constexpr int COLS = D / (kThreads / BK);
+__device__ __forceinline__ void store_as(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_as(__half* dst, float x) {
+  *dst = __float2half(x);
+}
+
+// (b): BK keys a block (64, or 32 at DM = 256, so that a thread's dk and
+// dv columns stay 2 x 64 registers), query tiles of 16, one query head
+// a block.  With G > 1 each block writes its head's float32 partials of
+// dk and dv to scratch (2, B, S, Hq, max(D, Dv)), as wgmma's passes do,
+// and wgmma's gqa_sum_kernel sums a kv head's G partials in head order
+// and rounds them; with G = 1 the block writes dk and dv.  Thread t
+// owns key row t % BK and the columns (t / BK) * COLS .. + COLS of its
+// dk and dv rows.
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads) dkdv_ffma_kernel(const Params p) {
+  constexpr int BK = kFfmaKeys<DM>, BQ = 16, LDK = DM + 1, LDP = BQ + 1;
+  constexpr int COLS = DM / (kThreads / BK);
   extern __shared__ float smf[];
   float* Ks = smf;                         // [BK][LDK]
   float* Vs = Ks + BK * LDK;               // [BK][LDK]
@@ -285,17 +319,19 @@ __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
   __shared__ float lse_s[BQ], delta_s[BQ];
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z, hk = blockIdx.y;
-  const int G = p.Hq / p.Hkv;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int hk = h / (p.Hq / p.Hkv);
   const long long kv0 = (long long)blockIdx.x * BK;
   const long long kv_last = (kv0 + BK < p.S ? kv0 + BK : (long long)p.S) - 1;
-  const float* kb = (const float*)p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vb = (const float*)p.v + b * p.v_sb + hk * p.v_sh;
-  for (int i = tid; i < BK * D; i += kThreads) {
-    const int r = i / D, c = i % D;
+  const T* kb = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
+  const T* vb = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
+  const T* qb = (const T*)p.q + b * p.q_sb + h * p.q_sh;
+  const T* db = (const T*)p.dout + b * p.d_sb + h * p.d_sh;
+  for (int i = tid; i < BK * DM; i += kThreads) {
+    const int r = i / DM, c = i % DM;
     const bool in = kv0 + r < p.S;
-    Ks[r * LDK + c] = in ? kb[(kv0 + r) * p.k_ss + c] : 0.f;
-    Vs[r * LDK + c] = in ? vb[(kv0 + r) * p.v_ss + c] : 0.f;
+    Ks[r * LDK + c] = in && c < p.D ? to_f(kb[(kv0 + r) * p.k_ss + c]) : 0.f;
+    Vs[r * LDK + c] = in && c < p.Dv ? to_f(vb[(kv0 + r) * p.v_ss + c]) : 0.f;
   }
   const int r = tid % BK, c0 = (tid / BK) * COLS;
   const long long key = kv0 + r;
@@ -307,65 +343,75 @@ __global__ void __launch_bounds__(kThreads) dkdv_f32_kernel(const Params p) {
     int lo, hi;
     warp_qpos_range(p, b, t0, BQ, lo, hi);
     if (!tile_sees(p, lo, hi, kv0, kv_last)) continue;
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = hk * G + gi;
-      __syncthreads();
-      const float* qb = (const float*)p.q + b * p.q_sb + h * p.q_sh;
-      const float* db = (const float*)p.dout + b * p.d_sb + h * p.d_sh;
-      for (int i = tid; i < BQ * D; i += kThreads) {
-        const int qr = i / D, c = i % D;
-        const bool in = t0 + qr < p.T;
-        Qs[qr * LDK + c] = in ? qb[(long long)(t0 + qr) * p.q_st + c] : 0.f;
-        dOs[qr * LDK + c] = in ? db[(long long)(t0 + qr) * p.d_st + c] : 0.f;
-      }
-      if (tid < BQ) {
-        const int t = t0 + tid;
-        const bool in = t < p.T;
-        qpos_s[tid] = in ? p.qpos[b * p.p_sb + t * p.p_st] : -1;
-        lse_s[tid] = in ? p.lse[lse_index(p, b, h, t)] : 0.f;
-        delta_s[tid] = in ? p.delta[lse_index(p, b, h, t)] : 0.f;
-      }
-      __syncthreads();
-      // p^T and dz^T at (r, q) for q = tid / BK + (kThreads / BK) i
-      for (int qc = tid / BK; qc < BQ; qc += kThreads / BK) {
-        float s = 0.f, dp = 0.f;
-        for (int c = 0; c < D; ++c) {
-          s = fmaf(Ks[r * LDK + c], Qs[qc * LDK + c], s);
-          dp = fmaf(Vs[r * LDK + c], dOs[qc * LDK + c], dp);
-        }
-        float f;
-        const float z = logit(s, p, f);
-        const float pe = visible(key, qpos_s[qc], p)
-                             ? expf(z - lse_s[qc]) : 0.f;
-        Ps[r * LDP + qc] = pe;
-        dZs[r * LDP + qc] = pe * (dp - delta_s[qc]) * f * p.scale;
-      }
-      __syncthreads();
-      for (int qc = 0; qc < BQ; ++qc) {
-        const float pe = Ps[r * LDP + qc], dz = dZs[r * LDP + qc];
+    __syncthreads();
+    for (int i = tid; i < BQ * DM; i += kThreads) {
+      const int qr = i / DM, c = i % DM;
+      const bool in = t0 + qr < p.T;
+      const long long t = t0 + qr;
+      Qs[qr * LDK + c] = in && c < p.D ? to_f(qb[t * p.q_st + c]) : 0.f;
+      dOs[qr * LDK + c] = in && c < p.Dv ? to_f(db[t * p.d_st + c]) : 0.f;
+    }
+    if (tid < BQ) {
+      const int t = t0 + tid;
+      const bool in = t < p.T;
+      qpos_s[tid] = in ? p.qpos[b * p.p_sb + t * p.p_st] : -1;
+      lse_s[tid] = in ? p.lse[lse_index(p, b, h, t)] : 0.f;
+      delta_s[tid] = in ? p.delta[lse_index(p, b, h, t)] : 0.f;
+    }
+    __syncthreads();
+    // p^T and dz^T at (r, q) for q = tid / BK + (kThreads / BK) i
+    for (int qc = tid / BK; qc < BQ; qc += kThreads / BK) {
+      float s = 0.f, dp = 0.f;
+      for (int c = 0; c < p.D; ++c)
+        s = fmaf(Ks[r * LDK + c], Qs[qc * LDK + c], s);
+      for (int c = 0; c < p.Dv; ++c)
+        dp = fmaf(Vs[r * LDK + c], dOs[qc * LDK + c], dp);
+      float f;
+      const float z = logit(s, p, f);
+      const float pe = visible(key, qpos_s[qc], p)
+                           ? expf(z - lse_s[qc]) : 0.f;
+      Ps[r * LDP + qc] = pe;
+      dZs[r * LDP + qc] = pe * (dp - delta_s[qc]) * f * p.scale;
+    }
+    __syncthreads();
+    for (int qc = 0; qc < BQ; ++qc) {
+      const float pe = Ps[r * LDP + qc], dz = dZs[r * LDP + qc];
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          dv[j] = fmaf(pe, dOs[qc * LDK + c0 + j], dv[j]);
-          dk[j] = fmaf(dz, Qs[qc * LDK + c0 + j], dk[j]);
-        }
+      for (int j = 0; j < COLS; ++j) {
+        dv[j] = fmaf(pe, dOs[qc * LDK + c0 + j], dv[j]);
+        dk[j] = fmaf(dz, Qs[qc * LDK + c0 + j], dk[j]);
       }
     }
   }
-  if (key < p.S) {
-    const long long off = (((long long)b * p.S + key) * p.Hkv + hk) * D + c0;
+  if (key >= p.S) return;
+  if (p.part != nullptr) {               // this head's float32 partials
+    const int Dp = p.D > p.Dv ? p.D : p.Dv;
+    float* pk = p.part + (((long long)b * p.S + key) * p.Hq + h) * Dp;
+    float* pv = pk + (long long)p.B * p.S * p.Hq * Dp;
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
-      ((float*)p.dk)[off + j] = dk[j];
-      ((float*)p.dv)[off + j] = dv[j];
+      if (c0 + j < p.D) pk[c0 + j] = dk[j];
+      if (c0 + j < p.Dv) pv[c0 + j] = dv[j];
     }
+    return;
+  }
+  const long long row = ((long long)b * p.S + key) * p.Hkv + hk;
+  T* dkr = (T*)p.dk + row * p.D;
+  T* dvr = (T*)p.dv + row * p.Dv;
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    if (c0 + j < p.D) store_as(dkr + c0 + j, dk[j]);
+    if (c0 + j < p.Dv) store_as(dvr + c0 + j, dv[j]);
   }
 }
 
 // (c): 16 query rows a block, key tiles of 32.  Thread t owns query row
-// t % 16 and the columns t / 16 + 8 j of its dq row.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
-  constexpr int BQ = 16, BK = 32, LDK = D + 1, LDZ = BK + 1, NC = D / 8;
+// t % 16 and the columns t / 16 + 8 j of its dq row.  One block an SM
+// at least, so that ptxas need not hold the 16-bit types' DM 64
+// instance to 64 registers (it spilled 4 bytes there).
+template <typename T, int DM>
+__global__ void __launch_bounds__(kThreads, 1) dq_ffma_kernel(const Params p) {
+  constexpr int BQ = 16, BK = 32, LDK = DM + 1, LDZ = BK + 1, NC = DM / 8;
   extern __shared__ float smf[];
   float* Qs = smf;                         // [BQ][LDK]
   float* dOs = Qs + BQ * LDK;              // [BQ][LDK]
@@ -379,15 +425,16 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
   const int b = blockIdx.z, h = blockIdx.y;
   const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest first
   const int hk = h / (p.Hq / p.Hkv);
-  const float* qb = (const float*)p.q + b * p.q_sb + h * p.q_sh;
-  const float* db = (const float*)p.dout + b * p.d_sb + h * p.d_sh;
-  const float* kb = (const float*)p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vb = (const float*)p.v + b * p.v_sb + hk * p.v_sh;
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int qr = i / D, c = i % D;
+  const T* qb = (const T*)p.q + b * p.q_sb + h * p.q_sh;
+  const T* db = (const T*)p.dout + b * p.d_sb + h * p.d_sh;
+  const T* kb = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
+  const T* vb = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
+  for (int i = tid; i < BQ * DM; i += kThreads) {
+    const int qr = i / DM, c = i % DM;
     const bool in = t0 + qr < p.T;
-    Qs[qr * LDK + c] = in ? qb[(long long)(t0 + qr) * p.q_st + c] : 0.f;
-    dOs[qr * LDK + c] = in ? db[(long long)(t0 + qr) * p.d_st + c] : 0.f;
+    const long long t = t0 + qr;
+    Qs[qr * LDK + c] = in && c < p.D ? to_f(qb[t * p.q_st + c]) : 0.f;
+    dOs[qr * LDK + c] = in && c < p.Dv ? to_f(db[t * p.d_st + c]) : 0.f;
   }
   if (tid < BQ) {
     const int t = t0 + tid;
@@ -409,20 +456,22 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
   for (long long tile = key_begin / BK; tile < tile_end; ++tile) {
     const long long kv0 = tile * BK;
     __syncthreads();
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int kr = i / D, c = i % D;
+    for (int i = tid; i < BK * DM; i += kThreads) {
+      const int kr = i / DM, c = i % DM;
       const bool in = kv0 + kr < p.S;
-      Ks[kr * LDK + c] = in ? kb[(kv0 + kr) * p.k_ss + c] : 0.f;
-      Vs[kr * LDK + c] = in ? vb[(kv0 + kr) * p.v_ss + c] : 0.f;
+      Ks[kr * LDK + c] =
+          in && c < p.D ? to_f(kb[(kv0 + kr) * p.k_ss + c]) : 0.f;
+      Vs[kr * LDK + c] =
+          in && c < p.Dv ? to_f(vb[(kv0 + kr) * p.v_ss + c]) : 0.f;
     }
     __syncthreads();
     // dz at (r, kc) for kc = tid / 16 + 8 i
     for (int kc = cg; kc < BK; kc += kThreads / BQ) {
       float s = 0.f, dp = 0.f;
-      for (int c = 0; c < D; ++c) {
+      for (int c = 0; c < p.D; ++c)
         s = fmaf(Qs[r * LDK + c], Ks[kc * LDK + c], s);
+      for (int c = 0; c < p.Dv; ++c)
         dp = fmaf(dOs[r * LDK + c], Vs[kc * LDK + c], dp);
-      }
       float f;
       const float z = logit(s, p, f);
       const float pe = visible(kv0 + kc, qpos_s[r], p)
@@ -439,9 +488,10 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
   }
   const int t = t0 + r;
   if (t < p.T) {
-    float* out = (float*)p.dq + (((long long)b * p.T + t) * p.Hq + h) * D;
+    T* out = (T*)p.dq + (((long long)b * p.T + t) * p.Hq + h) * p.D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) out[cg + 8 * j] = dq[j];
+    for (int j = 0; j < NC; ++j)
+      if (cg + 8 * j < p.D) store_as(out + cg + 8 * j, dq[j]);
   }
 }
 
@@ -1449,7 +1499,8 @@ dkdv_roles_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // (e) dk and dv: the G float32 partials of each kv head, summed in head
 // order and rounded; four elements a thread.  A partial's rows are
-// max(D, Dv) floats apart
+// max(D, Dv) floats apart.  The ffma pair's partials too, float32
+// included
 template <typename T>
 __global__ void __launch_bounds__(256) gqa_sum_kernel(const Params p) {
   const long long rows = (long long)p.B * p.S * p.Hkv;
@@ -1475,8 +1526,11 @@ __global__ void __launch_bounds__(256) gqa_sum_kernel(const Params p) {
     acc.w += x.w;
   }
   T* dst = (T*)(which ? p.dv : p.dk) + e;
-  *reinterpret_cast<uint2*>(dst) =
-      make_uint2(Ops<T>::pack(acc.x, acc.y), Ops<T>::pack(acc.z, acc.w));
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float4*>(dst) = acc;
+  else
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(Ops<T>::pack(acc.x, acc.y), Ops<T>::pack(acc.z, acc.w));
 }
 
 }  // namespace wg
@@ -1491,21 +1545,39 @@ int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_f32(const Params& p, cudaStream_t s) {
-  constexpr int BK = kF32Keys<D>;
-  int e = launch(dkdv_f32_kernel<D>, dim3((p.S + BK - 1) / BK, p.Hkv, p.B),
-                 ((2 * BK + 2 * 16) * (D + 1) + 2 * BK * 17) * 4, p, s);
-  if (e != 0) return e;
-  return launch(dq_f32_kernel<D>, dim3((p.T + 15) / 16, p.Hq, p.B),
-                ((2 * 16 + 2 * 32) * (D + 1) + 16 * 33) * 4, p, s);
-}
-
 template <typename T>
 int launch_delta(const Params& p, cudaStream_t s) {
   const long long rows = (long long)p.B * p.T * p.Hq;
   delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+// the ffma pair's launches: delta, dK and dV, dQ, and with G > 1 the
+// GQA sum
+template <typename T, int DM>
+int launch_ffma(const Params& p, cudaStream_t s) {
+  constexpr int BK = kFfmaKeys<DM>;
+  int e = launch_delta<T>(p, s);
+  if (e != 0) return e;
+  e = launch(dkdv_ffma_kernel<T, DM>, dim3((p.S + BK - 1) / BK, p.Hq, p.B),
+             ((2 * BK + 2 * 16) * (DM + 1) + 2 * BK * 17) * 4, p, s);
+  if (e != 0) return e;
+  e = launch(dq_ffma_kernel<T, DM>, dim3((p.T + 15) / 16, p.Hq, p.B),
+             ((2 * 16 + 2 * 32) * (DM + 1) + 16 * 33) * 4, p, s);
+  if (e != 0 || p.part == nullptr) return e;
+  const long long sum_blocks =
+      ((long long)p.B * p.S * p.Hkv * (p.D + p.Dv) / 4 + 255) / 256;
+  if (sum_blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  wg::gqa_sum_kernel<T><<<(unsigned)sum_blocks, 256, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ffma_any(const Params& p, cudaStream_t s) {
+  const int dm = p.D > p.Dv ? p.D : p.Dv;
+  return dm <= 64    ? launch_ffma<T, 64>(p, s)
+         : dm <= 128 ? launch_ffma<T, 128>(p, s)
+                     : launch_ffma<T, 256>(p, s);
 }
 
 // one launch of a wgmma kernel of `threads` threads with `smem` bytes of
@@ -1611,23 +1683,25 @@ int launch_16(const Params& p, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 float32 (the ffma variant), 1 bfloat16 or 2 float16 (wgmma),
-// for q, k, v, o, dout, dq, dk and dv alike.  Head dims: Dh (q, k) = Dv
-// (v, o, dout) in {64, 128, 256}, or in a 16-bit type Dh 192 / Dv 128;
-// any other pair or dtype, or missing scratch, returns
-// cudaErrorInvalidValue and launches nothing.  strides: 17 element
+// dtype: 0 float32, 1 bfloat16 or 2 float16, for q, k, v, o, dout, dq,
+// dk and dv alike.  Head dims: Dh (q, k) and Dv (v, o, dout) multiples
+// of 8 up to 256, what the forward takes.  The wgmma variant takes the
+// 16-bit types at Dh = Dv in {64, 128, 256} and at Dh 192 / Dv 128; the
+// ffma pair every other type and pair.  Any other head dim or dtype, or
+// missing scratch, returns cudaErrorInvalidValue and launches nothing.
+// strides: 17 element
 // strides, (batch, position, head) of q, k, v, o and dout, then (batch,
 // position) of qpos (int32); every last dim is unit-stride.  lse (B, Hq,
 // T) float32 from the forward.  Scratch, allocated by the caller, with
 // n = 2 ceil(T / 128): delta float32, (B, Hq, T) for ffma, (B, Hq, n, 2,
 // 64) for wgmma; rows int32 (B, 64 n, 2) then (B, n, 4) for wgmma, else
-// null; part float32 (2, B, S, Hq, max(Dh, Dv)) for wgmma with Hq > Hkv,
-// else null.  dq (B, T, Hq, Dh), dk (B, S, Hkv, Dh) and dv (B, S, Hkv,
-// Dv) contiguous outputs.
+// null; part float32 (2, B, S, Hq, max(Dh, Dv)) for either variant with
+// Hq > Hkv, else null.  dq (B, T, Hq, Dh), dk (B, S, Hkv, Dh) and dv (B,
+// S, Hkv, Dv) contiguous outputs.
 // has_window = 0 means causal only.  The caller checks Hq % Hkv == 0,
 // 16-byte aligned rows for 16-bit types and grid limits; with B, T, S
 // or Hq zero nothing is launched (the caller's outputs are zeros).
-// Launches the dtype's kernels on `stream` and returns
+// Launches the variant's kernels on `stream` and returns
 // cudaGetLastError() after the first that fails, else 0, or a negative
 // code when a TMA tensor map could not be built (-1: no
 // cuTensorMapEncodeTiled in the driver; -1000 - r: it returned CUresult
@@ -1642,33 +1716,27 @@ extern "C" int flash_attn_bwd_hd(const void* q, const void* k, const void* v,
                                  float scale, float softcap, int has_window,
                                  long long window, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || Hq <= 0) return 0;
-  // D = Dv, or MLA's naive form: q and k 192 wide, v 128, 16-bit only
-  const bool mla = D == 192 && Dv == 128;
-  if (!mla) {
-    if ((D != 64 && D != 128 && D != 256) || Dv != D)
-      return (int)cudaErrorInvalidValue;
-  } else if (dtype == 0) {
+  if (D <= 0 || D > 256 || D % 8 != 0 || Dv <= 0 || Dv > 256 ||
+      Dv % 8 != 0 || dtype < 0 || dtype > 2 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  }
-  if (dtype < 0 || dtype > 2 || Hkv <= 0 ||
-      Hq % Hkv != 0 ||
-      (dtype != 0 && (rows == nullptr || (Hq > Hkv && part == nullptr))))
+  // MLA's naive form: q and k 192 wide, v 128
+  const bool mla = D == 192 && Dv == 128;
+  const bool wgmma_dims = D == Dv && (D == 64 || D == 128 || D == 256);
+  const bool wgmma = dtype != 0 && (wgmma_dims || mla);
+  if ((wgmma && rows == nullptr) || (Hq > Hkv && part == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, qpos, (const float*)lse, (float*)delta,
-           (int*)rows, dtype != 0 && Hq > Hkv ? (float*)part : nullptr,
+           (int*)rows, Hq > Hkv ? (float*)part : nullptr,
            dq, dk, dv, B, T, S, Hq, Hkv, D, Dv, (T + 127) / 128 * 2,
            strides[0], strides[1], strides[2], strides[3], strides[4],
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11], strides[12], strides[13], strides[14],
            strides[15], strides[16], scale, softcap, has_window, window};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const int e = launch_delta<float>(p, s);
-    if (e != 0) return e;
-    return D == 64    ? launch_f32<64>(p, s)
-           : D == 128 ? launch_f32<128>(p, s)
-                      : launch_f32<256>(p, s);
-  }
+  if (!wgmma)
+    return dtype == 0   ? launch_ffma_any<float>(p, s)
+           : dtype == 1 ? launch_ffma_any<__nv_bfloat16>(p, s)
+                        : launch_ffma_any<__half>(p, s);
   if (dtype == 1)
     return mla        ? launch_16<__nv_bfloat16, 192, 128>(p, s)
            : D == 64  ? launch_16<__nv_bfloat16, 64>(p, s)

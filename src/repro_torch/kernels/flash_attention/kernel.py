@@ -28,10 +28,14 @@ them in place (``q`` and ``k`` 128 wide, ``Dr`` 64); for any other
 split the wrapper concatenates them and launches the variant the
 joined head dims take.
 
-The backward has two, for ``Dh == Dv`` in {64, 128, 256} and for MLA's
-``Dh`` 192 / ``Dv`` 128: :func:`bwd_variant` picks ``"wgmma"``
-(warp-specialised, TMA-fed wgmma, every training launch) for bf16 and
-fp16 and ``"ffma"`` for float32 (``Dh == Dv`` only).  At Dh 64 and 128
+The backward has two, between them every type and head dims the
+forward takes: :func:`bwd_variant` picks ``"wgmma"`` (warp-specialised,
+TMA-fed wgmma) for bf16 and fp16 at ``Dh == Dv`` in {64, 128, 256} and
+at MLA's ``Dh`` 192 / ``Dv`` 128 (every full-size training launch), and
+``"ffma"`` (plain FFMA loops on operands widened to float32: delta, dK
+and dV, dQ, and with a GQA group the sum of its heads' partials) for
+float32 and for every other pair of 16-bit head dims, such as the
+reduced configs' Dh 16.  At Dh 64 and 128
 ``wgmma`` is five launches (a pre-pass, dV, dK, dQ, the GQA sum); at Dh
 256 and at 192 / 128 four, dK and dV in one pass whose two warpgroups
 split by role on the same 64 keys (S^T and P^T on one side, dP^T and
@@ -70,6 +74,20 @@ WGMMA_ROWS = 128                             # query rows per wgmma block
 _INT32_MAX = 2 ** 31 - 1
 
 
+def check_types(dtype: torch.dtype, Dh: int, Dv: int) -> None:
+    """Raises where the forward refuses these operand types or head
+    dims: TypeError for a dtype other than float32, bfloat16 and
+    float16, ValueError for a head dim that is not a multiple of 8 up
+    to 256."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_cuda takes float32, bfloat16 or "
+                        f"float16, got {dtype}")
+    for name, d in (("Dh", Dh), ("Dv", Dv)):
+        if not (0 < d <= 256 and d % 8 == 0):
+            raise ValueError(f"flash_attention_cuda takes head dims that "
+                             f"are multiples of 8 up to 256, got {name}={d}")
+
+
 def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
     """The kernel variant that computes attention for these operand
     types and head dims."""
@@ -81,20 +99,15 @@ def flash_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
 
 
 def bwd_variant(dtype: torch.dtype, Dh: int, Dv: int) -> str:
-    """The backward kernel's variant for these types and head dims;
-    raises ValueError for head dims it does not take."""
-    if (Dh, Dv) == BWD_MLA_DIMS:
-        if dtype == torch.float32:
-            raise ValueError("the flash backward kernel takes Dh 192 / Dv "
-                             "128 in bf16 and fp16 only: float32 has no "
-                             "ffma instantiation there (ROADMAP, speed "
-                             "satellites)")
+    """The backward kernel's variant for these types and head dims:
+    ``"wgmma"`` for 16-bit types at ``Dh == Dv`` in
+    :data:`BWD_HEAD_DIMS` or at :data:`BWD_MLA_DIMS`, else ``"ffma"``.
+    Raises only where the forward raises (:func:`check_types`)."""
+    check_types(dtype, Dh, Dv)
+    if dtype != torch.float32 and (
+            (Dh == Dv and Dh in BWD_HEAD_DIMS) or (Dh, Dv) == BWD_MLA_DIMS):
         return "wgmma"
-    if Dh != Dv or Dh not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash backward kernel takes Dh = Dv in "
-                         f"{BWD_HEAD_DIMS} or Dh, Dv = {BWD_MLA_DIMS}, got "
-                         f"Dh={Dh}, Dv={Dv}")
-    return "ffma" if dtype == torch.float32 else "wgmma"
+    return "ffma"
 
 
 # flash_attn_hd's C parameters, in order
@@ -161,10 +174,7 @@ def _check(q, k, v, qpos):
                          f"v {tuple(v.shape)} do not match")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
-    for name, d in (("Dh", Dh), ("Dv", Dv)):
-        if not (0 < d <= 256 and d % 8 == 0):
-            raise ValueError(f"flash_attention_cuda takes head dims that "
-                             f"are multiples of 8 up to 256, got {name}={d}")
+    check_types(q.dtype, Dh, Dv)
     if tuple(qpos.shape) != (B, T):
         raise ValueError(f"qpos {tuple(qpos.shape)} is not (B, T) = {(B, T)}")
     if max(B, Hq) > 65535 or max(T, S) > _INT32_MAX:
@@ -328,10 +338,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layer's KV cache goes in without a copy; 16-bit rows must start on
     16 bytes).  Dh and Dv are multiples of 8 up to 256.  With grad
     enabled and q, k or v requiring it, the result has a ``grad_fn``
-    (:class:`FlashAttentionFunction`; the backward takes Dh = Dv in
-    {64, 128, 256} and, in 16-bit types, Dh 192 / Dv 128, the RoPE
-    operands joined to q and k; it raises ValueError here for other head
-    dims)."""
+    (:class:`FlashAttentionFunction`; the backward takes every type
+    and head dims the forward takes, the RoPE operands joined to q and
+    k)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (q, k, v, q_rope, k_rope)):
@@ -339,7 +348,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("flash_attention_cuda takes no out= with grad")
         if check_rope(q, k, q_rope, k_rope):
             q, k = join_rope(q, k, q_rope, k_rope)
-        bwd_variant(q.dtype, q.shape[-1], v.shape[-1])
         return FlashAttentionFunction.apply(q, k, v, qpos, window, softcap,
                                             scale)
     return _forward(q, k, v, qpos, window, softcap, scale,
@@ -353,21 +361,21 @@ def bwd_scratch(variant: str, B: int, T: int, S: int, Hq: int, Hkv: int,
                            Optional[torch.Tensor]]:
     """The backward kernels' scratch (delta, rows, part), as the C entry
     ``flash_attn_bwd_hd`` documents it: ``ffma`` takes delta (B, Hq, T)
-    float32 alone; ``wgmma`` takes per 64-row query
+    float32; ``wgmma`` takes per 64-row query
     tile (n = 2 * ceil(T / 128) of them) the rows' lse and delta (B, Hq,
     n, 2, 64) float32, row bounds and tile ranges (B*64n*2 + B*n*4)
-    int32, and with Hq > Hkv the float32 per-query-head partials of dk
-    and dv (2, B, S, Hq, max(D, Dv)) that its last pass sums over the
-    group.  ``D`` is q's and k's head dim, ``Dv`` v's (default D)."""
+    int32; both, with Hq > Hkv, the float32 per-query-head partials of
+    dk and dv (2, B, S, Hq, max(D, Dv)) that their last launch sums over
+    the group.  ``D`` is q's and k's head dim, ``Dv`` v's (default D)."""
     f32 = dict(dtype=torch.float32, device=device)
+    Dp = D if Dv is None else max(D, Dv)
+    part = torch.empty((2, B, S, Hq, Dp), **f32) if Hq > Hkv else None
     if variant != "wgmma":
-        return torch.empty((B, Hq, T), **f32), None, None
+        return torch.empty((B, Hq, T), **f32), None, part
     n = 2 * -(-T // WGMMA_ROWS)
     delta = torch.empty((B, Hq, n, 2, 64), **f32)
     rows = torch.empty(B * 64 * n * 2 + B * n * 4, dtype=torch.int32,
                        device=device)
-    Dp = D if Dv is None else max(D, Dv)
-    part = torch.empty((2, B, S, Hq, Dp), **f32) if Hq > Hkv else None
     return delta, rows, part
 
 
@@ -386,14 +394,14 @@ def flash_attention_bwd_cuda(dout: torch.Tensor, q: torch.Tensor,
 
     One call launches the kernels of ``csrc/flash_attn_bwd_hd.cu`` for
     :func:`bwd_variant`'s choice (``wgmma``: five at Dh 64 and 128, four
-    at Dh 256 and at 192 / 128, whose dK and dV come from one pass) and
-    counts one launch in
+    at Dh 256 and at 192 / 128, whose dK and dV come from one pass;
+    ``ffma``: three) and counts one launch in
     ``flash_attention_bwd_cuda.launches`` (and its variant in
-    ``by_variant``).  Takes Dh = Dv in {64, 128, 256}, and Dh 192 / Dv
-    128 in 16-bit types (scale by default 1/sqrt(Dh)); operands with any
-    strides whose last dim is unit-stride (16-byte rows for 16-bit
-    types).  A launch that fails raises; nothing falls back to another
-    variant or to the plain version."""
+    ``by_variant``).  Takes every type and head dims the forward takes
+    (scale by default 1/sqrt(Dh)); operands with any strides whose last
+    dim is unit-stride (16-byte rows for 16-bit types).  A launch that
+    fails raises; nothing falls back to another variant or to the plain
+    version."""
     grads = _bwd(dout, q, k, v, out, lse, qpos, window, softcap, scale)
     if q.shape[1] and k.shape[1]:            # else nothing was launched
         count_launch(flash_attention_bwd_cuda,

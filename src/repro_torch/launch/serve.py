@@ -59,7 +59,8 @@ def _sync(device) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-9b")
+    # the reference launcher's default (repro/launch/serve.py)
+    ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=256)

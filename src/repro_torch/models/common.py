@@ -30,9 +30,15 @@ written shard by shard, as the reference's ``shard_map`` writes it.
 
 ``shardwise`` applies an elementwise function to each shard of a
 DTensor (an op DTensor has no sharding strategy for, such as
-``log_sigmoid``), its placements kept; ``as_dtensor`` takes a plain
+``log_sigmoid``), its placements kept, or a function along one dim
+(``roll``'s shift, xlstm's prefix sum of its log-gates), that dim
+gathered first where it is sharded; ``as_dtensor`` takes a plain
 tensor as one replicated over a mesh, and ``from_shards`` makes a
-DTensor of each rank's shard.
+DTensor of each rank's shard.  ``add_bias`` sums a DTensor's partial
+products before a bias is added, as GSPMD reduces before an add, and
+``gather_rows`` gathers an embedding's row gradients along the token
+dims before they are scattered.  On plain tensors each runs the op
+itself, bit for bit.
 """
 from __future__ import annotations
 
@@ -177,17 +183,74 @@ def as_dtensor(t: torch.Tensor, mesh):
                               run_check=False)
 
 
-def shardwise(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` for an elementwise ``fn``; a DTensor ``x`` (the
-    dry-run's) has ``fn`` applied to each rank's shard and keeps its
+def shardwise(fn, x: torch.Tensor, dim: Optional[int] = None
+              ) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``, or with ``dim`` for an ``fn``
+    that keeps x's shape and mixes elements along ``dim`` alone (a
+    shift, a prefix sum); a DTensor ``x`` (the dry-run's) has ``fn``
+    applied to each rank's shard, forward and backward, and keeps its
     placements.  A partial sum is summed first (a counted all-reduce):
-    ``fn`` of a partial is not the partial of ``fn``."""
+    ``fn`` of a partial is not the partial of ``fn``.  Where ``dim`` is
+    sharded it is gathered first and sharded again after (a counted
+    all-gather; the slicing back is local)."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor):
         return fn(x)
     pl = [Replicate() if p.is_partial() else p for p in x.placements]
-    x = x.redistribute(x.device_mesh, pl)
-    return from_shards(fn(x.to_local()), x.device_mesh, pl, x.shape)
+    whole = pl if dim is None else [
+        Replicate() if p.is_shard(dim % x.ndim) else p for p in pl]
+    x = x.redistribute(x.device_mesh, whole)
+    y = from_shards(fn(x.to_local()), x.device_mesh, whole, x.shape)
+    return y if whole == pl else y.redistribute(y.device_mesh, pl)
+
+
+def roll(x: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dim)`` (which wraps as ``jnp.roll``); on a
+    DTensor each rank rolls its shard (:func:`shardwise` along
+    ``dim``): torch 2.11's DTensor has no sharding strategy for
+    ``roll``."""
+    return shardwise(lambda t: torch.roll(t, shift, dim), x, dim=dim)
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``, the embedding lookup.  On a DTensor that takes a
+    gradient, the rows' gradient is gathered along ``idx``'s dims (a
+    counted all-gather) before it is scattered into the table's
+    (``index_put``): torch 2.11's ``index_put`` strategy cannot place
+    values sharded along an indexed dim (it builds a shard of a negative
+    dim), and later releases gather them there too."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rows = table[idx]
+    if isinstance(rows, DTensor) and rows.requires_grad:
+        k = idx.dim()
+
+        def whole_rows(g):
+            pl = [Replicate() if p.is_shard() and p.dim < k else p
+                  for p in g.placements]
+            return g if pl == list(g.placements) else \
+                g.redistribute(g.device_mesh, pl)
+        rows.register_hook(whole_rows)
+    return rows
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``y + b`` for a bias ``b`` broadcast over ``y``'s leading dims.
+    Where ``y`` is a DTensor with partial sums (a product contracting a
+    sharded dim), they are summed first, as GSPMD reduces before an
+    add: a reduce-scatter onto the dim ``b`` is sharded on over that
+    mesh dim, else an all-reduce.  Adding ``b`` to a partial would ask
+    DTensor to turn ``b``'s shard into a partial, which some torch
+    releases cannot, and dividing ``b`` by the rank count would change
+    its bits."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(y, DTensor) and any(p.is_partial() for p in y.placements):
+        bp = b.placements if isinstance(b, DTensor) else (
+            [Replicate()] * y.device_mesh.ndim)
+        lead = y.ndim - b.ndim
+        y = y.redistribute(y.device_mesh, [
+            (Shard(lead + q.dim) if q.is_shard() else Replicate())
+            if p.is_partial() else p for p, q in zip(y.placements, bp)])
+    return y + b
 
 
 def from_shards(local: torch.Tensor, mesh, placements, shape):

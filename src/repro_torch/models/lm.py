@@ -66,8 +66,8 @@ from torch.utils.checkpoint import checkpoint
 from . import layers as LY
 from . import mla as MLA
 from . import moe as MOE
-from .common import (fused_cross_entropy, gated_mlp, resolve_device,
-                     rms_norm, softcap)
+from .common import (fused_cross_entropy, gated_mlp, gather_rows,
+                     resolve_device, rms_norm, roll, softcap)
 
 Params = Dict[str, Any]
 BIG_WINDOW = 1 << 30   # "global attention" as a window
@@ -109,7 +109,7 @@ EMBED_SPECS = {"in_emb": ("vocab", "embed"),
 
 
 def _embed(p, tokens, cfg, dt) -> torch.Tensor:
-    x = p["in_emb"][tokens].to(dt)
+    x = gather_rows(p["in_emb"], tokens).to(dt)
     if cfg.name.startswith(("gemma", "recurrentgemma")):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
@@ -282,7 +282,7 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
         beside the embedding of token t + 1 (wrapping), projected, one
         dense block (no remat, as the reference's)."""
         emb = params["emb"]
-        e2 = _embed(emb, torch.roll(tokens, -1, 1), cfg, dt)
+        e2 = _embed(emb, roll(tokens, -1, 1), cfg, dt)
         h2 = torch.cat([rms_norm(x, emb["final_norm"]), e2], -1) \
             @ params["mtp_proj"].to(dt)
         h2, _, _ = _run_stack(cfg, params["mtp"], h2, windows[:1], None)
@@ -310,7 +310,7 @@ def _build_decoder_lm(cfg, dt, dev) -> ModelBundle:
         if cfg.mtp:
             metrics["mtp"] = fused_cross_entropy(
                 _mtp_hidden(params, x, tokens), emb["final_norm"],
-                emb["out_emb"], torch.roll(batch["labels"], -1, 1), mask,
+                emb["out_emb"], roll(batch["labels"], -1, 1), mask,
                 cfg.final_softcap)
         metrics["aux"] = aux
         return loss, metrics

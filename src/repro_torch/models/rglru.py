@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import rglru_scan
 
-from .common import resolve_device
+from .common import add_bias, resolve_device
 from .layers import _normal
 
 Params = Dict[str, torch.Tensor]
@@ -96,8 +96,8 @@ def rglru_block(p: Params, x: torch.Tensor, cfg, *,
     conv_state = cache["conv"] if cache is not None else None
     xb, new_conv = _conv1d(xb, p["conv_w"].to(cdt), p["conv_b"].to(cdt),
                            conv_state)
-    ga = xb @ p["w_a"].to(cdt) + p["b_a"].to(cdt)
-    gi = xb @ p["w_i"].to(cdt) + p["b_i"].to(cdt)
+    ga = add_bias(xb @ p["w_a"].to(cdt), p["b_a"].to(cdt))
+    gi = add_bias(xb @ p["w_i"].to(cdt), p["b_i"].to(cdt))
     h0 = cache["h"] if cache is not None else None
     h = rglru_scan(xb, ga, gi, p["lam"], h0)                   # f32
     out = (h.to(cdt) * gb) @ p["w_out"].to(cdt)

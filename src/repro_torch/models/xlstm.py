@@ -85,8 +85,11 @@ def _mlstm_chunk(q, k, v, ig, fg, state: State):
     C (B, H, Dh, Dh), n (B, H, Dh), m (B, H).  Returns (out, new_state),
     with the reference's stabilisers (``xlstm.py:59-96``)."""
     t, Dh = q.shape[2], q.shape[3]
-    lf = shardwise(F.logsigmoid, fg)
-    Fc = torch.cumsum(lf, dim=-1)
+    # the log-gates' prefix sum over time, never a sharded dim: on a
+    # DTensor each rank's shard, forward and backward (cumsum's backward
+    # flips, an op torch 2.11's DTensor has no strategy for)
+    Fc = shardwise(lambda f: torch.cumsum(F.logsigmoid(f), dim=-1), fg,
+                   dim=-1)
     C_prev, n_prev, m_prev = state
     # log weights of the pairs inside the chunk: F_i - F_j + ig_j, j <= i
     Dmat = Fc[..., :, None] - Fc[..., None, :] + ig[..., None, :]

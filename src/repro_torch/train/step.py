@@ -24,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.common import cross_entropy_loss
+from repro_torch.models.common import cross_entropy_loss, roll
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -70,7 +70,7 @@ def make_loss_fn(bundle, tcfg: TrainConfig) -> Callable:
         if "mtp_logits" in out:
             # MTP predicts token t+2 from position t (labels shifted once
             # more); ignore the wrapped tail via the mask.
-            labels2 = torch.roll(batch["labels"], -1, dims=1)
+            labels2 = roll(batch["labels"], -1, 1)
             mtp = cross_entropy_loss(out["mtp_logits"], labels2, mask)
             loss = loss + tcfg.mtp_weight * mtp
             metrics["mtp"] = mtp

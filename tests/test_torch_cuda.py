@@ -1116,6 +1116,43 @@ def test_flash_bwd_mla_dims_match_f64(cuda, dtype, shape):
     _check_grads(got, want, dtype)
 
 
+# the ffma pair at widths the forward takes and wgmma does not: the
+# reduced launcher's Dh 16 and reduced MLA's 24 / 16, float32 at 192 /
+# 128, bf16 at 96 and 32, fp16 at 40 / 72, a window with a softcap, a
+# GQA group of 4; T and S off its 16-row and 64-key tiles, ragged rows
+BWD_FFMA_SHAPES = [  # dtype, B, T, S, Hq, Hkv, Dh, Dv, window, softcap, qpos
+    (torch.bfloat16, 2, 200, 200, 4, 1, 16, 16, None, 0.0, "tail"),
+    (torch.bfloat16, 2, 130, 130, 4, 4, 24, 16, None, 0.0, "tail"),
+    (torch.float32, 1, 256, 256, 4, 4, 192, 128, None, 0.0, "tail"),
+    (torch.bfloat16, 1, 300, 300, 8, 2, 96, 96, None, 0.0, "ragged"),
+    (torch.bfloat16, 2, 100, 130, 8, 8, 32, 32, None, 0.0, "tail"),
+    (torch.float16, 2, 100, 130, 4, 2, 40, 72, None, 0.0, "tail"),
+    (torch.bfloat16, 2, 161, 161, 4, 2, 16, 16, 16, 50.0, "ragged"),
+    (torch.bfloat16, 1, 200, 330, 12, 3, 48, 48, 40, 5.0, "tail"),
+]
+
+
+@pytest.mark.parametrize("shape", BWD_FFMA_SHAPES)
+def test_flash_bwd_ffma_every_width_matches_f64(cuda, shape):
+    """The ffma pair through autograd, one launch counted as ``ffma``,
+    against float64 dense autograd on the same rounded inputs."""
+    dtype, B, T, S, Hq, Hkv, Dh, Dv, window, softcap, kind = shape
+    q, k, _, _, qpos = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, Dh, kind,
+                                   seed=T + Dh)
+    _, _, v, do, _ = _bwd_inputs(cuda, dtype, B, T, S, Hq, Hkv, Dv, kind,
+                                 seed=T + Dh + 1)
+    kw = dict(window=window, softcap=softcap)
+    _, want = _dense_grads(q, k, v, do, qpos, **kw)
+    fn = flash_kernel.flash_attention_bwd_cuda
+    assert flash_kernel.bwd_variant(dtype, Dh, Dv) == "ffma"
+    before, by = fn.launches, fn.by_variant["ffma"]
+    got = _bwd(do, q, k, v, qpos, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.by_variant["ffma"]) == (before + 1, by + 1)
+    assert [tuple(x.shape) for x in got] == [q.shape, k.shape, v.shape]
+    _check_grads(got, want, dtype)
+
+
 def test_flash_bwd_mla_rope_operands_sum_the_shared_key(cuda):
     """With grad, q_rope and k_rope (one RoPE key a position for every
     head) are joined to q and k and the backward runs at 192 / 128:

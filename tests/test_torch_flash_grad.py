@@ -138,10 +138,11 @@ def test_backward_variant_by_dtype(dtype, Dh, Dv, want):
 
 
 def test_backward_at_mla_dims_has_no_float32_kernel():
-    """float32 at Dh 192 / Dv 128 has no ffma instantiation: it raises,
-    naming ROADMAP, rather than falling back to anything."""
-    with pytest.raises(ValueError, match="ROADMAP"):
-        kernel.bwd_variant(torch.float32, 192, 128)
+    """float32 at Dh 192 / Dv 128 takes the ffma pair, whose widths are
+    the forward's: a float32 deepseek-v3 trains on the card.  (The name
+    is kept from when this pair had no float32 kernel and raised; the
+    test asserts the opposite now.)"""
+    assert kernel.bwd_variant(torch.float32, 192, 128) == "ffma"
 
 
 @pytest.mark.parametrize("Hq, Hkv, part", [
@@ -163,7 +164,8 @@ def test_backward_scratch_at_mla_dims(Hq, Hkv, part):
     ("wgmma", 2, 100, 130, 8, 8, 64, ((2, 8, 2, 2, 64), (528,), None)),
     ("wgmma", 1, 129, 300, 8, 1, 64, ((1, 8, 4, 2, 64), (528,),
                                        (2, 1, 300, 8, 64))),
-    ("ffma", 2, 100, 130, 8, 1, 64, ((2, 8, 100), None, None)),
+    ("ffma", 2, 100, 130, 8, 1, 64,
+     ((2, 8, 100), None, (2, 2, 130, 8, 64))),
     ("ffma", 1, 7, 9, 2, 2, 128, ((1, 2, 7), None, None)),
     # the Dh-256 training shapes: gemma2 (16 over 8 heads) and
     # recurrentgemma (10 over 1), one microbatch of 4096 tokens
@@ -174,8 +176,9 @@ def test_backward_scratch_at_mla_dims(Hq, Hkv, part):
 def test_backward_scratch_by_variant(variant, B, T, S, Hq, Hkv, D, shapes):
     """The scratch each variant's C entry reads: wgmma's per-tile lse
     and delta over 2 * ceil(T / 128) tiles of 64 rows, its row bounds
-    and tile ranges, and with a GQA group the float32 partials of dk
-    and dv per query head (134 MB at the training shape)."""
+    and tile ranges, ffma's delta a row, and for both with a GQA group
+    the float32 partials of dk and dv per query head (134 MB at the
+    training shape)."""
     got = kernel.bwd_scratch(variant, B, T, S, Hq, Hkv, D, "cpu")
     assert tuple(None if t is None else tuple(t.shape) for t in got) == shapes
     assert got[0].dtype == torch.float32
@@ -186,12 +189,17 @@ def test_backward_scratch_by_variant(variant, B, T, S, Hq, Hkv, D, shapes):
         assert got[2].numel() * 4 == 2 * B * S * Hq * D * 4
 
 
-# (192, 128), MLA's naive form, is taken since the backward kernel came
-# to it; (192, 64) keeps a Dh != Dv pair that is still refused
+# pairs wgmma does not take go to the ffma pair; the backward refuses
+# only the head dims the forward refuses: not a multiple of 8, or past 256
 @pytest.mark.parametrize("Dh, Dv", [(32, 32), (192, 64), (128, 64)])
 def test_backward_refuses_other_head_dims(Dh, Dv):
-    with pytest.raises(ValueError, match="Dh = Dv in"):
-        kernel.bwd_variant(torch.bfloat16, Dh, Dv)
+    """Pairs wgmma does not take run on the ffma pair; the head dims
+    refused are only the forward's refusals.  (The name is kept from
+    when these pairs were refused.)"""
+    assert kernel.bwd_variant(torch.bfloat16, Dh, Dv) == "ffma"
+    for bad in ((Dh + 4, Dv), (Dh, Dv + 260), (Dh, 0)):
+        with pytest.raises(ValueError, match="multiples of 8 up to 256"):
+            kernel.bwd_variant(torch.bfloat16, *bad)
 
 
 def test_cpu_tensors_launch_no_backward_kernel():

@@ -93,32 +93,83 @@ def test_wgmma_entry_takes_mla_dims_and_rope_split():
 
 
 def test_backward_entry_takes_the_head_dims_bwd_variant_accepts():
-    """The backward's C entry takes the same D = Dh = Dv as
-    BWD_HEAD_DIMS, each with a launch of both variants: a head dim the
-    wrapper accepted that the entry refused would fail every training
-    step on the card."""
+    """The backward's C entry sends the same D = Dh = Dv as
+    BWD_HEAD_DIMS to wgmma in 16-bit types, with a launch of each, and
+    every other type and head dims the forward takes to the ffma pair:
+    a head dim the wrapper accepted that the entry refused would fail
+    every training step on the card."""
     text = (CSRC / "flash_attn_bwd_hd.cu").read_text()
-    m = re.search(r"if \(\(((?:D != \d+(?: && )?)+)\)", text)
-    assert m, "no head-dim check in flash_attn_bwd_hd.cu"
-    dims = tuple(int(d) for d in re.findall(r"D != (\d+)", m.group(1)))
+    m = re.search(r"const bool wgmma_dims = D == Dv && \(([^;]*)\);", text)
+    assert m, "no wgmma_dims check in flash_attn_bwd_hd.cu"
+    dims = tuple(int(d) for d in re.findall(r"D == (\d+)", m.group(1)))
     assert dims == flash_kernel.BWD_HEAD_DIMS
+    assert "const bool wgmma = dtype != 0 && (wgmma_dims || mla);" in text
+    # the forward's limits, and the ffma pair for each type past them
+    for cond in ("D > 256", "D % 8 != 0", "Dv > 256", "Dv % 8 != 0"):
+        assert cond in text
+    for t in ("float", "__nv_bfloat16", "__half"):
+        assert f"launch_ffma_any<{t}>(p, s)" in text
     for d in dims:
-        assert f"launch_f32<{d}>" in text
         assert f"launch_16<__nv_bfloat16, {d}>" in text
         assert f"launch_16<__half, {d}>" in text
         assert flash_kernel.bwd_variant(BF16, d, d) == "wgmma"
+        assert flash_kernel.bwd_variant(F32, d, d) == "ffma"
 
 
 def test_backward_entry_takes_mla_dims_in_16_bit_types():
-    """The backward's C entry takes Dh 192 / Dv 128, as bwd_variant
-    does, with a launch in both 16-bit types and none in float32."""
+    """The backward's C entry takes Dh 192 / Dv 128 to wgmma in both
+    16-bit types, as bwd_variant does; float32 there takes the ffma
+    pair."""
     text = (CSRC / "flash_attn_bwd_hd.cu").read_text()
     dh, dv = flash_kernel.BWD_MLA_DIMS
     assert f"const bool mla = D == {dh} && Dv == {dv};" in text
-    assert "} else if (dtype == 0) {" in text
     for t in ("__nv_bfloat16", "__half"):
         assert f"launch_16<{t}, {dh}, {dv}>" in text
     assert flash_kernel.bwd_variant(BF16, dh, dv) == "wgmma"
+    assert flash_kernel.bwd_variant(F32, dh, dv) == "ffma"
+
+
+_DIMS = range(-1, 266)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16, torch.float64,
+                                   torch.int32])
+def test_backward_variant_exists_wherever_the_forward_runs(dtype):
+    """For every head-dim pair from -1 to 265: where the forward's
+    checks (``check_types``, which ``_check`` runs on every launch) take
+    the pair, both ``flash_variant`` and ``bwd_variant`` name a variant;
+    where they refuse it, ``bwd_variant`` raises the same error."""
+    for Dh in _DIMS:
+        for Dv in _DIMS:
+            try:
+                flash_kernel.check_types(dtype, Dh, Dv)
+            except (TypeError, ValueError) as e:
+                with pytest.raises(type(e), match=str(e)):
+                    flash_kernel.bwd_variant(dtype, Dh, Dv)
+                continue
+            assert flash_kernel.flash_variant(dtype, Dh, Dv) in \
+                flash_kernel.VARIANTS
+            assert flash_kernel.bwd_variant(dtype, Dh, Dv) in \
+                flash_kernel.BWD_VARIANTS
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-7b", "gemma2-9b",
+                                  "qwen3-moe-30b-a3b", "recurrentgemma-2b",
+                                  "llama-3.2-vision-11b", "whisper-base",
+                                  "deepseek-v3-671b"])
+def test_reduced_launcher_trains_through_the_ffma_pair(arch):
+    """The reduced configs the launchers default to (bf16 models, head
+    dim 16; MLA joined to 24 / 16) take the ffma backward on the card,
+    which once raised there; the full configs keep wgmma."""
+    cfg = get_config(arch)
+    small = cfg.reduced()
+    if cfg.mla is not None:
+        dims, full = ((m.d_nope + m.d_rope, m.d_v)
+                      for m in (small.mla, cfg.mla))
+    else:
+        dims, full = (small.head_dim,) * 2, (cfg.head_dim,) * 2
+    assert flash_kernel.bwd_variant(BF16, *dims) == "ffma"
+    assert flash_kernel.bwd_variant(BF16, *full) == "wgmma"
 
 
 @pytest.mark.parametrize("in_dtype, out_dtype, want", [
